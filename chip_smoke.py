@@ -13,12 +13,24 @@ failure raises and the script exits non-zero:
    main path's shapes — the block kernel at n=18 on synthetic blocks
    covering mat, mono, perm v=0..6 and tswap k=1..9 in plain and steered
    form (max |diff| <= 1e-5), the relayout kernel at n=22 with a random
-   sigma (bit-exact) — and time both on the device (CUDA events);
-4. run ``Simulator(SimulatorConfig(strategy="prefetch"), device="cuda")
-   .run_detailed`` on ``grover_like(n, 2445, 318)`` at n=18 and n=22: one
-   warm-up, five timed runs; hold the state to the native f64 reference
-   (max |diff| <= 1e-6, norm within 1e-4 of 1) and the kernels' launch
-   counts to > 0 (block at both widths, relayout at n=22).
+   sigma (bit-exact), the folded-relayout input (scal mode 5) at n=24 with
+   a random sigma over the 10 row-block bits and a mat, tswap or perm
+   first step (gather-first bit-exact, mat-first <= 1e-5, both rungs), and
+   the "high" rung's mat step (bf16 tensor cores) at n=24 and n=28
+   (<= 1e-5) — and time each on the device (CUDA events);
+4. run ``Simulator(SimulatorConfig(strategy="prefetch"|"auto"),
+   device="cuda").run_detailed`` on ``grover_like(n, 2445, 318)``:
+   n=18, n=22 and n=23 (one warm-up, five timed runs) against the native
+   f64 reference (max |diff| <= 1e-6,
+   norm within 1e-4 of 1); n=24 at the "high" rung "auto" resolves to (one
+   warm-up, five timed runs) against the port's own "highest" run (<= 4e-6);
+   n=28 (one warm-up, three timed runs; norm) and its mirror circuit
+   ``c.compose(c.inverse())`` at "highest", whose |0...0> amplitude must be
+   within 1e-5 of 1.  Every width's launch counts are set to 0 just before
+   it runs and read just after: block launches > 0 at every width, relayout
+   launches equal to the plan's standalone relayouts (scal mode 3) per run,
+   folded first launches > 0 from n=23 and "high" mat launches > 0 at 24
+   and 28.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Matmuls in plain torch run in IEEE
@@ -37,13 +49,31 @@ import numpy as np
 BLOCK_TOL = 1e-5      # kernel vs plain torch, fp32 sums in another order
 AMP_TOL = 1e-6        # main path vs the f64 native reference
 NORM_TOL = 1e-4
-WIDTHS = (18, 22)
+HIGH_TOL = 4e-6       # "high" vs "highest" (the JAX rung's bar,
+                      # tests/test_precision_auto.py)
+MIRROR_TOL = 1e-5     # |<0|C^-1 C|0>| at "highest", n=28
+REF_WIDTHS = (18, 22, 23)   # main path held to the f64 reference
+HIGH_WIDTH = 24             # "high" held to the port's own "highest"
+MIRROR_WIDTH = 28           # timed at "high"; mirror circuit at "highest"
+FOLD_WIDTH = 24             # phase 3 geometry of the folded block
+HIGH_STEPS = ((24, 20), (28, 3))   # (n, timing reps) of the "high" mat step
 TIMED_RUNS = 5
 SPIN_CYCLES = 200_000_000   # ~0.1 s at 2 GHz: covers queuing 20 calls
 BLOCK_SRC = "gpu_quantum_simulator_tpu_torch/csrc/prefetch_block.cu"
 RELAYOUT_SRC = "gpu_quantum_simulator_tpu_torch/csrc/relayout.cu"
+HIGH_SRC = "gpu_quantum_simulator_tpu_torch/csrc/mat_high.cu"
 BLOCK_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1214"
 RELAYOUT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1586"
+STREAM_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1376"
+
+
+def norm2(pair):
+    return float(sum((x.double() ** 2).sum() for x in pair))
+
+
+def max_diff(got, want):
+    return max(float((got[0] - want[0]).abs().max()),
+               float((got[1] - want[1]).abs().max()))
 
 
 def device_ms(torch, fn, reps=20, rounds=5):
@@ -222,44 +252,304 @@ def check_relayout_kernel(torch, rng):
             "plain_ms": plain_ms}
 
 
-def run_main_path(torch, T):
-    from gpu_quantum_simulator_tpu_torch.kernels.block import run_block
+def folded_blocks(PF, rng, logt, sigma):
+    """Folded-relayout blocks (scal mode 5) whose first step is a mat, a
+    tswap or a perm; the gather-first ones hold gathers only, so the kernel
+    must equal the plain version bit for bit."""
+    u = random_unitary(rng, 128)
+    kind_perm = logt + 1
+    return [
+        ("mat-first", PF._Block(kinds=[0, 3], midx=[0, 0], relayout_pro=sigma,
+                                mats=[(u, tuple(range(7)), None)])),
+        ("tswap-first", PF._Block(kinds=[logt, kind_perm], midx=[0, 2],
+                                  relayout_pro=sigma)),
+        ("perm-first", PF._Block(kinds=[kind_perm, 1], midx=[5, 0],
+                                 relayout_pro=sigma)),
+        ("tswap-only", PF._Block(kinds=[logt], midx=[0],
+                                 relayout_pro=sigma)),
+    ]
+
+
+def device_tables(torch, PF, blocks, cap):
+    groups = PF.materialize_entries(blocks, PF.CAP_STEPS, cap, np.float32)
+    assert len(groups) == 1, "synthetic blocks must share one table group"
+    (_, _, scal, *tabs) = groups[0]
+    return (scal, *PF.expand_tables(
+        *(torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in tabs)))
+
+
+def check_folded_block(torch, rng):
+    """The folded-relayout input (mode 5) at n=24 geometry, both rungs."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.block import (
+        run_block, run_block_plain)
     from gpu_quantum_simulator_tpu_torch.kernels.relayout import run_relayout
+
+    n = FOLD_WIDTH
+    R2 = 1 << (n - PF.LOCAL_QUBITS)
+    logt = int(np.log2(PF.tile_rows(n)))
+    tr = PF.relayout_rows(n)
+    m = int(np.log2(R2 // tr))
+    sigma = rng.permutation(m).astype(np.int32)
+    named = folded_blocks(PF, rng, logt, sigma)
+    scal, a_tab, b_tab, mono_src = device_tables(
+        torch, PF, [b for _, b in named], 2)
+    soff = 4 + 2 * PF.CAP_STEPS
+    re = torch.randn(R2, 256, device="cuda")
+    im = torch.randn(R2, 256, device="cuda")
+    err = 0.0
+    for i, (name, _) in enumerate(named):
+        assert scal[i][1] == 5 and list(scal[i][soff : soff + m]) == list(sigma)
+        args = (a_tab[i], b_tab[i], mono_src[i], logt, PF.CAP_STEPS)
+        rungs = ("highest", "high") if name == "mat-first" else ("highest",)
+        for rung in rungs:
+            kw = dict(sigma=sigma, tr=tr, precision=rung)
+            # a block's later launches may write into its input pair
+            got = run_block(scal[i], re.clone(), im.clone(), *args, **kw)
+            want = run_block_plain(scal[i], re, im, *args, **kw)
+            torch.cuda.synchronize()
+            e = max_diff(got, want)
+            exact = name != "mat-first"
+            print(f"folded block n={n} sigma={sigma.tolist()} {name} "
+                  f"{rung}: max|diff| {e:.3e}")
+            if exact and e != 0.0:
+                raise AssertionError(f"folded {name}: not bit-exact ({e})")
+            if not e <= BLOCK_TOL:
+                raise AssertionError(f"folded {name} {rung}: {e} > {BLOCK_TOL}")
+            err = max(err, e)
+    # one folded launch (a tswap) against its plain version, and against
+    # the unfolded pair it replaces (relayout kernel + tswap launch)
+    i = len(named) - 1
+    args = (a_tab[i], b_tab[i], mono_src[i], logt, PF.CAP_STEPS)
+    kw = dict(sigma=sigma, tr=tr)
+    scratch = (torch.empty_like(re), torch.empty_like(im))
+    spare = (torch.empty_like(re), torch.empty_like(im))
+    plain_row = scal[i].copy()
+    plain_row[1] = 0
+    ms = device_ms(torch, lambda: run_block(scal[i], re, im, *args,
+                                          scratch=scratch, **kw))
+    plain_ms = device_ms(torch, lambda: run_block_plain(scal[i], re, im,
+                                                        *args, **kw))
+    pair_ms = device_ms(torch, lambda: run_block(
+        plain_row, *run_relayout(sigma, re, im, tr, out=spare), *args,
+        scratch=scratch))
+    print(f"folded tswap launch n={n}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, unfolded relayout + tswap kernels "
+          f"{pair_ms:.4f} ms")
+    return {"name": "stream_block_folded_input", "route": "cuda",
+            "source": BLOCK_SRC, "replaces": STREAM_TPU, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def check_high_mat(torch, rng):
+    """The "high" mat step (bf16 tensor cores) at n=24 and one at n=28."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.block import (
+        run_block, run_block_plain, split_tables)
+
+    blk = PF._Block(kinds=[0], midx=[0],
+                    mats=[(random_unitary(rng, 128), tuple(range(7)), None)])
+    scal, a_tab, b_tab, mono_src = device_tables(torch, PF, [blk], 2)
+    w16 = split_tables(a_tab, b_tab)
+    rec = None
+    for n, reps in HIGH_STEPS:
+        R2 = 1 << (n - PF.LOCAL_QUBITS)
+        logt = int(np.log2(PF.tile_rows(n)))
+        re = torch.randn(R2, 256, device="cuda")
+        im = torch.randn(R2, 256, device="cuda")
+        args = (a_tab[0], b_tab[0], mono_src[0], logt, PF.CAP_STEPS)
+        scratch = (torch.empty_like(re), torch.empty_like(im))
+        got = run_block(scal[0], re.clone(), im.clone(), *args,
+                        scratch=scratch, precision="high", w16=w16[0])
+        want = run_block_plain(scal[0], re, im, *args, precision="high")
+        torch.cuda.synchronize()
+        e = max_diff(got, want)
+        fp32 = run_block(scal[0], re.clone(), im.clone(), *args,
+                         precision="highest")
+        torch.cuda.synchronize()
+        e32 = max_diff(got, fp32)
+        if not e <= BLOCK_TOL:
+            raise AssertionError(f"high mat step n={n}: {e} > {BLOCK_TOL}")
+        # the table is unitary: each output's norm should equal the input's
+        drift = {k: norm2(v) / norm2((re, im)) - 1.0
+                 for k, v in (("kernel", got), ("plain", want),
+                              ("fp32 kernel", fp32))}
+        print(f"high mat step n={n}: |out|^2/|in|^2 - 1: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in drift.items()))
+        del fp32, want
+        ms = device_ms(torch, lambda: run_block(
+            scal[0], re, im, *args, scratch=scratch, precision="high",
+            w16=w16[0]), reps=reps)
+        ms32 = device_ms(torch, lambda: run_block(
+            scal[0], re, im, *args, scratch=scratch), reps=reps)
+        plain_ms = device_ms(torch, lambda: run_block_plain(
+            scal[0], re, im, *args, precision="high"), reps=reps)
+        flop = 8.0 * R2 * 256 * 256      # one complex product, as fp32 FLOP
+        print(f"high mat step n={n}: kernel {ms:.4f} ms ({3 * flop / ms / 1e9:.1f}"
+              f" bf16 TFLOP/s), plain {plain_ms:.4f} ms, fp32 kernel "
+              f"{ms32:.4f} ms; max|diff| vs plain {e:.3e}, vs fp32 step "
+              f"{e32:.3e}")
+        if rec is None:
+            rec = {"name": "mat_step_high", "route": "cuda",
+                   "source": HIGH_SRC, "replaces": STREAM_TPU,
+                   "max_abs_err": e, "ms": ms, "plain_ms": plain_ms}
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        del re, im, scratch, got
+        torch.cuda.empty_cache()
+    return rec
+
+
+def launch_counts():
+    from gpu_quantum_simulator_tpu_torch.kernels import block
+    from gpu_quantum_simulator_tpu_torch.kernels.relayout import run_relayout
+
+    return {**block.run_block.launches, "relayout": run_relayout.launches}
+
+
+def reset_counts():
+    from gpu_quantum_simulator_tpu_torch.kernels import block
+    from gpu_quantum_simulator_tpu_torch.kernels.relayout import run_relayout
+
+    block.reset_launches()
+    run_relayout.launches = 0
+
+
+def drive(torch, PF, sim, c, runs):
+    """One warm-up and ``runs`` timed run_detailed on a fresh program, the
+    launch counts set to 0 just before and read just after.  Returns the
+    last result, the timed seconds, the counts and the program's scal rows
+    by mode."""
+    PF._RUN_CACHE.clear()
+    PF._PROGRAM_CACHE.clear()
+    torch.cuda.empty_cache()
+    reset_counts()
+    warm = sim.run_detailed(c)
+    secs = [warm.seconds]
+    res = warm
+    for _ in range(runs):
+        res = sim.run_detailed(c)
+        secs.append(res.seconds)
+    counts = launch_counts()
+    (prog,) = PF._RUN_CACHE.values()
+    return res, secs, counts, dict(prog.mode_rows)
+
+
+def report(n, res, secs, counts, extra):
+    print(f"main path n={n}: {res.num_fused_ops} steps from {res.num_gates} "
+          f"gates; warm-up {secs[0]:.4f} s; run_detailed median "
+          f"{np.median(secs[1:]):.4f} s (min {min(secs[1:]):.4f}, runs "
+          f"{[round(x, 4) for x in secs[1:]]}); {extra}; launches {counts}")
+    if not (res.state.shape == (1 << n,) and np.isfinite(res.state).all()):
+        raise AssertionError(f"n={n}: state is not finite of shape 2^n")
+
+
+def check_counts(n, counts, modes, runs, high):
+    """Launch counts of ``runs`` runs of one program against its plan;
+    ``high``: the run was at the "high" rung."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+
+    block = counts["mat"] + counts["mat_high"] + counts["gather"] + counts["folded"]
+    fold = PF.resolve_stream_relayout(n)
+    if block <= 0:
+        raise AssertionError(f"n={n}: the block kernel never launched")
+    if counts["relayout"] != runs * modes.get(3, 0):
+        raise AssertionError(
+            f"n={n}: {counts['relayout']} relayout launches for "
+            f"{modes.get(3, 0)} standalone relayouts x {runs} runs")
+    if fold and not counts["folded"] > 0:
+        raise AssertionError(f"n={n}: no folded-relayout launch")
+    if counts["folded"] != runs * modes.get(5, 0):
+        raise AssertionError(f"n={n}: folded launches {counts['folded']} "
+                             f"for {modes.get(5, 0)} mode-5 rows x {runs}")
+    if high != (counts["mat_high"] > 0):
+        raise AssertionError(f"n={n}: 'high' mat launches "
+                             f"{counts['mat_high']} at high={high}")
+
+
+def run_main_path(torch, T):
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
     from gpu_quantum_simulator_tpu_torch.ref.native import simulate_native
 
-    sim = T.Simulator(T.SimulatorConfig(strategy="prefetch"), device="cuda")
-    run_block.launches = 0
-    run_relayout.launches = 0
-    counts = {}
-    for n in WIDTHS:
-        before = (run_block.launches, run_relayout.launches)
+    totals: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    prefetch = T.Simulator(T.SimulatorConfig(strategy="prefetch"),
+                           device="cuda")
+    auto = T.Simulator(T.SimulatorConfig(strategy="auto"), device="cuda")
+    for n in REF_WIDTHS:
+        sim = prefetch if n <= 22 else auto
         c = T.models.grover_like(n, 2445, 318)
-        warm = sim.run_detailed(c)
-        runs = [sim.run_detailed(c) for _ in range(TIMED_RUNS)]
-        secs = [r.seconds for r in runs]
-        res = runs[-1]
+        res, secs, counts, modes = drive(torch, PF, sim, c, TIMED_RUNS)
+        add(counts)
         want = simulate_native(c)
         err = float(np.max(np.abs(res.state - want)))
         norm = float(np.linalg.norm(res.state))
-        counts[n] = (run_block.launches - before[0],
-                     run_relayout.launches - before[1])
-        print(f"main path n={n}: {res.num_fused_ops} steps from "
-              f"{res.num_gates} gates; warm-up {warm.seconds:.4f} s; "
-              f"run_detailed median {np.median(secs):.4f} s "
-              f"(min {min(secs):.4f}, runs {[round(s, 4) for s in secs]}); "
-              f"max|amp - f64| {err:.3e}; norm {norm:.8f}; launches "
-              f"block {counts[n][0]} relayout {counts[n][1]}")
-        if not (res.state.shape == (1 << n,) and np.isfinite(res.state).all()):
-            raise AssertionError(f"n={n}: state is not finite of shape 2^n")
+        report(n, res, secs, counts, f"max|amp - f64| {err:.3e}; norm "
+               f"{norm:.8f}; scal rows by mode {modes}")
         if not err <= AMP_TOL:
             raise AssertionError(f"n={n}: max|amp diff| {err} > {AMP_TOL}")
         if not abs(norm - 1.0) <= NORM_TOL:
             raise AssertionError(f"n={n}: norm {norm}")
-        if counts[n][0] <= 0:
-            raise AssertionError(f"n={n}: the block kernel never launched")
-    if counts[22][1] <= 0:
-        raise AssertionError("n=22: the relayout kernel never launched")
-    return run_block.launches, run_relayout.launches
+        check_counts(n, counts, modes, TIMED_RUNS + 1, False)
+        del res, want
+
+    # n=24: "auto" resolves to the "high" rung; held to the port's own
+    # "highest" run of the same circuit
+    n = HIGH_WIDTH
+    c = T.models.grover_like(n, 2445, 318)
+    res, secs, counts, modes = drive(torch, PF, auto, c, TIMED_RUNS)
+    add(counts)
+    highest = T.Simulator(T.SimulatorConfig(strategy="auto",
+                                            precision="highest"),
+                          device="cuda")
+    ref, ref_secs, ref_counts, ref_modes = drive(torch, PF, highest, c, 0)
+    add(ref_counts)
+    err = float(np.max(np.abs(res.state - ref.state)))
+    norm = float(np.linalg.norm(res.state))
+    report(n, res, secs, counts, f"'high' vs 'highest' max|diff| {err:.3e} "
+           f"('highest' run {ref_secs[0]:.4f} s, launches {ref_counts}); "
+           f"norm {norm:.8f}; scal rows by mode {modes}")
+    if not 0.0 < err <= HIGH_TOL:
+        raise AssertionError(f"n={n}: 'high' vs 'highest' {err}")
+    if not abs(norm - 1.0) <= NORM_TOL:
+        raise AssertionError(f"n={n}: norm {norm}")
+    check_counts(n, counts, modes, TIMED_RUNS + 1, True)
+    check_counts(n, ref_counts, ref_modes, 1, False)
+    del res, ref
+
+    # n=28: timed at "high"; its mirror circuit at "highest" must return
+    # to |0...0> (a check with no reference at a width the host cannot
+    # simulate in time)
+    n = MIRROR_WIDTH
+    c = T.models.grover_like(n, 2445, 318)
+    res, secs, counts, modes = drive(torch, PF, auto, c, 3)
+    add(counts)
+    norm = float(np.linalg.norm(res.state))
+    report(n, res, secs, counts, f"norm {norm:.8f}; scal rows by mode "
+           f"{modes}")
+    del res
+    mirror = c.compose(c.inverse())     # compose appends to c in place
+    back, back_secs, back_counts, back_modes = drive(torch, PF, highest,
+                                                     mirror, 0)
+    add(back_counts)
+    amp0 = complex(back.state[0])
+    print(f"mirror n={n}: {back.num_gates} gates at 'highest', "
+          f"{back.num_fused_ops} steps, {back_secs[0]:.4f} s; <0|psi> "
+          f"{amp0:.8f}; launches {back_counts}; scal rows by mode "
+          f"{back_modes}")
+    del back
+    if not abs(norm - 1.0) <= NORM_TOL:
+        raise AssertionError(f"n={n}: norm {norm}")
+    if not abs(amp0 - 1.0) <= MIRROR_TOL:
+        raise AssertionError(f"n={n}: mirror |0> amplitude {amp0}")
+    check_counts(n, counts, modes, 4, True)
+    check_counts(n, back_counts, back_modes, 1, False)
+    PF._RUN_CACHE.clear()
+    PF._PROGRAM_CACHE.clear()
+    return totals
 
 
 def main() -> int:
@@ -277,6 +567,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
 
     # phase 1: the card
     smi = subprocess.run(
@@ -309,14 +600,22 @@ def main() -> int:
     rng = np.random.default_rng(2445)
     block = check_block_kernel(torch, rng)
     relayout = check_relayout_kernel(torch, rng)
+    folded = check_folded_block(torch, rng)
+    high = check_high_mat(torch, rng)
 
     # phase 4: the main path, counting launches
-    block["launches"], relayout["launches"] = run_main_path(torch, T)
+    totals = run_main_path(torch, T)
+    block["launches"] = totals["mat"] + totals["gather"]
+    relayout["launches"] = totals["relayout"]
+    folded["launches"] = totals["folded"]
+    high["launches"] = totals["mat_high"]
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (block, relayout)]}))
+                                  for rec in (block, relayout, folded, high)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,9 +12,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 # "auto" precision resolves to the "high" rung from this width up, as in the
-# JAX package (whose TPU A/B runs chose the width; see its config.py).  The
-# port runs only "highest", so on the card "auto" is "highest" at every
-# width it covers (n <= 22).
+# JAX package (whose TPU A/B runs chose the width; see its config.py; the
+# choice is not measured on the card).
 PRECISION_AUTO_HIGH_MIN_QUBITS = 24
 
 
@@ -60,9 +59,9 @@ class SimulatorConfig:
     permute: bool = False
     # max fused block width for the mxu strategy (7 -> 128x128 matrices).
     max_fused_qubits: int = 7
-    # matmul precision rung: "highest" (IEEE fp32, no TF32 — the only rung
-    # the port runs), "high"/"default" (the JAX package's cheaper MXU
-    # rungs; not ported, they raise) or "auto" (resolve_precision above).
+    # matmul precision rung: "highest" (IEEE fp32, no TF32), "high" (the
+    # 3-pass bf16 product on the tensor cores), "default" (not ported; it
+    # raises) or "auto" (resolve_precision above).
     precision: str = "auto"
     # commutation-window size for the fusion emitter (None = the prefetch
     # default, resolve_prefetch_knobs).  Wider windows pack more gates per
@@ -70,7 +69,8 @@ class SimulatorConfig:
     fusion_window: Optional[int] = None
     # prefetch commutation-aware op scheduling.  None = automatic (on).
     prefetch_reorder: Optional[bool] = None
-    # prefetch in-place (aliased) execution: not ported; True raises.
+    # prefetch in-place (aliased) execution: not ported; True raises, and
+    # so does None at n = 30, where the JAX package defaults to it.
     prefetch_inplace: Optional[bool] = None
     # prefetch fusion high-qubit cap (None = 2) and per-block mat-table
     # capacity (None = 8 at n >= 21, else the engine's CAP_MATS).

@@ -2,8 +2,10 @@
 //
 // Replaces: gpu_quantum_simulator_tpu/engine/prefetch.py get_block_kernel
 // (plain form kernel_full and steered form kernel), whose step interpreter
-// is _steps_loop.  On the TPU one pallas_call ran a block's whole step list
-// (<= 48 steps) on each (512, 256) tile held in VMEM.  That tile is 1 MB of
+// is _steps_loop, and get_stream_block_kernel, its streamed twin with the
+// folded-relayout input (mode 5).  On the TPU one pallas_call ran a
+// block's whole step list (<= 48 steps) on each (512, 256) tile held in
+// VMEM.  That tile is 1 MB of
 // re/im f32, more than one SM's 227 KB of shared memory, so here a block
 // runs as ONE LAUNCH PER STEP, each a whole-state pass from one buffer pair
 // into the other (the host walks the step list; see kernels/block.py).
@@ -18,7 +20,15 @@
 //             cos/sin rows 0/1 of the slot's b-table
 //   steered prologue (scal[1] == 1): exchange flat bits 7 and p, p the
 //             cross-tile position, applied to the block's INPUT (map_half)
-// so they share one gather kernel.  mat is out = X @ (A + iB) with
+//   folded relayout (scal[1] == 5): row r of the INPUT is read from row
+//             fold_row(r) (rowmap.cuh; the stream kernel's in_folded)
+// so they share one gather kernel.  Both input maps apply to a block's
+// first launch only, whichever step it runs; later launches read the
+// ping-pong buffer plainly.  On the TPU the stream kernel's 4-deep DMA
+// window overlapped HBM copies with VMEM compute; here the first launch
+// reads through the map directly, so a folded relayout costs no state pass
+// of its own (sigma's loop runs once per row a thread reads, unrolled over
+// the parameter struct; rowmap.cuh).  mat is out = X @ (A + iB) with
 // A = M_re^T, B = M_im^T (256 x 256): four real products, fp32 FMA on the
 // CUDA cores, IEEE fp32 throughout (no TF32), the "highest" rung.
 //
@@ -34,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rowmap.cuh"
+
 namespace {
 
 constexpr int DVIEW = 256;
@@ -47,13 +59,14 @@ __device__ __forceinline__ long long swap_bits(long long x, int a, int b) {
   return x ^ ((d << a) | (d << b));
 }
 
-// out = steer(in) @ (A + iB) on an (rows, 256) state; steer_row >= 0 reads
-// the input with column bit 7 exchanged with row bit steer_row.
+// out = map(in) @ (A + iB) on an (rows, 256) state; steer_row >= 0 reads
+// the input with column bit 7 exchanged with row bit steer_row, fold.m > 0
+// reads row r from row fold_row(r).
 __global__ void __launch_bounds__(THREADS)
 mat_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
                 float* __restrict__ out_re, float* __restrict__ out_im,
                 const float* __restrict__ A, const float* __restrict__ B,
-                long long rows, int steer_row) {
+                long long rows, int steer_row, Fold fold) {
   __shared__ __align__(16) float xr_s[BK][BM + 4];   // X slice, k-major
   __shared__ __align__(16) float xi_s[BK][BM + 4];
   __shared__ __align__(16) float a_s[BK][BN];
@@ -69,6 +82,7 @@ mat_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
   const int lr = tid >> 2, lk = (tid & 3) * 4;
   const int ak = tid >> 4, an = (tid & 15) * 4;
   const long long r = row0 + lr;
+  const long long fr = fold.m > 0 ? fold_row(r, fold) : r;
 
   float acc_r[4][4], acc_i[4][4];
 #pragma unroll
@@ -79,7 +93,7 @@ mat_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
   for (int k0 = 0; k0 < DVIEW; k0 += BK) {
     float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
     if (r < rows) {
-      long long sr = r;
+      long long sr = fr;
       int sk = k0 + lk;
       if (steer_row >= 0 && (((sk >> 7) ^ (int)(r >> steer_row)) & 1)) {
         sr = r ^ (1LL << steer_row);
@@ -133,16 +147,21 @@ mat_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
   }
 }
 
-// out[f] = phase(f) * in[steer(g(f))] for the index-map steps; four
-// consecutive outputs per thread, stored as one float4 per component.
+// out[f] = phase(f) * in[map(g(f))] for the index-map steps, map the
+// steered or folded input map (or none); four consecutive outputs per
+// thread, stored as one float4 per component.
 __global__ void __launch_bounds__(THREADS)
 gather_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
                    float* __restrict__ out_re, float* __restrict__ out_im,
                    long long total, int swap_a, int swap_b, int steer,
-                   const int* __restrict__ col_src, const float* __restrict__ cs) {
+                   const int* __restrict__ col_src, const float* __restrict__ cs,
+                   Fold fold) {
   const long long base = ((long long)blockIdx.x * THREADS + threadIdx.x) * 4;
   if (base >= total) return;
   float vr[4], vi[4];
+  // the folded source row of the last row seen: a thread's four elements
+  // share their row in every step kind, so sigma's loop runs once
+  long long fold_in = -1, fold_out = 0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const long long f = base + e;
@@ -150,6 +169,13 @@ gather_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in
     if (swap_a >= 0) s = swap_bits(s, swap_a, swap_b);
     if (col_src != nullptr) s = (s & ~255LL) | col_src[f & 255];
     if (steer >= 0) s = swap_bits(s, 7, steer);
+    if (fold.m > 0) {
+      if ((s >> 8) != fold_in) {
+        fold_in = s >> 8;
+        fold_out = fold_row(fold_in, fold);
+      }
+      s = (fold_out << 8) | (s & 255);
+    }
     float gr = in_re[s], gi = in_im[s];
     if (cs != nullptr) {
       const float c = cs[f & 255], sn = cs[DVIEW + (f & 255)];
@@ -175,29 +201,39 @@ const char* qsim_error_string(int code) {
 }
 
 // One mat step on an (rows, 256) state pair; steer_bit is the flat bit
-// (>= 8) exchanged with bit 7 on input, or -1.
+// (>= 8) exchanged with bit 7 on input, or -1; sigma/m/tr the folded
+// relayout on input (m = 0: none).
 int qsim_mat_step(const float* in_re, const float* in_im, float* out_re,
                   float* out_im, const float* a, const float* b,
-                  long long rows, int steer_bit, void* stream) {
+                  long long rows, int steer_bit, const int* sigma, int m,
+                  int tr, void* stream) {
+  Fold fold;
+  if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((unsigned)((rows + BM - 1) / BM), DVIEW / BN);
   mat_step_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       in_re, in_im, out_re, out_im, a, b, rows,
-      steer_bit >= 0 ? steer_bit - 8 : -1);
+      steer_bit >= 0 ? steer_bit - 8 : -1, fold);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One index-map step over `total` = rows * 256 elements.  swap_a/swap_b:
 // flat bits to exchange (-1: none); col_src: 256-entry column gather (or
 // null); cs: 512 floats, cos row then sin row (or null); steer: flat bit
-// exchanged with bit 7 on input (-1: none).
+// exchanged with bit 7 on input (-1: none); sigma/m/tr: the folded
+// relayout on input (m = 0: none).
 int qsim_gather_step(const float* in_re, const float* in_im, float* out_re,
                      float* out_im, long long total, int swap_a, int swap_b,
                      int steer, const int* col_src, const float* cs,
-                     void* stream) {
+                     const int* sigma, int m, int tr, void* stream) {
+  Fold fold;
+  if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer >= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long threads = total / 4;
   const unsigned blocks = (unsigned)((threads + THREADS - 1) / THREADS);
   gather_step_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in_re, in_im, out_re, out_im, total, swap_a, swap_b, steer, col_src, cs);
+      in_re, in_im, out_re, out_im, total, swap_a, swap_b, steer, col_src, cs,
+      fold);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
 """Prefetch engine on torch: the JAX package's recompile-free prefetch path.
 
 Host side, this module is a JAX-free copy of the numpy planner in
-``gpu_quantum_simulator_tpu/engine/prefetch.py`` (``plan_prefetch``,
-``materialize_entries`` and their helpers): both packages plan the same
-circuit into the same entries and the same tables, array for array
+``gpu_quantum_simulator_tpu/engine/prefetch.py`` (``plan_prefetch``, the
+plan portfolio ``plan_prefetch_best``, ``materialize_entries`` with the
+relayout fold, and their helpers): both packages plan the same circuit
+into the same entries and the same tables, array for array
 (tests/test_torch_plan.py holds the copy to the original).
 
 Device side it replaces the JAX program:
@@ -16,12 +17,17 @@ Device side it replaces the JAX program:
   JAX package's ``_get_expander`` does it with 0/1 einsums).
 * ``DeviceChain`` runs the entries in order.  A block entry goes to the
   block kernel (kernels/block.py), a relayout entry (scal mode 3) to the
-  relayout kernel (kernels/relayout.py).  The host reads each entry's step
-  list from the numpy ``scal`` table, never from the device, and the state
-  ping-pongs between two buffer pairs in place of JAX's donation.
+  relayout kernel (kernels/relayout.py).  A block with a FOLDED relayout
+  (scal mode 5, n >= 23) reads its input through the relayout's sigma in
+  its first launch, so that relayout costs no state pass of its own (the
+  JAX package's streamed block kernel, ``get_stream_block_kernel``).  The
+  host reads each entry's step list from the numpy ``scal`` table, never
+  from the device, and the state ping-pongs between two buffer pairs in
+  place of JAX's donation.
 
-The slice covers flat plans at 9 <= n <= 22 at the "highest" precision
-rung.  Everything else raises NotImplementedError naming its ROADMAP item.
+The slice covers flat plans at 9 <= n <= 30 at the "highest" and "high"
+precision rungs.  Everything else raises NotImplementedError naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import numpy as np
 import torch
 
 from ..ir.oplist import Op, op_matrix
-from ..kernels.block import run_block
+from ..kernels.block import run_block, split_tables
 from ..kernels.relayout import run_relayout
 
 LANE_QUBITS = 7
@@ -52,13 +58,19 @@ RELAYOUT_SLOTS = 24           # scal tail slots reserved for a FOLDED relayout
                               # row-block bit at n = 30 with Tr = 64 (16) and
                               # the shrunken-tile test geometries
 # relayout parking looks this many topological waves past the ready set
-# when filling spare park slots (the JAX package's default depth; its plan
-# portfolio, which tries others, starts at n = 23)
+# when filling spare park slots (the plan portfolio tries several depths
+# and keeps the model-cheapest plan, so this is only the fallback depth)
 LOOKAHEAD_WAVES = 1
-# The port's slice: flat plans at 9 <= n <= SLICE_MAX_QUBITS.  From n = 23
-# the JAX package switches to its plan portfolio and to the streamed block
-# kernel with folded relayouts, neither ported yet (ROADMAP queue A).
-SLICE_MAX_QUBITS = 22
+# candidate lookahead depths of the plan portfolio, and the width from
+# which PrefetchProgram plans with it (the JAX package's defaults)
+PLAN_PORTFOLIO = (1, 3, 6)
+PORTFOLIO_MIN_QUBITS = 23
+# flat plans from this width fold a standalone relayout into the next
+# plain block's input (scal mode 5; resolve_stream_relayout)
+STREAM_RELAYOUT_MIN_QUBITS = 23
+# the largest width the prefetch engine takes (the JAX package's
+# single-chip ceiling; from it the JAX package runs in place by default)
+MAX_QUBITS = 30
 
 
 def tile_rows(n: int) -> int:
@@ -206,6 +218,9 @@ class _Block:
     # standalone multi-qubit relayout entry: sigma over exposed slots
     # (see get_relayout_kernel); a block carrying this has no steps
     relayout: Optional[np.ndarray] = None
+    # FOLDED relayout: the same sigma, applied by reading THIS block's
+    # input through the permutation — no standalone state pass
+    relayout_pro: Optional[np.ndarray] = None
     # standalone mesh-bit exchange entry (sharded execution): swap local
     # window bit 7 with mesh-axis bit ``gswap`` via a ppermute half exchange
     gswap: Optional[int] = None
@@ -702,6 +717,44 @@ def plan_prefetch(
     )
 
 
+def plan_prefetch_best(ops, num_qubits, **kwargs) -> PrefetchPlan:
+    """Portfolio planning: plan once per PLAN_PORTFOLIO lookahead depth and
+    keep the plan that the cost model (engine/plancost.py, the JAX
+    package's TPU calibration) prices cheapest, as the JAX package does."""
+    from . import plancost
+
+    inplace = bool(kwargs.get("involution_relayout"))
+    best = None
+    for waves in PLAN_PORTFOLIO:
+        plan = plan_prefetch(ops, num_qubits, lookahead_waves=waves, **kwargs)
+        secs, _ = plancost.estimate_plan(
+            plan, num_qubits, inplace=inplace,
+            fold_relayout=resolve_stream_relayout(num_qubits, inplace))
+        if best is None or secs < best[0]:
+            best = (secs, plan)
+    return best[1]
+
+
+def plan_circuit(ops, num_qubits: int, reorder: bool = True,
+                 **kwargs) -> PrefetchPlan:
+    """The plan PrefetchProgram builds: the portfolio from
+    PORTFOLIO_MIN_QUBITS when reordering, else one plan_prefetch."""
+    planner = (plan_prefetch_best
+               if reorder and num_qubits >= PORTFOLIO_MIN_QUBITS
+               else plan_prefetch)
+    return planner(ops, num_qubits, reorder=reorder, **kwargs)
+
+
+def resolve_stream_relayout(n: int, inplace: bool = False) -> bool:
+    """Whether a plan of width n folds its relayouts (scal mode 5).
+
+    Flat plans from STREAM_RELAYOUT_MIN_QUBITS fold; in-place plans never
+    do.  Unlike the JAX package this has no forced override: its forced
+    fold also reached in-place plans, whose kernels do not decode mode 5,
+    and corrupted their amplitudes (ROADMAP queue C)."""
+    return (not inplace) and n >= STREAM_RELAYOUT_MIN_QUBITS
+
+
 # Per-dispatch work budget (blocks x grid steps) of the JAX package's TPU
 # chains; the port keeps it because it shapes the table chunks, and so
 # the entries that both packages must pack alike.
@@ -731,10 +784,35 @@ def _chunks(total: int, max_chunk: int = 1 << 30) -> List[int]:
     return out
 
 
+def _fold_relayout_entries(entries: Sequence[_Block]) -> List[_Block]:
+    """Merge (standalone relayout, following plain step block) pairs.
+
+    The merged block reads its input through the relayout's sigma (scal
+    mode 5), so the relayout needs no state pass of its own.  Pairs where
+    the next block already carries an xswap prologue (the steered input
+    owns the read), is itself a relayout/gswap entry, or is empty keep the
+    standalone form.
+    """
+    out: List[_Block] = []
+    for blk in entries:
+        prev = out[-1] if out else None
+        if (prev is not None and prev.relayout is not None
+                and not prev.kinds
+                and blk.relayout is None and blk.relayout_pro is None
+                and blk.gswap is None and blk.prologue is None
+                and blk.kinds):
+            out[-1] = _Block(kinds=blk.kinds, midx=blk.midx, mats=blk.mats,
+                             relayout_pro=prev.relayout)
+        else:
+            out.append(blk)
+    return out
+
+
 def materialize_entries(entries: Sequence[_Block], cap_steps: int,
                         cap_mats: int, dt,
                         single_class: bool = False,
                         max_chunk: int = 1 << 30,
+                        fold_relayout: bool = False,
                         mono_as_mat: bool = False):
     """Pack plan entries into grouped, pow-2-chunked scal + factor tables.
 
@@ -753,10 +831,13 @@ def materialize_entries(entries: Sequence[_Block], cap_steps: int,
     MONOMIAL mats ship the 0/1 pattern in u_re plus compact (2, 128)
     cos/sin row-phase vectors (see _get_expander).  Shared by
     PrefetchProgram and the mesh engine (parallel/sharded_prefetch.py) in the
-    JAX package.  This copy packs flat plans only: the in-place hoisting
-    (scal mode 2) and the folded relayout (mode 5) belong to paths the port
-    has not reached yet (ROADMAP queue A).
+    JAX package.  ``fold_relayout`` merges relayouts into the next block
+    (_fold_relayout_entries; scal mode 5 with sigma in the scal tail).  This
+    copy packs flat plans only: the in-place hoisting (scal mode 2) belongs
+    to a path the port has not reached yet (ROADMAP queue A).
     """
+    if fold_relayout:
+        entries = _fold_relayout_entries(entries)
     if single_class:
         # large-n mode: every entry shares ONE capacity class so the whole
         # circuit chains as a handful of pow-2 chunks (the JAX package's
@@ -819,6 +900,14 @@ def materialize_entries(entries: Sequence[_Block], cap_steps: int,
                 scal[i, 1] = 4
                 scal[i, 2] = blk.gswap
                 continue
+            if blk.relayout_pro is not None:
+                # folded relayout (mode 5): sigma rides the scal TAIL so
+                # kinds/midx keep their slots
+                m = len(blk.relayout_pro)
+                assert m <= RELAYOUT_SLOTS, (m, RELAYOUT_SLOTS)
+                scal[i, 1] = 5
+                scal[i, 4 + 2 * cap_steps : 4 + 2 * cap_steps + m] = (
+                    blk.relayout_pro)
             scal[i, 4 : 4 + k] = blk.kinds
             scal[i, 4 + cap_steps : 4 + cap_steps + k] = blk.midx
             for s, (u, positions, operm) in enumerate(blk.mats):
@@ -960,22 +1049,31 @@ class DeviceChain:
     ``program_from_entries`` builds one; calling it maps a flat (re, im)
     state pair through every entry in order.  The input pair becomes one of
     the two ping-pong buffer pairs, so the caller hands its state over (the
-    port's stand-in for JAX's buffer donation).
+    port's stand-in for JAX's buffer donation).  ``mode_rows`` counts the
+    scal rows by mode (3: standalone relayouts, 5: folded ones).  At the
+    "high" rung on a card the tables are also split once into the bf16
+    operands of the "high" mat kernel (kernels/block.py ``split_tables``).
     """
 
     def __init__(self, entries, num_qubits: int, device,
-                 cap_steps: int = CAP_STEPS):
+                 cap_steps: int = CAP_STEPS, precision: str = "highest"):
         n = num_qubits
         self.num_qubits = n
         self.device = torch.device(device)
         self.cap_steps = cap_steps
+        self.precision = precision
         self._R2 = 1 << (n - LOCAL_QUBITS)
         self._logt = int(np.log2(tile_rows(n)))
         self._tr = relayout_rows(n)
         self._mrow = int(np.log2(self._R2 // self._tr))
         self._parts = []
+        self.mode_rows: dict = {}
+        split = precision == "high" and self.device.type == "cuda"
         for (_, sizes, scal, u_re, u_im, mvec, hvec, mvec_o, hvec_o,
              phases, mono) in entries:
+            for mode, cnt in zip(*np.unique(scal[:, 1], return_counts=True)):
+                self.mode_rows[int(mode)] = (self.mode_rows.get(int(mode), 0)
+                                             + int(cnt))
             off = 0
             for c in sizes:
                 def dev(x):
@@ -985,67 +1083,86 @@ class DeviceChain:
                 a_tab, b_tab, mono_src = expand_tables(
                     dev(u_re), dev(u_im), dev(mvec), dev(hvec), dev(mvec_o),
                     dev(hvec_o), dev(phases), dev(mono))
-                self._parts.append(
-                    (scal[off : off + c].tolist(), a_tab, b_tab, mono_src))
+                w16 = split_tables(a_tab, b_tab) if split else None
+                self._parts.append((scal[off : off + c].tolist(), a_tab,
+                                    b_tab, mono_src, w16))
                 off += c
 
     def __call__(self, re: torch.Tensor, im: torch.Tensor):
         cur = (re.reshape(self._R2, DVIEW), im.reshape(self._R2, DVIEW))
         spare = None
-        for scal, a_tab, b_tab, mono_src in self._parts:
+        soff = 4 + 2 * self.cap_steps        # folded sigma in the scal tail
+        for scal, a_tab, b_tab, mono_src, w16 in self._parts:
             for i, row in enumerate(scal):
                 mode = row[1]
                 if mode == 3:
                     out = run_relayout(row[4 : 4 + self._mrow], *cur,
                                        self._tr, out=spare)
-                elif mode in (0, 1):
+                elif mode in (0, 1, 5):
+                    sigma = (row[soff : soff + self._mrow] if mode == 5
+                             else None)
                     out = run_block(row, *cur, a_tab[i], b_tab[i],
                                     mono_src[i], self._logt, self.cap_steps,
-                                    scratch=spare)
+                                    scratch=spare, sigma=sigma, tr=self._tr,
+                                    precision=self.precision,
+                                    w16=None if w16 is None else w16[i])
                 else:
                     raise NotImplementedError(
                         f"scal mode {mode} (2: in-place xswap, 4: mesh "
-                        "gswap, 5: folded relayout) is not in the port's "
-                        "slice yet (ROADMAP queue A)")
+                        "gswap) is not in the port's slice yet (ROADMAP "
+                        "queue A)")
                 if out[0] is not cur[0]:
                     spare, cur = cur, out
         return cur[0].reshape(-1), cur[1].reshape(-1)
 
 
 def program_from_entries(entries, num_qubits: int, device,
-                         cap_steps: int = CAP_STEPS) -> DeviceChain:
+                         cap_steps: int = CAP_STEPS,
+                         precision: str = "highest") -> DeviceChain:
     """Device program from ``materialize_entries`` output (numpy).
 
     Either package can produce the entries, so the tests feed both engines
     the same tables through here — the analogue of loading one set of
     weights into two implementations."""
-    return DeviceChain(entries, num_qubits, device, cap_steps)
+    return DeviceChain(entries, num_qubits, device, cap_steps, precision)
 
 
-def check_slice(n: int, precision: str) -> None:
-    """Raise for any width or precision rung the port does not run yet."""
+def check_slice(n: int, precision: str, inplace: bool = False) -> None:
+    """Raise for any width, precision rung or engine the port does not run.
+
+    n > MAX_QUBITS is a ValueError, as in the JAX package; the rest are
+    NotImplementedError naming their ROADMAP item."""
+    if n > MAX_QUBITS:
+        raise ValueError(
+            f"n = {n} exceeds the prefetch engine's ceiling (n = "
+            f"{MAX_QUBITS}); the sharded engines are not yet ported "
+            "(ROADMAP queue A, parallel/)")
     if n < MIN_QUBITS:
         raise NotImplementedError(
             f"n = {n} < {MIN_QUBITS}: the JAX package runs these widths "
             "through its megakernel arm (engine/megakernel.py), not yet "
             "ported (ROADMAP queue A, the n < 9 megakernel arm)")
-    if n > SLICE_MAX_QUBITS:
+    if inplace:
         raise NotImplementedError(
-            f"n = {n} > {SLICE_MAX_QUBITS}: from n = 23 the prefetch engine "
-            "plans a portfolio and streams/folds relayouts, not yet ported "
-            "(ROADMAP queue A, the n >= 23 stream/fold path)")
-    if precision != "highest":
+            "prefetch_inplace: the in-place split engine (the JAX "
+            "package's default from n = 30) is not yet ported (ROADMAP "
+            "queue A, the in-place split engine); at n = 30 pass "
+            "prefetch_inplace=False for the flat plan")
+    if precision not in ("highest", "high"):
         raise NotImplementedError(
-            f"precision {precision!r}: the port runs the 'highest' rung "
-            "(IEEE fp32) only (ROADMAP queue A, the 'high' rung)")
+            f"precision {precision!r}: the port runs the 'highest' (IEEE "
+            "fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, item 5, "
+            "the 'default' rung)")
 
 
 class PrefetchProgram:
     """Device tables for one planned circuit (flat plans only).
 
-    Planning is the numpy planner above; the tables go to ``device`` once,
-    and ``__call__`` maps a flat (2^n,) state pair through the chain.
-    Output is in PHYSICAL positions (undo ``final_position``).
+    Planning is the numpy planner above (the plan portfolio from
+    PORTFOLIO_MIN_QUBITS, relayouts folded from STREAM_RELAYOUT_MIN_QUBITS,
+    as in the JAX package); the tables go to ``device`` once, and
+    ``__call__`` maps a flat (2^n,) state pair through the chain.  Output is
+    in PHYSICAL positions (undo ``final_position``).
     """
 
     def __init__(
@@ -1061,8 +1178,8 @@ class PrefetchProgram:
     ):
         n = num_qubits
         check_slice(n, precision)
-        plan = plan_prefetch(ops, n, cap_steps=cap_steps, cap_mats=cap_mats,
-                             final_layout=final_layout, reorder=reorder)
+        plan = plan_circuit(ops, n, reorder=reorder, cap_steps=cap_steps,
+                            cap_mats=cap_mats, final_layout=final_layout)
         self.num_qubits = n
         self.final_position = plan.final_position
         self.num_ops = plan.num_ops
@@ -1075,8 +1192,14 @@ class PrefetchProgram:
         entries = materialize_entries(
             plan.blocks, cap_steps, cap_mats, np.float32,
             single_class=cap_mats <= 4, max_chunk=max_chunk,
+            fold_relayout=resolve_stream_relayout(n, False),
             mono_as_mat=plan.mono_as_mat)
-        self._chain = program_from_entries(entries, n, device, cap_steps)
+        self._chain = program_from_entries(entries, n, device, cap_steps,
+                                           precision)
+
+    @property
+    def mode_rows(self) -> dict:
+        return self._chain.mode_rows
 
     def __call__(self, re: torch.Tensor, im: torch.Tensor):
         return self._chain(re, im)
@@ -1101,6 +1224,8 @@ def build_prefetch_program(
         f"|{torch.device(device)}|{tile_rows(num_qubits)}"
         f"|{relayout_rows(num_qubits)}"
         f"|{resolve_mono_as_mat(num_qubits)}|{PERM_AS_MAT}"
+        f"|{num_qubits >= PORTFOLIO_MIN_QUBITS}"
+        f"|{resolve_stream_relayout(num_qubits)}"
         f"|{None if final_layout is None else list(final_layout)}".encode()
     )
     for op in ops:
@@ -1134,16 +1259,18 @@ def run_prefetch(circuit, config, device, initial=None):
     from .simulator import _fuse_pipeline
 
     n = circuit.num_qubits
+    precision = resolve_precision(getattr(config, "precision", "highest"), n)
+    # the JAX package's default: in place from n = 30 (not ported, so it
+    # raises); an explicit prefetch_inplace=False runs the flat plan, which
+    # fits the card at n = 30 (8 GB state pair + 8 GB scratch pair)
+    inplace = getattr(config, "prefetch_inplace", None)
+    if inplace is None:
+        inplace = n >= MAX_QUBITS
+    check_slice(n, precision, bool(inplace))   # before planning/allocating
     if config.dtype != "complex64":
         raise ValueError(
             "the prefetch strategy is float32-only; use the JAX package's "
             "mxu/reference strategies for complex128 parity checks")
-    precision = resolve_precision(getattr(config, "precision", "highest"), n)
-    check_slice(n, precision)
-    if getattr(config, "prefetch_inplace", None):
-        raise NotImplementedError(
-            "prefetch_inplace: the in-place split engine is not yet ported "
-            "(ROADMAP queue A, the in-place split engine)")
     device = torch.device(device)
 
     # relabel hot qubits low and have the plan itself route the state back
@@ -1161,6 +1288,7 @@ def run_prefetch(circuit, config, device, initial=None):
         bool(reorder), max_high, cap_mats, window, str(device),
         tile_rows(n), relayout_rows(n),
         resolve_mono_as_mat(n), PERM_AS_MAT,
+        n >= PORTFOLIO_MIN_QUBITS, resolve_stream_relayout(n),
     )
     prog = _RUN_CACHE.get(run_key)
     if prog is None:

@@ -1,43 +1,68 @@
 """Block kernel wrapper: one prefetch block (a step list) on the state.
 
 Replaces ``gpu_quantum_simulator_tpu/engine/prefetch.py`` ``get_block_kernel``
-(its step interpreter ``_steps_loop``).  A block is one row of the planner's
-``scal`` table, ``[nsteps, mode, pro_tmask, pro_shift, kinds..., midx...]``:
+(its step interpreter ``_steps_loop``) and ``get_stream_block_kernel``, its
+streamed twin.  A block is one row of the planner's ``scal`` table,
+``[nsteps, mode, pro_tmask, pro_shift, kinds..., midx..., sigma...]``:
 
 * mode 0: plain; mode 1: steered — the block's INPUT is read with the
   pending cross-tile swap folded in (window bit 7 <-> tile-index bit
-  ``pro_shift``, the JAX ``map_half``).  Other modes are not blocks.
+  ``pro_shift``, the JAX ``map_half``); mode 5: folded relayout — the
+  block's INPUT is read through the relayout ``sigma`` (the stream
+  kernel's ``in_folded``; see kernels/relayout.py).  Other modes are not
+  blocks.
 * step kinds (``logt`` = log2 of the tile rows the plan assumed):
   0 mat (table slot midx), 1..logt tswap k, logt+1 perm (lane v = midx),
   logt+2 mono (slot midx).
+* precision rung of the mat step: "highest" (IEEE fp32 products) or
+  "high" (the 3-pass bf16 product of the JAX package's ``_make_dot``).
+  Perm, tswap and mono steps are exact gathers at every rung.
 
-``run_block`` launches the CUDA kernels of ``csrc/prefetch_block.cu`` for a
-CUDA state (one launch per step, ping-ponging between the state and a
-scratch pair) and runs ``run_block_plain`` — the same function in plain
-torch — for a CPU state.  Any other device raises.  ``run_block.launches``
-counts kernel launches.
+``run_block`` launches the CUDA kernels of ``csrc/prefetch_block.cu`` and
+``csrc/mat_high.cu`` for a CUDA state (one launch per step, ping-ponging
+between the state and a scratch pair) and runs ``run_block_plain`` — the
+same function in plain torch — for a CPU state.  Any other device raises.
+``run_block.launches`` counts kernel launches by kind: ``mat`` (fp32 mat
+step), ``mat_high`` ("high" mat step), ``gather`` (every other step and a
+prologue-only block) and ``folded`` (the first launch of a mode-5 block,
+whichever step it runs); each launch is counted under one kind.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import build
+from .relayout import run_relayout_plain
 
 LANE_QUBITS = 7
 LOCAL_QUBITS = 8
 DVIEW = 256
+RUNGS = ("highest", "high")
+LAUNCH_KINDS = ("mat", "mat_high", "gather", "folded")
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _check_mode(mode: int) -> None:
-    if mode not in (0, 1):
+def _check_mode(mode: int, sigma) -> None:
+    if mode not in (0, 1, 5):
         raise NotImplementedError(
-            f"block mode {mode}: only plain (0) and steered (1) blocks are in "
-            "the port's slice (modes 2/4/5 are ROADMAP queue A items)")
+            f"block mode {mode}: the port's blocks are plain (0), steered "
+            "(1) and folded relayout (5); the in-place xswap (2) and the "
+            "mesh gswap (4) are ROADMAP queue A items")
+    if (mode == 5) != (sigma is not None):
+        raise ValueError(f"block mode {mode}: a sigma is given exactly for "
+                         "a folded relayout (mode 5)")
+
+
+def _check_rung(precision: str) -> None:
+    if precision not in RUNGS:
+        raise NotImplementedError(
+            f"precision {precision!r}: the block kernel runs the rungs "
+            f"{RUNGS} (ROADMAP queue A, item 5, for 'default')")
 
 
 def swap_bits(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -56,18 +81,61 @@ def _steer_bit(scal, logt: int) -> int:
     return LOCAL_QUBITS + logt + int(scal[3]) if int(scal[1]) == 1 else -1
 
 
+def bf16_split(x: torch.Tensor) -> Pair:
+    """(hi, lo) of a float32 tensor: hi = x rounded to bfloat16, lo = the
+    bfloat16 of the residual x - hi, both as float32 (bf16-exact) values."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _dot_high(x: Pair, m: Pair) -> torch.Tensor:
+    """xh @ mh + xl @ mh + xh @ ml, float32 matmuls of bf16-exact values."""
+    return x[0] @ m[0] + x[1] @ m[0] + x[0] @ m[1]
+
+
+def mat_high_plain(re: torch.Tensor, im: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor) -> Pair:
+    """The "high" rung's complex mat step in plain torch (schoolbook, as
+    the kernel): (re + i im) @ (a + i b) with every real product the
+    3-pass bf16 split.  Exact-product sums, so on a card it needs TF32
+    off, as every plain matmul here."""
+    xr, xi = bf16_split(re), bf16_split(im)
+    ma, mb = bf16_split(a), bf16_split(b)
+    return (_dot_high(xr, ma) - _dot_high(xi, mb),
+            _dot_high(xr, mb) + _dot_high(xi, ma))
+
+
+def split_tables(a_tab: torch.Tensor, b_tab: torch.Tensor) -> torch.Tensor:
+    """(..., 256, 256) float32 tables -> (..., 4, 256, 256) bfloat16
+    [A_hi, A_lo, B_hi, B_lo], each transposed to [n][k]: the operand
+    layout of the "high" mat kernel (csrc/mat_high.cu).  Done once per
+    circuit (DeviceChain), since the tables are fixed."""
+    parts = []
+    for t in (a_tab, b_tab):
+        hi, lo = bf16_split(t.transpose(-1, -2))
+        parts += [hi.to(torch.bfloat16), lo.to(torch.bfloat16)]
+    return torch.stack(parts, dim=-3).contiguous()
+
+
 def run_block_plain(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
                     a_tab: torch.Tensor, b_tab: torch.Tensor,
-                    mono_src: torch.Tensor, logt: int,
-                    cap_steps: int) -> Pair:
+                    mono_src: torch.Tensor, logt: int, cap_steps: int,
+                    sigma: Optional[Sequence[int]] = None, tr: int = 1,
+                    precision: str = "highest") -> Pair:
     """The block in plain torch on (R2, 256) float32 tensors, any device.
 
-    mat is ``x @ A`` complex with A = M_re^T + i M_im^T from the slot's
-    tables (float32 products; on a card with TF32 off); every other step is
-    the exact index map the kernel applies.
+    A folded block (mode 5) is the relayout ``sigma`` over ``tr``-row
+    blocks (``run_relayout_plain``) followed by the steps.  mat is
+    ``x @ A`` complex with A = M_re^T + i M_im^T from the slot's tables:
+    float32 products at "highest" (on a card with TF32 off), the 3-pass
+    bf16 split at "high" (``mat_high_plain``); every other step is the
+    exact index map the kernel applies.
     """
     mode = int(scal[1])
-    _check_mode(mode)
+    _check_mode(mode, sigma)
+    _check_rung(precision)
+    if mode == 5:
+        re, im = run_relayout_plain(sigma, re, im, tr)
     steer = _steer_bit(scal, logt)
     if steer >= 0:
         re = swap_bits(re, LANE_QUBITS, steer)
@@ -77,7 +145,10 @@ def run_block_plain(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
         idx = int(scal[4 + cap_steps + j])
         if kind == 0:
             a, b = a_tab[idx], b_tab[idx]
-            re, im = re @ a - im @ b, re @ b + im @ a
+            if precision == "high":
+                re, im = mat_high_plain(re, im, a, b)
+            else:
+                re, im = re @ a - im @ b, re @ b + im @ a
         elif kind <= logt:
             re = swap_bits(re, LANE_QUBITS, LANE_QUBITS + kind)
             im = swap_bits(im, LANE_QUBITS, LANE_QUBITS + kind)
@@ -108,21 +179,26 @@ def _check_cuda(tensors, dtypes) -> None:
 def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
               a_tab: torch.Tensor, b_tab: torch.Tensor,
               mono_src: torch.Tensor, logt: int, cap_steps: int,
-              scratch: Pair = None) -> Pair:
+              scratch: Pair = None, sigma: Optional[Sequence[int]] = None,
+              tr: int = 1, precision: str = "highest",
+              w16: Optional[torch.Tensor] = None) -> Pair:
     """Apply one block to the (R2, 256) float32 state pair (re, im).
 
     On CUDA the result lands in either the input pair or ``scratch`` (a
     pair of the same shape, allocated here when None); the other pair is
     free for the caller's next entry.  ``a_tab``/``b_tab`` are the entry's
-    (cap, 256, 256) tables, ``mono_src`` its (cap, 256) int32 gathers.
+    (cap, 256, 256) tables, ``mono_src`` its (cap, 256) int32 gathers,
+    ``sigma``/``tr`` a mode-5 block's folded relayout, and ``w16`` the
+    entry's ``split_tables`` for the "high" rung (computed here when None).
     """
     if re.device.type == "cpu":
         return run_block_plain(scal, re, im, a_tab, b_tab, mono_src, logt,
-                               cap_steps)
+                               cap_steps, sigma, tr, precision)
     if not re.is_cuda:
         raise ValueError(f"block kernel: unsupported device {re.device}")
     mode = int(scal[1])
-    _check_mode(mode)
+    _check_mode(mode, sigma)
+    _check_rung(precision)
     rows = re.shape[0]
     if re.shape != (rows, DVIEW) or im.shape != re.shape:
         raise ValueError(f"block kernel: state must be (R2, {DVIEW}), got "
@@ -131,53 +207,94 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
             or mono_src.shape != a_tab.shape[:2]:
         raise ValueError("block kernel: tables must be (cap, 256, 256) and "
                          "mono_src (cap, 256)")
+    nsteps = int(scal[0])
+    fold = None
+    if mode == 5:
+        if nsteps == 0 or rows % tr or len(sigma) != (rows // tr - 1).bit_length():
+            raise ValueError(f"block kernel: a folded block needs steps and "
+                             f"one sigma entry per row-block bit (rows "
+                             f"{rows}, tr {tr}, sigma {list(sigma)})")
+        fold = np.ascontiguousarray(np.asarray(sigma, dtype=np.int32))
+    high = precision == "high" and any(
+        int(scal[4 + j]) == 0 for j in range(nsteps))
+    if high and w16 is None:
+        w16 = split_tables(a_tab, b_tab)
     if scratch is None:
         scratch = (torch.empty_like(re), torch.empty_like(im))
     f32 = torch.float32
-    _check_cuda([re, im, *scratch, a_tab, b_tab, mono_src],
-                [f32] * 6 + [torch.int32])
+    tensors = [re, im, *scratch, a_tab, b_tab, mono_src]
+    dtypes = [f32] * 6 + [torch.int32]
+    if high:
+        if w16.shape != (a_tab.shape[0], 4, DVIEW, DVIEW):
+            raise ValueError("block kernel: w16 must be (cap, 4, 256, 256)")
+        tensors.append(w16)
+        dtypes.append(torch.bfloat16)
+    _check_cuda(tensors, dtypes)
     steer = _steer_bit(scal, logt)
-    nsteps = int(scal[0])
     if nsteps == 0 and steer < 0:
         return re, im                      # padding row: identity
     lib = build.load()
     stream = torch.cuda.current_stream(re.device).cuda_stream
     slot = DVIEW * DVIEW * 4               # bytes per table slot
     a0, b0, m0 = a_tab.data_ptr(), b_tab.data_ptr(), mono_src.data_ptr()
+    w0 = w16.data_ptr() if high else None
     total = rows * DVIEW
     src, dst = (re, im), scratch
+    counts = run_block.launches
+
+    def fold_args():
+        # the folded relayout rides the block's first launch only
+        if fold is None:
+            return None, 0, 1
+        return fold.ctypes.data, len(fold), tr
 
     def gather(swap_a, swap_b, col_src=None, cs=None):
         return lib.qsim_gather_step(
             src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
             dst[1].data_ptr(), total, swap_a, swap_b, steer, col_src, cs,
-            stream)
+            *fold_args(), stream)
 
     if nsteps == 0:                        # prologue-only block
         build.check(lib, gather(-1, -1), "block kernel (prologue)")
-        run_block.launches += 1
+        counts["gather"] += 1
         return dst
     for j in range(nsteps):
         kind = int(scal[4 + j])
         idx = int(scal[4 + cap_steps + j])
-        if kind == 0:
+        if kind == 0 and precision == "high":
+            what = "mat_high"
+            rc = lib.qsim_mat_step_high(
+                src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
+                dst[1].data_ptr(), w0 + idx * 4 * slot // 2, rows, steer,
+                *fold_args(), stream)
+        elif kind == 0:
+            what = "mat"
             rc = lib.qsim_mat_step(
                 src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
                 dst[1].data_ptr(), a0 + idx * slot, b0 + idx * slot, rows,
-                steer, stream)
+                steer, *fold_args(), stream)
         elif kind <= logt:
+            what = "gather"
             rc = gather(LANE_QUBITS, LANE_QUBITS + kind)
         elif kind == logt + 1:
+            what = "gather"
             rc = gather(idx, LANE_QUBITS)
         elif kind == logt + 2:
+            what = "gather"
             rc = gather(-1, -1, m0 + idx * DVIEW * 4, b0 + idx * slot)
         else:
             raise ValueError(f"unknown step kind {kind} (logt = {logt})")
         build.check(lib, rc, f"block kernel (step kind {kind})")
-        run_block.launches += 1
+        counts["folded" if fold is not None else what] += 1
         steer = -1
+        fold = None
         src, dst = dst, src
     return src
 
 
-run_block.launches = 0
+def reset_launches() -> None:
+    """Set every launch count of ``run_block`` to 0."""
+    run_block.launches = dict.fromkeys(LAUNCH_KINDS, 0)
+
+
+reset_launches()

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (plain C interface, ctypes).
 
 Every ``*.cu`` under ``gpu_quantum_simulator_tpu_torch/csrc`` is compiled
-with ``nvcc`` for Hopper (``sm_90a``) into one shared library under
+with ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per source, all
+started together, and the objects are linked into one shared library under
 ``build/torch_kernels/`` at the repository root, at first use, and loaded
 with ctypes.  Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; the wrappers raise on a non-zero code.
@@ -38,6 +39,12 @@ def sources():
                   if f.endswith(".cu"))
 
 
+def _inputs():
+    """Every file the library is built from (sources and headers)."""
+    return sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                  if f.endswith((".cu", ".cuh")))
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
@@ -52,17 +59,39 @@ def _nvcc() -> str:
 def _build() -> None:
     global last_build
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *sources()]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = "", []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log += " ".join(cmd) + "\n" + out
+        if proc.returncode != 0:
+            failed.append(os.path.basename(cmd[-1]))
+    tmp = f"{_SO}.{tag}"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        f.write(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, _SO)
     last_build = {"seconds": secs, "log": log}
 
@@ -72,9 +101,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_error_string.restype = ctypes.c_char_p
     lib.qsim_error_string.argtypes = [I]
     lib.qsim_mat_step.restype = I
-    lib.qsim_mat_step.argtypes = [P, P, P, P, P, P, L, I, P]
+    lib.qsim_mat_step.argtypes = [P, P, P, P, P, P, L, I, P, I, I, P]
+    lib.qsim_mat_step_high.restype = I
+    lib.qsim_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, I, P]
     lib.qsim_gather_step.restype = I
-    lib.qsim_gather_step.argtypes = [P, P, P, P, L, I, I, I, P, P, P]
+    lib.qsim_gather_step.argtypes = [P, P, P, P, L, I, I, I, P, P, P, I, I, P]
     lib.qsim_relayout.restype = I
     lib.qsim_relayout.argtypes = [P, P, P, P, L, I, P, I, P]
 
@@ -85,9 +116,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        srcs = sources()
         if not os.path.exists(_SO) or any(
-                os.path.getmtime(s) > os.path.getmtime(_SO) for s in srcs):
+                os.path.getmtime(s) > os.path.getmtime(_SO)
+                for s in _inputs()):
             _build()
         lib = ctypes.CDLL(_SO)
         _declare(lib)

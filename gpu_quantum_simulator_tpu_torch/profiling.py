@@ -3,19 +3,24 @@
     python3 -m gpu_quantum_simulator_tpu_torch.profiling [--widths 18 22]
         [--mono-as-mat auto 0 1] [--runs 5] [--sweep] [--plan-only]
 
-For each mono-lowering arm (``auto`` is the planner's default; ``0``/``1``
-force the mono step or mono-as-mat) and each width it plans
-``grover_like(n, 2445, 318)`` and prints the plan's counts: fused ops,
-monomial fused ops, entries, steered prologues, relayouts and steps by kind.
+Widths 9..30.  For each mono-lowering arm (``auto`` is the planner's
+default; ``0``/``1`` force the mono step or mono-as-mat) and each width it
+plans ``grover_like(n, 2445, 318)`` as the Simulator does (the portfolio
+and the relayout fold from n = 23) and prints the plan's counts: fused
+ops, monomial fused ops, entries, steered prologues, relayouts (folded and
+standalone), steps by kind, and the precision rung "auto" resolves to.
 That much runs anywhere (``--plan-only`` stops there, on the CPU).
 
-On a CUDA card it then runs ``Simulator.run_detailed``: one warm-up, then
-``--runs`` timed runs, each split into the host's enqueue of the chain,
-the chain to its sync, and the copy to the host plus the join; kernel
-launches per run; and the amplitude error against the native f64
-reference.  One more run goes under ``torch.profiler``: device busy time
-(the union of the device events), the profiled wall time, the device's
-idle share, and each device event's count and total time by name.
+On a CUDA card it then runs ``Simulator.run_detailed`` (``precision``
+"auto"): one warm-up, then ``--runs`` timed runs, each split into the
+host's enqueue of the chain, the chain to its sync, and the copy to the
+host plus the join; kernel launches per run by kind (fp32 mat, "high"
+mat, gather, folded first launch, relayout); and the amplitude error
+against the native f64 reference up to n = 23 (above it the reference is
+not run: its time grows 2x per qubit; the norm is reported).  One more
+run goes under ``torch.profiler``: device busy time (the union of the
+device events), the profiled wall time, the device's idle share, and each
+device event's count and total time by name.
 
 ``--sweep`` also runs n = 9..20 at three tile geometries (the planner's
 (512, 64) and the shrunken (4, 1) and (16, 2), which put prologues and
@@ -39,6 +44,8 @@ from . import models
 from .config import SimulatorConfig
 from .engine import prefetch as PF
 from .engine.simulator import Simulator, _fuse_pipeline
+from .config import resolve_precision
+from .kernels import block
 from .kernels.block import run_block
 from .kernels.relayout import run_relayout
 from .ops.apply import join_state
@@ -48,6 +55,7 @@ from .ref.native import simulate_native
 GATES, SEED = 2445, 318
 SWEEP_TILES = ((512, 64), (4, 1), (16, 2))
 SWEEP_WIDTHS = range(9, 21)
+REF_MAX_QUBITS = 23      # widest run held to the f64 reference
 
 
 def _arm(text: str):
@@ -67,18 +75,23 @@ def plan_counts(n: int) -> dict:
     max_high, cap_mats, window = PF.resolve_prefetch_knobs(config, n, False)
     ops = _fuse_pipeline(c.relabeled(perm), PF.LANE_QUBITS,
                          max_high=max_high, window=window)
-    plan = PF.plan_prefetch(ops, n, cap_mats=cap_mats,
-                            final_layout=np.argsort(perm))
+    plan = PF.plan_circuit(ops, n, cap_mats=cap_mats,
+                           final_layout=np.argsort(perm))
+    folded = PF._fold_relayout_entries(plan.blocks) \
+        if PF.resolve_stream_relayout(n) else plan.blocks
     logt = plan.logt
     kinds = [k for b in plan.blocks for k in b.kinds]
     return {
-        "n": n, "max_high": max_high, "cap_mats": cap_mats, "window": window,
+        "n": n, "precision": resolve_precision(config.precision, n),
+        "max_high": max_high, "cap_mats": cap_mats, "window": window,
         "mono_as_mat": plan.mono_as_mat, "fused_ops": len(ops),
         "monomial_ops": sum(PF._monomial_phases(op.u) is not None
                             for op in ops),
-        "entries": len(plan.blocks),
+        "entries": len(folded),
         "steered": sum(b.prologue is not None for b in plan.blocks),
         "relayouts": plan.num_relayouts,
+        "folded_relayouts": sum(b.relayout_pro is not None for b in folded),
+        "standalone_relayouts": sum(b.relayout is not None for b in folded),
         "mat_steps": kinds.count(0),
         "mono_steps": kinds.count(logt + 2),
         "perm_steps": kinds.count(logt + 1),
@@ -128,7 +141,8 @@ def run_width(n: int, runs: int) -> dict:
     warm = sim.run_detailed(c).seconds
     secs = [sim.run_detailed(c).seconds for _ in range(runs)]
     split = {"enqueue_ms": [], "to_sync_ms": [], "d2h_join_ms": []}
-    run_block.launches = run_relayout.launches = 0
+    block.reset_launches()
+    run_relayout.launches = 0
     for _ in range(runs):
         t0 = time.perf_counter()
         re, im, _, _ = PF.run_prefetch(c, config, torch.device("cuda"))
@@ -140,9 +154,10 @@ def run_width(n: int, runs: int) -> dict:
         split["enqueue_ms"].append((t1 - t0) * 1e3)
         split["to_sync_ms"].append((t2 - t0) * 1e3)
         split["d2h_join_ms"].append((t3 - t2) * 1e3)
-    launches = {"block": run_block.launches // runs,
-                "relayout": run_relayout.launches // runs}
-    err = float(np.max(np.abs(state - simulate_native(c))))
+    launches = {k: v // runs for k, v in run_block.launches.items()}
+    launches["relayout"] = run_relayout.launches // runs
+    err = (float(np.max(np.abs(state - simulate_native(c))))
+           if n <= REF_MAX_QUBITS else None)
     return {"n": n, "warmup_s": warm, "median_s": statistics.median(secs),
             "runs_s": secs,
             **{k: statistics.median(v) for k, v in split.items()},
@@ -162,11 +177,12 @@ def sweep() -> list:
             _clear_caches()
             for n in SWEEP_WIDTHS:
                 c = models.grover_like(n, 40 * n, n)
-                run_block.launches = run_relayout.launches = 0
+                block.reset_launches()
+                run_relayout.launches = 0
                 got = sim.run(c)
                 err = float(np.max(np.abs(got - simulate_native(c))))
                 rec = {"tiles": [t, tr], "n": n, "max_abs_err_f64": err,
-                       "block": run_block.launches,
+                       "block": sum(run_block.launches.values()),
                        "relayout": run_relayout.launches}
                 print(f"sweep tiles ({t}, {tr}) n={n}: max|cuda - f64| "
                       f"{err:.3e}, launches block {rec['block']} relayout "
@@ -185,7 +201,8 @@ def _print_width(rec: dict) -> None:
           f"{rec['warmup_s']:.4f} s); enqueue {rec['enqueue_ms']:.2f} ms, to "
           f"sync {rec['to_sync_ms']:.2f} ms, D2H+join {rec['d2h_join_ms']:.2f}"
           f" ms; launches/run {rec['launches_per_run']}; max|amp - f64| "
-          f"{rec['max_abs_err_f64']:.3e}")
+          + ("not measured" if rec["max_abs_err_f64"] is None
+             else f"{rec['max_abs_err_f64']:.3e}") + f"; norm {rec['norm']:.8f}")
     if p["device_busy_ms"] is None:
         print("  profile: no device events seen; device busy not measured")
         return
@@ -197,7 +214,9 @@ def _print_width(rec: dict) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--widths", type=int, nargs="+", default=[18, 22])
+    ap.add_argument("--widths", type=int, nargs="+", default=[18, 22],
+                    choices=range(PF.MIN_QUBITS, PF.MAX_QUBITS + 1),
+                    metavar="N")
     ap.add_argument("--mono-as-mat", nargs="+", default=["auto"],
                     choices=["auto", "0", "1"])
     ap.add_argument("--runs", type=int, default=5)
@@ -232,6 +251,7 @@ def main(argv=None) -> int:
                 if not args.plan_only:
                     rec.update(run_width(n, args.runs))
                     _print_width(rec)
+                    _clear_caches()      # free the width's device tables
                 report["arms"].append(rec)
     finally:
         PF.MONO_AS_MAT = saved

@@ -5,7 +5,10 @@ plan and pack the benchmark circuit ``grover_like(n, 2445, 318)``; the
 fused ops, the plan's blocks and every ``materialize_entries`` array must
 agree.  n=18 and n=22 are the widths the port's main path runs (planning
 only here); n=12 with a 4-row tile and 1-row relayout blocks makes a small
-plan with both steered prologues and relayout entries.
+plan with both steered prologues and relayout entries.  From n = 23 both
+packages plan with the portfolio (``plan_prefetch_best`` over the plan cost
+model) and fold relayouts into the next block (scal mode 5): n = 23, 24,
+26 and 28 hold those plans, tables and cost estimates to the JAX package.
 """
 
 import numpy as np
@@ -13,12 +16,14 @@ import pytest
 
 from gpu_quantum_simulator_tpu import models as JM
 from gpu_quantum_simulator_tpu.config import SimulatorConfig as JConfig
+from gpu_quantum_simulator_tpu.engine import plancost as JPC
 from gpu_quantum_simulator_tpu.engine import prefetch as JPF
 from gpu_quantum_simulator_tpu.engine.simulator import _fuse_pipeline as j_fuse
 from gpu_quantum_simulator_tpu.passes.permute import plan_permutation as j_perm
 
 from gpu_quantum_simulator_tpu_torch import models as TM
 from gpu_quantum_simulator_tpu_torch.config import SimulatorConfig as TConfig
+from gpu_quantum_simulator_tpu_torch.engine import plancost as TPC
 from gpu_quantum_simulator_tpu_torch.engine import prefetch as TPF
 from gpu_quantum_simulator_tpu_torch.engine.simulator import _fuse_pipeline as t_fuse
 from gpu_quantum_simulator_tpu_torch.passes.permute import plan_permutation as t_perm
@@ -43,36 +48,27 @@ def tiles(monkeypatch):
         cache.clear()
 
 
-def _plan(models, config, pf, fuse, plan_permutation, n):
+def _plan(models, config, pf, fuse, plan_permutation, n, planner=None):
+    """Fuse and plan the benchmark circuit as the engine does; ``planner``
+    defaults to ``pf.plan_prefetch``, and from n = 23 the relayouts fold."""
     c = models.grover_like(n, 2445, 318)
     perm = plan_permutation(c)
     max_high, cap_mats, window = pf.resolve_prefetch_knobs(
         config(strategy="prefetch"), n, False)
     ops = fuse(c.relabeled(perm), 7, max_high=max_high, window=window)
-    plan = pf.plan_prefetch(ops, n, cap_mats=cap_mats,
-                            final_layout=np.argsort(perm))
+    plan = (planner or pf.plan_prefetch)(ops, n, cap_mats=cap_mats,
+                                         final_layout=np.argsort(perm))
     R2 = 1 << (n - pf.LOCAL_QUBITS)
     max_chunk = max(32, pf.DISPATCH_GRID_BUDGET // max(R2 // pf.tile_rows(n), 1))
     entries = pf.materialize_entries(
         plan.blocks, pf.CAP_STEPS, cap_mats, np.float32,
         single_class=cap_mats <= 4, max_chunk=max_chunk,
+        fold_relayout=pf.resolve_stream_relayout(n, False),
         mono_as_mat=plan.mono_as_mat)
     return c, ops, plan, entries
 
 
-@pytest.mark.parametrize("n,t,tr", [(18, 512, 64), (22, 512, 64), (12, 4, 1)])
-def test_port_plans_like_jax(tiles, n, t, tr):
-    tiles(t, tr)
-    jc, jops, jplan, jent = _plan(JM, JConfig, JPF, j_fuse, j_perm, n)
-    tc, tops, tplan, tent = _plan(TM, TConfig, TPF, t_fuse, t_perm, n)
-
-    assert [(g.name, g.qubits, g.params) for g in jc.gates] == \
-        [(g.name, g.qubits, g.params) for g in tc.gates]
-    assert len(jops) == len(tops)
-    for a, b in zip(jops, tops):
-        assert (a.kind, a.qubits) == (b.kind, b.qubits)
-        assert np.max(np.abs(a.u - b.u)) <= MAT_TOL
-
+def _assert_same_plans(jplan, tplan, jent, tent):
     assert len(jplan.blocks) == len(tplan.blocks)
     for a, b in zip(jplan.blocks, tplan.blocks):
         assert (a.kinds, a.midx, a.prologue) == (b.kinds, b.midx, b.prologue)
@@ -90,6 +86,21 @@ def test_port_plans_like_jax(tiles, n, t, tr):
         assert ja[0] == ta[0] and ja[1] == ta[1]      # capacity, chunk sizes
         for x, y in zip(ja[2:], ta[2:]):
             assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("n,t,tr", [(18, 512, 64), (22, 512, 64), (12, 4, 1)])
+def test_port_plans_like_jax(tiles, n, t, tr):
+    tiles(t, tr)
+    jc, jops, jplan, jent = _plan(JM, JConfig, JPF, j_fuse, j_perm, n)
+    tc, tops, tplan, tent = _plan(TM, TConfig, TPF, t_fuse, t_perm, n)
+
+    assert [(g.name, g.qubits, g.params) for g in jc.gates] == \
+        [(g.name, g.qubits, g.params) for g in tc.gates]
+    assert len(jops) == len(tops)
+    for a, b in zip(jops, tops):
+        assert (a.kind, a.qubits) == (b.kind, b.qubits)
+        assert np.max(np.abs(a.u - b.u)) <= MAT_TOL
+    _assert_same_plans(jplan, tplan, jent, tent)
 
     # the widths exercise what the slice must run
     assert any(b.prologue is not None for b in tplan.blocks)
@@ -138,3 +149,67 @@ def test_host_build_dir_is_keyed_by_flags(monkeypatch):
     monkeypatch.setattr(native, "_build_dir", None)
     monkeypatch.setattr(native, "HOST_CXXFLAGS", native.HOST_CXXFLAGS + ["-g"])
     assert native.host_build_dir() != first
+
+
+@pytest.mark.parametrize("n", [23, 24, 26, 28])
+def test_portfolio_and_fold_plan_like_jax(n):
+    """The n >= 23 path: the portfolio's choice, the folded (mode 5) rows
+    with their sigma slots, and every table equal the JAX package's; the
+    port's PrefetchProgram planner (``plan_circuit``) is the portfolio."""
+    assert TPF.PLAN_PORTFOLIO == JPF.PLAN_PORTFOLIO
+    assert TPF.PORTFOLIO_MIN_QUBITS == JPF.PORTFOLIO_MIN_QUBITS
+    jc, jops, jplan, jent = _plan(JM, JConfig, JPF, j_fuse, j_perm, n,
+                                  JPF.plan_prefetch_best)
+    tc, tops, tplan, tent = _plan(TM, TConfig, TPF, t_fuse, t_perm, n,
+                                  TPF.plan_circuit)
+    _assert_same_plans(jplan, tplan, jent, tent)
+
+    rows = np.concatenate([e[2] for e in tent])
+    soff = 4 + 2 * TPF.CAP_STEPS
+    folded = rows[rows[:, 1] == 5]
+    mrow = n - TPF.LOCAL_QUBITS - int(np.log2(TPF.relayout_rows(n)))
+    assert len(folded) > 0 and (rows[:, 1] == 3).sum() < tplan.num_relayouts
+    assert len(folded) + (rows[:, 1] == 3).sum() == tplan.num_relayouts
+    for row in folded:                  # sigma: a permutation of the bits
+        assert sorted(row[soff : soff + mrow]) == list(range(mrow))
+        assert not row[soff + mrow :].any() and row[0] > 0
+
+
+@pytest.mark.parametrize("n", [23, 24, 26, 28])
+def test_plancost_estimates_like_jax(n):
+    """Per portfolio depth, fold on and off: the port's cost model prices
+    the port's plan as the JAX model prices the JAX plan."""
+    for name in ("BASE_STEERED", "BASE_PLAIN", "BASE_SPLIT", "MAT", "PERM",
+                 "MONO", "RELAYOUT", "FOLD_IN", "XSWAP_SPLIT", "DISPATCH_S"):
+        assert getattr(TPC, name) == getattr(JPC, name), name
+    assert [TPC.tswap_us(k) for k in range(1, 10)] == \
+        [JPC.tswap_us(k) for k in range(1, 10)]
+    jc = JM.grover_like(n, 2445, 318)
+    tc = TM.grover_like(n, 2445, 318)
+    knobs = TPF.resolve_prefetch_knobs(TConfig(strategy="prefetch"), n, False)
+    jperm, tperm = j_perm(jc), t_perm(tc)
+    jops = j_fuse(jc.relabeled(jperm), 7, max_high=knobs[0], window=knobs[2])
+    tops = t_fuse(tc.relabeled(tperm), 7, max_high=knobs[0], window=knobs[2])
+    for waves in TPF.PLAN_PORTFOLIO:
+        jplan = JPF.plan_prefetch(jops, n, cap_mats=knobs[1],
+                                  final_layout=np.argsort(jperm),
+                                  lookahead_waves=waves)
+        tplan = TPF.plan_prefetch(tops, n, cap_mats=knobs[1],
+                                  final_layout=np.argsort(tperm),
+                                  lookahead_waves=waves)
+        for fold in (False, True):
+            want, wacc = JPC.estimate_plan(jplan, n, fold_relayout=fold)
+            got, gacc = TPC.estimate_plan(tplan, n, fold_relayout=fold)
+            assert abs(got - want) <= 1e-12 * abs(want), (waves, fold)
+            assert gacc["dispatch_parts"] == wacc["dispatch_parts"]
+
+
+def test_resolve_stream_relayout_refuses_inplace():
+    """The fold is for flat plans from n = 23 only; an in-place plan never
+    folds, at any width (the JAX package's forced fold corrupted in-place
+    amplitudes: ROADMAP queue C)."""
+    assert TPF.STREAM_RELAYOUT_MIN_QUBITS == JPF.STREAM_RELAYOUT_MIN_QUBITS
+    for n in range(TPF.MIN_QUBITS, TPF.MAX_QUBITS + 1):
+        assert TPF.resolve_stream_relayout(n, inplace=True) is False
+        assert TPF.resolve_stream_relayout(n, False) is (n >= 23)
+        assert TPF.resolve_stream_relayout(n) == JPF.resolve_stream_relayout(n)

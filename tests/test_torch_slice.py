@@ -135,11 +135,12 @@ def test_auto_resolves_to_prefetch():
     assert res.strategy == "prefetch"
 
 
-@pytest.mark.parametrize("kind", ["n8", "n23", "high", "mxu", "inplace"])
+@pytest.mark.parametrize("kind", ["n8", "n30", "default", "mxu", "inplace"])
 def test_outside_the_slice_raises(kind):
-    n = {"n8": 8, "n23": 23}.get(kind, 10)
+    # n = 30 runs in place by default, as in the JAX package (not ported)
+    n = {"n8": 8, "n30": 30}.get(kind, 10)
     c = T.models.grover_like(n, 40, 1)
-    kw = {"high": dict(precision="high"), "mxu": dict(strategy="mxu"),
+    kw = {"default": dict(precision="default"), "mxu": dict(strategy="mxu"),
           "inplace": dict(prefetch_inplace=True)}.get(kind, {})
     cfg = T.SimulatorConfig(**{"strategy": "prefetch", **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
