@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``gpu_quantum_simulator_tpu_torch`` (never JAX, never the JAX
-package) through its main path on the first CUDA device, in phases; any
+package) through its main paths on the first CUDA device, in phases; any
 failure raises and the script exits non-zero:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
@@ -12,25 +12,41 @@ failure raises and the script exits non-zero:
 3. hold each kernel against its plain torch version on the card at the
    main path's shapes — the block kernel at n=18 on synthetic blocks
    covering mat, mono, perm v=0..6 and tswap k=1..9 in plain and steered
-   form (max |diff| <= 1e-5), the relayout kernel at n=22 with a random
-   sigma (bit-exact), the folded-relayout input (scal mode 5) at n=24 with
-   a random sigma over the 10 row-block bits and a mat, tswap or perm
-   first step (gather-first bit-exact, mat-first <= 1e-5, both rungs), and
-   the "high" rung's mat step (bf16 tensor cores) at n=24 and n=28
-   (<= 1e-5) — and time each on the device (CUDA events);
-4. run ``Simulator(SimulatorConfig(strategy="prefetch"|"auto"),
-   device="cuda").run_detailed`` on ``grover_like(n, 2445, 318)``:
-   n=18, n=22 and n=23 (one warm-up, five timed runs) against the native
-   f64 reference (max |diff| <= 1e-6,
-   norm within 1e-4 of 1); n=24 at the "high" rung "auto" resolves to (one
-   warm-up, five timed runs) against the port's own "highest" run (<= 4e-6);
-   n=28 (one warm-up, three timed runs; norm) and its mirror circuit
-   ``c.compose(c.inverse())`` at "highest", whose |0...0> amplitude must be
-   within 1e-5 of 1.  Every width's launch counts are set to 0 just before
-   it runs and read just after: block launches > 0 at every width, relayout
-   launches equal to the plan's standalone relayouts (scal mode 3) per run,
-   folded first launches > 0 from n=23 and "high" mat launches > 0 at 24
-   and 28.
+   form (max |diff| <= 1e-5) and its fp32 mat step at n=22, the relayout
+   kernel at n=22 with a random sigma (bit-exact), the folded-relayout
+   input (scal mode 5) at n=24 with a random sigma over the 10 row-block
+   bits and a mat, tswap or perm first step (gather-first bit-exact,
+   mat-first <= 1e-5, both rungs), the "high" rung's mat step (bf16 tensor
+   cores) at n=24 and n=28 (<= 1e-5), and the lane-layout chain kernel at
+   n=24 on a normalized state: chains of P = 1 and 8 products at both
+   rungs (<= 1e-7; in place bit-exact) and one product as
+   ``apply_block128`` (<= 1e-7) — and time each on the device (CUDA
+   events) beside its bound and, where one exists, one PyTorch call
+   computing the same function.  A bound counts the least work the
+   function needs: a complex product as three real products (Karatsuba,
+   as the TPU kernels compute it), each three bf16 passes at "high";
+4. run each strategy's ``Simulator(..., device="cuda").run_detailed`` on
+   ``grover_like(n, 2445, 318)``, each width's launch counts set to 0 just
+   before it runs and read just after, checked against its plan.
+   prefetch ("prefetch"|"auto"): n=18, 22 and 23 (one warm-up, five timed
+   runs) against the native f64 reference (computed once per width and
+   shared by every strategy; max |diff| <= 1e-6, norm within 1e-4 of 1);
+   n=24 at the "high" rung "auto" resolves to against the port's own
+   "highest" run (<= 4e-6); n=28 (one warm-up, three timed runs; norm) and
+   its mirror circuit ``c.compose(c.inverse())`` at "highest", whose
+   |0...0> amplitude must be within 1e-5 of 1.  Block launches > 0,
+   relayout launches equal to the plan's standalone relayouts (scal mode
+   3) per run, folded first launches > 0 from n=23, "high" mat launches > 0
+   at 24 and 28.  mxu (the default config): n=18 and 22 against the f64
+   reference (<= 1e-6); n=24 "auto" ("high") against its own "highest" run
+   (> 0, <= 4e-6), that "highest" run against the prefetch one (<= 1e-6);
+   the low-only circuit (600 gates on qubits 0..6) at n=24 with
+   max_fused_qubits=3 (nine chains of P = 8 per run: launches equal the
+   plan's kh0 runs) against the same circuit at max_fused_qubits=7 (one
+   P = 1 chain) at "highest" (<= 1e-6) and "high" (the rung's bar scaled
+   to the state's peak amplitude); ``Simulator(device="cuda")`` with the
+   default config.  pallas: n=18 and 22 against the f64 reference
+   (<= 1e-6), kernel-9 launches equal to the plan's mat items per run.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Matmuls in plain torch run in IEEE
@@ -51,20 +67,38 @@ AMP_TOL = 1e-6        # main path vs the f64 native reference
 NORM_TOL = 1e-4
 HIGH_TOL = 4e-6       # "high" vs "highest" (the JAX rung's bar,
                       # tests/test_precision_auto.py)
+CHAIN_TOL = 1e-7      # chain kernel vs its plain version on a normalized
+                      # n=24 state, both rungs: the same arithmetic in
+                      # another order (readings <= 1.2e-8 on an H100); a
+                      # dropped bf16 pass errs by ~1e-6
+HIGH_BAR_PEAK = 0.0486  # peak |amp| of grover_like(12, 600, 41), the state
+                        # HIGH_TOL was set on: the bar scales with a state's
+                        # peak (tests/test_torch_wide.py high_tol)
 MIRROR_TOL = 1e-5     # |<0|C^-1 C|0>| at "highest", n=28
 REF_WIDTHS = (18, 22, 23)   # main path held to the f64 reference
+ENGINE_REF_WIDTHS = (18, 22)  # mxu and pallas against the same reference
 HIGH_WIDTH = 24             # "high" held to the port's own "highest"
 MIRROR_WIDTH = 28           # timed at "high"; mirror circuit at "highest"
 FOLD_WIDTH = 24             # phase 3 geometry of the folded block
+WIDE_WIDTH = 24             # phase 3 geometry of the chain kernel
+LOW_ONLY = (24, 600, 3)     # (n, gates, seed) of the low-only circuit
 HIGH_STEPS = ((24, 20), (28, 3))   # (n, timing reps) of the "high" mat step
 TIMED_RUNS = 5
+ENGINE_RUNS = 3             # timed runs of mxu / pallas per width
 SPIN_CYCLES = 200_000_000   # ~0.1 s at 2 GHz: covers queuing 20 calls
+# published H100 SXM peaks at 700 W (NVIDIA data sheet), for the bounds
+FP32_FLOPS = 67e12          # CUDA cores
+BF16_FLOPS = 989e12         # dense tensor cores
+HBM_BYTES = 3.35e12
 BLOCK_SRC = "gpu_quantum_simulator_tpu_torch/csrc/prefetch_block.cu"
 RELAYOUT_SRC = "gpu_quantum_simulator_tpu_torch/csrc/relayout.cu"
 HIGH_SRC = "gpu_quantum_simulator_tpu_torch/csrc/mat_high.cu"
+WIDE_SRC = "gpu_quantum_simulator_tpu_torch/csrc/wide_chain.cu"
 BLOCK_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1214"
 RELAYOUT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1586"
 STREAM_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1376"
+KH0_TPU = "gpu_quantum_simulator_tpu/engine/wide.py:43"
+BLOCK128_TPU = "gpu_quantum_simulator_tpu/ops/pallas_kernels.py:54"
 
 
 def norm2(pair):
@@ -96,6 +130,49 @@ def device_ms(torch, fn, reps=20, rounds=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def bound(flops=0.0, nbytes=0.0, rate=FP32_FLOPS):
+    """(bound_ms, bound_by): the least time for the work on the card, the
+    larger of its operations over the peak rate and its bytes over HBM."""
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def record(name, src, tpu, err, ms, plain_ms, bnd, library_ms):
+    return {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+
+def bit_permute(x, src_of):
+    """One copy of ``x`` (..., 2^m) whose flat bit b is bit ``src_of[b]``
+    of the input: a reshape, one ``permute`` and ``contiguous`` — the
+    library call beside the relayout and folded-input kernels.  Runs of
+    bits that move together share a dim, so the view stays low-rank."""
+    m = len(src_of)
+    runs = []
+    b = m - 1
+    while b >= 0:
+        src, width = src_of[b], 1
+        while b - width >= 0 and src_of[b - width] == src - width:
+            width += 1
+        runs.append((src - width + 1, width))
+        b -= width
+    order = sorted(range(len(runs)), key=lambda r: -runs[r][0])
+    lead = x.dim() - 1
+    v = x.reshape(*x.shape[:-1], *(1 << runs[r][1] for r in order))
+    perm = [order.index(r) + lead for r in range(len(runs))]
+    return v.permute(*range(lead), *perm).reshape(x.shape)
+
+
+def relayout_bits(n, tr, sigma):
+    """src_of for the relayout: output bit b0 + sigma[a] is input b0 + a."""
+    b0 = int(np.log2(tr)) + 8
+    src = list(range(n))
+    for a, s in enumerate(sigma):
+        src[b0 + int(s)] = b0 + a
+    return src
 
 
 def random_unitary(rng, d):
@@ -186,12 +263,20 @@ def check_block_kernel(torch, rng):
     ms = device_ms(torch, lambda: run_block(scal[0], re, im, *args,
                                           scratch=scratch))
     plain_ms = device_ms(torch, lambda: run_block_plain(scal[0], re, im, *args))
-    print(f"block kernel n={n}, {int(scal[0][0])}-step block: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-    mat_step_timing(torch, PF, rng, run_block, run_block_plain)
-    return {"name": "prefetch_block", "route": "cuda", "source": BLOCK_SRC,
-            "replaces": BLOCK_TPU, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+    # the block's least work: each mat step three real (R2, 256) @
+    # (256, 256) products (Karatsuba) and its two tables, each mono step a
+    # column gather and two table rows, the state read and written once
+    kinds = [int(k) for k in scal[0][4 : 4 + int(scal[0][0])]]
+    mats, monos = kinds.count(0), kinds.count(logt + 2)
+    bnd = bound(6.0 * R2 * 256 * 256 * mats,
+                16.0 * R2 * 256 + mats * 2 * 256 * 256 * 4
+                + monos * 3 * 256 * 4)
+    print(f"block kernel n={n}, {len(kinds)}-step block ({mats} mat, "
+          f"{monos} mono): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    blk = record("prefetch_block", BLOCK_SRC, BLOCK_TPU, err, ms, plain_ms,
+                 bnd, None)
+    return blk, mat_step_timing(torch, PF, rng, run_block, run_block_plain)
 
 
 def mat_step_timing(torch, PF, rng, run_block, run_block_plain):
@@ -218,10 +303,25 @@ def mat_step_timing(torch, PF, rng, run_block, run_block_plain):
     ms = device_ms(torch, lambda: run_block(scal[0], re, im, *args,
                                           scratch=scratch))
     plain_ms = device_ms(torch, lambda: run_block_plain(scal[0], re, im, *args))
-    flop = 8.0 * R2 * 256 * 256
+    # one fp32 torch.matmul computing the same step: [re | im] @ [[A, B],
+    # [-B, A]] = [re A - im B | re B + im A]
+    x = torch.cat([re, im], 1)
+    a, b = a_tab[0, 0], b_tab[0, 0]          # the entry's slot 0
+    w = torch.cat([torch.cat([a, b], 1), torch.cat([-b, a], 1)], 0)
+    lib = torch.matmul(x, w)
+    torch.cuda.synchronize()
+    e_lib = max_diff((lib[:, :256], lib[:, 256:]), got)
+    if not e_lib <= BLOCK_TOL:
+        raise AssertionError(f"mat step n=22 library call: {e_lib}")
+    library_ms = device_ms(torch, lambda: torch.matmul(x, w))
+    flop = 6.0 * R2 * 256 * 256      # three real products (Karatsuba)
+    bnd = bound(flop, 16.0 * R2 * 256 + 2 * 256 * 256 * 4)
     print(f"mat step n={n}: kernel {ms:.4f} ms ({flop / ms / 1e9:.2f} "
           f"TFLOP/s), plain {plain_ms:.4f} ms ({flop / plain_ms / 1e9:.2f} "
-          f"TFLOP/s), max|diff| {e:.3e}")
+          f"TFLOP/s), fp32 torch.matmul {library_ms:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), max|diff| {e:.3e}")
+    return record("prefetch_mat_step", BLOCK_SRC, BLOCK_TPU, e, ms, plain_ms,
+                  bnd, library_ms)
 
 
 def check_relayout_kernel(torch, rng):
@@ -244,12 +344,20 @@ def check_relayout_kernel(torch, rng):
     out = (torch.empty_like(re), torch.empty_like(im))
     ms = device_ms(torch, lambda: run_relayout(sigma, re, im, tr, out=out))
     plain_ms = device_ms(torch, lambda: run_relayout_plain(sigma, re, im, tr))
+    pair = torch.stack([re.reshape(-1), im.reshape(-1)])
+    src = relayout_bits(n, tr, sigma)
+    lib = bit_permute(pair, src)
+    if not (torch.equal(lib[0], got[0].reshape(-1))
+            and torch.equal(lib[1], got[1].reshape(-1))):
+        raise AssertionError("relayout: the permute-copy differs")
+    library_ms = device_ms(torch, lambda: bit_permute(pair, src))
     gbs = 4 * re.numel() * 4 / (ms * 1e-3) / 1e9
+    bnd = bound(0.0, 16.0 * re.numel())
     print(f"relayout kernel n={n} sigma={sigma.tolist()}: bit-exact; kernel "
-          f"{ms:.4f} ms ({gbs:.0f} GB/s), plain {plain_ms:.4f} ms")
-    return {"name": "relayout", "route": "cuda", "source": RELAYOUT_SRC,
-            "replaces": RELAYOUT_TPU, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain_ms}
+          f"{ms:.4f} ms ({gbs:.0f} GB/s), plain {plain_ms:.4f} ms, "
+          f"permute-copy {library_ms:.4f} ms, bound {bnd[0]:.4f} ms")
+    return record("relayout", RELAYOUT_SRC, RELAYOUT_TPU, 0.0, ms, plain_ms,
+                  bnd, library_ms)
 
 
 def folded_blocks(PF, rng, logt, sigma):
@@ -333,12 +441,26 @@ def check_folded_block(torch, rng):
     pair_ms = device_ms(torch, lambda: run_block(
         plain_row, *run_relayout(sigma, re, im, tr, out=spare), *args,
         scratch=scratch))
+    # the launch is one bit permutation: sigma over the row-block bits,
+    # then flat bits 7 and 7 + logt exchanged (the tswap)
+    rel = relayout_bits(n, tr, sigma)
+    swap = list(range(n))
+    swap[7], swap[7 + logt] = 7 + logt, 7
+    src = [rel[swap[b]] for b in range(n)]
+    pair = torch.stack([re.reshape(-1), im.reshape(-1)])
+    got = run_block(scal[i], re, im, *args, scratch=scratch, **kw)
+    lib = bit_permute(pair, src)
+    if not (torch.equal(lib[0], got[0].reshape(-1))
+            and torch.equal(lib[1], got[1].reshape(-1))):
+        raise AssertionError("folded tswap: the permute-copy differs")
+    library_ms = device_ms(torch, lambda: bit_permute(pair, src))
+    bnd = bound(0.0, 16.0 * re.numel())
     print(f"folded tswap launch n={n}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, unfolded relayout + tswap kernels "
-          f"{pair_ms:.4f} ms")
-    return {"name": "stream_block_folded_input", "route": "cuda",
-            "source": BLOCK_SRC, "replaces": STREAM_TPU, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms}
+          f"{pair_ms:.4f} ms, permute-copy {library_ms:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms")
+    return record("stream_block_folded_input", BLOCK_SRC, STREAM_TPU, err, ms,
+                  plain_ms, bnd, library_ms)
 
 
 def check_high_mat(torch, rng):
@@ -384,33 +506,134 @@ def check_high_mat(torch, rng):
             scal[0], re, im, *args, scratch=scratch), reps=reps)
         plain_ms = device_ms(torch, lambda: run_block_plain(
             scal[0], re, im, *args, precision="high"), reps=reps)
-        flop = 8.0 * R2 * 256 * 256      # one complex product, as fp32 FLOP
+        flop = 6.0 * R2 * 256 * 256      # three real products (Karatsuba)
+        # 9 bf16 products (3 real x 3 passes), the state read and written
+        # once, four bf16 tables
+        bnd = bound(3 * flop, 16.0 * R2 * 256 + 4 * 256 * 256 * 2,
+                    BF16_FLOPS)
         print(f"high mat step n={n}: kernel {ms:.4f} ms ({3 * flop / ms / 1e9:.1f}"
               f" bf16 TFLOP/s), plain {plain_ms:.4f} ms, fp32 kernel "
-              f"{ms32:.4f} ms; max|diff| vs plain {e:.3e}, vs fp32 step "
-              f"{e32:.3e}")
+              f"{ms32:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); max|diff| "
+              f"vs plain {e:.3e}, vs fp32 step {e32:.3e}")
         if rec is None:
-            rec = {"name": "mat_step_high", "route": "cuda",
-                   "source": HIGH_SRC, "replaces": STREAM_TPU,
-                   "max_abs_err": e, "ms": ms, "plain_ms": plain_ms}
+            # no PyTorch call computes the 3-pass bf16 product
+            rec = record("mat_step_high", HIGH_SRC, STREAM_TPU, e, ms,
+                         plain_ms, bnd, None)
         rec["max_abs_err"] = max(rec["max_abs_err"], e)
         del re, im, scratch, got
         torch.cuda.empty_cache()
     return rec
 
 
+def check_wide_chain(torch, rng):
+    """The lane-layout chain kernel at n=24 on a normalized state: P = 1
+    and 8 products at both rungs (kernel 7) and one product as
+    ``apply_block128`` (kernel 9).  Library call: P complex64
+    torch.matmul (none for the 3-pass bf16 rung)."""
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+
+    n = WIDE_WIDTH
+    R = 1 << (n - 7)
+    re = torch.randn(R, 128, device="cuda")
+    im = torch.randn(R, 128, device="cuda")
+    scale = float(torch.sqrt((re.double() ** 2).sum() + (im.double() ** 2).sum()))
+    re /= scale
+    im /= scale
+    x = torch.complex(re, im)
+    recs = {}
+    for P in (1, 8):
+        us = [random_unitary(rng, 128) for _ in range(P)]
+        tabs = torch.from_numpy(np.stack([np.stack([u.real, u.imag])
+                                          for u in us]).astype(np.float32)).cuda()
+        mt = torch.from_numpy(np.stack([u.T for u in us]).astype(np.complex64)).cuda()
+
+        def library(mt=mt):
+            y = x
+            for j in range(mt.shape[0]):
+                y = torch.matmul(y, mt[j])
+            return y
+
+        lib = library()
+        library_ms = device_ms(torch, library, reps=10)
+        for prec in ("highest", "high"):
+            w16 = KW.split_wide_tables(tabs) if prec == "high" else None
+            got = KW.kh0_chain(re, im, tabs, prec, w16=w16)
+            want = KW.kh0_chain_plain(re, im, tabs, prec)
+            inplace = (re.clone(), im.clone())
+            KW.kh0_chain(*inplace, tabs, prec, out=inplace, w16=w16)
+            torch.cuda.synchronize()
+            e = max_diff(got, want)
+            e_lib = max_diff(got, (lib.real, lib.imag))
+            if not e <= CHAIN_TOL:
+                raise AssertionError(f"chain P={P} {prec}: {e} > {CHAIN_TOL}")
+            if not (torch.equal(inplace[0], got[0])
+                    and torch.equal(inplace[1], got[1])):
+                raise AssertionError(f"chain P={P} {prec}: in place differs")
+            out = (torch.empty_like(re), torch.empty_like(im))
+            ms = device_ms(torch, lambda: KW.kh0_chain(
+                re, im, tabs, prec, out=out, w16=w16), reps=10)
+            plain_ms = device_ms(torch, lambda: KW.kh0_chain_plain(
+                re, im, tabs, prec), reps=5)
+            flop = 6.0 * R * 128 * 128 * P      # three real products each
+            nbytes = 16.0 * R * 128
+            if prec == "high":
+                bnd = bound(3 * flop, nbytes + P * 4 * 128 * 128 * 2,
+                            BF16_FLOPS)
+            else:
+                bnd = bound(flop, nbytes + P * 2 * 128 * 128 * 4)
+            print(f"chain kernel n={n} P={P} {prec}: max|diff| vs plain "
+                  f"{e:.3e}, vs complex64 matmul {e_lib:.3e}; in place "
+                  f"bit-exact; kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
+                  f"TFLOP/s, Karatsuba count), plain {plain_ms:.4f} ms, "
+                  f"complex64 torch.matmul x{P} {library_ms:.4f} ms, bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]})")
+            if P == 8:
+                name = "wide_chain_kh0" + ("_high" if prec == "high" else "")
+                recs[prec] = record(name, WIDE_SRC, KH0_TPU, e, ms, plain_ms,
+                                    bnd, library_ms if prec == "highest"
+                                    else None)
+            del got, want, inplace, out
+        if P == 1:
+            got = KW.apply_block128(re, im, tabs[0, 0], tabs[0, 1])
+            want = KW.apply_block128_plain(re, im, tabs[0, 0], tabs[0, 1])
+            torch.cuda.synchronize()
+            e = max_diff(got, want)
+            if not e <= CHAIN_TOL:
+                raise AssertionError(f"apply_block128: {e} > {CHAIN_TOL}")
+            out = (torch.empty_like(re), torch.empty_like(im))
+            ms = device_ms(torch, lambda: KW.apply_block128(
+                re, im, tabs[0, 0], tabs[0, 1], out=out), reps=10)
+            plain_ms = device_ms(torch, lambda: KW.apply_block128_plain(
+                re, im, tabs[0, 0], tabs[0, 1]), reps=10)
+            bnd = bound(6.0 * R * 128 * 128,
+                        16.0 * R * 128 + 2 * 128 * 128 * 4)
+            print(f"apply_block128 n={n}: max|diff| vs plain {e:.3e}; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, complex64 "
+                  f"torch.matmul {library_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]})")
+            recs["block128"] = record("apply_block128", WIDE_SRC,
+                                      BLOCK128_TPU, e, ms, plain_ms, bnd,
+                                      library_ms)
+            del got, want, out
+    return recs["highest"], recs["high"], recs["block128"]
+
+
 def launch_counts():
-    from gpu_quantum_simulator_tpu_torch.kernels import block
+    from gpu_quantum_simulator_tpu_torch.kernels import block, wide
     from gpu_quantum_simulator_tpu_torch.kernels.relayout import run_relayout
 
-    return {**block.run_block.launches, "relayout": run_relayout.launches}
+    return {**block.run_block.launches, "relayout": run_relayout.launches,
+            "kh0": wide.kh0_chain.launches["highest"],
+            "kh0_high": wide.kh0_chain.launches["high"],
+            "block128": wide.apply_block128.launches}
 
 
 def reset_counts():
-    from gpu_quantum_simulator_tpu_torch.kernels import block
+    from gpu_quantum_simulator_tpu_torch.kernels import block, wide
     from gpu_quantum_simulator_tpu_torch.kernels.relayout import run_relayout
 
     block.reset_launches()
+    wide.reset_launches()
     run_relayout.launches = 0
 
 
@@ -466,15 +689,9 @@ def check_counts(n, counts, modes, runs, high):
                              f"{counts['mat_high']} at high={high}")
 
 
-def run_main_path(torch, T):
+def run_prefetch_path(torch, T, refs, add):
+    """The prefetch strategy; returns the n=24 "highest" state."""
     from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
-    from gpu_quantum_simulator_tpu_torch.ref.native import simulate_native
-
-    totals: dict = {}
-
-    def add(counts):
-        for k, v in counts.items():
-            totals[k] = totals.get(k, 0) + v
 
     prefetch = T.Simulator(T.SimulatorConfig(strategy="prefetch"),
                            device="cuda")
@@ -484,8 +701,7 @@ def run_main_path(torch, T):
         c = T.models.grover_like(n, 2445, 318)
         res, secs, counts, modes = drive(torch, PF, sim, c, TIMED_RUNS)
         add(counts)
-        want = simulate_native(c)
-        err = float(np.max(np.abs(res.state - want)))
+        err = float(np.max(np.abs(res.state - refs[n])))
         norm = float(np.linalg.norm(res.state))
         report(n, res, secs, counts, f"max|amp - f64| {err:.3e}; norm "
                f"{norm:.8f}; scal rows by mode {modes}")
@@ -494,7 +710,7 @@ def run_main_path(torch, T):
         if not abs(norm - 1.0) <= NORM_TOL:
             raise AssertionError(f"n={n}: norm {norm}")
         check_counts(n, counts, modes, TIMED_RUNS + 1, False)
-        del res, want
+        del res
 
     # n=24: "auto" resolves to the "high" rung; held to the port's own
     # "highest" run of the same circuit
@@ -518,6 +734,7 @@ def run_main_path(torch, T):
         raise AssertionError(f"n={n}: norm {norm}")
     check_counts(n, counts, modes, TIMED_RUNS + 1, True)
     check_counts(n, ref_counts, ref_modes, 1, False)
+    highest24 = ref.state
     del res, ref
 
     # n=28: timed at "high"; its mirror circuit at "highest" must return
@@ -549,6 +766,183 @@ def run_main_path(torch, T):
     check_counts(n, back_counts, back_modes, 1, False)
     PF._RUN_CACHE.clear()
     PF._PROGRAM_CACHE.clear()
+    return highest24
+
+
+def drive_engine(torch, sim, c, runs, cache):
+    """drive() for the mxu and pallas engines: one warm-up and ``runs``
+    timed run_detailed on a fresh plan (``cache``: the engine's plan cache,
+    holding just this circuit's plan afterwards), counts set to 0 just
+    before and read just after."""
+    cache.clear()
+    torch.cuda.empty_cache()
+    reset_counts()
+    res = sim.run_detailed(c)
+    secs = [res.seconds]
+    for _ in range(runs):
+        res = sim.run_detailed(c)
+        secs.append(res.seconds)
+    return res, secs, launch_counts()
+
+
+def check_only(n, counts, runs, **want):
+    """Each counted kind launched ``want[kind]`` times per run, every other
+    kind never."""
+    for kind, got in counts.items():
+        if got != runs * want.get(kind, 0):
+            raise AssertionError(f"n={n}: {got} {kind} launches in {runs} "
+                                 f"runs, plan {want}")
+
+
+def low_only(T, n, gates, seed):
+    """tests/test_precision_auto.py:79-91 at ``gates`` gates: qubits 0..6
+    only, so every fused block is kh = 0."""
+    rng = np.random.default_rng(seed)
+    c = T.Circuit(n)
+    for _ in range(gates):
+        kind = rng.integers(3)
+        q = int(rng.integers(7))
+        if kind == 0:
+            c.h(q)
+        elif kind == 1:
+            c.rz(float(rng.uniform(-3, 3)), q)
+        else:
+            r = int(rng.integers(7))
+            if r != q:
+                c.cx(q, r)
+    return c
+
+
+def run_mxu_path(torch, T, refs, highest24, add):
+    from gpu_quantum_simulator_tpu_torch.engine import simulator as S
+
+    def mxu(**kw):
+        return T.Simulator(T.SimulatorConfig(strategy="mxu", **kw),
+                           device="cuda")
+
+    def plan():
+        (ops, prog), = S._MXU_PLAN_CACHE.values()
+        return prog, [st[2] for seg in prog.segments for st in seg.steps
+                      if st[0] == "kh0"]
+
+    kh0 = {"highest": "kh0", "high": "kh0_high"}
+    runs = ENGINE_RUNS + 1
+    for n in ENGINE_REF_WIDTHS:
+        c = T.models.grover_like(n, 2445, 318)
+        res, secs, counts = drive_engine(torch, mxu(), c, ENGINE_RUNS,
+                                         S._MXU_PLAN_CACHE)
+        add(counts)
+        prog, ps = plan()
+        err = float(np.max(np.abs(res.state - refs[n])))
+        report(n, res, secs, counts, f"mxu; max|amp - f64| {err:.3e}; kh0 "
+               f"runs {ps}")
+        if not err <= AMP_TOL:
+            raise AssertionError(f"mxu n={n}: max|amp diff| {err}")
+        check_only(n, counts, runs, kh0=prog.num_kh0_runs)
+        if n == ENGINE_REF_WIDTHS[0]:
+            # the default config: Simulator(device="cuda") runs mxu
+            dflt = T.Simulator(device="cuda").run_detailed(c)
+            e = float(np.max(np.abs(dflt.state - refs[n])))
+            print(f"Simulator(device='cuda') n={n}: strategy "
+                  f"{dflt.strategy}, {dflt.seconds:.4f} s, max|amp - f64| "
+                  f"{e:.3e}")
+            if dflt.strategy != "mxu" or not e <= AMP_TOL:
+                raise AssertionError("the default config did not run mxu")
+        del res
+
+    # n=24: "auto" -> "high", against its own "highest" run, which is held
+    # to the prefetch engine's "highest" state
+    n = HIGH_WIDTH
+    c = T.models.grover_like(n, 2445, 318)
+    res, secs, counts = drive_engine(torch, mxu(), c, ENGINE_RUNS,
+                                     S._MXU_PLAN_CACHE)
+    add(counts)
+    prog, ps = plan()
+    check_only(n, counts, runs, kh0_high=prog.num_kh0_runs)
+    ref, ref_secs, ref_counts = drive_engine(
+        torch, mxu(precision="highest"), c, 0, S._MXU_PLAN_CACHE)
+    add(ref_counts)
+    err = float(np.max(np.abs(res.state - ref.state)))
+    e_pf = float(np.max(np.abs(ref.state - highest24)))
+    norm = float(np.linalg.norm(res.state))
+    report(n, res, secs, counts, f"mxu 'high'; vs its 'highest' run "
+           f"{err:.3e} ('highest' run {ref_secs[0]:.4f} s); 'highest' vs "
+           f"prefetch 'highest' {e_pf:.3e}; norm {norm:.8f}; kh0 runs {ps}")
+    if not 0.0 < err <= HIGH_TOL:
+        raise AssertionError(f"mxu n={n}: 'high' vs 'highest' {err}")
+    if not e_pf <= AMP_TOL:
+        raise AssertionError(f"mxu n={n}: 'highest' vs prefetch {e_pf}")
+    if not abs(norm - 1.0) <= NORM_TOL:
+        raise AssertionError(f"mxu n={n}: norm {norm}")
+    del res, ref
+
+    # the low-only circuit: max_fused_qubits=3 gives chains of P = 8,
+    # held to the same circuit at max_fused_qubits=7 (one P = 1 chain)
+    n, gates, seed = LOW_ONLY
+    c = low_only(T, n, gates, seed)
+    for prec in ("highest", "high"):
+        states = {}
+        for k in (3, 7):
+            res, secs, counts = drive_engine(
+                torch, mxu(precision=prec, max_fused_qubits=k), c, 1,
+                S._MXU_PLAN_CACHE)
+            add(counts)
+            prog, ps = plan()
+            report(n, res, secs, counts, f"mxu low-only {prec} "
+                   f"max_fused_qubits={k}: kh0 runs {ps}")
+            check_only(n, counts, 2, **{kh0[prec]: prog.num_kh0_runs})
+            if ps != ([8] * 9 if k == 3 else [1]):
+                raise AssertionError(f"low-only k={k}: kh0 runs {ps}")
+            states[k] = res.state
+        err = float(np.max(np.abs(states[3] - states[7])))
+        peak = float(np.max(np.abs(states[7])))
+        tol = AMP_TOL if prec == "highest" else HIGH_TOL * max(
+            1.0, peak / HIGH_BAR_PEAK)
+        print(f"mxu low-only n={n} {prec}: nine P=8 chains vs one P=1 chain "
+              f"max|diff| {err:.3e} (bar {tol:.3e}, peak |amp| {peak:.4f})")
+        if not err <= tol:
+            raise AssertionError(f"low-only {prec}: {err} > {tol}")
+    S._MXU_PLAN_CACHE.clear()
+
+
+def run_pallas_path(torch, T, refs, add):
+    from gpu_quantum_simulator_tpu_torch.engine import pallas_engine as PE
+
+    sim = T.Simulator(T.SimulatorConfig(strategy="pallas"), device="cuda")
+    for n in ENGINE_REF_WIDTHS:
+        c = T.models.grover_like(n, 2445, 318)
+        res, secs, counts = drive_engine(torch, sim, c, ENGINE_RUNS,
+                                         PE._CACHE)
+        add(counts)
+        (prog, _, items), = PE._CACHE.values()
+        err = float(np.max(np.abs(res.state - refs[n])))
+        report(n, res, secs, counts, f"pallas; {prog.num_mats} mat items, "
+               f"{prog.num_swaps} swaps; max|amp - f64| {err:.3e}")
+        if not err <= AMP_TOL:
+            raise AssertionError(f"pallas n={n}: max|amp diff| {err}")
+        check_only(n, counts, ENGINE_RUNS + 1, block128=prog.num_mats)
+        del res
+    PE._CACHE.clear()
+
+
+def run_main_path(torch, T):
+    from gpu_quantum_simulator_tpu_torch.ref.native import simulate_native
+
+    totals: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # the f64 reference, once per width, shared by every strategy
+    t0 = time.perf_counter()
+    refs = {n: simulate_native(T.models.grover_like(n, 2445, 318))
+            for n in REF_WIDTHS}
+    print(f"f64 references n={list(REF_WIDTHS)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    highest24 = run_prefetch_path(torch, T, refs, add)
+    run_mxu_path(torch, T, refs, highest24, add)
+    run_pallas_path(torch, T, refs, add)
     return totals
 
 
@@ -598,24 +992,28 @@ def main() -> int:
 
     # phase 3: each kernel against its plain version
     rng = np.random.default_rng(2445)
-    block = check_block_kernel(torch, rng)
+    block, mat = check_block_kernel(torch, rng)
     relayout = check_relayout_kernel(torch, rng)
     folded = check_folded_block(torch, rng)
     high = check_high_mat(torch, rng)
+    chain, chain_high, block128 = check_wide_chain(torch, rng)
+    torch.cuda.empty_cache()
 
-    # phase 4: the main path, counting launches
+    # phase 4: the main paths, counting launches
     totals = run_main_path(torch, T)
-    block["launches"] = totals["mat"] + totals["gather"]
-    relayout["launches"] = totals["relayout"]
-    folded["launches"] = totals["folded"]
-    high["launches"] = totals["mat_high"]
+    for rec, kind in ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
+                      (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
+                      (chain_high, "kh0_high"), (block128, "block128")):
+        rec["launches"] = totals[kind]
+        if not rec["launches"] > 0:
+            raise AssertionError(f"{rec['name']}: no launch on a main path")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (block, relayout, folded, high)]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    recs = (block, mat, relayout, folded, high, chain, chain_high, block128)
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,11 @@ never ``jax``, and never the JAX package: the host modules it needs
 (``ir``, ``passes``, ``models``, ``ref``, ``config`` and the numpy planner)
 are JAX-free copies, held to the originals by the tests.
 
-So far it runs the prefetch engine's main path:
-``Simulator(SimulatorConfig(strategy="prefetch"), device="cuda")`` at
-9 <= n <= 22 qubits and the "highest" (IEEE fp32) precision rung, through
-the block and relayout kernels in ``kernels/`` (CUDA sources in ``csrc/``).
-On ``device="cpu"`` the same path runs each kernel's plain torch version.
+So far it runs the ``mxu`` (the default config), ``pallas`` and
+``prefetch`` strategies, e.g. ``Simulator(device="cuda")``, up to 30
+qubits at the "highest" (IEEE fp32) and "high" (3-pass bf16) precision
+rungs, through the kernels in ``kernels/`` (CUDA sources in ``csrc/``).
+On ``device="cpu"`` the same paths run each kernel's plain torch version.
 Anything else raises NotImplementedError naming its ROADMAP item.
 
 Qubit convention matches the JAX package: qubit ``k`` is bit ``k`` of the

@@ -30,6 +30,8 @@ def resolve_precision(precision: str, num_qubits: int) -> str:
             else "highest")
 
 
+# Every strategy of the JAX package.  The port runs "mxu", "pallas",
+# "prefetch" and "auto"; the others raise NotImplementedError (ROADMAP A).
 STRATEGIES = (
     "auto",        # width-based dispatch; in the port always prefetch
                    # (engine.simulator._auto_strategy)
@@ -40,9 +42,14 @@ STRATEGIES = (
     "fused4x4",    # pair state machine -> 4x4 blocks (ref: 4x4, its fastest)
     "megakernel",  # whole fused op-list unrolled into ONE jit (ref: constant/texture)
     "scan",        # recompile-free lax.scan over dense gate tables
-    "mxu",         # k-qubit fusion to 128x128 blocks on the MXU (TPU-native flagship)
-    "prefetch",    # recompile-free: one Pallas kernel per (n, cap), runtime op tables
-    "pallas",      # mxu pipeline with hand-written Pallas kernels (Karatsuba matmul)
+    "mxu",         # the default: cost-model fusion to blocks of <= 7 low + 2
+                   # high qubits, each one D <= 512 matrix product on the
+                   # (R, 128) state; kh=0 runs chained in one CUDA kernel
+                   # (engine/wide.py)
+    "prefetch",    # one block kernel per step over runtime op tables
+    "pallas",      # <= 7-qubit blocks planned onto the lane qubits, each one
+                   # 128x128 product in the CUDA chain kernel, plus qubit
+                   # swap copies (engine/pallas_engine.py)
     "vmem",        # whole circuit inside chunked Pallas kernels, state VMEM-resident (n<=19)
     "sharded",     # mesh-sharded state vector, all_to_all qubit swaps
 )
@@ -57,7 +64,8 @@ class SimulatorConfig:
     # qubit-relabeling pass (correct version of ref's permute variants);
     # output is always returned in the ORIGINAL basis (ref defect #7 avoided).
     permute: bool = False
-    # max fused block width for the mxu strategy (7 -> 128x128 matrices).
+    # max fused block width (mxu: low qubits per block, plus up to 2 high;
+    # pallas and prefetch: qubits per block, at most 7).
     max_fused_qubits: int = 7
     # matmul precision rung: "highest" (IEEE fp32, no TF32), "high" (the
     # 3-pass bf16 product on the tensor cores), "default" (not ported; it

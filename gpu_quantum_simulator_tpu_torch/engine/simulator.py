@@ -1,10 +1,12 @@
 """Simulator facade on torch, for the strategies the port runs so far.
 
-Mirrors ``gpu_quantum_simulator_tpu/engine/simulator.py`` for
-``strategy="prefetch"`` (and ``"auto"``, which resolves to it), on an
-explicit ``device``.  Every other strategy, and every width or precision
-rung outside the prefetch slice, raises NotImplementedError naming its
-ROADMAP item; nothing runs on another device than the one asked for.
+Mirrors ``gpu_quantum_simulator_tpu/engine/simulator.py`` on an explicit
+``device`` for ``strategy="mxu"`` (the default, engine/wide.py),
+``"pallas"`` (engine/pallas_engine.py) and ``"prefetch"`` (engine/
+prefetch.py; ``"auto"`` resolves to it).  Every other strategy, and every
+width or precision rung outside the port's slice, raises
+NotImplementedError naming its ROADMAP item; n > 30 raises ValueError, as
+in the JAX package.  Nothing runs on another device than the one asked for.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 
 from ..config import SimulatorConfig
 from ..ir.circuit import Circuit
+from ..kernels.block import RUNGS
 from ..ops import apply as A
+from ..passes.permute import plan_permutation, unpermute_state
 
 
 @dataclass
@@ -78,15 +82,52 @@ class Simulator:
         sim = self._resolved(circuit.num_qubits)
         if sim is not self:
             return sim.run_device(circuit, initial=initial)
-        if self.config.permute:
-            raise NotImplementedError(
-                "permute=True needs the device unpermute (ops/apply.py "
-                "unpermute_device), not yet ported (ROADMAP queue A); the "
-                "prefetch plan already returns the original basis")
-        if initial is not None and np.shape(initial) != (1 << circuit.num_qubits,):
-            raise ValueError("initial state has wrong length")
-        re, im, num_ops, _ = self._execute(circuit, initial)
+        _check_run(self.config, circuit.num_qubits)  # before any planning
+        work, perm, initial = self._relabel(circuit, initial)
+        re, im, num_ops, residual = self._execute(work, initial)
+        re, im = self._restore(re, im, perm, residual)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return re, im, num_ops
+
+    def _relabel(self, circuit: Circuit, initial=None):
+        """(work circuit, perm or None, initial in the work basis): hot
+        qubits relabeled low for mxu and pallas, and for any strategy with
+        ``permute=True`` (prefetch routes the state back to the ORIGINAL
+        basis inside its own plan, so it relabels here only when asked)."""
+        n = circuit.num_qubits
+        perm = None
+        work = circuit
+        if self.config.permute or self.config.strategy in ("mxu", "pallas"):
+            perm = plan_permutation(circuit)
+            if np.array_equal(perm, np.arange(n)):
+                perm = None
+            else:
+                work = circuit.relabeled(perm)
+        if initial is not None:
+            initial = np.asarray(initial)
+            if initial.shape != (1 << n,):
+                raise ValueError("initial state has wrong length")
+            if perm is not None:
+                # map original-basis amplitudes into the relabeled basis
+                initial = unpermute_state(initial, np.argsort(perm))
+        return work, perm, initial
+
+    @staticmethod
+    def _restore(re, im, perm, residual):
+        """Compose the relabeling with any layout the engine left behind,
+        and undo both with one device unpermute."""
+        total = None
+        if perm is not None and residual is not None:
+            total = residual[perm]
+        elif perm is not None:
+            total = perm
+        elif residual is not None:
+            total = residual
+        if total is not None and not np.array_equal(total,
+                                                    np.arange(len(total))):
+            re, im = A.unpermute_device(re, im, [int(p) for p in total])
+        return re, im
 
     def run_detailed(self, circuit: Circuit, initial=None) -> RunResult:
         sim = self._resolved(circuit.num_qubits)
@@ -103,31 +144,104 @@ class Simulator:
     # ------------------------------------------------------------- dispatch
     def _execute(self, circuit: Circuit, initial=None):
         cfg = self.config
-        if cfg.strategy != "prefetch":
-            raise NotImplementedError(
-                f"strategy {cfg.strategy!r} is not yet ported; the port runs "
-                "'prefetch' (and 'auto') only (ROADMAP queue A)")
-        from .prefetch import run_prefetch
+        if cfg.strategy == "prefetch":
+            from .prefetch import run_prefetch
 
-        re, im, num_ops, residual = run_prefetch(
-            circuit, cfg, self.device, initial=initial)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return re, im, num_ops, residual
+            return run_prefetch(circuit, cfg, self.device, initial=initial)
+        if cfg.strategy == "pallas":
+            from .pallas_engine import run_pallas
 
+            return run_pallas(circuit, cfg, self.device, initial=initial)
+        return self._run_mxu(circuit, initial)
+
+    def _run_mxu(self, circuit: Circuit, initial=None):
+        """The wide engine: cost-model fusion, then the WideProgram."""
+        from .prefetch import _circuit_fingerprint
+        from .wide import build_wide_program
+
+        cfg = self.config
+        n = circuit.num_qubits
+        precision = cfg.effective_precision(n)
+        k = min(cfg.max_fused_qubits, n)
+        # the JAX package's defaults: window-8 cost-model fusion
+        window = cfg.fusion_window if cfg.fusion_window else 8
+        # plan cache: a repeat run neither re-fuses nor re-hashes the fused
+        # matrices; the device takes the place of the JAX backend's name
+        key = (_circuit_fingerprint(circuit), n, precision, k, window,
+               str(self.device))
+        cached = _MXU_PLAN_CACHE.get(key)
+        if cached is None:
+            ops = _fuse_pipeline(circuit, k, max_high=2, window=window,
+                                 cost_model=True)
+            prog = build_wide_program(ops, n, precision=precision,
+                                      device=self.device)
+            if len(_MXU_PLAN_CACHE) >= _MXU_PLAN_CACHE_LIMIT:
+                _MXU_PLAN_CACHE.pop(next(iter(_MXU_PLAN_CACHE)))
+            _MXU_PLAN_CACHE[key] = (ops, prog)
+        else:
+            ops, prog = cached
+        if initial is None:
+            re, im = A.initial_state_parts(n, device=self.device)
+        else:
+            re, im = A.split_state(initial, device=self.device)
+        re, im = prog(re, im)
+        return re, im, len(ops), None
+
+
+def _check_run(cfg: SimulatorConfig, n: int) -> None:
+    """Raise for what the port's mxu and pallas engines do not run (the
+    prefetch engine fences its own slice, engine/prefetch.check_slice)."""
+    if n > 30:
+        # fail BEFORE allocating, as the JAX package does
+        raise ValueError(
+            f"n = {n} exceeds the single-chip ceiling (n = 30); the sharded "
+            "engines are not yet ported (ROADMAP queue A, item 8, parallel/)")
+    if cfg.strategy == "prefetch":
+        return
+    if cfg.strategy not in ("mxu", "pallas"):
+        raise NotImplementedError(
+            f"strategy {cfg.strategy!r} is not yet ported; the port runs "
+            "'mxu', 'pallas', 'prefetch' and 'auto' (ROADMAP queue A)")
+    if n <= 7:
+        raise NotImplementedError(
+            f"n = {n} <= 7: the JAX package runs these widths through its "
+            "megakernel arm (engine/megakernel.py), not yet ported (ROADMAP "
+            "queue A, item 1)")
+    if cfg.dtype != "complex64":
+        raise NotImplementedError(
+            "dtype complex128: the port runs complex64 (split float32) only "
+            "(ROADMAP queue A, item 8)")
+    # the pallas engine ignores the rung (always IEEE fp32), as in the JAX
+    # package
+    if cfg.strategy == "mxu" and cfg.effective_precision(n) not in RUNGS:
+        raise NotImplementedError(
+            f"precision {cfg.precision!r}: the port runs the 'highest' "
+            "(IEEE fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, "
+            "item 5, the 'default' rung)")
+
+
+# mxu plan cache: (circuit fingerprint, n, precision, fusion knobs, device)
+# -> (fused ops, WideProgram).  Entries hold device tables, so the
+# limit stays small.
+_MXU_PLAN_CACHE: dict = {}
+_MXU_PLAN_CACHE_LIMIT = 8
 
 _NATIVE_FUSE = None  # tri-state: None unknown, False unavailable, module
 
 
 def _fuse_pipeline(circuit: Circuit, max_qubits: int, max_high,
-                   window: int = 1):
+                   window: int = 1, cost_model: bool = False):
     """fuse_4x4 + fuse_k, via the native C++ pipeline when available.
 
     The same native fuser (csrc/qsim_fuse.cpp) with the same arguments as
-    the JAX package's ``_fuse_pipeline`` (whose ``cost_model`` arm serves the
-    ``mxu`` engine only and is not ported): both packages fuse a circuit
-    into the same ops.  ``window`` > 1 enables the commutation-aware
-    packing in the native emitter.
+    the JAX package's ``_fuse_pipeline``: both packages fuse a circuit into
+    the same ops.  ``window`` > 1 enables the commutation-aware packing in
+    the native emitter.
+
+    ``cost_model``: the wide (``mxu``) engine's mode — split low/high caps
+    (a block may hold max_qubits low PLUS max_high high qubits; its cost
+    depends only on kh) and kh-cost-aware absorb-candidate selection with
+    the JAX package's calibration (utils/roofline.py ``kh_block_costs``).
     """
     global _NATIVE_FUSE
     if _NATIVE_FUSE is None:
@@ -137,16 +251,25 @@ def _fuse_pipeline(circuit: Circuit, max_qubits: int, max_high,
     # The native fuser requires max_qubits >= 2 (csrc/qsim_fuse.cpp rejects
     # smaller); clamping is harmless since fused blocks never exceed n qubits.
     max_qubits = max(2, max_qubits)
+    cost = cost_model and max_high is not None
     if _NATIVE_FUSE:
+        if cost:
+            from ..utils.roofline import kh_block_costs
+
+            return _NATIVE_FUSE.fuse_native(
+                circuit, max_qubits, max_high, window=window,
+                max_low=max_qubits,
+                kh_costs=kh_block_costs(circuit.num_qubits))
         return _NATIVE_FUSE.fuse_native(circuit, max_qubits, max_high,
                                         window=window)
     from ..passes.fuse4x4 import fuse_4x4
     from ..passes.fuse_k import fuse_k
 
-    return fuse_k(fuse_4x4(circuit), max_qubits=max_qubits, max_high=max_high)
+    return fuse_k(fuse_4x4(circuit), max_qubits=max_qubits, max_high=max_high,
+                  max_low=max_qubits if cost else None)
 
 
-def simulate(circuit: Circuit, strategy: str = "auto", device="cuda",
+def simulate(circuit: Circuit, strategy: str = "mxu", device="cuda",
              **kwargs) -> np.ndarray:
     """One-shot convenience: final state in the original basis."""
     return Simulator(SimulatorConfig(strategy=strategy, **kwargs),

@@ -1,0 +1,305 @@
+"""Wide-matmul engine (the ``mxu`` strategy): every fused block is one
+complex matrix product on the lane-layout state.
+
+A port of the JAX package's ``engine/wide.py``.  The state is the (R, 128)
+float32 pair, R = 2^(n-7), with the low 7 qubits on the columns.  A block
+over qubits L ∪ H (L ⊆ [0, 7), H = kh high qubits, kh <= 2 by the fuser's
+``max_high``) is expanded on the host over the lane qubits plus H into a
+D x D matrix, D = 2^(7+kh) <= 512, and applied as
+
+    row shuffle  ->  (R', D) @ (D, D)^T  ->  inverse row shuffle.
+
+The host half — ``_op_spec``, ``row_shuffles``, the step list of
+``WideProgram`` per 128-op segment, the power-of-two padding of kh = 0 runs
+and ``num_kh0_runs`` — is the JAX package's, step for step.  The device
+half differs:
+
+* a run of up to ``KH0_BATCH`` consecutive kh = 0 blocks (``("kh0", run,
+  P)``) is one launch of the chain kernel (kernels/wide.py ``kh0_chain``,
+  csrc/wide_chain.cu; TPU kernel 7), in place, schoolbook complex
+  products, without the identity pads (P records the padded length);
+* every other block (``("mm", D, idx, row_bits)``) is the JAX package's
+  Karatsuba product in torch calls, as the JAX package leaves it to XLA:
+  the row shuffle is a ``permute`` copy, the three real products are
+  ``torch.matmul`` in IEEE fp32 at "highest" (whatever the process-wide
+  TF32 setting) or the 3-pass bf16 split at "high" (bf16 GEMMs with fp32
+  output on a card, fp32 GEMMs of bf16-exact parts on the CPU).  The
+  shuffled temporaries are dropped as soon as each step no longer needs
+  them (the JAX package donates its state pair instead).
+
+Tables go to the device once per program (``build_wide_program`` caches
+programs by their ops); at "high" they are split to bf16 once as well.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..ir.oplist import Op, expand_unitary, op_matrix
+from ..kernels.block import RUNGS, bf16_split
+from ..kernels.wide import ieee_fp32, kh0_chain, split_wide_tables
+
+LANE_QUBITS = 7
+LANES = 1 << LANE_QUBITS
+
+# The JAX package's kernel 7 tiles 512 state rows; the port's chain kernel
+# tiles 64 (csrc/wide_chain.cu).  No step list depends on either.
+KH0_TILE_ROWS = 512
+KH0_BATCH = 8           # max consecutive kh0 blocks fused into one pass
+
+# Ops per segment, as in the JAX package (which compiles each segment
+# separately); the step lists are cut at the same places.
+SEGMENT_OPS = 128
+
+
+def _op_spec(op: Op, n: int):
+    """(kh, row_bits, D, big_re, big_im) for one fused block."""
+    u, qs = op_matrix(op)
+    high = sorted(q for q in qs if q >= LANE_QUBITS)
+    kh = len(high)
+    superset = tuple(range(min(LANE_QUBITS, n))) + tuple(high)
+    big = expand_unitary(np.asarray(u, dtype=np.complex128), qs, superset)
+    row_bits = tuple(q - LANE_QUBITS for q in high)  # ascending
+    D = (1 << kh) * LANES
+    return kh, row_bits, D, big.real, big.imag
+
+
+def row_shuffles(row_bits, R):
+    """(fwd, bwd) moving the given row bits adjacent to the lane dim.
+
+    Rank <= 6 views.  fwd flattens to (-1, D); bwd restores (R, LANES).
+    D-index bit 7+j <-> row_bits[j] (ascending), matching _op_spec's
+    superset ordering.
+    """
+    kh = len(row_bits)
+    if kh == 0:
+        return (lambda x: x.reshape(-1, LANES)), (lambda t: t.reshape(R, LANES))
+    if kh == 1:
+        b1 = row_bits[0]
+        g, st = R >> (b1 + 1), 1 << b1
+
+        def fwd(x):
+            t = x.reshape(g, 2, st, LANES).transpose(1, 2)
+            return t.reshape(-1, 2 * LANES)
+
+        def bwd(t):
+            t = t.reshape(g, st, 2, LANES).transpose(1, 2)
+            return t.reshape(R, LANES)
+
+        return fwd, bwd
+    b1, b2 = row_bits
+    g = R >> (b2 + 1)
+    m = 1 << (b2 - b1 - 1)
+    st = 1 << b1
+
+    def fwd2(x):
+        t = x.reshape(g, 2, m, 2, st, LANES).permute(0, 2, 4, 1, 3, 5)
+        return t.reshape(-1, 4 * LANES)
+
+    def bwd2(t):
+        t = t.reshape(g, m, st, 2, 2, LANES).permute(0, 3, 1, 4, 2, 5)
+        return t.reshape(R, LANES)
+
+    return fwd2, bwd2
+
+
+def _dot_high(x: torch.Tensor, mh: torch.Tensor, ml: torch.Tensor):
+    """xh @ mh + xl @ mh + xh @ ml with float32 sums; mh/ml bfloat16."""
+    if x.is_cuda:
+        xh = x.to(torch.bfloat16)
+        xl = (x - xh.float()).to(torch.bfloat16)
+        out = torch.mm(xh, mh, out_dtype=torch.float32)
+        out += torch.mm(xl, mh, out_dtype=torch.float32)
+        out += torch.mm(xh, ml, out_dtype=torch.float32)
+        return out
+    xh, xl = bf16_split(x)
+    mh, ml = mh.float(), ml.float()
+    return xh @ mh + xl @ mh + xh @ ml
+
+
+def _mm_step(state: list, m, row_bits, R: int, precision: str) -> None:
+    """One kh >= 1 block (or kh = 0 without the chain kernel) on
+    ``state = [re, im]``, replaced in place by the result.
+
+    ``m``: the (3, D, D) Karatsuba combinations m1 = M_re^T,
+    m2 = (M_im - M_re)^T, m3 = (M_re + M_im)^T — float32 at "highest",
+    their (hi, lo) bfloat16 parts at "high".  out_re = t1 - t3,
+    out_im = t1 + t2 with t1 = (x_re + x_im) @ m1, t2 = x_re @ m2,
+    t3 = x_im @ m3."""
+    fwd, bwd = row_shuffles(row_bits, R)
+    xr, xi = fwd(state[0]), fwd(state[1])
+    state.clear()
+    if precision == "high":
+        def dot(x, c):
+            return _dot_high(x, m[0][c], m[1][c])
+    else:
+        def dot(x, c):
+            return x @ m[c]
+    t1 = dot(xr + xi, 0)
+    t2 = dot(xr, 1)
+    del xr
+    t3 = dot(xi, 2)
+    del xi
+    t2 += t1
+    t1 -= t3
+    del t3
+    state.append(bwd(t1))
+    del t1
+    state.append(bwd(t2))
+
+
+def _kh(op: Op) -> int:
+    return sum(1 for q in op.qubits if q >= LANE_QUBITS)
+
+
+def plan_segments(ops: Sequence[Op], num_qubits: int):
+    """The JAX package's step lists, without tables.
+
+    Per 128-op segment: ``(steps, buckets, runs)`` — ``steps`` the step
+    tuples ``("kh0", run, P)`` / ``("mm", D, idx, row_bits)``, ``buckets``
+    D -> the indices into ``ops`` of that D's mm steps in order, ``runs``
+    each kh0 run's op indices (P is its length padded to a power of two).
+    kh = 0 blocks chain when R >= 8, the JAX package's rule for float32
+    (the port's only dtype), kept on every device so the step lists agree;
+    below that every block is an mm step.
+    """
+    chain = (1 << (num_qubits - LANE_QUBITS)) >= 8
+    segments = []
+    for s0 in range(0, max(len(ops), 1), SEGMENT_OPS):
+        buckets: Dict[int, list] = {}
+        steps: list = []
+        runs: List[list] = []
+        pending: list = []
+
+        def flush_run():
+            if pending:
+                P = 1 << (len(pending) - 1).bit_length()
+                steps.append(("kh0", len(runs), P))
+                runs.append(list(pending))
+                pending.clear()
+
+        for i in range(s0, min(s0 + SEGMENT_OPS, len(ops))):
+            kh = _kh(ops[i])
+            if chain and kh == 0:
+                # consecutive kh0 blocks chain inside ONE state pass
+                pending.append(i)
+                if len(pending) == KH0_BATCH:
+                    flush_run()
+                continue
+            flush_run()
+            row_bits = tuple(sorted(q - LANE_QUBITS for q in ops[i].qubits
+                                    if q >= LANE_QUBITS))
+            bucket = buckets.setdefault((1 << kh) * LANES, [])
+            steps.append(("mm", (1 << kh) * LANES, len(bucket), row_bits))
+            bucket.append(i)
+        flush_run()
+        segments.append((steps, buckets, runs))
+    return segments
+
+
+@dataclass
+class _Segment:
+    steps: list                     # the JAX package's step tuples
+    mm: dict                        # D -> (count, 3, D, D) float32, or at
+                                    # "high" its (hi, lo) bfloat16 parts
+    runs: List[torch.Tensor]        # (L, 2, 128, 128) float32 [M_re, M_im]
+    runs_w16: list                  # split_wide_tables per run (card, "high")
+
+
+class WideProgram:
+    """A wide-matmul circuit program with its device-resident tables.
+
+    Calling it maps a flat (2^n,) state pair through every step and returns
+    the new pair; the input pair is handed over (the chain kernel writes
+    into it)."""
+
+    def __init__(self, ops: Sequence[Op], num_qubits: int,
+                 precision: str = "highest", device="cpu"):
+        n = num_qubits
+        if n <= LANE_QUBITS:
+            raise ValueError(f"the wide engine needs n > {LANE_QUBITS}")
+        if precision not in RUNGS:
+            raise NotImplementedError(
+                f"precision {precision!r}: the wide engine runs the rungs "
+                f"{RUNGS} (ROADMAP queue A, item 5, for 'default')")
+        self.num_qubits = n
+        self.precision = precision
+        self.device = torch.device(device)
+        self._R = 1 << (n - LANE_QUBITS)
+        high = precision == "high"
+        card = self.device.type == "cuda"
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                a, dtype=np.float32)).to(self.device)
+
+        self.segments: List[_Segment] = []
+        self.num_kh0_runs = 0
+        for steps, buckets, runs in plan_segments(ops, n):
+            mm = {}
+            for D, idxs in buckets.items():
+                combos = []
+                for i in idxs:
+                    _, _, _, bre, bim = _op_spec(ops[i], n)
+                    combos.append(np.stack([bre.T, (bim - bre).T,
+                                            (bre + bim).T]))
+                mm[D] = dev(np.stack(combos))
+                if high:
+                    hi, lo = bf16_split(mm[D])
+                    mm[D] = (hi.to(torch.bfloat16), lo.to(torch.bfloat16))
+            run_tabs = [dev(np.stack([np.stack(_op_spec(ops[i], n)[3:])
+                                      for i in run])) for run in runs]
+            w16 = ([split_wide_tables(t) for t in run_tabs]
+                   if high and card else [None] * len(run_tabs))
+            self.segments.append(_Segment(steps, mm, run_tabs, w16))
+            self.num_kh0_runs += len(runs)
+
+    def __call__(self, re: torch.Tensor, im: torch.Tensor):
+        R = self._R
+        high = self.precision == "high"
+        state = [re.reshape(R, LANES), im.reshape(R, LANES)]
+        del re, im
+        with ieee_fp32():
+            for seg in self.segments:
+                for st in seg.steps:
+                    if st[0] == "kh0":
+                        r = st[1]
+                        kh0_chain(*state, seg.runs[r], self.precision,
+                                  out=tuple(state), w16=seg.runs_w16[r])
+                    else:
+                        _, D, idx, row_bits = st
+                        m = seg.mm[D]
+                        _mm_step(state, (m[0][idx], m[1][idx]) if high
+                                 else m[idx], row_bits, R, self.precision)
+        return state[0].reshape(-1), state[1].reshape(-1)
+
+
+_CACHE: dict = {}
+_CACHE_LIMIT = 16
+
+
+def build_wide_program(ops: Sequence[Op], num_qubits: int,
+                       precision: str = "highest",
+                       device="cpu") -> WideProgram:
+    h = hashlib.sha256(
+        f"{num_qubits}|{precision}|{torch.device(device)}"
+        .encode())
+    for op in ops:
+        h.update(op.kind.encode())
+        h.update(np.asarray(op.qubits, dtype=np.int64).tobytes())
+        if op.u is not None:
+            h.update(np.ascontiguousarray(op.u).tobytes())
+    key = h.hexdigest()
+    prog = _CACHE.get(key)
+    if prog is None:
+        prog = WideProgram(ops, num_qubits, precision=precision,
+                           device=device)
+        if len(_CACHE) >= _CACHE_LIMIT:
+            _CACHE.pop(next(iter(_CACHE)))
+        _CACHE[key] = prog
+    return prog

@@ -108,6 +108,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_gather_step.argtypes = [P, P, P, P, L, I, I, I, P, P, P, I, I, P]
     lib.qsim_relayout.restype = I
     lib.qsim_relayout.argtypes = [P, P, P, P, L, I, P, I, P]
+    lib.qsim_wide_chain.restype = I
+    lib.qsim_wide_chain.argtypes = [P, P, P, P, P, P, L, I, L, P]
+    lib.qsim_wide_chain_high.restype = I
+    lib.qsim_wide_chain_high.argtypes = [P, P, P, P, P, I, L, P]
 
 
 def load() -> ctypes.CDLL:

@@ -1,0 +1,207 @@
+"""Lane-layout kernel wrappers: chains of 128 x 128 complex right-products.
+
+One CUDA kernel (``csrc/wide_chain.cu``) replaces two TPU kernels of the
+JAX package:
+
+* ``engine/wide.py`` ``get_kh0_kernel`` (kernel 7): a run of up to
+  ``KH0_BATCH`` consecutive kh = 0 blocks applied while each row tile is
+  resident, at the "highest" or "high" rung — ``kh0_chain``;
+* ``ops/pallas_kernels.py`` ``apply_block128`` (kernel 9): one such
+  product at "highest", the ``pallas`` engine's only matrix step —
+  ``apply_block128``.
+
+The state is the (R, 128) float32 pair with the low 7 qubits on the
+columns; each product is ``x <- x @ M^T`` (complex).  A chain's tables are
+(L, 2, 128, 128) float32 ``[M_re, M_im]``, each stored as M itself ([n][k],
+the output index first).  The complex form is schoolbook (four real
+products), in the kernel and in the plain versions alike; the JAX package
+uses Karatsuba (three real products on combined operands).  At "high"
+every real product is the 3-pass bf16 split ``xh.mh + xl.mh + xh.ml``
+(kernels/block.py), with the tables split once per program
+(``split_wide_tables``).
+
+For a CUDA state the wrappers launch the kernel; for a CPU state they run
+the plain torch version; any other device raises.  ``kh0_chain.launches``
+counts launches by rung, ``apply_block128.launches`` its own.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Tuple
+
+import torch
+
+from . import build
+from .block import RUNGS, bf16_split, mat_high_plain
+
+LANES = 128
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Run float32 matmuls in IEEE fp32 (no TF32) whatever the process-wide
+    setting is, and restore that setting afterwards."""
+    saved = torch.get_float32_matmul_precision()
+    if saved != "highest":
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if saved != "highest":
+            torch.set_float32_matmul_precision(saved)
+
+
+def _check_rung(precision: str) -> None:
+    if precision not in RUNGS:
+        raise NotImplementedError(
+            f"precision {precision!r}: the chain kernel runs the rungs "
+            f"{RUNGS} (ROADMAP queue A, item 5, for 'default')")
+
+
+def split_wide_tables(tables: torch.Tensor) -> torch.Tensor:
+    """(L, 2, 128, 128) float32 [M_re, M_im] -> (L, 4, 128, 128) bfloat16
+    [Mre_hi, Mre_lo, Mim_hi, Mim_lo]: the "high" kernel's operands, [n][k]
+    as the tables are (the col-major B fragment of ``mma.m16n8k16``)."""
+    parts = []
+    for c in (0, 1):
+        hi, lo = bf16_split(tables[:, c])
+        parts += [hi.to(torch.bfloat16), lo.to(torch.bfloat16)]
+    return torch.stack(parts, dim=1).contiguous()
+
+
+def _product_plain(re, im, m_re, m_im, precision):
+    if precision == "high":
+        return mat_high_plain(re, im, m_re.T, m_im.T)
+    with ieee_fp32():
+        return (re @ m_re.T - im @ m_im.T, re @ m_im.T + im @ m_re.T)
+
+
+def kh0_chain_plain(re: torch.Tensor, im: torch.Tensor,
+                    tables: torch.Tensor, precision: str = "highest") -> Pair:
+    """The chain in plain torch, on any device: ``x <- x @ M_j^T`` for each
+    table j in order (schoolbook, at the rung's arithmetic)."""
+    _check_rung(precision)
+    for j in range(tables.shape[0]):
+        re, im = _product_plain(re, im, tables[j, 0], tables[j, 1], precision)
+    return re, im
+
+
+def apply_block128_plain(re: torch.Tensor, im: torch.Tensor,
+                         m_re: torch.Tensor, m_im: torch.Tensor) -> Pair:
+    """One product ``x @ M^T`` in IEEE fp32, on any device."""
+    return _product_plain(re, im, m_re, m_im, "highest")
+
+
+def _to_out(res: Pair, out: Optional[Pair]) -> Pair:
+    if out is None:
+        return res
+    out[0].copy_(res[0])
+    out[1].copy_(res[1])
+    return out
+
+
+def _check_cuda(tensors, dtypes, what: str) -> None:
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: tensors must share one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous {dt}, got "
+                             f"{t.dtype} (contiguous={t.is_contiguous()})")
+
+
+def _state_out(re, im, out, what: str) -> Pair:
+    rows = re.shape[0]
+    if re.dim() != 2 or re.shape != (rows, LANES) or im.shape != re.shape:
+        raise ValueError(f"{what}: state must be (R, {LANES}), got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    if out is None:
+        out = (torch.empty_like(re), torch.empty_like(im))
+    if out[0].shape != re.shape or out[1].shape != re.shape:
+        raise ValueError(f"{what}: out must match the state's shape")
+    return out
+
+
+def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
+              precision: str = "highest", out: Optional[Pair] = None,
+              w16: Optional[torch.Tensor] = None) -> Pair:
+    """Apply the chain of ``tables`` (L, 2, 128, 128) to the (R, 128) pair.
+
+    The result lands in ``out`` (allocated when None; it may be the input
+    pair itself: each row tile is read whole before it is written).
+    ``w16``: the tables' ``split_wide_tables`` for the "high" rung
+    (computed here when None).
+    """
+    _check_rung(precision)
+    if re.device.type == "cpu":
+        return _to_out(kh0_chain_plain(re, im, tables, precision), out)
+    if not re.is_cuda:
+        raise ValueError(f"chain kernel: unsupported device {re.device}")
+    out = _state_out(re, im, out, "chain kernel")
+    nmats = tables.shape[0]
+    if tables.dim() != 4 or tables.shape[1:] != (2, LANES, LANES) \
+            or nmats < 1:
+        raise ValueError(f"chain kernel: tables must be (L >= 1, 2, "
+                         f"{LANES}, {LANES}), got {tuple(tables.shape)}")
+    f32 = torch.float32
+    lib = build.load()
+    stream = torch.cuda.current_stream(re.device).cuda_stream
+    if precision == "high":
+        if w16 is None:
+            w16 = split_wide_tables(tables)
+        if w16.shape != (nmats, 4, LANES, LANES):
+            raise ValueError("chain kernel: w16 must be (L, 4, 128, 128)")
+        _check_cuda([re, im, *out, w16], [f32] * 4 + [torch.bfloat16],
+                    "chain kernel")
+        rc = lib.qsim_wide_chain_high(
+            re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), w16.data_ptr(), nmats, re.shape[0], stream)
+    else:
+        _check_cuda([re, im, *out, tables], [f32] * 5, "chain kernel")
+        rc = lib.qsim_wide_chain(
+            re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), tables[:, 0].data_ptr(),
+            tables[:, 1].data_ptr(), 2 * LANES * LANES, nmats, re.shape[0],
+            stream)
+    build.check(lib, rc, f"chain kernel ({precision}, {nmats} products)")
+    kh0_chain.launches[precision] += 1
+    return out
+
+
+def apply_block128(re: torch.Tensor, im: torch.Tensor, m_re: torch.Tensor,
+                   m_im: torch.Tensor, out: Optional[Pair] = None) -> Pair:
+    """``(re + i im) @ (m_re + i m_im)^T`` on the (R, 128) pair, IEEE fp32.
+
+    The result lands in ``out`` (allocated when None; it may be the input
+    pair)."""
+    if re.device.type == "cpu":
+        return _to_out(apply_block128_plain(re, im, m_re, m_im), out)
+    if not re.is_cuda:
+        raise ValueError(f"block128 kernel: unsupported device {re.device}")
+    out = _state_out(re, im, out, "block128 kernel")
+    if m_re.shape != (LANES, LANES) or m_im.shape != m_re.shape:
+        raise ValueError(f"block128 kernel: matrices must be ({LANES}, "
+                         f"{LANES})")
+    _check_cuda([re, im, *out, m_re, m_im], [torch.float32] * 6,
+                "block128 kernel")
+    lib = build.load()
+    rc = lib.qsim_wide_chain(
+        re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        m_re.data_ptr(), m_im.data_ptr(), 0, 1, re.shape[0],
+        torch.cuda.current_stream(re.device).cuda_stream)
+    build.check(lib, rc, "block128 kernel")
+    apply_block128.launches += 1
+    return out
+
+
+def reset_launches() -> None:
+    """Set the launch counts of ``kh0_chain`` and ``apply_block128`` to 0."""
+    kh0_chain.launches = dict.fromkeys(RUNGS, 0)
+    apply_block128.launches = 0
+
+
+reset_launches()

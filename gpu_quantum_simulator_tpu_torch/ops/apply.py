@@ -58,3 +58,67 @@ def join_state(re, im) -> np.ndarray:
     out.real = re
     out.imag = im
     return out
+
+
+# Widths the dense (2,)*n transpose handles; above, bit transpositions.
+# (torch's TensorIterator takes at most 25 dims, so no view here is wider.)
+DENSE_UNPERMUTE_MAX_QUBITS = 14
+
+
+def unpermute_axes(perm) -> list:
+    """Transpose axes that undo a qubit relabeling on a (2,)*n tensor.
+
+    ``perm[q]`` = current bit position of original qubit q (see
+    passes.permute.unpermute_state — this is its device-side twin).
+    """
+    n = len(perm)
+    inv = np.argsort(perm)
+    src_axis_of_orig = {int(inv[b]): n - 1 - b for b in range(n)}
+    return [src_axis_of_orig[n - 1 - j] for j in range(n)]
+
+
+def unpermute_device(re: torch.Tensor, im: torch.Tensor, perm):
+    """Undo a qubit relabeling on the state's own device.
+
+    Up to DENSE_UNPERMUTE_MAX_QUBITS one transpose of the (2,)*n view.
+    Above, the permutation decomposes into at most n exact bit
+    transpositions (the JAX package's sequence), each one rank-5 reshape,
+    ``transpose`` and copy: an index permutation is exact in any dtype, so
+    the JAX package's permutation matmuls are not needed here.
+    """
+    n = len(perm)
+    if n <= DENSE_UNPERMUTE_MAX_QUBITS:
+        axes = unpermute_axes(perm)
+
+        def f(x):
+            return x.reshape((2,) * n).permute(axes).reshape(-1)
+
+        return f(re), f(im)
+
+    # position -> original qubit currently there (state given in the
+    # relabeled basis: original q sits at position perm[q])
+    inv = np.argsort(np.asarray(perm))
+    qubit_at = [int(inv[p]) for p in range(n)]
+    pos_of = [int(p) for p in np.asarray(perm)]
+    for q in range(n):
+        p = pos_of[q]
+        if p == q:
+            continue
+        re, im = _swap_bits_device(re, im, q, p, n)
+        ql = qubit_at[q]
+        qubit_at[q], qubit_at[p] = q, ql
+        pos_of[q], pos_of[ql] = q, p
+    return re, im
+
+
+def _swap_bits_device(re: torch.Tensor, im: torch.Tensor, a: int, b: int,
+                      n: int):
+    """Exchange bits a and b (a < b) of the basis index of (2^n,) tensors:
+    one transposed copy of the (hi, 2, mid, 2, lo) view each."""
+    assert a < b
+    shape = (1 << (n - b - 1), 2, 1 << (b - a - 1), 2, 1 << a)
+
+    def f(x):
+        return x.reshape(shape).transpose(1, 3).reshape(-1)
+
+    return f(re), f(im)

@@ -27,6 +27,7 @@ def fuse_k(
     *,
     max_high: Optional[int] = None,
     high_threshold: int = 7,
+    max_low: Optional[int] = None,
 ) -> List[Op]:
     """Fuse a circuit (or op list) into dense blocks of <= max_qubits qubits.
 
@@ -35,6 +36,11 @@ def fuse_k(
     dimension; a block with kh high qubits becomes a 2^(7+kh)-wide matmul
     whose only data movement is a row shuffle — so capping kh caps both the
     matrix size and keeps every op off the pathological bit-transpose path.
+
+    ``max_low``: if set, cap low (< high_threshold) qubits by this instead
+    of capping the TOTAL width by max_qubits — the wide engine expands each
+    block over the full lane superset, so a block may hold max_low low plus
+    max_high high qubits at the cost of its kh class alone.
     """
     if isinstance(source, Circuit):
         ops = circuit_to_ops(source)
@@ -42,10 +48,13 @@ def fuse_k(
         ops = list(source)
 
     def ok(union) -> bool:
-        if len(union) > max_qubits:
+        low = sum(1 for q in union if q < high_threshold)
+        if max_low is not None:
+            if low > max_low:
+                return False
+        elif len(union) > max_qubits:
             return False
-        high = sum(1 for q in union if q >= high_threshold)
-        return max_high is None or high <= max_high
+        return max_high is None or len(union) - low <= max_high
 
     out: List[Op] = []
     block: Optional[Op] = None

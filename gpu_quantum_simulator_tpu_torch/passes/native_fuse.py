@@ -41,6 +41,16 @@ def get_lib() -> ctypes.CDLL:
             np.ctypeslib.ndpointer(dtype=np.int32),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ]
+        lib.qsf_fuse2.restype = ctypes.c_void_p
+        lib.qsf_fuse2.argtypes = [
+            ctypes.c_int, ctypes.c_longlong,
+            np.ctypeslib.ndpointer(dtype=np.float64),
+            np.ctypeslib.ndpointer(dtype=np.float64),
+            np.ctypeslib.ndpointer(dtype=np.int32),
+            np.ctypeslib.ndpointer(dtype=np.int32),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]
         lib.qsf_num_ops.restype = ctypes.c_longlong
         lib.qsf_num_ops.argtypes = [ctypes.c_void_p]
         lib.qsf_op_width.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
@@ -73,19 +83,40 @@ def fuse_native(
     max_high: Optional[int] = None,
     high_threshold: int = 7,
     window: int = 1,
+    max_low: Optional[int] = None,
+    kh_costs: Optional[tuple] = None,
 ) -> List[Op]:
     """Native fusion.  ``window``: number of concurrently-open blocks; an op
     is absorbed into an older block when its support is disjoint from every
-    newer one (commutation-aware packing; window=1 = plain chaining).  The
-    C++ side's cost-model and low-cap arguments (``qsf_fuse2``) serve the
-    JAX package's wide engine, which the port does not run."""
+    newer one (commutation-aware packing; window=1 = plain chaining).
+
+    ``max_low``: when set, cap LOW (< high_threshold) qubits by max_low and
+    high qubits by max_high independently instead of capping the total by
+    max_qubits — the wide engine expands blocks over the full lane superset
+    so a 7-low+kh-high block costs the same as a smaller one.
+
+    ``kh_costs``: per-block cost by kh class (utils.roofline.kh_block_costs);
+    enables cost-aware absorb-candidate selection in the emitter (the
+    ``mxu`` engine's cost model, ``qsf_fuse2``)."""
     lib = get_lib()
     u_re, u_im, target, control = circuit.to_soa()
-    h = lib.qsf_fuse(
-        circuit.num_qubits, len(circuit), u_re, u_im, target, control,
-        max_qubits, -1 if max_high is None else max_high, high_threshold,
-        window,
-    )
+    if max_low is not None or kh_costs is not None:
+        costs = None
+        if kh_costs:
+            costs = (ctypes.c_double * len(kh_costs))(*map(float, kh_costs))
+        h = lib.qsf_fuse2(
+            circuit.num_qubits, len(circuit), u_re, u_im, target, control,
+            max_qubits, -1 if max_low is None else max_low,
+            -1 if max_high is None else max_high, high_threshold, window,
+            ctypes.cast(costs, ctypes.c_void_p),
+            len(kh_costs) if kh_costs else 0,
+        )
+    else:
+        h = lib.qsf_fuse(
+            circuit.num_qubits, len(circuit), u_re, u_im, target, control,
+            max_qubits, -1 if max_high is None else max_high, high_threshold,
+            window,
+        )
     if not h:
         raise RuntimeError(lib.qsf_error().decode())
     try:

@@ -1,30 +1,34 @@
-"""Where the prefetch main path's time goes, per width.
+"""Where each strategy's main path's time goes, per width.
 
     python3 -m gpu_quantum_simulator_tpu_torch.profiling [--widths 18 22]
+        [--strategy prefetch mxu pallas] [--precision auto]
         [--mono-as-mat auto 0 1] [--runs 5] [--sweep] [--plan-only]
 
-Widths 9..30.  For each mono-lowering arm (``auto`` is the planner's
-default; ``0``/``1`` force the mono step or mono-as-mat) and each width it
-plans ``grover_like(n, 2445, 318)`` as the Simulator does (the portfolio
-and the relayout fold from n = 23) and prints the plan's counts: fused
-ops, monomial fused ops, entries, steered prologues, relayouts (folded and
-standalone), steps by kind, and the precision rung "auto" resolves to.
-That much runs anywhere (``--plan-only`` stops there, on the CPU).
+Widths 9..30.  For each strategy (prefetch: each mono-lowering arm,
+``auto`` the planner's default, ``0``/``1`` forcing the mono step or
+mono-as-mat) and each width it plans ``grover_like(n, 2445, 318)`` as the
+Simulator does and prints the plan's counts — prefetch: fused ops,
+monomial fused ops, entries, steered prologues, relayouts (folded and
+standalone), steps by kind; mxu: fused ops by kh, mm steps by D, kh0 runs
+and their lengths; pallas: items, mat items, swaps — and the precision
+rung "auto" resolves to.  That much runs anywhere (``--plan-only`` stops
+there, on the CPU).
 
-On a CUDA card it then runs ``Simulator.run_detailed`` (``precision``
-"auto"): one warm-up, then ``--runs`` timed runs, each split into the
-host's enqueue of the chain, the chain to its sync, and the copy to the
-host plus the join; kernel launches per run by kind (fp32 mat, "high"
-mat, gather, folded first launch, relayout); and the amplitude error
-against the native f64 reference up to n = 23 (above it the reference is
-not run: its time grows 2x per qubit; the norm is reported).  One more
-run goes under ``torch.profiler``: device busy time (the union of the
-device events), the profiled wall time, the device's idle share, and each
-device event's count and total time by name.
+On a CUDA card it then runs ``Simulator.run_detailed`` at ``--precision``
+("auto" by default; pallas always runs fp32): one warm-up, then ``--runs`` timed runs, each split into the
+host's enqueue of the engine, the engine to its sync, and the unpermute
+(mxu, pallas), the copy to the host and the join; kernel launches per run
+by kind (fp32 mat, "high" mat, gather, folded first launch, relayout, kh0
+chain per rung, block128); and the amplitude error against the native f64
+reference up to n = 23 (above it the reference is not run: its time grows
+2x per qubit; the norm is reported).  One more run goes under
+``torch.profiler``: device busy time (the union of the device events), the
+profiled wall time, the device's idle share, and each device event's count
+and total time by name.
 
-``--sweep`` also runs n = 9..20 at three tile geometries (the planner's
-(512, 64) and the shrunken (4, 1) and (16, 2), which put prologues and
-relayouts at small n) against the f64 reference.
+``--sweep`` also runs prefetch at n = 9..20 at three tile geometries (the
+planner's (512, 64) and the shrunken (4, 1) and (16, 2), which put
+prologues and relayouts at small n) against the f64 reference.
 
 The last line of the output is one JSON object with every number printed.
 """
@@ -41,15 +45,20 @@ import numpy as np
 import torch
 
 from . import models
-from .config import SimulatorConfig
+from .config import SimulatorConfig, resolve_precision
+from .engine import pallas_engine as PE
 from .engine import prefetch as PF
+from .engine import simulator as S
+from .engine import wide as W
 from .engine.simulator import Simulator, _fuse_pipeline
-from .config import resolve_precision
-from .kernels import block
+from .kernels import block, wide
 from .kernels.block import run_block
 from .kernels.relayout import run_relayout
 from .ops.apply import join_state
+from .passes.fuse4x4 import fuse_4x4
+from .passes.fuse_k import fuse_k
 from .passes.permute import plan_permutation
+from .passes.shard import plan_sharded
 from .ref.native import simulate_native
 
 GATES, SEED = 2445, 318
@@ -62,14 +71,36 @@ def _arm(text: str):
     return {"auto": None, "0": False, "1": True}[text]
 
 
+STRATEGIES = ("prefetch", "mxu", "pallas")
+
+
 def _clear_caches() -> None:
-    PF._PROGRAM_CACHE.clear()
-    PF._RUN_CACHE.clear()
+    for cache in (PF._PROGRAM_CACHE, PF._RUN_CACHE, S._MXU_PLAN_CACHE,
+                  W._CACHE, PE._CACHE):
+        cache.clear()
 
 
-def plan_counts(n: int) -> dict:
+def _reset_launches() -> None:
+    block.reset_launches()
+    wide.reset_launches()
+    run_relayout.launches = 0
+
+
+def _launches() -> dict:
+    return {**run_block.launches, "relayout": run_relayout.launches,
+            "kh0": wide.kh0_chain.launches["highest"],
+            "kh0_high": wide.kh0_chain.launches["high"],
+            "block128": wide.apply_block128.launches}
+
+
+def plan_counts(n: int, strategy: str = "prefetch",
+                precision: str = "auto") -> dict:
     """The plan the Simulator builds for the benchmark circuit, counted."""
-    config = SimulatorConfig(strategy="prefetch")
+    if strategy == "mxu":
+        return _mxu_counts(n, precision)
+    if strategy == "pallas":
+        return _pallas_counts(n)
+    config = SimulatorConfig(strategy="prefetch", precision=precision)
     c = models.grover_like(n, GATES, SEED)
     perm = plan_permutation(c)
     max_high, cap_mats, window = PF.resolve_prefetch_knobs(config, n, False)
@@ -98,6 +129,35 @@ def plan_counts(n: int) -> dict:
         "tswap_steps": sum(1 <= k <= logt for k in kinds),
         "perm_folds": plan.num_pfolds,
     }
+
+
+def _mxu_counts(n: int, precision: str) -> dict:
+    """The mxu engine's fused ops by kh and its step list, without tables."""
+    config = SimulatorConfig(strategy="mxu", precision=precision)
+    c = models.grover_like(n, GATES, SEED)
+    ops = _fuse_pipeline(c.relabeled(plan_permutation(c)),
+                         config.max_fused_qubits, max_high=2, window=8,
+                         cost_model=True)
+    steps = [st for seg in W.plan_segments(ops, n) for st in seg[0]]
+    kh = [sum(q >= W.LANE_QUBITS for q in op.qubits) for op in ops]
+    return {
+        "n": n, "precision": resolve_precision(config.precision, n),
+        "fused_ops": len(ops), "ops_by_kh": {k: kh.count(k) for k in (0, 1, 2)},
+        "mm_steps_by_D": {d: sum(st[0] == "mm" and st[1] == d for st in steps)
+                          for d in (128, 256, 512)},
+        "kh0_runs": [st[2] for st in steps if st[0] == "kh0"],
+    }
+
+
+def _pallas_counts(n: int) -> dict:
+    """The pallas engine's low-region plan, counted."""
+    c = models.grover_like(n, GATES, SEED)
+    ops = fuse_k(fuse_4x4(c.relabeled(plan_permutation(c))),
+                 max_qubits=W.LANE_QUBITS)
+    plan = plan_sharded(ops, n, n - W.LANE_QUBITS)
+    return {"n": n, "fused_ops": len(ops), "items": len(plan.items),
+            "mat_items": len(plan.items) - plan.num_swaps,
+            "swaps": plan.num_swaps}
 
 
 def _device_profile(sim, c) -> dict:
@@ -133,29 +193,29 @@ def _device_profile(sim, c) -> dict:
                         sorted(by_name.items(), key=lambda kv: -kv[1][1])}}
 
 
-def run_width(n: int, runs: int) -> dict:
+def run_width(n: int, runs: int, strategy: str = "prefetch",
+              precision: str = "auto") -> dict:
     """Timed runs, their host/device split, launches, error, a profile."""
-    config = SimulatorConfig(strategy="prefetch")
-    sim = Simulator(config, device="cuda")
+    sim = Simulator(SimulatorConfig(strategy=strategy, precision=precision),
+                    device="cuda")
     c = models.grover_like(n, GATES, SEED)
     warm = sim.run_detailed(c).seconds
     secs = [sim.run_detailed(c).seconds for _ in range(runs)]
     split = {"enqueue_ms": [], "to_sync_ms": [], "d2h_join_ms": []}
-    block.reset_launches()
-    run_relayout.launches = 0
+    _reset_launches()
+    work, perm, _ = sim._relabel(c)
     for _ in range(runs):
         t0 = time.perf_counter()
-        re, im, _, _ = PF.run_prefetch(c, config, torch.device("cuda"))
+        re, im, _, residual = sim._execute(work)
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        state = join_state(re, im)
+        state = join_state(*sim._restore(re, im, perm, residual))
         t3 = time.perf_counter()
         split["enqueue_ms"].append((t1 - t0) * 1e3)
         split["to_sync_ms"].append((t2 - t0) * 1e3)
         split["d2h_join_ms"].append((t3 - t2) * 1e3)
-    launches = {k: v // runs for k, v in run_block.launches.items()}
-    launches["relayout"] = run_relayout.launches // runs
+    launches = {k: v // runs for k, v in _launches().items()}
     err = (float(np.max(np.abs(state - simulate_native(c))))
            if n <= REF_MAX_QUBITS else None)
     return {"n": n, "warmup_s": warm, "median_s": statistics.median(secs),
@@ -177,8 +237,7 @@ def sweep() -> list:
             _clear_caches()
             for n in SWEEP_WIDTHS:
                 c = models.grover_like(n, 40 * n, n)
-                block.reset_launches()
-                run_relayout.launches = 0
+                _reset_launches()
                 got = sim.run(c)
                 err = float(np.max(np.abs(got - simulate_native(c))))
                 rec = {"tiles": [t, tr], "n": n, "max_abs_err_f64": err,
@@ -217,6 +276,10 @@ def main(argv=None) -> int:
     ap.add_argument("--widths", type=int, nargs="+", default=[18, 22],
                     choices=range(PF.MIN_QUBITS, PF.MAX_QUBITS + 1),
                     metavar="N")
+    ap.add_argument("--strategy", nargs="+", default=["prefetch"],
+                    choices=STRATEGIES)
+    ap.add_argument("--precision", default="auto",
+                    choices=["auto", "highest", "high"])
     ap.add_argument("--mono-as-mat", nargs="+", default=["auto"],
                     choices=["auto", "0", "1"])
     ap.add_argument("--runs", type=int, default=5)
@@ -242,17 +305,24 @@ def main(argv=None) -> int:
         build.load()       # keep the kernels' build out of the warm-up
     saved = PF.MONO_AS_MAT
     try:
-        for arm in args.mono_as_mat:
-            PF.MONO_AS_MAT = _arm(arm)
-            _clear_caches()
-            for n in args.widths:
-                rec = {"mono_as_mat_arm": arm, "plan": plan_counts(n)}
-                print(f"arm {arm} n={n} plan: {json.dumps(rec['plan'])}")
-                if not args.plan_only:
-                    rec.update(run_width(n, args.runs))
-                    _print_width(rec)
-                    _clear_caches()      # free the width's device tables
-                report["arms"].append(rec)
+        for strategy in args.strategy:
+            # the mono-lowering arms are the prefetch planner's
+            arms = args.mono_as_mat if strategy == "prefetch" else ["auto"]
+            for arm in arms:
+                PF.MONO_AS_MAT = _arm(arm)
+                _clear_caches()
+                for n in args.widths:
+                    rec = {"strategy": strategy, "mono_as_mat_arm": arm,
+                           "plan": plan_counts(n, strategy, args.precision)}
+                    print(f"{strategy} arm {arm} n={n} plan: "
+                          f"{json.dumps(rec['plan'])}")
+                    if not args.plan_only:
+                        rec.update(run_width(n, args.runs, strategy,
+                                             args.precision))
+                        _print_width(rec)
+                        _clear_caches()  # free the width's device tables
+                        torch.cuda.empty_cache()
+                    report["arms"].append(rec)
     finally:
         PF.MONO_AS_MAT = saved
         _clear_caches()

@@ -15,8 +15,9 @@ sys.modules["jax"] = None          # any 'import jax' now raises ImportError
 import numpy as np
 import gpu_quantum_simulator_tpu_torch as T
 c = T.models.grover_like(10, 200, 1)
-s = T.Simulator(T.SimulatorConfig(strategy="prefetch"), device="cpu").run(c)
-assert s.shape == (1 << 10,) and abs(np.linalg.norm(s) - 1) < 1e-5
+for strategy in ("prefetch", "mxu", "pallas"):
+    s = T.Simulator(T.SimulatorConfig(strategy=strategy), device="cpu").run(c)
+    assert s.shape == (1 << 10,) and abs(np.linalg.norm(s) - 1) < 1e-5
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "gpu_quantum_simulator_tpu"))]
 print("LOADED", loaded)
@@ -46,4 +47,7 @@ def test_no_source_imports_jax_or_the_jax_package():
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     bad = {(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
+    rel = {os.path.relpath(f, PORT) for f in files}
+    assert {"engine/wide.py", "engine/pallas_engine.py", "kernels/wide.py",
+            "passes/shard.py", "utils/roofline.py"} <= rel, rel
     assert len(files) > 15 and not bad, bad

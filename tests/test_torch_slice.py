@@ -137,8 +137,9 @@ def test_auto_resolves_to_prefetch():
 
 @pytest.mark.parametrize("kind", ["n8", "n30", "default", "mxu", "inplace"])
 def test_outside_the_slice_raises(kind):
-    # n = 30 runs in place by default, as in the JAX package (not ported)
-    n = {"n8": 8, "n30": 30}.get(kind, 10)
+    # n = 30 runs in place by default, as in the JAX package (not ported);
+    # mxu runs from n = 8, so its case is the n <= 7 megakernel arm
+    n = {"n8": 8, "n30": 30, "mxu": 7}.get(kind, 10)
     c = T.models.grover_like(n, 40, 1)
     kw = {"default": dict(precision="default"), "mxu": dict(strategy="mxu"),
           "inplace": dict(prefetch_inplace=True)}.get(kind, {})

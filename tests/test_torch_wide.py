@@ -1,0 +1,413 @@
+"""The port's ``mxu`` strategy (the wide engine) against the JAX package.
+
+Fusion with the cost model (native and Python), the wide program's host
+half (``_op_spec``, ``row_shuffles``, step lists, tables), the chain
+kernel's plain version against the JAX kernel 7 in interpret mode,
+amplitudes of ``Simulator(strategy="mxu", device="cpu")`` against the JAX
+package's mxu Simulator, the "high" rung, the device unpermute and the
+fences of the slice.  Each test states its tolerance.
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from gpu_quantum_simulator_tpu import models as JM
+from gpu_quantum_simulator_tpu.config import SimulatorConfig as JConfig
+from gpu_quantum_simulator_tpu.engine import simulator as JS
+from gpu_quantum_simulator_tpu.engine import wide as JW
+from gpu_quantum_simulator_tpu.ir.circuit import Circuit as JCircuit
+from gpu_quantum_simulator_tpu.ops import apply as JA
+from gpu_quantum_simulator_tpu.passes.permute import (
+    plan_permutation as j_plan_permutation)
+
+import gpu_quantum_simulator_tpu_torch as T
+from gpu_quantum_simulator_tpu_torch.engine import simulator as TS
+from gpu_quantum_simulator_tpu_torch.engine import wide as TW
+from gpu_quantum_simulator_tpu_torch.ir.oplist import Op
+from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+from gpu_quantum_simulator_tpu_torch.ops import apply as TA
+from gpu_quantum_simulator_tpu_torch.passes.permute import plan_permutation
+
+MAT_TOL = 1e-12      # fused matrices: the same f64 products, another build
+AMP_TOL = 1e-6       # "highest" amplitudes (BASELINE.md bar)
+HIGH_TOL = 4e-6      # the "high" rung's bar (tests/test_precision_auto.py:68)
+# peak |amplitude| of grover_like(12, 600, 41), the state that bar was set
+# on; a state whose amplitudes are larger carries proportionally larger
+# rounding, so the bar scales with the peak (the low-only circuit's state
+# sits on 128 amplitudes, peak 0.234)
+HIGH_BAR_PEAK = 0.0486
+
+
+def high_tol(state):
+    return HIGH_TOL * max(1.0, float(np.max(np.abs(state))) / HIGH_BAR_PEAK)
+
+
+def low_only(cls, n, gates, seed=3):
+    """tests/test_precision_auto.py:79-91: gates on qubits 0..6 only, so
+    every fused block is kh = 0."""
+    rng = np.random.default_rng(seed)
+    c = cls(n)
+    for _ in range(gates):
+        kind = rng.integers(3)
+        q = int(rng.integers(7))
+        if kind == 0:
+            c.h(q)
+        elif kind == 1:
+            c.rz(float(rng.uniform(-3, 3)), q)
+        else:
+            r = int(rng.integers(7))
+            if r != q:
+                c.cx(q, r)
+    return c
+
+
+def mixed(cls, n, seed=41):
+    """A low-heavy circuit with a few high-qubit gates (tests/test_engines.py
+    test_wide_kh0_pallas_parity): kh0 runs and mm steps interleave."""
+    low = (JM if cls is JCircuit else T.models).grover_like(7, 260, seed)
+    c = cls(n)
+    for i, g in enumerate(low.gates):
+        c.gates.append(g)
+        if i % 40 == 39:
+            c.cx(7, 8).cx(8, 9).h(7)
+    return c
+
+
+def _relabeled(c):
+    return c.relabeled(j_plan_permutation(c) if isinstance(c, JCircuit)
+                       else plan_permutation(c))
+
+
+def assert_same_ops(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.kind == b.kind and tuple(a.qubits) == tuple(b.qubits)
+        assert np.max(np.abs(np.asarray(a.u) - np.asarray(b.u))) <= MAT_TOL
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("n", [10, 18, 24])
+def test_cost_model_fusion_matches_jax(n, native, monkeypatch):
+    """The mxu engine's fusion (relabeled circuit, window 8, max_high 2,
+    the kh cost model): the same ops as the JAX package, native and
+    Python alike.  Plans only; no state."""
+    gates = 2445 if native else 600
+    tc = _relabeled(T.models.grover_like(n, gates, 318))
+    jc = _relabeled(JM.grover_like(n, gates, 318))
+    if not native:
+        monkeypatch.setattr(TS, "_NATIVE_FUSE", False)
+        monkeypatch.setattr(JS, "_NATIVE_FUSE", False)
+    got = TS._fuse_pipeline(tc, 7, max_high=2, window=8, cost_model=True)
+    want = JS._fuse_pipeline(jc, 7, max_high=2, window=8, cost_model=True)
+    assert_same_ops(got, want)
+    # the cost model packs every low gate into a kh >= 1 block here
+    assert all(any(q >= 7 for q in op.qubits) for op in got)
+
+
+def test_low_only_fusion_runs():
+    """max_fused_qubits 3 / 4 on the low-only circuit at n = 24 (600 gates,
+    seed 3): 69 kh0 ops in nine P = 8 runs, and 51 in six P = 8 runs and one
+    P = 4 — the same ops as the JAX package's."""
+    for k, nops, runs in ((3, 69, [8] * 9), (4, 51, [8] * 6 + [4])):
+        tc = _relabeled(low_only(T.Circuit, 24, 600))
+        ops = TS._fuse_pipeline(tc, k, max_high=2, window=8, cost_model=True)
+        jops = JS._fuse_pipeline(_relabeled(low_only(JCircuit, 24, 600)), k,
+                                 max_high=2, window=8, cost_model=True)
+        assert_same_ops(ops, jops)
+        prog = TW.WideProgram(ops, 10)
+        assert len(ops) == nops
+        assert [st[2] for seg in prog.segments for st in seg.steps] == runs
+
+
+def test_op_spec_matches_jax():
+    n = 12
+    c = _relabeled(T.models.grover_like(n, 400, 5))
+    ops = TS._fuse_pipeline(c, 7, max_high=2, window=8, cost_model=True)
+    ops += [Op("cx", (9, 2)), Op("cx", (1, 3))]
+    for op in ops:
+        got = TW._op_spec(op, n)
+        jop = JW.Op(op.kind, op.qubits, op.u)
+        want = JW._op_spec(jop, n)
+        assert got[:3] == want[:3]
+        assert np.array_equal(got[3], want[3]) and np.array_equal(got[4], want[4])
+
+
+@pytest.mark.parametrize("row_bits", [(), (0,), (3,), (0, 1), (1, 4), (2, 5)])
+def test_row_shuffles_match_jax(row_bits):
+    R = 64
+    x = np.random.default_rng(1).standard_normal((R, 128)).astype(np.float32)
+    fwd, bwd = TW.row_shuffles(row_bits, R)
+    jfwd, jbwd = JW.row_shuffles(row_bits, R)
+    t = fwd(torch.from_numpy(x))
+    assert np.array_equal(t.numpy(), np.asarray(jfwd(jnp.asarray(x))))
+    assert np.array_equal(bwd(t).numpy(), x)
+
+
+def _jax_segments(prog):
+    """(steps, mats) of each segment of a JAX WideProgram, from the closure
+    of its segment kernels."""
+    out = []
+    for kern, mats in prog._raw_segments:
+        steps = inspect.getclosurevars(kern).nonlocals["steps"]
+        out.append((steps, mats))
+    return out
+
+
+@pytest.mark.parametrize("case", ["mixed", "low_only_k3", "grover",
+                                  "low_only_n9"])
+def test_wide_program_steps_match_jax(case):
+    """Step lists per segment and ``num_kh0_runs`` equal the JAX package's
+    with ``kh0_pallas=True`` at n = 10 (the port chains kh = 0 blocks
+    whenever R >= 8) and ``kh0_pallas=False`` at n = 9 (R = 4: no chain);
+    the mm tables (Karatsuba combinations) equal its float32 tables
+    exactly; the kh0 runs hold the blocks' M."""
+    n = 9 if case == "low_only_n9" else 10
+    if case == "low_only_n9":
+        tc, jc, k, cost = (low_only(T.Circuit, n, 200),
+                           low_only(JCircuit, n, 200), 3, True)
+    elif case == "mixed":
+        tc, jc, k, cost = mixed(T.Circuit, n), mixed(JCircuit, n), 7, False
+    elif case == "low_only_k3":
+        tc, jc, k, cost = (low_only(T.Circuit, n, 600),
+                           low_only(JCircuit, n, 600), 3, True)
+    else:
+        tc, jc, k, cost = (T.models.grover_like(n, 2445, 318),
+                           JM.grover_like(n, 2445, 318), 7, True)
+    ops = TS._fuse_pipeline(tc, k, max_high=2, window=8, cost_model=cost)
+    jops = JS._fuse_pipeline(jc, k, max_high=2, window=8, cost_model=cost)
+    prog = TW.WideProgram(ops, n)
+    jprog = JW.WideProgram(jops, n, jnp.float32, kh0_pallas=n >= 10)
+    assert prog.num_kh0_runs == jprog.num_kh0_runs
+    if case in ("mixed", "low_only_k3"):
+        assert prog.num_kh0_runs > 0
+    jsegs = _jax_segments(jprog)
+    assert len(prog.segments) == len(jsegs)
+    for seg, (jsteps, jmats) in zip(prog.segments, jsegs):
+        assert seg.steps == jsteps
+        for i, D in enumerate(sorted(seg.mm)):
+            for c in range(3):
+                assert np.array_equal(seg.mm[D][:, c].numpy(),
+                                      np.asarray(jmats[3 * i + c]))
+    # a kh0 run's tables are the blocks' M in order (no identity pads)
+    kh0 = [s for s in (TW._op_spec(op, n) for op in ops) if s[0] == 0]
+    runs = [r for seg in prog.segments for r in seg.runs]
+    if n < 10:
+        assert kh0 and not runs     # R < 8: kh = 0 blocks are mm steps
+        return
+    flat = torch.cat(runs) if kh0 else torch.zeros(0, 2, 128, 128)
+    assert flat.shape[0] == len(kh0)
+    for t, s in zip(flat, kh0):
+        assert np.array_equal(t[0].numpy(), s[3].astype(np.float32))
+        assert np.array_equal(t[1].numpy(), s[4].astype(np.float32))
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_carried_ops_through_both_programs(precision):
+    """The JAX package's fused ops, rebuilt as the port's ``Op`` from their
+    numpy qubits and matrices, run through the port's WideProgram (plain
+    chain) and the JAX one (kernel 7 in interpret mode) on one random
+    normalized state."""
+    n = 10
+    jops = JS._fuse_pipeline(mixed(JCircuit, n), 7, max_high=2, window=8)
+    ops = [Op(o.kind, tuple(int(q) for q in o.qubits),
+              None if o.u is None else np.asarray(o.u)) for o in jops]
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal((2, 1 << n))
+    v /= np.linalg.norm(v)
+    v = v.astype(np.float32)
+    prog = TW.WideProgram(ops, n, precision=precision)
+    got = prog(torch.from_numpy(v[0].copy()), torch.from_numpy(v[1].copy()))
+    jprog = JW.WideProgram(jops, n, jnp.float32, precision=precision,
+                           kh0_pallas=True)
+    want = jprog(jnp.asarray(v[0]), jnp.asarray(v[1]))
+    tol = AMP_TOL if precision == "highest" else HIGH_TOL
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= tol
+
+
+def _unitaries(rng, count):
+    out = []
+    for _ in range(count):
+        q, r = np.linalg.qr(rng.standard_normal((128, 128))
+                            + 1j * rng.standard_normal((128, 128)))
+        out.append(q * (np.diag(r) / np.abs(np.diag(r))))
+    return out
+
+
+@pytest.mark.parametrize("precision,tol", [("highest", 1e-6), ("high", 4e-6)])
+@pytest.mark.parametrize("P", [1, 8])
+def test_kh0_chain_plain_matches_jax_kernel(P, precision, tol):
+    """kh0_chain_plain (schoolbook) against get_kh0_kernel in interpret mode
+    (Karatsuba) on a normalized n = 12 state; and the wrapper takes the
+    plain version for CPU tensors."""
+    rng = np.random.default_rng(P)
+    R = 32
+    v = rng.standard_normal((2, R, 128))
+    v = (v / np.linalg.norm(v)).astype(np.float32)
+    us = _unitaries(rng, P)
+    tables = torch.from_numpy(np.stack([np.stack([u.real, u.imag])
+                                        for u in us]).astype(np.float32))
+    re, im = torch.from_numpy(v[0]), torch.from_numpy(v[1])
+    got = KW.kh0_chain_plain(re, im, tables, precision)
+    combos = [np.stack([u.real.T, (u.imag - u.real).T, (u.real + u.imag).T])
+              for u in us]
+    m = [jnp.asarray(np.stack([c[j] for c in combos]).astype(np.float32))
+         for j in range(3)]
+    call = JW.get_kh0_kernel(R, P, np.float32, precision, True)
+    want = call(jnp.asarray(v[0]), jnp.asarray(v[1]), *m)
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= tol
+    KW.reset_launches()
+    wrapped = KW.kh0_chain(re, im, tables, precision)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
+    assert KW.kh0_chain.launches == {"highest": 0, "high": 0}
+
+
+def test_kh0_chain_writes_into_out_and_rejects_default():
+    rng = np.random.default_rng(3)
+    re, im = (torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+              for _ in range(2))
+    tables = torch.from_numpy(np.stack([np.stack([u.real, u.imag]) for u in
+                                        _unitaries(rng, 2)]).astype(np.float32))
+    want = KW.kh0_chain_plain(re, im, tables)
+    out = (re.clone(), im.clone())
+    got = KW.kh0_chain(*out, tables, out=out)
+    assert got[0] is out[0] and torch.equal(got[0], want[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        KW.kh0_chain(re, im, tables, "default")
+
+
+def test_wrappers_refuse_other_devices():
+    re = torch.zeros(8, 128, device="meta")
+    tables = torch.zeros(1, 2, 128, 128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        KW.kh0_chain(re, re, tables)
+    with pytest.raises(ValueError, match="unsupported device"):
+        KW.apply_block128(re, re, tables[0, 0], tables[0, 1])
+
+
+def _mxu(**kw):
+    return T.Simulator(T.SimulatorConfig(strategy="mxu", **kw), device="cpu")
+
+
+def _jmxu(**kw):
+    return JS.Simulator(JConfig(strategy="mxu", **kw))
+
+
+@pytest.mark.parametrize("case", ["grover", "low_only_k3"])
+def test_mxu_amplitudes_match_jax(case):
+    """Simulator(strategy="mxu") of both packages at "highest": the port's
+    kh0 runs (P = 8 chains on the low-only circuit) through the plain chain,
+    the JAX package's through XLA matmuls."""
+    if case == "grover":
+        tc, jc, kw = (T.models.grover_like(10, 300, 9),
+                      JM.grover_like(10, 300, 9), {})
+    else:
+        tc, jc, kw = (low_only(T.Circuit, 10, 600),
+                      low_only(JCircuit, 10, 600), {"max_fused_qubits": 3})
+    TS._MXU_PLAN_CACHE.clear()
+    got = _mxu(precision="highest", **kw).run_detailed(tc)
+    want = _jmxu(precision="highest", **kw).run_detailed(jc)
+    assert got.num_fused_ops == want.num_fused_ops
+    assert got.state.dtype == np.complex64
+    assert np.max(np.abs(got.state - np.asarray(want.state))) <= AMP_TOL
+    if case == "low_only_k3":
+        (_, prog), = TS._MXU_PLAN_CACHE.values()
+        runs = [st[2] for seg in prog.segments for st in seg.steps]
+        assert runs == [8] * 9
+
+
+@pytest.mark.parametrize("case", ["grover", "low_only_k3"])
+def test_mxu_high_rung_against_highest(case):
+    """"high" is a different product (strictly above 0) within the rung's
+    bar of the port's own "highest" run (scaled to the state's peak
+    amplitude, ``high_tol``)."""
+    if case == "grover":
+        c, kw = T.models.grover_like(12, 600, 41), {}
+    else:
+        c, kw = low_only(T.Circuit, 10, 600), {"max_fused_qubits": 3}
+    hi = _mxu(precision="high", **kw).run(c)
+    ref = _mxu(precision="highest", **kw).run(c)
+    err = float(np.max(np.abs(hi - ref)))
+    assert 0.0 < err <= high_tol(ref), err
+
+
+def test_mxu_is_the_default():
+    c = T.models.ghz(10)
+    res = T.Simulator(device="cpu").run_detailed(c)
+    assert res.strategy == "mxu"
+    assert abs(res.state[0] - 2 ** -0.5) < AMP_TOL
+    assert abs(T.simulate(c, device="cpu")[-1] - 2 ** -0.5) < AMP_TOL
+    assert T.SimulatorConfig().effective_precision(24) == "high"
+
+
+def test_mxu_initial_state_resume():
+    """A prefix then a resumed suffix equals the whole circuit (the initial
+    state is mapped into the relabeled basis)."""
+    n = 10
+    full = T.models.grover_like(n, 200, 31)
+    first, second = T.Circuit(n), T.Circuit(n)
+    first.gates = full.gates[:100]
+    second.gates = full.gates[100:]
+    sim = _mxu(precision="highest")
+    got = sim.run(second, initial=sim.run(first))
+    want = np.asarray(_jmxu(precision="highest").run(JM.grover_like(n, 200, 31)))
+    assert np.max(np.abs(got - want)) <= 2 * AMP_TOL
+
+
+def test_mxu_plan_cache_skips_refusion(monkeypatch):
+    c = T.models.grover_like(9, 120, 77)
+    first = _mxu().run(c)
+
+    def boom(*a, **k):
+        raise AssertionError("plan cache missed: circuit was re-fused")
+
+    monkeypatch.setattr(TS, "_fuse_pipeline", boom)
+    assert np.array_equal(_mxu().run(c), first)
+    c.h(0)
+    with pytest.raises(AssertionError, match="re-fused"):
+        _mxu().run(c)
+
+
+@pytest.mark.parametrize("n", [12, 16])
+def test_unpermute_device_matches_jax(n):
+    """n = 12: the dense (2,)*n transpose; n = 16: bit transpositions."""
+    rng = np.random.default_rng(n)
+    perm = rng.permutation(n)
+    v = rng.standard_normal((2, 1 << n)).astype(np.float32)
+    got = TA.unpermute_device(torch.from_numpy(v[0]), torch.from_numpy(v[1]),
+                              [int(p) for p in perm])
+    want = JA.unpermute_device(jnp.asarray(v[0]), jnp.asarray(v[1]),
+                               tuple(int(p) for p in perm))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("strategy", ["prefetch", "mxu"])
+def test_permute_true_matches_permute_false(strategy):
+    c = T.models.grover_like(11, 300, 3)
+    a = T.Simulator(T.SimulatorConfig(strategy=strategy, permute=True),
+                    device="cpu").run(c)
+    b = T.Simulator(T.SimulatorConfig(strategy=strategy), device="cpu").run(c)
+    assert np.max(np.abs(a - b)) <= AMP_TOL
+
+
+@pytest.mark.parametrize("kind,exc", [
+    ("n7", NotImplementedError), ("n31", ValueError),
+    ("default", NotImplementedError), ("complex128", NotImplementedError),
+])
+def test_mxu_faults_raise(kind, exc):
+    n = {"n7": 7, "n31": 31}.get(kind, 10)
+    kw = {"default": dict(precision="default"),
+          "complex128": dict(dtype="complex128")}.get(kind, {})
+    c = T.Circuit(n)
+    c.h(0)
+    TS._MXU_PLAN_CACHE.clear()
+    with pytest.raises(exc, match="ROADMAP|ceiling"):
+        _mxu(**kw).run(c)
+    assert not TS._MXU_PLAN_CACHE        # nothing was planned or built
