@@ -6,12 +6,15 @@ never ``jax``, and never the JAX package: the host modules it needs
 (``ir``, ``passes``, ``models``, ``ref``, ``config`` and the numpy planner)
 are JAX-free copies, held to the originals by the tests.
 
-So far it runs the ``mxu`` (the default config), ``pallas`` and
-``prefetch`` strategies, e.g. ``Simulator(device="cuda")``, up to 30
-qubits at the "highest" (IEEE fp32) and "high" (3-pass bf16) precision
-rungs, through the kernels in ``kernels/`` (CUDA sources in ``csrc/``).
-On ``device="cpu"`` the same paths run each kernel's plain torch version.
-Anything else raises NotImplementedError naming its ROADMAP item.
+So far it runs the ``mxu`` (the default config), ``pallas``,
+``prefetch``, ``vmem`` (n <= 19) and ``megakernel`` strategies, e.g.
+``Simulator(device="cuda")``, up to 30 qubits at the "highest" (IEEE fp32)
+and "high" (3-pass bf16) precision rungs, through the kernels in
+``kernels/`` (CUDA sources in ``csrc/``), with every strategy's smallest
+widths on the megakernel arm.  Every entry point runs on the card unless
+it is passed ``device="cpu"``, where the same paths run each kernel's
+plain torch version.  Anything else raises NotImplementedError naming its
+ROADMAP item.
 
 Qubit convention matches the JAX package: qubit ``k`` is bit ``k`` of the
 basis index (little-endian).

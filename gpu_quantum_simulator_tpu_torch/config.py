@@ -31,7 +31,8 @@ def resolve_precision(precision: str, num_qubits: int) -> str:
 
 
 # Every strategy of the JAX package.  The port runs "mxu", "pallas",
-# "prefetch" and "auto"; the others raise NotImplementedError (ROADMAP A).
+# "prefetch", "vmem", "megakernel" and "auto"; the others raise
+# NotImplementedError (ROADMAP A).
 STRATEGIES = (
     "auto",        # width-based dispatch; in the port always prefetch
                    # (engine.simulator._auto_strategy)
@@ -40,7 +41,8 @@ STRATEGIES = (
     "fused2x2",    # host-side per-qubit 2x2 accumulation (ref: preproces)
     "fused3in1",   # flush+flush+CNOT in one dispatch (ref: preproces_3in1, debugged)
     "fused4x4",    # pair state machine -> 4x4 blocks (ref: 4x4, its fastest)
-    "megakernel",  # whole fused op-list unrolled into ONE jit (ref: constant/texture)
+    "megakernel",  # the whole fused op list as torch ops, one callable
+                   # (engine/megakernel.py; ref: constant/texture)
     "scan",        # recompile-free lax.scan over dense gate tables
     "mxu",         # the default: cost-model fusion to blocks of <= 7 low + 2
                    # high qubits, each one D <= 512 matrix product on the
@@ -50,7 +52,8 @@ STRATEGIES = (
     "pallas",      # <= 7-qubit blocks planned onto the lane qubits, each one
                    # 128x128 product in the CUDA chain kernel, plus qubit
                    # swap copies (engine/pallas_engine.py)
-    "vmem",        # whole circuit inside chunked Pallas kernels, state VMEM-resident (n<=19)
+    "vmem",        # 96-op chunks, each one cooperative CUDA launch with the
+                   # state in L2 (engine/vmem.py, n <= 19)
     "sharded",     # mesh-sharded state vector, all_to_all qubit swaps
 )
 

@@ -25,6 +25,7 @@ import torch
 
 from ..ir.oplist import expand_unitary, op_matrix
 from ..kernels.wide import apply_block128
+from ..ops.apply import resolve_device
 from ..passes.shard import ShardPlan, SwapItem
 
 LANE_QUBITS = 7
@@ -50,7 +51,8 @@ class PallasProgram:
     Calling it maps a flat (2^n,) state pair through every item; the input
     pair is handed over (the block kernel writes into it)."""
 
-    def __init__(self, plan: ShardPlan, num_qubits: int, device="cpu"):
+    def __init__(self, plan: ShardPlan, num_qubits: int, device="cuda"):
+        device = resolve_device(device)
         n = num_qubits
         self.num_qubits = n
         self._R = 1 << (n - LANE_QUBITS)
@@ -98,7 +100,14 @@ def run_pallas(circuit, config, device, initial=None):
     from .prefetch import _circuit_fingerprint
 
     n = circuit.num_qubits
-    device = torch.device(device)
+    device = resolve_device(device)
+    if n <= LANE_QUBITS:
+        # the state is one 128-wide row or less: the megakernel arm
+        from .megakernel import run_megakernel
+
+        ops = fuse_k(fuse_4x4(circuit),
+                     max_qubits=min(config.max_fused_qubits, n))
+        return run_megakernel(ops, n, device, initial)
     k = min(config.max_fused_qubits, LANE_QUBITS)
     key = (_circuit_fingerprint(circuit), n, k, str(device))
     cached = _CACHE.get(key)

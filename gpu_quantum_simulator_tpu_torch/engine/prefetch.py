@@ -42,6 +42,7 @@ import torch
 from ..ir.oplist import Op, op_matrix
 from ..kernels.block import run_block, split_tables
 from ..kernels.relayout import run_relayout
+from ..ops.apply import resolve_device
 
 LANE_QUBITS = 7
 LANES = 1 << LANE_QUBITS
@@ -1137,11 +1138,6 @@ def check_slice(n: int, precision: str, inplace: bool = False) -> None:
             f"n = {n} exceeds the prefetch engine's ceiling (n = "
             f"{MAX_QUBITS}); the sharded engines are not yet ported "
             "(ROADMAP queue A, parallel/)")
-    if n < MIN_QUBITS:
-        raise NotImplementedError(
-            f"n = {n} < {MIN_QUBITS}: the JAX package runs these widths "
-            "through its megakernel arm (engine/megakernel.py), not yet "
-            "ported (ROADMAP queue A, the n < 9 megakernel arm)")
     if inplace:
         raise NotImplementedError(
             "prefetch_inplace: the in-place split engine (the JAX "
@@ -1174,9 +1170,10 @@ class PrefetchProgram:
         cap_mats: int = CAP_MATS,
         final_layout: Optional[Sequence[int]] = None,
         reorder: bool = True,
-        device="cpu",
+        device="cuda",
     ):
         n = num_qubits
+        device = resolve_device(device)
         check_slice(n, precision)
         plan = plan_circuit(ops, n, reorder=reorder, cap_steps=cap_steps,
                             cap_mats=cap_mats, final_layout=final_layout)
@@ -1217,11 +1214,12 @@ def build_prefetch_program(
     cap_mats: int = CAP_MATS,
     final_layout: Optional[Sequence[int]] = None,
     reorder: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> PrefetchProgram:
+    device = resolve_device(device)
     h = hashlib.sha256(
         f"p|{num_qubits}|{precision}|{cap_steps}|{cap_mats}|{reorder}"
-        f"|{torch.device(device)}|{tile_rows(num_qubits)}"
+        f"|{device}|{tile_rows(num_qubits)}"
         f"|{relayout_rows(num_qubits)}"
         f"|{resolve_mono_as_mat(num_qubits)}|{PERM_AS_MAT}"
         f"|{num_qubits >= PORTFOLIO_MIN_QUBITS}"
@@ -1266,12 +1264,21 @@ def run_prefetch(circuit, config, device, initial=None):
     inplace = getattr(config, "prefetch_inplace", None)
     if inplace is None:
         inplace = n >= MAX_QUBITS
-    check_slice(n, precision, bool(inplace))   # before planning/allocating
     if config.dtype != "complex64":
         raise ValueError(
             "the prefetch strategy is float32-only; use the JAX package's "
             "mxu/reference strategies for complex128 parity checks")
-    device = torch.device(device)
+    device = resolve_device(device)
+    if n < MIN_QUBITS:
+        # the megakernel arm, before the rung is read: it ignores the rung
+        from ..passes.fuse4x4 import fuse_4x4
+        from ..passes.fuse_k import fuse_k
+        from .megakernel import run_megakernel
+
+        ops = fuse_k(fuse_4x4(circuit),
+                     max_qubits=min(config.max_fused_qubits, n))
+        return run_megakernel(ops, n, device, initial)
+    check_slice(n, precision, bool(inplace))   # before planning/allocating
 
     # relabel hot qubits low and have the plan itself route the state back
     # to the ORIGINAL basis

@@ -2,11 +2,13 @@
 
 Mirrors ``gpu_quantum_simulator_tpu/engine/simulator.py`` on an explicit
 ``device`` for ``strategy="mxu"`` (the default, engine/wide.py),
-``"pallas"`` (engine/pallas_engine.py) and ``"prefetch"`` (engine/
-prefetch.py; ``"auto"`` resolves to it).  Every other strategy, and every
-width or precision rung outside the port's slice, raises
-NotImplementedError naming its ROADMAP item; n > 30 raises ValueError, as
-in the JAX package.  Nothing runs on another device than the one asked for.
+``"pallas"`` (engine/pallas_engine.py), ``"prefetch"`` (engine/
+prefetch.py; ``"auto"`` resolves to it), ``"vmem"`` (engine/vmem.py) and
+``"megakernel"`` (engine/megakernel.py, also every strategy's arm at the
+smallest widths).  Every other strategy, and every width or precision rung
+outside the port's slice, raises NotImplementedError naming its ROADMAP
+item; n > 30, and vmem above n = 19, raise ValueError, as in the JAX
+package.  Nothing runs on another device than the one asked for.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from ..ir.circuit import Circuit
 from ..kernels.block import RUNGS
 from ..ops import apply as A
 from ..passes.permute import plan_permutation, unpermute_state
+from .vmem import VMEM_MAX_QUBITS
+from .wide import LANE_QUBITS
 
 
 @dataclass
@@ -54,11 +58,7 @@ class Simulator:
     def __init__(self, config: Optional[SimulatorConfig] = None,
                  device="cuda"):
         self.config = config or SimulatorConfig()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' requested but torch.cuda.is_available() is "
-                "false; pass device='cpu' for the plain torch path")
+        self.device = A.resolve_device(device)
 
     def _resolved(self, n: int) -> "Simulator":
         """Resolve ``strategy='auto'`` to a concrete engine for width n."""
@@ -92,13 +92,15 @@ class Simulator:
 
     def _relabel(self, circuit: Circuit, initial=None):
         """(work circuit, perm or None, initial in the work basis): hot
-        qubits relabeled low for mxu and pallas, and for any strategy with
-        ``permute=True`` (prefetch routes the state back to the ORIGINAL
-        basis inside its own plan, so it relabels here only when asked)."""
+        qubits relabeled low for mxu, pallas and vmem, and for any strategy
+        with ``permute=True`` (prefetch routes the state back to the
+        ORIGINAL basis inside its own plan, so it relabels here only when
+        asked)."""
         n = circuit.num_qubits
         perm = None
         work = circuit
-        if self.config.permute or self.config.strategy in ("mxu", "pallas"):
+        if self.config.permute or self.config.strategy in ("mxu", "pallas",
+                                                           "vmem"):
             perm = plan_permutation(circuit)
             if np.array_equal(perm, np.arange(n)):
                 perm = None
@@ -144,6 +146,7 @@ class Simulator:
     # ------------------------------------------------------------- dispatch
     def _execute(self, circuit: Circuit, initial=None):
         cfg = self.config
+        n = circuit.num_qubits
         if cfg.strategy == "prefetch":
             from .prefetch import run_prefetch
 
@@ -152,7 +155,49 @@ class Simulator:
             from .pallas_engine import run_pallas
 
             return run_pallas(circuit, cfg, self.device, initial=initial)
+        if cfg.strategy == "megakernel" or n <= LANE_QUBITS:
+            # the JAX package's small-width arms, each with its own fusion
+            from ..passes.fuse4x4 import fuse_4x4
+            from ..passes.fuse_k import fuse_k
+            from .megakernel import run_megakernel
+
+            if cfg.strategy == "megakernel":
+                ops = fuse_4x4(circuit)
+            elif cfg.strategy == "vmem":
+                ops = fuse_k(fuse_4x4(circuit), max_qubits=n)
+            else:
+                ops = _fuse_pipeline(circuit, min(cfg.max_fused_qubits, n),
+                                     max_high=None)
+            return run_megakernel(ops, n, self.device, initial)
+        if cfg.strategy == "vmem":
+            return self._run_vmem(circuit, initial)
         return self._run_mxu(circuit, initial)
+
+    def _run_vmem(self, circuit: Circuit, initial=None):
+        """The vmem engine (8 <= n <= 19): plain fusion to blocks of <= 7
+        low plus 2 high qubits, then one kernel-8 launch per chunk."""
+        from .prefetch import _circuit_fingerprint
+        from .vmem import build_vmem_program_cached
+
+        cfg = self.config
+        n = circuit.num_qubits
+        key = ("vmem", _circuit_fingerprint(circuit), n,
+               cfg.max_fused_qubits, str(self.device))
+
+        def plan():
+            ops = _fuse_pipeline(circuit, min(cfg.max_fused_qubits, 7),
+                                 max_high=2)
+            return ops, build_vmem_program_cached(ops, n, device=self.device)
+
+        ops, prog = _cached_plan(key, plan)
+        re, im = self._start(n, initial)
+        re, im = prog(re, im)
+        return re, im, len(ops), None
+
+    def _start(self, n: int, initial=None):
+        if initial is None:
+            return A.initial_state_parts(n, device=self.device)
+        return A.split_state(initial, device=self.device)
 
     def _run_mxu(self, circuit: Circuit, initial=None):
         """The wide engine: cost-model fusion, then the WideProgram."""
@@ -169,28 +214,23 @@ class Simulator:
         # matrices; the device takes the place of the JAX backend's name
         key = (_circuit_fingerprint(circuit), n, precision, k, window,
                str(self.device))
-        cached = _MXU_PLAN_CACHE.get(key)
-        if cached is None:
+
+        def plan():
             ops = _fuse_pipeline(circuit, k, max_high=2, window=window,
                                  cost_model=True)
-            prog = build_wide_program(ops, n, precision=precision,
-                                      device=self.device)
-            if len(_MXU_PLAN_CACHE) >= _MXU_PLAN_CACHE_LIMIT:
-                _MXU_PLAN_CACHE.pop(next(iter(_MXU_PLAN_CACHE)))
-            _MXU_PLAN_CACHE[key] = (ops, prog)
-        else:
-            ops, prog = cached
-        if initial is None:
-            re, im = A.initial_state_parts(n, device=self.device)
-        else:
-            re, im = A.split_state(initial, device=self.device)
+            return ops, build_wide_program(ops, n, precision=precision,
+                                           device=self.device)
+
+        ops, prog = _cached_plan(key, plan)
+        re, im = self._start(n, initial)
         re, im = prog(re, im)
         return re, im, len(ops), None
 
 
 def _check_run(cfg: SimulatorConfig, n: int) -> None:
-    """Raise for what the port's mxu and pallas engines do not run (the
-    prefetch engine fences its own slice, engine/prefetch.check_slice)."""
+    """Raise for what the port's mxu, pallas, vmem and megakernel engines do
+    not run (the prefetch engine fences its own slice, engine/prefetch.py
+    ``run_prefetch``)."""
     if n > 30:
         # fail BEFORE allocating, as the JAX package does
         raise ValueError(
@@ -198,22 +238,24 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
             "engines are not yet ported (ROADMAP queue A, item 8, parallel/)")
     if cfg.strategy == "prefetch":
         return
-    if cfg.strategy not in ("mxu", "pallas"):
+    if cfg.strategy not in ("mxu", "pallas", "vmem", "megakernel"):
         raise NotImplementedError(
             f"strategy {cfg.strategy!r} is not yet ported; the port runs "
-            "'mxu', 'pallas', 'prefetch' and 'auto' (ROADMAP queue A)")
-    if n <= 7:
-        raise NotImplementedError(
-            f"n = {n} <= 7: the JAX package runs these widths through its "
-            "megakernel arm (engine/megakernel.py), not yet ported (ROADMAP "
-            "queue A, item 1)")
+            "'mxu', 'pallas', 'prefetch', 'vmem', 'megakernel' and 'auto' "
+            "(ROADMAP queue A)")
     if cfg.dtype != "complex64":
         raise NotImplementedError(
             "dtype complex128: the port runs complex64 (split float32) only "
             "(ROADMAP queue A, item 8)")
-    # the pallas engine ignores the rung (always IEEE fp32), as in the JAX
+    if cfg.strategy == "vmem" and n > VMEM_MAX_QUBITS:
+        raise ValueError(
+            f"vmem strategy holds the state in VMEM: n <= {VMEM_MAX_QUBITS} "
+            f"(got {n}); use mxu")
+    # the megakernel arm (n <= 7, and the megakernel strategy), the pallas
+    # and vmem engines ignore the rung (always IEEE fp32), as in the JAX
     # package
-    if cfg.strategy == "mxu" and cfg.effective_precision(n) not in RUNGS:
+    if cfg.strategy == "mxu" and n > LANE_QUBITS \
+            and cfg.effective_precision(n) not in RUNGS:
         raise NotImplementedError(
             f"precision {cfg.precision!r}: the port runs the 'highest' "
             "(IEEE fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, "
@@ -221,10 +263,22 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
 
 
 # mxu plan cache: (circuit fingerprint, n, precision, fusion knobs, device)
-# -> (fused ops, WideProgram).  Entries hold device tables, so the
-# limit stays small.
+# -> (fused ops, WideProgram), and the vmem engine's ("vmem", fingerprint,
+# n, max_fused_qubits, device) -> (fused ops, VmemProgram), as in the JAX
+# package.  Entries hold device tables, so the limit stays small.
 _MXU_PLAN_CACHE: dict = {}
 _MXU_PLAN_CACHE_LIMIT = 8
+
+
+def _cached_plan(key, plan):
+    """``_MXU_PLAN_CACHE[key]``, made by ``plan()`` on a miss."""
+    cached = _MXU_PLAN_CACHE.get(key)
+    if cached is None:
+        cached = plan()
+        if len(_MXU_PLAN_CACHE) >= _MXU_PLAN_CACHE_LIMIT:
+            _MXU_PLAN_CACHE.pop(next(iter(_MXU_PLAN_CACHE)))
+        _MXU_PLAN_CACHE[key] = cached
+    return cached
 
 _NATIVE_FUSE = None  # tri-state: None unknown, False unavailable, module
 

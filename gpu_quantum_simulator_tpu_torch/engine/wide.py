@@ -33,16 +33,16 @@ programs by their ops); at "high" they are split to bf16 once as well.
 
 from __future__ import annotations
 
-import hashlib
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from ..ir.oplist import Op, expand_unitary, op_matrix
+from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
 from ..kernels.block import RUNGS, bf16_split
 from ..kernels.wide import ieee_fp32, kh0_chain, split_wide_tables
+from ..ops.apply import resolve_device
 
 LANE_QUBITS = 7
 LANES = 1 << LANE_QUBITS
@@ -219,7 +219,7 @@ class WideProgram:
     into it)."""
 
     def __init__(self, ops: Sequence[Op], num_qubits: int,
-                 precision: str = "highest", device="cpu"):
+                 precision: str = "highest", device="cuda"):
         n = num_qubits
         if n <= LANE_QUBITS:
             raise ValueError(f"the wide engine needs n > {LANE_QUBITS}")
@@ -229,7 +229,7 @@ class WideProgram:
                 f"{RUNGS} (ROADMAP queue A, item 5, for 'default')")
         self.num_qubits = n
         self.precision = precision
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._R = 1 << (n - LANE_QUBITS)
         high = precision == "high"
         card = self.device.type == "cuda"
@@ -285,16 +285,9 @@ _CACHE_LIMIT = 16
 
 def build_wide_program(ops: Sequence[Op], num_qubits: int,
                        precision: str = "highest",
-                       device="cpu") -> WideProgram:
-    h = hashlib.sha256(
-        f"{num_qubits}|{precision}|{torch.device(device)}"
-        .encode())
-    for op in ops:
-        h.update(op.kind.encode())
-        h.update(np.asarray(op.qubits, dtype=np.int64).tobytes())
-        if op.u is not None:
-            h.update(np.ascontiguousarray(op.u).tobytes())
-    key = h.hexdigest()
+                       device="cuda") -> WideProgram:
+    device = resolve_device(device)
+    key = ops_digest(ops, f"{num_qubits}|{precision}|{device}")
     prog = _CACHE.get(key)
     if prog is None:
         prog = WideProgram(ops, num_qubits, precision=precision,

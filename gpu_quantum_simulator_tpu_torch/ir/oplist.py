@@ -12,6 +12,7 @@ matrix index = sum_j bit(q_j) << j  (little-endian over the sorted tuple).
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -46,6 +47,18 @@ class Op:
     @property
     def width(self) -> int:
         return len(self.qubits)
+
+
+def ops_digest(ops: Sequence[Op], header: str) -> str:
+    """sha256 over ``header`` and every op's kind, qubits and matrix: the
+    key of the engines' program caches (the JAX package's op fingerprint)."""
+    h = hashlib.sha256(header.encode())
+    for op in ops:
+        h.update(op.kind.encode())
+        h.update(np.asarray(op.qubits, dtype=np.int64).tobytes())
+        if op.u is not None:
+            h.update(np.ascontiguousarray(op.u).tobytes())
+    return h.hexdigest()
 
 
 def permute_basis(mat: np.ndarray, src: Sequence[int], dst: Sequence[int]) -> np.ndarray:

@@ -112,6 +112,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_wide_chain.argtypes = [P, P, P, P, P, P, L, I, L, P]
     lib.qsim_wide_chain_high.restype = I
     lib.qsim_wide_chain_high.argtypes = [P, P, P, P, P, I, L, P]
+    lib.qsim_vmem_chunk.restype = I
+    lib.qsim_vmem_chunk.argtypes = [P, P, P, P, P, P, I, I, I,
+                                    ctypes.POINTER(I), P]
 
 
 def load() -> ctypes.CDLL:

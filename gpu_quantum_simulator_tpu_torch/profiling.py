@@ -1,7 +1,7 @@
 """Where each strategy's main path's time goes, per width.
 
     python3 -m gpu_quantum_simulator_tpu_torch.profiling [--widths 18 22]
-        [--strategy prefetch mxu pallas] [--precision auto]
+        [--strategy prefetch mxu pallas vmem] [--precision auto]
         [--mono-as-mat auto 0 1] [--runs 5] [--sweep] [--plan-only]
 
 Widths 9..30.  For each strategy (prefetch: each mono-lowering arm,
@@ -10,16 +10,18 @@ mono-as-mat) and each width it plans ``grover_like(n, 2445, 318)`` as the
 Simulator does and prints the plan's counts — prefetch: fused ops,
 monomial fused ops, entries, steered prologues, relayouts (folded and
 standalone), steps by kind; mxu: fused ops by kh, mm steps by D, kh0 runs
-and their lengths; pallas: items, mat items, swaps — and the precision
-rung "auto" resolves to.  That much runs anywhere (``--plan-only`` stops
+and their lengths; pallas: items, mat items, swaps; vmem (n <= 19): fused
+ops by D and chunks, one kernel launch each — and the precision rung
+"auto" resolves to.  That much runs anywhere (``--plan-only`` stops
 there, on the CPU).
 
 On a CUDA card it then runs ``Simulator.run_detailed`` at ``--precision``
-("auto" by default; pallas always runs fp32): one warm-up, then ``--runs`` timed runs, each split into the
+("auto" by default; pallas and vmem always run fp32): one warm-up, then
+``--runs`` timed runs, each split into the
 host's enqueue of the engine, the engine to its sync, and the unpermute
-(mxu, pallas), the copy to the host and the join; kernel launches per run
-by kind (fp32 mat, "high" mat, gather, folded first launch, relayout, kh0
-chain per rung, block128); and the amplitude error against the native f64
+(mxu, pallas, vmem), the copy to the host and the join; kernel launches
+per run by kind (fp32 mat, "high" mat, gather, folded first launch,
+relayout, kh0 chain per rung, block128, vmem chunk); and the amplitude error against the native f64
 reference up to n = 23 (above it the reference is not run: its time grows
 2x per qubit; the norm is reported).  One more run goes under
 ``torch.profiler``: device busy time (the union of the device events), the
@@ -49,9 +51,10 @@ from .config import SimulatorConfig, resolve_precision
 from .engine import pallas_engine as PE
 from .engine import prefetch as PF
 from .engine import simulator as S
+from .engine import vmem as V
 from .engine import wide as W
 from .engine.simulator import Simulator, _fuse_pipeline
-from .kernels import block, wide
+from .kernels import block, vmem, wide
 from .kernels.block import run_block
 from .kernels.relayout import run_relayout
 from .ops.apply import join_state
@@ -71,18 +74,19 @@ def _arm(text: str):
     return {"auto": None, "0": False, "1": True}[text]
 
 
-STRATEGIES = ("prefetch", "mxu", "pallas")
+STRATEGIES = ("prefetch", "mxu", "pallas", "vmem")
 
 
 def _clear_caches() -> None:
     for cache in (PF._PROGRAM_CACHE, PF._RUN_CACHE, S._MXU_PLAN_CACHE,
-                  W._CACHE, PE._CACHE):
+                  W._CACHE, PE._CACHE, V._CACHE):
         cache.clear()
 
 
 def _reset_launches() -> None:
     block.reset_launches()
     wide.reset_launches()
+    vmem.reset_launches()
     run_relayout.launches = 0
 
 
@@ -90,7 +94,8 @@ def _launches() -> dict:
     return {**run_block.launches, "relayout": run_relayout.launches,
             "kh0": wide.kh0_chain.launches["highest"],
             "kh0_high": wide.kh0_chain.launches["high"],
-            "block128": wide.apply_block128.launches}
+            "block128": wide.apply_block128.launches,
+            "vmem": vmem.vmem_chunk.launches}
 
 
 def plan_counts(n: int, strategy: str = "prefetch",
@@ -100,6 +105,8 @@ def plan_counts(n: int, strategy: str = "prefetch",
         return _mxu_counts(n, precision)
     if strategy == "pallas":
         return _pallas_counts(n)
+    if strategy == "vmem":
+        return _vmem_counts(n)
     config = SimulatorConfig(strategy="prefetch", precision=precision)
     c = models.grover_like(n, GATES, SEED)
     perm = plan_permutation(c)
@@ -158,6 +165,18 @@ def _pallas_counts(n: int) -> dict:
     return {"n": n, "fused_ops": len(ops), "items": len(plan.items),
             "mat_items": len(plan.items) - plan.num_swaps,
             "swaps": plan.num_swaps}
+
+
+def _vmem_counts(n: int) -> dict:
+    """The vmem engine's fused ops by D and its chunks, without tables."""
+    c = models.grover_like(n, GATES, SEED)
+    ops = _fuse_pipeline(c.relabeled(plan_permutation(c)), W.LANE_QUBITS,
+                         max_high=2)
+    by_d = [W.LANES << sum(q >= W.LANE_QUBITS for q in op.qubits)
+            for op in ops]
+    return {"n": n, "fused_ops": len(ops),
+            "ops_by_D": {d: by_d.count(d) for d in (128, 256, 512)},
+            "chunks": -(-len(ops) // V.CHUNK_OPS)}
 
 
 def _device_profile(sim, c) -> dict:

@@ -15,9 +15,12 @@ sys.modules["jax"] = None          # any 'import jax' now raises ImportError
 import numpy as np
 import gpu_quantum_simulator_tpu_torch as T
 c = T.models.grover_like(10, 200, 1)
-for strategy in ("prefetch", "mxu", "pallas"):
+for strategy in ("prefetch", "mxu", "pallas", "vmem", "megakernel"):
     s = T.Simulator(T.SimulatorConfig(strategy=strategy), device="cpu").run(c)
     assert s.shape == (1 << 10,) and abs(np.linalg.norm(s) - 1) < 1e-5
+s = T.Simulator(T.SimulatorConfig(strategy="mxu"), device="cpu").run(
+    T.models.grover_like(5, 100, 1))
+assert s.shape == (1 << 5,) and abs(np.linalg.norm(s) - 1) < 1e-5
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "gpu_quantum_simulator_tpu"))]
 print("LOADED", loaded)
@@ -49,5 +52,6 @@ def test_no_source_imports_jax_or_the_jax_package():
            for m in _imported_roots(f) if m in FORBIDDEN}
     rel = {os.path.relpath(f, PORT) for f in files}
     assert {"engine/wide.py", "engine/pallas_engine.py", "kernels/wide.py",
-            "passes/shard.py", "utils/roofline.py"} <= rel, rel
+            "passes/shard.py", "utils/roofline.py", "engine/vmem.py",
+            "kernels/vmem.py", "engine/megakernel.py"} <= rel, rel
     assert len(files) > 15 and not bad, bad

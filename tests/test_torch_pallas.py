@@ -186,8 +186,11 @@ def test_pallas_initial_state_and_permute():
     ("complex128", NotImplementedError),
 ])
 def test_pallas_faults_raise(kind, exc):
+    # n = 7 runs the megakernel arm (tests/test_torch_megakernel.py), which
+    # keeps the complex64 fence
     n = {"n7": 7, "n31": 31}.get(kind, 10)
-    kw = {"complex128": dict(dtype="complex128")}.get(kind, {})
+    kw = {"complex128": dict(dtype="complex128"),
+          "n7": dict(dtype="complex128")}.get(kind, {})
     c = T.Circuit(n)
     c.h(0)
     TP._CACHE.clear()

@@ -137,14 +137,20 @@ def test_auto_resolves_to_prefetch():
 
 @pytest.mark.parametrize("kind", ["n8", "n30", "default", "mxu", "inplace"])
 def test_outside_the_slice_raises(kind):
-    # n = 30 runs in place by default, as in the JAX package (not ported);
-    # mxu runs from n = 8, so its case is the n <= 7 megakernel arm
+    # n = 30 runs in place by default, as in the JAX package (not ported).
+    # n = 8 (prefetch) and n = 7 (mxu) run the megakernel arm, which keeps
+    # the float32 fence: prefetch's ValueError, as in the JAX package, and
+    # the port's complex128 NotImplementedError for mxu
     n = {"n8": 8, "n30": 30, "mxu": 7}.get(kind, 10)
     c = T.models.grover_like(n, 40, 1)
-    kw = {"default": dict(precision="default"), "mxu": dict(strategy="mxu"),
+    kw = {"default": dict(precision="default"),
+          "mxu": dict(strategy="mxu", dtype="complex128"),
+          "n8": dict(dtype="complex128"),
           "inplace": dict(prefetch_inplace=True)}.get(kind, {})
     cfg = T.SimulatorConfig(**{"strategy": "prefetch", **kw})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = ((ValueError, "float32-only") if kind == "n8"
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(exc, match=match):
         T.Simulator(cfg, device="cpu").run(c)
 
 

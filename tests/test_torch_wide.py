@@ -119,7 +119,7 @@ def test_low_only_fusion_runs():
         jops = JS._fuse_pipeline(_relabeled(low_only(JCircuit, 24, 600)), k,
                                  max_high=2, window=8, cost_model=True)
         assert_same_ops(ops, jops)
-        prog = TW.WideProgram(ops, 10)
+        prog = TW.WideProgram(ops, 10, device="cpu")
         assert len(ops) == nops
         assert [st[2] for seg in prog.segments for st in seg.steps] == runs
 
@@ -180,7 +180,7 @@ def test_wide_program_steps_match_jax(case):
                            JM.grover_like(n, 2445, 318), 7, True)
     ops = TS._fuse_pipeline(tc, k, max_high=2, window=8, cost_model=cost)
     jops = JS._fuse_pipeline(jc, k, max_high=2, window=8, cost_model=cost)
-    prog = TW.WideProgram(ops, n)
+    prog = TW.WideProgram(ops, n, device="cpu")
     jprog = JW.WideProgram(jops, n, jnp.float32, kh0_pallas=n >= 10)
     assert prog.num_kh0_runs == jprog.num_kh0_runs
     if case in ("mixed", "low_only_k3"):
@@ -220,7 +220,7 @@ def test_carried_ops_through_both_programs(precision):
     v = rng.standard_normal((2, 1 << n))
     v /= np.linalg.norm(v)
     v = v.astype(np.float32)
-    prog = TW.WideProgram(ops, n, precision=precision)
+    prog = TW.WideProgram(ops, n, precision=precision, device="cpu")
     got = prog(torch.from_numpy(v[0].copy()), torch.from_numpy(v[1].copy()))
     jprog = JW.WideProgram(jops, n, jnp.float32, precision=precision,
                            kh0_pallas=True)
@@ -402,9 +402,12 @@ def test_permute_true_matches_permute_false(strategy):
     ("default", NotImplementedError), ("complex128", NotImplementedError),
 ])
 def test_mxu_faults_raise(kind, exc):
+    # n = 7 runs the megakernel arm (tests/test_torch_megakernel.py), which
+    # keeps the complex64 fence
     n = {"n7": 7, "n31": 31}.get(kind, 10)
     kw = {"default": dict(precision="default"),
-          "complex128": dict(dtype="complex128")}.get(kind, {})
+          "complex128": dict(dtype="complex128"),
+          "n7": dict(dtype="complex128")}.get(kind, {})
     c = T.Circuit(n)
     c.h(0)
     TS._MXU_PLAN_CACHE.clear()
