@@ -60,6 +60,35 @@ failure raises and the script exits non-zero:
    prefetch at n = 8, the megakernel strategy) launches no port kernel,
    vmem at n = 8 one per chunk.
 
+5. the in-place split-state prefetch engine (four column halves, no
+   second state buffer).  Kernel checks at n=24 on halves: a block of every
+   step kind (kernel 5(a)) against its plain version and against the flat
+   block kernel on the joined state (index steps bit-exact, the fp32 mat
+   step <= 1e-6, the "high" one <= 1e-5), the pair swap (kernel 5(b)) on
+   two tile bits (bit-exact), pair mode (kernel 6) with a mat first step at
+   both rungs and a tswap, perm or mono first step against "pair swap, then
+   the plain block" (bit-exact for the gathers; a plain version without its
+   imaginary-table products must miss the mat bar), and the in-place
+   relayout (kernel 4) on an involution with and without fixed blocks
+   (bit-exact), each timed beside its bound and a PyTorch call.  The path
+   with ``prefetch_inplace=True``: n=9..17 at both rungs ("highest" against
+   the f64 reference, "high" by its norm); then, prologues hoisted (the
+   Simulator) and folded (``fold_xswap``, through
+   ``build_prefetch_program``): n=18, 22, 23 against the f64 reference
+   (<= 1e-6), n=24 "high" against its "highest" run (> 0, <= 4e-6),
+   launches by kind equal to the plan's scal rows by mode with
+   every flat kernel's count 0, and ``run_device_halves`` joined equal to
+   ``run_device`` bit for bit.  Sampling: 200 000 samples at n=23 (flat)
+   and n=22 (halves) by chi-square over 4096 bins against the f64
+   probabilities; ``expectation_z(_halves)`` and ``top_amplitudes_*``
+   against the f64 state.  Full width: n=30 with
+   ``SimulatorConfig(strategy="prefetch")`` alone (in place, "high")
+   through ``run_device_halves`` — norm within 1e-4 of 1, peak device
+   memory <= the state's 8 GiB + 2 GiB, amplitudes at the top-64 and 4096
+   random indices against the flat run of the same circuit
+   (``prefetch_inplace=False``, peak above 16 GiB), and
+   ``Simulator.sample`` reproducible from its seed.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Matmuls in plain torch run in IEEE
 fp32: TF32 is switched off for both matmul and cuDNN.
@@ -67,6 +96,7 @@ fp32: TF32 is switched off for both matmul and cuDNN.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -114,12 +144,24 @@ RELAYOUT_SRC = "gpu_quantum_simulator_tpu_torch/csrc/relayout.cu"
 HIGH_SRC = "gpu_quantum_simulator_tpu_torch/csrc/mat_high.cu"
 WIDE_SRC = "gpu_quantum_simulator_tpu_torch/csrc/wide_chain.cu"
 VMEM_SRC = "gpu_quantum_simulator_tpu_torch/csrc/vmem_chunk.cu"
+SPLIT_SRC = "gpu_quantum_simulator_tpu_torch/csrc/split_block.cu"
 BLOCK_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1214"
 RELAYOUT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1586"
 STREAM_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1376"
 KH0_TPU = "gpu_quantum_simulator_tpu/engine/wide.py:43"
 BLOCK128_TPU = "gpu_quantum_simulator_tpu/ops/pallas_kernels.py:54"
 VMEM_TPU = "gpu_quantum_simulator_tpu/engine/vmem.py:62"
+INPLACE_RELAYOUT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1690"
+SPLIT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1824"
+STREAM_SPLIT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1952"
+SPLIT_WIDTH = 24            # phase 5 geometry of the in-place kernel checks
+SPLIT_MAT_TOL = 1e-6        # in-place fp32 mat step vs plain, |x| ~ 1/16
+INPLACE_WIDTHS = (18, 22, 23)   # in-place path held to the f64 reference
+INPLACE_SMALL = range(9, 18)    # in place below the first cross-tile swap
+FULL_WIDTH = 30             # the width where prefetch runs in place unasked
+FULL_PEAK_SLACK = 2 << 30   # peak device memory allowed above the state
+SAMPLES = 200_000
+SAMPLE_BINS = 4096
 
 
 def norm2(pair):
@@ -760,24 +802,31 @@ def check_vmem_kernel(torch, T):
 
 
 def launch_counts():
-    from gpu_quantum_simulator_tpu_torch.kernels import block, vmem, wide
-    from gpu_quantum_simulator_tpu_torch.kernels.relayout import run_relayout
+    from gpu_quantum_simulator_tpu_torch.kernels import (
+        block, relayout, split, vmem, wide)
 
-    return {**block.run_block.launches, "relayout": run_relayout.launches,
+    return {**block.run_block.launches,
+            "relayout": relayout.run_relayout.launches,
             "kh0": wide.kh0_chain.launches["highest"],
             "kh0_high": wide.kh0_chain.launches["high"],
             "block128": wide.apply_block128.launches,
-            "vmem": vmem.vmem_chunk.launches}
+            "vmem": vmem.vmem_chunk.launches,
+            **{f"split_{k}": v
+               for k, v in split.run_split_block.launches.items()},
+            "xswap": split.run_xswap.launches,
+            "relayout_inplace": relayout.run_relayout_inplace.launches}
 
 
 def reset_counts():
-    from gpu_quantum_simulator_tpu_torch.kernels import block, vmem, wide
-    from gpu_quantum_simulator_tpu_torch.kernels.relayout import run_relayout
+    from gpu_quantum_simulator_tpu_torch.kernels import (
+        block, relayout, split, vmem, wide)
 
     block.reset_launches()
     wide.reset_launches()
     vmem.reset_launches()
-    run_relayout.launches = 0
+    split.reset_launches()
+    relayout.run_relayout.launches = 0
+    relayout.run_relayout_inplace.launches = 0
 
 
 def drive(torch, PF, sim, c, runs):
@@ -1150,27 +1199,784 @@ def run_small_widths(torch, T, refs, add):
     check_only(n, counts, 2)
 
 
-def run_main_path(torch, T):
+# ------------------------------------------------- phase 5: the in-place engine
+def random_halves(torch, n, scale=1.0 / 16):
+    """Four (R2, 128) halves of entries ~ N(0, scale^2) (seeded by main)."""
+    R2 = 1 << (n - 8)
+    return tuple(torch.randn(R2, 128, device="cuda") * scale for _ in range(4))
+
+
+def clone4(halves):
+    return tuple(h.clone() for h in halves)
+
+
+def joined(torch, halves):
+    """The flat engine's (R2, 256) pair from four halves."""
+    return (torch.cat(halves[:2], dim=1), torch.cat(halves[2:], dim=1))
+
+
+def diff4(got, want):
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def equal4(torch, got, want):
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def stack4(torch, halves):
+    """The halves stacked as (re|im, half * row * lane): per component flat
+    bits 0..6 are the lane, then the row bits, and the top bit is the half."""
+    return torch.stack([torch.stack(halves[:2]),
+                        torch.stack(halves[2:])]).reshape(2, -1)
+
+
+def split_tables_for(torch, PF, blocks, cap, **kw):
+    groups = PF.materialize_entries(blocks, PF.CAP_STEPS, cap, np.float32,
+                                    single_class=True, **kw)
+    assert len(groups) == 1, "synthetic blocks must share one table group"
+    (_, _, scal, *tabs) = groups[0]
+    return (scal, *PF.expand_tables(
+        *(torch.from_numpy(np.ascontiguousarray(t)).cuda() for t in tabs)))
+
+
+def check_split_block(torch, rng):
+    """Kernel 5(a) at n=24 on halves: a block of every step kind and one of
+    index steps only, against the plain version and the flat block kernel
+    on the joined state; then one mat step at each rung, timed."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.block import (
+        run_block, split_tables)
+    from gpu_quantum_simulator_tpu_torch.kernels.split import (
+        run_split_block, run_split_block_plain)
+
+    n = SPLIT_WIDTH
+    R2 = 1 << (n - PF.LOCAL_QUBITS)
+    logt = int(np.log2(PF.tile_rows(n)))
+    kind_perm = logt + 1
+    index_only = PF._Block(
+        kinds=[logt, kind_perm, 1, kind_perm, 4, kind_perm],
+        midx=[0, 0, 0, 5, 0, 2])
+    one_mat = PF._Block(kinds=[0], midx=[0], mats=[
+        (random_unitary(rng, 128), tuple(range(7)), None)])
+    blocks = [synthetic_blocks(PF, rng, logt)[0], index_only, one_mat]
+    scal, a_tab, b_tab, mono_src = split_tables_for(torch, PF, blocks,
+                                                    PF.CAP_MATS)
+    w16 = split_tables(a_tab, b_tab)
+    h = random_halves(torch, n)
+    tols = {"highest": SPLIT_MAT_TOL, "high": BLOCK_TOL}
+    err = {}
+    for i, name in enumerate(("every step kind", "index steps only")):
+        for rung in ("highest", "high")[: 2 - i]:
+            args = (a_tab[i], b_tab[i], mono_src[i], logt, PF.CAP_STEPS)
+            got = run_split_block(scal[i], clone4(h), *args, precision=rung,
+                                  w16=w16[i])
+            want = run_split_block_plain(scal[i], clone4(h), *args,
+                                         precision=rung)
+            flat = run_block(scal[i], *joined(torch, h), *args,
+                             precision=rung, w16=w16[i])
+            torch.cuda.synchronize()
+            e, e_flat = diff4(got, want), diff4(joined(torch, got), flat)
+            print(f"split block n={n} {name} {rung}: max|diff| vs plain "
+                  f"{e:.3e}, vs the flat block kernel {e_flat:.3e}")
+            bar = 0.0 if i == 1 else tols[rung]
+            if not (e <= bar and e_flat <= bar):
+                raise AssertionError(f"split block {name} {rung}: {e}, "
+                                     f"{e_flat} > {bar}")
+            err[rung] = max(err.get(rung, 0.0), e)
+            del got, want, flat
+    args = (a_tab[0], b_tab[0], mono_src[0], logt, PF.CAP_STEPS)
+    ms = device_ms(torch, lambda: run_split_block(scal[0], h, *args), reps=5)
+    plain_ms = device_ms(torch, lambda: run_split_block_plain(
+        scal[0], h, *args), reps=3)
+    pair = joined(torch, h)
+    scratch = (torch.empty_like(pair[0]), torch.empty_like(pair[1]))
+    flat_ms = device_ms(torch, lambda: run_block(scal[0], *pair, *args,
+                                                 scratch=scratch), reps=5)
+    kinds = [int(k) for k in scal[0][4 : 4 + int(scal[0][0])]]
+    mats, monos = kinds.count(0), kinds.count(logt + 2)
+    bnd = bound(6.0 * R2 * 256 * 256 * mats,
+                16.0 * R2 * 256 + mats * 2 * 256 * 256 * 4
+                + monos * 3 * 256 * 4)
+    print(f"split block n={n}, {len(kinds)}-step block ({mats} mat, {monos} "
+          f"mono): kernel {ms:.4f} ms in place, flat block kernel "
+          f"{flat_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})")
+    block = record("split_block", SPLIT_SRC, SPLIT_TPU, err["highest"], ms,
+                   plain_ms, bnd, None)
+    del pair, scratch
+
+    # one mat step, each rung: the kernel, the flat kernel, the plain
+    # version, and the plain version without its imaginary-table products
+    recs = {}
+    i = 2
+    args = (a_tab[i], b_tab[i], mono_src[i], logt, PF.CAP_STEPS)
+    dropped = (a_tab[i], torch.zeros_like(b_tab[i]), mono_src[i], logt,
+               PF.CAP_STEPS)
+    flop = 6.0 * R2 * 256 * 256
+    for rung in ("highest", "high"):
+        got = run_split_block(scal[i], clone4(h), *args, precision=rung,
+                              w16=w16[i])
+        want = run_split_block_plain(scal[i], clone4(h), *args,
+                                     precision=rung)
+        miss = run_split_block_plain(scal[i], clone4(h), *dropped,
+                                     precision=rung)
+        torch.cuda.synchronize()
+        e, e_drop = diff4(got, want), diff4(got, miss)
+        if not e <= tols[rung]:
+            raise AssertionError(f"split mat step {rung}: {e} > {tols[rung]}")
+        if not e_drop > tols[rung]:
+            raise AssertionError(f"split mat step {rung}: dropped products "
+                                 f"pass ({e_drop})")
+        del want, miss
+        reps = 10
+        ms = device_ms(torch, lambda: run_split_block(
+            scal[i], h, *args, precision=rung, w16=w16[i]), reps=reps)
+        plain_ms = device_ms(torch, lambda: run_split_block_plain(
+            scal[i], h, *args, precision=rung), reps=3)
+        pair = joined(torch, h)
+        scratch = (torch.empty_like(pair[0]), torch.empty_like(pair[1]))
+        flat_ms = device_ms(torch, lambda: run_block(
+            scal[i], *pair, *args, scratch=scratch, precision=rung,
+            w16=w16[i]), reps=reps)
+        library_ms = None
+        if rung == "highest":
+            x = torch.cat(joined(torch, h), 1)
+            a, b = a_tab[i, 0], b_tab[i, 0]
+            w = torch.cat([torch.cat([a, b], 1), torch.cat([-b, a], 1)], 0)
+            want = run_split_block_plain(scal[i], clone4(h), *args)
+            lib = torch.matmul(x, w)
+            torch.cuda.synchronize()
+            e_lib = max_diff((lib[:, :256], lib[:, 256:]),
+                             joined(torch, want))
+            if not e_lib <= tols[rung]:
+                raise AssertionError(f"split mat step library call: {e_lib}")
+            library_ms = device_ms(torch, lambda: torch.matmul(x, w),
+                                   reps=reps)
+            bnd = bound(flop, 16.0 * R2 * 256 + 2 * 256 * 256 * 4)
+            del x, lib, want
+        else:
+            bnd = bound(3 * flop, 16.0 * R2 * 256 + 4 * 256 * 256 * 2,
+                        BF16_FLOPS)
+        print(f"split mat step n={n} {rung}: max|diff| vs plain {e:.3e}, "
+              f"without the imaginary-table products {e_drop:.3e}; kernel "
+              f"{ms:.4f} ms in place, flat kernel {flat_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library "
+              + ("none" if library_ms is None else f"{library_ms:.4f} ms")
+              + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
+        recs[rung] = record(
+            "split_mat_step" + ("_high" if rung == "high" else ""), SPLIT_SRC,
+            SPLIT_TPU, e, ms, plain_ms, bnd, library_ms)
+        del pair, scratch, got
+    torch.cuda.empty_cache()
+    return block, recs["highest"], recs["high"]
+
+
+def check_xswap(torch):
+    """Kernel 5(b) at n=24: the pair swap on the lowest and the highest
+    tile bit, bit-exact, beside a permute-copy of the stacked halves."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.split import (
+        run_xswap, run_xswap_plain)
+
+    n = SPLIT_WIDTH
+    R2 = 1 << (n - PF.LOCAL_QUBITS)
+    logt = int(np.log2(PF.tile_rows(n)))
+    rb = n - PF.LOCAL_QUBITS
+    h = random_halves(torch, n)
+    rec = None
+    for bit in (logt, rb - 1):
+        got = run_xswap(clone4(h), bit)
+        want = run_xswap_plain(clone4(h), bit)
+        # stacked bits: lanes 0..6, row bit r at 7 + r, the half on top
+        src = list(range(8 + rb))
+        src[7 + bit], src[7 + rb] = 7 + rb, 7 + bit
+        stack = stack4(torch, h)
+        lib = bit_permute(stack, src)
+        torch.cuda.synchronize()
+        if not equal4(torch, got, want):
+            raise AssertionError(f"xswap row bit {bit}: differs from plain")
+        if not torch.equal(lib, stack4(torch, got)):
+            raise AssertionError(f"xswap row bit {bit}: permute-copy differs")
+        ms = device_ms(torch, lambda: run_xswap(h, bit))
+        plain_ms = device_ms(torch, lambda: run_xswap_plain(h, bit))
+        library_ms = device_ms(torch, lambda: bit_permute(stack, src))
+        bnd = bound(0.0, 8.0 * R2 * 256)     # half the state, read + written
+        print(f"xswap kernel n={n} row bit {bit}: bit-exact; kernel "
+              f"{ms:.4f} ms ({8.0 * R2 * 256 / ms / 1e6:.0f} GB/s), plain "
+              f"{plain_ms:.4f} ms, permute-copy {library_ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms")
+        if rec is None:
+            rec = record("split_xswap", SPLIT_SRC, SPLIT_TPU, 0.0, ms,
+                         plain_ms, bnd, library_ms)
+        del got, want, lib, stack
+    return rec
+
+
+def check_pair_mode(torch, rng):
+    """Kernel 6 at n=24: the first launch of a block reads its input
+    through the pending cross-tile swap.  Against "pair swap, then the
+    plain block" and against the plain version."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.block import split_tables
+    from gpu_quantum_simulator_tpu_torch.kernels.split import (
+        run_split_block, run_split_block_plain, run_xswap)
+
+    n = SPLIT_WIDTH
+    R2 = 1 << (n - PF.LOCAL_QUBITS)
+    rb = n - PF.LOCAL_QUBITS
+    logt = int(np.log2(PF.tile_rows(n)))
+    kind_perm, kind_mono = logt + 1, logt + 2
+    shift = 3
+    bit = logt + shift
+    pro = (1 << shift, shift)
+    u = random_unitary(rng, 128)
+    mono = random_monomial(rng, 128)
+    named = [
+        ("mat-first", PF._Block(kinds=[0, 2], midx=[0, 0], prologue=pro,
+                                mats=[(u, tuple(range(7)), None)])),
+        ("mono-first", PF._Block(kinds=[kind_mono, kind_perm], midx=[0, 4],
+                                 prologue=pro,
+                                 mats=[(mono, tuple(range(7)), None)])),
+        ("perm1-first", PF._Block(kinds=[kind_perm, logt], midx=[1, 0],
+                                  prologue=pro)),
+        ("perm5-first", PF._Block(kinds=[kind_perm], midx=[5], prologue=pro)),
+        ("tswap1-first", PF._Block(kinds=[1, kind_perm], midx=[0, 3],
+                                   prologue=pro)),
+        ("swap-only", PF._Block(prologue=pro)),
+        ("tswap-only", PF._Block(kinds=[logt], midx=[0], prologue=pro)),
+    ]
+    scal, a_tab, b_tab, mono_src = split_tables_for(
+        torch, PF, [b for _, b in named], 2, inplace=True, fold_xswap=True)
+    w16 = split_tables(a_tab, b_tab)
+    h = random_halves(torch, n)
+    tols = {"highest": SPLIT_MAT_TOL, "high": BLOCK_TOL}
+    err = 0.0
+    for i, (name, _) in enumerate(named):
+        assert scal[i][1] == 1 and scal[i][3] == shift
+        args = (a_tab[i], b_tab[i], mono_src[i], logt, PF.CAP_STEPS)
+        plain_row = scal[i].copy()
+        plain_row[1] = 0
+        for rung in ("highest", "high") if name == "mat-first" else ("highest",):
+            kw = dict(precision=rung, w16=w16[i])
+            one = run_split_block(scal[i], clone4(h), *args, **kw)
+            two = run_split_block(plain_row, run_xswap(clone4(h), bit),
+                                  *args, **kw)
+            want = run_split_block_plain(scal[i], clone4(h), *args,
+                                         precision=rung)
+            torch.cuda.synchronize()
+            e, e_two = diff4(one, want), diff4(one, two)
+            print(f"pair mode n={n} row bit {bit} {name} {rung}: max|diff| "
+                  f"vs pair swap then block {e_two:.3e}, vs plain {e:.3e}")
+            exact = name not in ("mat-first", "mono-first")
+            bar = 0.0 if exact else tols[rung]
+            if e_two != 0.0 and name != "mat-first":
+                raise AssertionError(f"pair mode {name}: not the swap then "
+                                     f"the block bit for bit ({e_two})")
+            if not (e <= bar and e_two <= bar):
+                raise AssertionError(f"pair mode {name} {rung}: {e}, {e_two}")
+            if name == "mat-first":
+                miss = run_split_block_plain(
+                    scal[i], clone4(h), a_tab[i], torch.zeros_like(b_tab[i]),
+                    *args[2:], precision=rung)
+                e_drop = diff4(one, miss)
+                if not e_drop > bar:
+                    raise AssertionError(f"pair mode mat {rung}: dropped "
+                                         f"products pass ({e_drop})")
+                del miss
+            err = max(err, e)
+            del one, two, want
+    # one pair-mode launch (a tswap) beside the two launches it replaces
+    i = len(named) - 1
+    args = (a_tab[i], b_tab[i], mono_src[i], logt, PF.CAP_STEPS)
+    plain_row = scal[i].copy()
+    plain_row[1] = 0
+    ms = device_ms(torch, lambda: run_split_block(scal[i], h, *args))
+    plain_ms = device_ms(torch, lambda: run_split_block_plain(scal[i], h,
+                                                              *args), reps=5)
+    two_ms = device_ms(torch, lambda: run_split_block(
+        plain_row, run_xswap(h, bit), *args))
+    # out(half, a, b) = in(b, half, a): output bit B holds input bit src[B]
+    top, a_bit, b_bit = 7 + rb, 7 + logt - 1, 7 + bit
+    src = list(range(8 + rb))
+    src[top], src[a_bit], src[b_bit] = a_bit, b_bit, top
+    stack = stack4(torch, h)
+    got = run_split_block(scal[i], clone4(h), *args)
+    lib = bit_permute(stack, src)
+    torch.cuda.synchronize()
+    if not torch.equal(lib, stack4(torch, got)):
+        raise AssertionError("pair-mode tswap: the permute-copy differs")
+    library_ms = device_ms(torch, lambda: bit_permute(stack, src))
+    # six of the orbit's eight elements move: read and written once
+    bnd = bound(0.0, 0.75 * 16.0 * R2 * 256)
+    print(f"pair-mode tswap launch n={n}: kernel {ms:.4f} ms, pair swap + "
+          f"tswap kernels {two_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"permute-copy {library_ms:.4f} ms, bound {bnd[0]:.4f} ms")
+    return record("split_pair_mode", SPLIT_SRC, STREAM_SPLIT_TPU, err, ms,
+                  plain_ms, bnd, library_ms)
+
+
+def check_inplace_relayout(torch):
+    """Kernel 4 at n=24: an involution with fixed slots and one without,
+    bit-exact against its plain version and the out-of-place kernel."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.relayout import (
+        relayout_sources, run_relayout, run_relayout_inplace,
+        run_relayout_inplace_plain)
+
+    n = SPLIT_WIDTH
+    R2 = 1 << (n - PF.LOCAL_QUBITS)
+    tr = PF.relayout_rows(n)
+    m = int(np.log2(R2 // tr))
+    some = list(range(m))
+    some[0], some[3], some[5], some[m - 1] = 3, 0, m - 1, 5
+    every = [a ^ 1 for a in range(m)]
+    h = random_halves(torch, n)
+    rec = None
+    for name, sigma in (("with fixed slots", some), ("no fixed slot", every)):
+        got = run_relayout_inplace(sigma, clone4(h), tr)
+        want = run_relayout_inplace_plain(sigma, clone4(h), tr)
+        flat = run_relayout(sigma, *joined(torch, h), tr)
+        # per half: lanes 0..6, then the row bits; blocks of tr rows
+        b0 = 7 + int(np.log2(tr))
+        src = list(range(7 + n - PF.LOCAL_QUBITS))
+        for a, s in enumerate(sigma):
+            src[b0 + int(s)] = b0 + a
+        stack = torch.stack(h).reshape(4, -1)
+        lib = bit_permute(stack, src)
+        torch.cuda.synchronize()
+        if not (equal4(torch, got, want)
+                and equal4(torch, joined(torch, got), flat)):
+            raise AssertionError(f"in-place relayout {name}: differs")
+        if not torch.equal(lib, torch.stack(got).reshape(4, -1)):
+            raise AssertionError(f"in-place relayout {name}: permute-copy")
+        srcs = relayout_sources(sigma, R2 // tr)
+        moved = int((srcs != np.arange(R2 // tr)).sum())
+        ms = device_ms(torch, lambda: run_relayout_inplace(sigma, h, tr))
+        plain_ms = device_ms(torch, lambda: run_relayout_inplace_plain(
+            sigma, h, tr), reps=5)
+        library_ms = device_ms(torch, lambda: bit_permute(stack, src))
+        nbytes = 2.0 * moved * tr * 128 * 4 * 4
+        bnd = bound(0.0, nbytes)
+        print(f"in-place relayout n={n} sigma={sigma} ({name}; {moved} of "
+              f"{R2 // tr} blocks move): bit-exact; kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+              f"out-of-place permute-copy {library_ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms")
+        if name == "no fixed slot":
+            rec = record("relayout_inplace", RELAYOUT_SRC,
+                         INPLACE_RELAYOUT_TPU, 0.0, ms, plain_ms, bnd,
+                         library_ms)
+        del got, want, flat, lib, stack
+    return rec
+
+
+FLAT_KINDS = ("mat", "mat_high", "gather", "folded", "relayout", "kh0",
+              "kh0_high", "block128", "vmem")
+
+
+def check_inplace_counts(n, counts, modes, runs, high):
+    """Launches of ``runs`` in-place runs by kind against the plan's scal
+    rows by mode; no flat kernel launched."""
+    flat = {k: counts[k] for k in FLAT_KINDS if counts[k]}
+    if flat:
+        raise AssertionError(f"n={n} in place: flat kernels launched {flat}")
+    for kind, mode in (("xswap", 2), ("split_pair", 1),
+                       ("relayout_inplace", 3)):
+        if counts[kind] != runs * modes.get(mode, 0):
+            raise AssertionError(
+                f"n={n} in place: {counts[kind]} {kind} launches for "
+                f"{modes.get(mode, 0)} mode-{mode} rows x {runs} runs")
+    # a pair-mode first launch may be the block's only mat step, so the
+    # rung shows in the plain mat launches of either kind
+    if counts["split_mat_high" if not high else "split_mat"]:
+        raise AssertionError(f"n={n} in place: mat launches {counts} at "
+                             f"high={high}")
+    if not counts["split_mat_high" if high else "split_mat"] > 0:
+        raise AssertionError(f"n={n} in place: no mat launch ({counts})")
+
+
+def inplace_program(T, PF, c, precision, fold):
+    """The in-place program of ``c`` as ``run_prefetch`` builds it, with
+    the ``fold_xswap`` arm chosen (the config has no field for it)."""
+    from gpu_quantum_simulator_tpu_torch.config import resolve_precision
+    from gpu_quantum_simulator_tpu_torch.engine.simulator import _fuse_pipeline
+    from gpu_quantum_simulator_tpu_torch.passes.permute import plan_permutation
+
+    n = c.num_qubits
+    cfg = T.SimulatorConfig(strategy="prefetch", prefetch_inplace=True)
+    perm = plan_permutation(c)
+    max_high, cap_mats, window = PF.resolve_prefetch_knobs(cfg, n, True)
+    ops = _fuse_pipeline(c.relabeled(perm), PF.LANE_QUBITS,
+                         max_high=max_high, window=window)
+    return PF.build_prefetch_program(
+        ops, n, precision=resolve_precision(precision, n), cap_mats=cap_mats,
+        final_layout=np.argsort(perm), device="cuda", inplace=True,
+        fold_xswap=fold)
+
+
+def run_folded_arm(torch, T, PF, c, precision):
+    """One run of the ``fold_xswap`` program from |0...0>: (host state,
+    seconds, launch counts, scal rows by mode)."""
+    from gpu_quantum_simulator_tpu_torch.ops.apply import join_state
+
+    PF._PROGRAM_CACHE.clear()
+    prog = inplace_program(T, PF, c, precision, True)
+    reset_counts()
+    t0 = time.perf_counter()
+    parts = prog.run_parts(*PF.initial_halves(c.num_qubits))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    state = join_state(*PF.join_halves(*parts))
+    PF._PROGRAM_CACHE.clear()
+    return state, secs, counts, dict(prog.mode_rows)
+
+
+def run_inplace_path(torch, T, refs, add):
+    """``prefetch_inplace=True`` at the widths of the flat path, both arms."""
+    from gpu_quantum_simulator_tpu_torch import sampling as SP
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
     from gpu_quantum_simulator_tpu_torch.ref.native import simulate_native
 
-    totals: dict = {}
+    def sim(precision="auto"):
+        return T.Simulator(T.SimulatorConfig(
+            strategy="prefetch", prefetch_inplace=True, precision=precision),
+            device="cuda")
 
-    def add(counts):
-        for k, v in counts.items():
-            totals[k] = totals.get(k, 0) + v
+    # every width down to the engine's floor, both rungs: "highest"
+    # against the f64 reference, "high" by its norm
+    worst = 0.0
+    for n in INPLACE_SMALL:
+        c = T.models.grover_like(n, 60 * n, n)
+        reset_counts()
+        got = sim("highest").run(c)
+        parts, _ = sim("high").run_device_halves(c)
+        counts = launch_counts()
+        add(counts)
+        err = float(np.max(np.abs(got - simulate_native(c))))
+        norm = SP.norm_halves(*parts)
+        worst = max(worst, err)
+        if not (err <= AMP_TOL and abs(norm - 1.0) <= NORM_TOL):
+            raise AssertionError(f"in place n={n}: max|amp diff| {err}, "
+                                 f"'high' norm_halves {norm}")
+        if not (counts["split_mat"] and counts["split_mat_high"]
+                and not any(counts[k] for k in FLAT_KINDS)):
+            raise AssertionError(f"in place n={n}: launches {counts}")
+    print(f"in place n={INPLACE_SMALL.start}..{INPLACE_SMALL.stop - 1}: "
+          f"worst max|amp - f64| {worst:.3e} at 'highest'; 'high' norms "
+          f"within {NORM_TOL}")
+    PF._RUN_CACHE.clear()
+    PF._PROGRAM_CACHE.clear()
 
-    # the f64 reference, once per width, shared by every strategy
+    for n in INPLACE_WIDTHS:
+        c = T.models.grover_like(n, 2445, 318)
+        res, secs, counts, modes = drive(torch, PF, sim(), c, ENGINE_RUNS)
+        add(counts)
+        err = float(np.max(np.abs(res.state - refs[n])))
+        report(n, res, secs, counts, f"in place; max|amp - f64| {err:.3e}; "
+               f"scal rows by mode {modes}")
+        if not err <= AMP_TOL:
+            raise AssertionError(f"in place n={n}: max|amp diff| {err}")
+        check_inplace_counts(n, counts, modes, ENGINE_RUNS + 1, False)
+        if not (modes.get(2, 0) and (n < 22 or modes.get(3, 0))):
+            raise AssertionError(f"in place n={n}: no pair swap or relayout "
+                                 f"in the plan ({modes})")
+
+        # the halves as they are, their norm, and the join
+        parts, nops = sim().run_device_halves(c)
+        norm = SP.norm_halves(*parts)
+        re, im, _ = sim().run_device(c)
+        jre, jim = PF.join_halves(*parts)
+        if not (torch.equal(jre, re) and torch.equal(jim, im)):
+            raise AssertionError(f"in place n={n}: run_device_halves joined "
+                                 "differs from run_device")
+        if not abs(norm - 1.0) <= NORM_TOL:
+            raise AssertionError(f"in place n={n}: norm_halves {norm}")
+        del parts, re, im, jre, jim
+
+        state, fsecs, fcounts, fmodes = run_folded_arm(torch, T, PF, c, "auto")
+        add(fcounts)
+        ferr = float(np.max(np.abs(state - refs[n])))
+        print(f"in place n={n} fold_xswap: {fsecs:.4f} s; max|amp - f64| "
+              f"{ferr:.3e}; norm_halves {norm:.8f}; scal rows by mode "
+              f"{fmodes}; launches {fcounts}")
+        if not ferr <= AMP_TOL:
+            raise AssertionError(f"fold_xswap n={n}: max|amp diff| {ferr}")
+        check_inplace_counts(n, fcounts, fmodes, 1, False)
+        if 2 in fmodes or fmodes.get(1, 0) != modes.get(2, 0):
+            raise AssertionError(f"fold_xswap n={n}: modes {fmodes} against "
+                                 f"the hoisted plan's {modes}")
+
+    # n=24: "high" against the engine's own "highest" run, both arms
+    n = HIGH_WIDTH
+    c = T.models.grover_like(n, 2445, 318)
+    res, secs, counts, modes = drive(torch, PF, sim(), c, ENGINE_RUNS)
+    add(counts)
+    ref, ref_secs, ref_counts, ref_modes = drive(torch, PF, sim("highest"),
+                                                 c, 0)
+    add(ref_counts)
+    err = float(np.max(np.abs(res.state - ref.state)))
+    norm = float(np.linalg.norm(res.state))
+    report(n, res, secs, counts, f"in place 'high' vs 'highest' max|diff| "
+           f"{err:.3e} ('highest' run {ref_secs[0]:.4f} s, launches "
+           f"{ref_counts}); norm {norm:.8f}; scal rows by mode {modes}")
+    if not 0.0 < err <= HIGH_TOL:
+        raise AssertionError(f"in place n={n}: 'high' vs 'highest' {err}")
+    if not abs(norm - 1.0) <= NORM_TOL:
+        raise AssertionError(f"in place n={n}: norm {norm}")
+    check_inplace_counts(n, counts, modes, ENGINE_RUNS + 1, True)
+    check_inplace_counts(n, ref_counts, ref_modes, 1, False)
+    state, fsecs, fcounts, fmodes = run_folded_arm(torch, T, PF, c, "auto")
+    add(fcounts)
+    ferr = float(np.max(np.abs(state - ref.state)))
+    print(f"in place n={n} fold_xswap 'high': {fsecs:.4f} s; vs 'highest' "
+          f"{ferr:.3e}; scal rows by mode {fmodes}; launches {fcounts}")
+    if not 0.0 < ferr <= HIGH_TOL:
+        raise AssertionError(f"fold_xswap n={n}: 'high' vs 'highest' {ferr}")
+    check_inplace_counts(n, fcounts, fmodes, 1, True)
+    PF._RUN_CACHE.clear()
+    PF._PROGRAM_CACHE.clear()
+
+
+def chi_square(samples, probs, n):
+    """Pearson chi-square of the samples' histogram over SAMPLE_BINS bins of
+    equal index ranges against the exact probabilities, bins expecting fewer
+    than 5 samples pooled into one; returns (chi2, degrees of freedom)."""
+    shift = n - int(np.log2(SAMPLE_BINS))
+    obs = np.bincount(samples >> shift, minlength=SAMPLE_BINS).astype(float)
+    exp = probs.reshape(SAMPLE_BINS, -1).sum(axis=1)
+    exp *= len(samples) / exp.sum()
+    small = exp < 5.0
+    obs = np.append(obs[~small], obs[small].sum())
+    exp = np.append(exp[~small], exp[small].sum())
+    keep = exp > 0
+    return (float((((obs - exp) ** 2)[keep] / exp[keep]).sum()),
+            int(keep.sum()) - 1)
+
+
+def run_sampling(torch, T, refs):
+    """sampling.py on the card: the flat samplers at n=23, the halves ones
+    at n=22 with ``prefetch_inplace=True``, against the f64 reference."""
+    from gpu_quantum_simulator_tpu_torch import sampling as SP
+
+    def z_exact(probs, qubits):
+        idx = np.arange(probs.size)
+        par = np.zeros(probs.size, dtype=np.int64)
+        for q in qubits:
+            par ^= (idx >> q) & 1
+        return float((probs * (1 - 2 * par)).sum())
+
+    def check(kind, n, samples, probs, z, z_want, top_idx, top_p):
+        chi2, dof = chi_square(samples, probs, n)
+        bar = dof + 6.0 * np.sqrt(2.0 * dof)
+        order = np.sort(probs)[::-1][: len(top_p)]
+        e_top = max(float(np.max(np.abs(top_p - order))),
+                    float(np.max(np.abs(probs[top_idx] - top_p))))
+        print(f"sampling n={n} {kind}: {len(samples)} samples, chi-square "
+              f"{chi2:.1f} on {dof} degrees of freedom (bar {bar:.1f}); "
+              f"<Z..Z> {z:.8f} (f64 {z_want:.8f}); top-{len(top_p)} "
+              f"probabilities within {e_top:.3e}")
+        if not (samples.min() >= 0 and samples.max() < (1 << n)):
+            raise AssertionError(f"sampling {kind}: index out of range")
+        if not chi2 <= bar:
+            raise AssertionError(f"sampling {kind}: chi-square {chi2} > {bar}")
+        if not abs(z - z_want) <= 1e-5:
+            raise AssertionError(f"sampling {kind}: <Z..Z> {z} vs {z_want}")
+        if not e_top <= 1e-6:
+            raise AssertionError(f"sampling {kind}: top amplitudes {e_top}")
+
+    n = 23
+    c = T.models.grover_like(n, 2445, 318)
+    probs = np.abs(refs[n]) ** 2
+    sim = T.Simulator(T.SimulatorConfig(strategy="prefetch"), device="cuda")
+    re, im, _ = sim.run_device(c)
+    samples = SP.sample_state_device(re, im, n, SAMPLES, seed=11)
+    qubits = (0, 5, 7, 22)
+    top_p, top_idx = SP.top_amplitudes_device(re, im, 16)
+    check("flat", n, samples, probs, SP.expectation_z(re, im, qubits, n),
+          z_exact(probs, qubits), top_idx, top_p)
+    if not np.array_equal(samples, sim.sample(c, SAMPLES, seed=11)):
+        raise AssertionError("Simulator.sample differs from "
+                             "sample_state_device at the same seed")
+    if not abs(SP.norm_device(re, im) - 1.0) <= NORM_TOL:
+        raise AssertionError("norm_device")
+    xeb = SP.xeb_fidelity(re, im, samples, n)
+    want = float((1 << n) * (probs ** 2).sum() - 1.0)
+    print(f"sampling n={n} flat: XEB fidelity of its own samples {xeb:.4f} "
+          f"(2^n sum p^2 - 1 = {want:.4f})")
+    del re, im
+
+    n = 22
+    c = T.models.grover_like(n, 2445, 318)
+    probs = np.abs(refs[n]) ** 2
+    sim = T.Simulator(T.SimulatorConfig(strategy="prefetch",
+                                        prefetch_inplace=True), device="cuda")
+    parts, _ = sim.run_device_halves(c)
+    samples = SP.sample_halves(*parts, n, SAMPLES, seed=12)
+    qubits = (3, 7, 15, 21)
+    top_idx, top_p = SP.top_amplitudes_halves(*parts, k=16)
+    check("halves", n, samples, probs,
+          SP.expectation_z_halves(*parts, qubits, n), z_exact(probs, qubits),
+          top_idx, top_p)
+    idx = np.concatenate([top_idx, np.random.default_rng(22).integers(
+        0, 1 << n, 4096)])
+    e_amp = float(np.max(np.abs(SP.amplitudes_halves(*parts, idx)
+                                - refs[n][idx])))
+    print(f"sampling n={n} halves: amplitudes_halves at {len(idx)} indices "
+          f"within {e_amp:.3e} of f64")
+    if not e_amp <= AMP_TOL:
+        raise AssertionError(f"amplitudes_halves: {e_amp}")
+    if not np.array_equal(samples, SP.sample_halves(*parts, n, SAMPLES,
+                                                    seed=12)):
+        raise AssertionError("sample_halves is not reproducible from its seed")
+
+
+def clear_caches(torch):
+    """Drop every engine's cached programs, and with them their device
+    tables, so that a peak-memory reading starts from an empty card."""
+    from gpu_quantum_simulator_tpu_torch.engine import pallas_engine as PE
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.engine import simulator as S
+    from gpu_quantum_simulator_tpu_torch.engine import vmem as V
+    from gpu_quantum_simulator_tpu_torch.engine import wide as W
+
+    for cache in (PF._PROGRAM_CACHE, PF._RUN_CACHE, S._MXU_PLAN_CACHE,
+                  W._CACHE, PE._CACHE, V._CACHE):
+        cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_full_width(torch, T, add):
+    """n=30 with the prefetch strategy and nothing else set: in place,
+    "high", through run_device_halves; then the flat run beside it."""
+    from gpu_quantum_simulator_tpu_torch import sampling as SP
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+
+    n = FULL_WIDTH
+    gib = float(1 << 30)
+    state_bytes = 8 << n
+    c = T.models.grover_like(n, 2445, 318)
+    sim = T.Simulator(T.SimulatorConfig(strategy="prefetch"), device="cuda")
+    clear_caches(torch)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     t0 = time.perf_counter()
-    refs = {n: simulate_native(T.models.grover_like(n, 2445, 318))
-            for n in sorted(set(REF_WIDTHS) | set(VMEM_WIDTHS))}
-    print(f"f64 references n={sorted(refs)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    parts, nops = sim.run_device_halves(c)
+    cold = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    add(counts)
+    (prog,) = PF._RUN_CACHE.values()
+    modes = dict(prog.mode_rows)
+    norm = SP.norm_halves(*parts)
+    print(f"full width n={n} in place: {nops} steps; first run {cold:.2f} s "
+          f"(fusion, plan and tables included); peak device memory "
+          f"{peak / gib:.3f} GiB for a state of {state_bytes / gib:.0f} GiB "
+          f"({held / gib:.3f} GiB held before the run); "
+          f"norm_halves {norm:.8f}; scal rows by mode {modes}; launches "
+          f"{counts}")
+    if not (prog.inplace and all(p.shape == (1 << (n - 8), 128)
+                                 for p in parts)):
+        raise AssertionError("n=30 did not run in place on four halves")
+    if not abs(norm - 1.0) <= NORM_TOL:
+        raise AssertionError(f"n={n}: norm_halves {norm}")
+    if not peak <= state_bytes + FULL_PEAK_SLACK:
+        raise AssertionError(f"n={n}: peak {peak} B exceeds the state + 2 GiB")
+    check_inplace_counts(n, counts, modes, 1, True)
+
+    top_idx, top_p = SP.top_amplitudes_halves(*parts, k=64)
+    idx = np.concatenate([top_idx, np.random.default_rng(n).integers(
+        0, 1 << n, 4096)])
+    amps = SP.amplitudes_halves(*parts, idx)
+    samples = SP.sample_halves(*parts, n, 10000, seed=7)
+    del parts
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = sim.sample(c, 10000, seed=7)       # a second run, program cached
+    warm = time.perf_counter() - t0
+    peak2 = torch.cuda.max_memory_allocated()
+    add(launch_counts())
+    print(f"full width n={n} in place: Simulator.sample(10000) {warm:.2f} s "
+          f"(the run with its program cached, and the sampling; peak "
+          f"{peak2 / gib:.3f} GiB); indices in [{again.min()}, "
+          f"{again.max()}]")
+    if not (again.shape == (10000,) and again.min() >= 0
+            and again.max() < (1 << n)):
+        raise AssertionError("n=30: samples out of range")
+    if not np.array_equal(again, samples):
+        raise AssertionError("n=30: Simulator.sample differs from "
+                             "sample_halves of the same state and seed")
+
+    flat = T.Simulator(T.SimulatorConfig(strategy="prefetch",
+                                         prefetch_inplace=False),
+                       device="cuda")
+    clear_caches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    re, im, _ = flat.run_device(c)
+    flat_cold = time.perf_counter() - t0
+    flat_peak = torch.cuda.max_memory_allocated()
+    flat_counts = launch_counts()
+    add(flat_counts)
+    where = torch.from_numpy(idx).cuda()
+    want = (re[where].cpu().numpy().astype(np.complex64)
+            + 1j * im[where].cpu().numpy())
+    del re, im
+    err = float(np.max(np.abs(amps - want)))
+    peak_amp = float(np.sqrt(top_p[0]))
+    tol = HIGH_TOL * max(1.0, peak_amp / HIGH_BAR_PEAK)
+    print(f"full width n={n} flat (prefetch_inplace=False): first run "
+          f"{flat_cold:.2f} s (fusion, plan and tables included); peak "
+          f"device memory {flat_peak / gib:.3f} GiB; launches "
+          f"{flat_counts}; in place vs flat at the top-64 and 4096 random "
+          f"indices max|diff| {err:.3e} (bar {tol:.3e}, peak |amp| "
+          f"{peak_amp:.3e})")
+    if not flat_peak > 2 * state_bytes:
+        raise AssertionError(f"n={n} flat: peak {flat_peak} B is not above "
+                             "two states")
+    if not err <= tol:
+        raise AssertionError(f"n={n}: in place vs flat {err} > {tol}")
+    clear_caches(torch)
+
+
+def run_inplace_phase(torch, T, refs, add, rng):
+    """Phase 5: the kernel checks, the path, sampling, and full width."""
+    block, mat, high = check_split_block(torch, rng)
+    xswap = check_xswap(torch)
+    pair = check_pair_mode(torch, rng)
+    relayout = check_inplace_relayout(torch)
+    torch.cuda.empty_cache()
+    run_inplace_path(torch, T, refs, add)
+    run_sampling(torch, T, refs)
+    run_full_width(torch, T, add)
+    return ((block, "split_gather"), (mat, "split_mat"),
+            (high, "split_mat_high"), (xswap, "xswap"), (pair, "split_pair"),
+            (relayout, "relayout_inplace"))
+
+
+def run_main_path(torch, T, refs, add):
     highest24 = run_prefetch_path(torch, T, refs, add)
     run_mxu_path(torch, T, refs, highest24, add)
     run_pallas_path(torch, T, refs, add)
     run_vmem_path(torch, T, refs, add)
     run_small_widths(torch, T, refs, add)
-    return totals
+
+
+def references(T, widths):
+    """The f64 reference, once per width, shared by every strategy."""
+    from gpu_quantum_simulator_tpu_torch.ref.native import simulate_native
+
+    t0 = time.perf_counter()
+    refs = {n: simulate_native(T.models.grover_like(n, 2445, 318))
+            for n in sorted(widths)}
+    print(f"f64 references n={sorted(refs)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return refs
 
 
 def main() -> int:
@@ -1220,8 +2026,14 @@ def main() -> int:
     native_fuse.get_lib()
     native.get_lib()
 
-    # phase 3: each kernel against its plain version
+    totals: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
     rng = np.random.default_rng(2445)
+    # phase 3: each kernel against its plain version
     block, mat = check_block_kernel(torch, rng)
     relayout = check_relayout_kernel(torch, rng)
     folded = check_folded_block(torch, rng)
@@ -1230,12 +2042,16 @@ def main() -> int:
     vmem_chunk, vmem_op = check_vmem_kernel(torch, T)
     torch.cuda.empty_cache()
 
-    # phase 4: the main paths, counting launches
-    totals = run_main_path(torch, T)
-    for rec, kind in ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
-                      (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
-                      (chain_high, "kh0_high"), (block128, "block128"),
-                      (vmem_chunk, "vmem"), (vmem_op, "vmem")):
+    # phase 4: the main paths, counting launches; phase 5: the in-place
+    # engine, its kernels first
+    refs = references(T, set(REF_WIDTHS) | set(VMEM_WIDTHS))
+    run_main_path(torch, T, refs, add)
+    inplace = run_inplace_phase(torch, T, refs, add, rng)
+    kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
+             (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
+             (chain_high, "kh0_high"), (block128, "block128"),
+             (vmem_chunk, "vmem"), (vmem_op, "vmem"), *inplace)
+    for rec, kind in kinds:
         rec["launches"] = totals[kind]
         if not rec["launches"] > 0:
             raise AssertionError(f"{rec['name']}: no launch on a main path")
@@ -1244,9 +2060,8 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    recs = (block, mat, relayout, folded, high, chain, chain_high, block128,
-            vmem_chunk, vmem_op)
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys} for rec in recs]}))
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
+                                  for rec, _ in kinds]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -80,8 +80,9 @@ class SimulatorConfig:
     fusion_window: Optional[int] = None
     # prefetch commutation-aware op scheduling.  None = automatic (on).
     prefetch_reorder: Optional[bool] = None
-    # prefetch in-place (aliased) execution: not ported; True raises, and
-    # so does None at n = 30, where the JAX package defaults to it.
+    # prefetch in-place execution on four column halves, with no second
+    # state buffer.  None = automatic: in place at n = 30, as in the JAX
+    # package.
     prefetch_inplace: Optional[bool] = None
     # prefetch fusion high-qubit cap (None = 2) and per-block mat-table
     # capacity (None = 8 at n >= 21, else the engine's CAP_MATS).

@@ -24,10 +24,20 @@ Device side it replaces the JAX program:
   host reads each entry's step list from the numpy ``scal`` table, never
   from the device, and the state ping-pongs between two buffer pairs in
   place of JAX's donation.
+* ``SplitChain`` is the IN-PLACE engine (``inplace=True``; the default at
+  n = 30, as in the JAX package): the state is four (R2, 128) column
+  halves, and every entry runs inside them — blocks on kernels/split.py,
+  the cross-tile swap as a pair-swap entry (scal mode 2) or folded into the
+  next block's first launch (scal mode 1, ``fold_xswap=True``), relayouts
+  as disjoint block swaps (scal mode 3, involutions only).  No second state
+  buffer exists, and the tables are expanded part by part at run time, so
+  the peak is the state plus one part's tables.  On an 80 GB card n = 30
+  fits either way; the in-place engine is there for parity with the JAX
+  package and for the memory it frees.
 
-The slice covers flat plans at 9 <= n <= 30 at the "highest" and "high"
-precision rungs.  Everything else raises NotImplementedError naming its
-ROADMAP item.
+The slice covers flat and in-place plans at 9 <= n <= 30 at the "highest"
+and "high" precision rungs.  Everything else raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,7 +51,9 @@ import torch
 
 from ..ir.oplist import Op, op_matrix
 from ..kernels.block import run_block, split_tables
-from ..kernels.relayout import run_relayout
+from ..kernels.relayout import run_relayout, run_relayout_inplace
+from ..kernels.split import (join_component, run_split_block, run_xswap,
+                             split_halves)
 from ..ops.apply import resolve_device
 
 LANE_QUBITS = 7
@@ -160,8 +172,9 @@ PERM_FOLD = True
 # arm.  None = auto; tests and the tool may assign a bool to force an arm.
 MONO_AS_MAT = None
 MONO_AUTO_MIN_QUBITS = 21
-# in-place (split-halves) plans (not ported; kept for resolve_mono_as_mat's
-# signature, which mirrors the JAX package's)
+# in-place (split-halves) plans lower monomial ops as mats, and take the
+# window-16 / cap_mats-8 knobs, from this width (the JAX package's TPU A/B
+# choice, kept so both packages plan alike; not measured on the card)
 MONO_INPLACE_AUTO_MIN_QUBITS = 29
 
 
@@ -810,11 +823,12 @@ def _fold_relayout_entries(entries: Sequence[_Block]) -> List[_Block]:
 
 
 def materialize_entries(entries: Sequence[_Block], cap_steps: int,
-                        cap_mats: int, dt,
+                        cap_mats: int, dt, inplace: bool = False,
                         single_class: bool = False,
                         max_chunk: int = 1 << 30,
                         fold_relayout: bool = False,
-                        mono_as_mat: bool = False):
+                        mono_as_mat: bool = False,
+                        fold_xswap: bool = False):
     """Pack plan entries into grouped, pow-2-chunked scal + factor tables.
 
     Two block classes keep table H2D near the real content volume:
@@ -833,9 +847,15 @@ def materialize_entries(entries: Sequence[_Block], cap_steps: int,
     cos/sin row-phase vectors (see _get_expander).  Shared by
     PrefetchProgram and the mesh engine (parallel/sharded_prefetch.py) in the
     JAX package.  ``fold_relayout`` merges relayouts into the next block
-    (_fold_relayout_entries; scal mode 5 with sigma in the scal tail).  This
-    copy packs flat plans only: the in-place hoisting (scal mode 2) belongs
-    to a path the port has not reached yet (ROADMAP queue A).
+    (_fold_relayout_entries; scal mode 5 with sigma in the scal tail).
+
+    ``inplace``: a block's cross-tile prologue is flagged 2, a standalone
+    pair-swap entry (PrefetchProgram hoists each prologue into a block of
+    its own first), unless ``fold_xswap`` keeps it on its block as flag 1,
+    which the in-place block kernel's pair mode reads through.  The JAX
+    package selects that arm with its module flag ``_STREAM_PLAIN`` (an
+    environment variable); the port reads no environment, so it is this
+    argument.
     """
     if fold_relayout:
         entries = _fold_relayout_entries(entries)
@@ -886,8 +906,9 @@ def materialize_entries(entries: Sequence[_Block], cap_steps: int,
             k = len(blk.kinds)
             scal[i, 0] = k
             if blk.prologue is not None:
-                # the block's input-prologue swap (flag 1)
-                scal[i, 1] = 1
+                # the block's input-prologue swap (flag 1); in place a
+                # standalone pair-swap entry (flag 2) unless folded
+                scal[i, 1] = 2 if (inplace and not fold_xswap) else 1
                 scal[i, 2] = blk.prologue[0]
                 scal[i, 3] = blk.prologue[1]
             if blk.relayout is not None:
@@ -1109,26 +1130,127 @@ class DeviceChain:
                                     w16=None if w16 is None else w16[i])
                 else:
                     raise NotImplementedError(
-                        f"scal mode {mode} (2: in-place xswap, 4: mesh "
-                        "gswap) is not in the port's slice yet (ROADMAP "
-                        "queue A)")
+                        f"scal mode {mode} in a flat chain: 2 (the pair "
+                        "swap) belongs to in-place plans (SplitChain); 4 "
+                        "(mesh gswap) is not in the port's slice yet "
+                        "(ROADMAP queue A, item 8, parallel/)")
                 if out[0] is not cur[0]:
                     spare, cur = cur, out
         return cur[0].reshape(-1), cur[1].reshape(-1)
 
 
+class SplitChain:
+    """The in-place chain: materialized entries run inside the state's own
+    four column halves (the JAX package's ``get_block_chain_split``).
+
+    The entries stay on the HOST as compact factors, one part per table
+    chunk; a call uploads and expands one part at a time and drops its
+    tables before the next, so the device holds the state and one part's
+    tables (the caching allocator hands the freed blocks to the next part
+    in stream order).  scal mode 0 and 1 rows go to the split block kernel
+    (1: pair mode), 2 to the pair swap, 3 to the in-place relayout; any
+    other mode raises.  ``mode_rows`` counts the scal rows by mode.
+    """
+
+    def __init__(self, entries, num_qubits: int, device,
+                 cap_steps: int = CAP_STEPS, precision: str = "highest"):
+        n = num_qubits
+        self.num_qubits = n
+        self.device = torch.device(device)
+        self.cap_steps = cap_steps
+        self.precision = precision
+        self._R2 = 1 << (n - LOCAL_QUBITS)
+        self._logt = int(np.log2(tile_rows(n)))
+        self._tr = relayout_rows(n)
+        self._mrow = int(np.log2(self._R2 // self._tr))
+        self._parts = []
+        self.mode_rows: dict = {}
+        for (_, sizes, scal, *tabs) in entries:
+            for mode, cnt in zip(*np.unique(scal[:, 1], return_counts=True)):
+                self.mode_rows[int(mode)] = (self.mode_rows.get(int(mode), 0)
+                                             + int(cnt))
+            off = 0
+            for c in sizes:
+                self._parts.append((
+                    scal[off : off + c].tolist(),
+                    [np.ascontiguousarray(t[off : off + c]) for t in tabs]))
+                off += c
+
+    def __call__(self, re0, re1, im0, im1):
+        halves = (re0, re1, im0, im1)
+        split = self.precision == "high" and self.device.type == "cuda"
+        for scal, tabs in self._parts:
+            a_tab = b_tab = mono_src = w16 = None
+            if any(row[0] for row in scal):    # a part of swaps needs none
+                a_tab, b_tab, mono_src = expand_tables(
+                    *(torch.from_numpy(t).to(self.device) for t in tabs))
+                if split:
+                    w16 = split_tables(a_tab, b_tab)
+            for i, row in enumerate(scal):
+                mode = row[1]
+                if mode == 3:
+                    run_relayout_inplace(row[4 : 4 + self._mrow], halves,
+                                         self._tr)
+                elif mode == 2:
+                    run_xswap(halves, self._logt + row[3])
+                elif mode in (0, 1):
+                    tables = ((None, None, None) if a_tab is None
+                              else (a_tab[i], b_tab[i], mono_src[i]))
+                    run_split_block(row, halves, *tables, self._logt,
+                                    self.cap_steps, precision=self.precision,
+                                    w16=None if w16 is None else w16[i])
+                else:
+                    raise NotImplementedError(
+                        f"scal mode {mode} in an in-place chain: 5 (the "
+                        "folded relayout) never occurs in place; 4 (mesh "
+                        "gswap) is not in the port's slice yet (ROADMAP "
+                        "queue A, item 8, parallel/)")
+            del a_tab, b_tab, mono_src, w16
+        return halves
+
+
 def program_from_entries(entries, num_qubits: int, device,
                          cap_steps: int = CAP_STEPS,
-                         precision: str = "highest") -> DeviceChain:
-    """Device program from ``materialize_entries`` output (numpy).
+                         precision: str = "highest", inplace: bool = False):
+    """Device program from ``materialize_entries`` output (numpy): a
+    ``DeviceChain`` over a flat pair, or with ``inplace`` a ``SplitChain``
+    over four halves (entries packed with ``inplace=True``).
 
     Either package can produce the entries, so the tests feed both engines
     the same tables through here — the analogue of loading one set of
     weights into two implementations."""
-    return DeviceChain(entries, num_qubits, device, cap_steps, precision)
+    chain = SplitChain if inplace else DeviceChain
+    return chain(entries, num_qubits, device, cap_steps, precision)
 
 
-def check_slice(n: int, precision: str, inplace: bool = False) -> None:
+def initial_halves(n: int, device="cuda"):
+    """|0...0> as the four (R2, 128) float32 column halves on ``device``,
+    four distinct buffers, without a flat 2^n tensor."""
+    device = resolve_device(device)
+    R2 = 1 << (n - LOCAL_QUBITS)
+    halves = tuple(torch.zeros((R2, LANES), dtype=torch.float32,
+                               device=device) for _ in range(4))
+    halves[0][0, 0] = 1.0
+    return halves
+
+
+def halves_from_host(iv: np.ndarray, device):
+    """A complex host vector as the four halves on ``device``: split on the
+    host, so no flat pair ever lies on the device."""
+    x = np.asarray(iv).reshape(-1, DVIEW)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(h, dtype=np.float32)).to(device)
+        for h in (x.real[:, :LANES], x.real[:, LANES:],
+                  x.imag[:, :LANES], x.imag[:, LANES:]))
+
+
+def join_halves(re0, re1, im0, im1):
+    """Flat (re, im) from the four halves."""
+    return (join_component(re0, re1).reshape(-1),
+            join_component(im0, im1).reshape(-1))
+
+
+def check_slice(n: int, precision: str) -> None:
     """Raise for any width, precision rung or engine the port does not run.
 
     n > MAX_QUBITS is a ValueError, as in the JAX package; the rest are
@@ -1138,12 +1260,6 @@ def check_slice(n: int, precision: str, inplace: bool = False) -> None:
             f"n = {n} exceeds the prefetch engine's ceiling (n = "
             f"{MAX_QUBITS}); the sharded engines are not yet ported "
             "(ROADMAP queue A, parallel/)")
-    if inplace:
-        raise NotImplementedError(
-            "prefetch_inplace: the in-place split engine (the JAX "
-            "package's default from n = 30) is not yet ported (ROADMAP "
-            "queue A, the in-place split engine); at n = 30 pass "
-            "prefetch_inplace=False for the flat plan")
     if precision not in ("highest", "high"):
         raise NotImplementedError(
             f"precision {precision!r}: the port runs the 'highest' (IEEE "
@@ -1152,13 +1268,21 @@ def check_slice(n: int, precision: str, inplace: bool = False) -> None:
 
 
 class PrefetchProgram:
-    """Device tables for one planned circuit (flat plans only).
+    """Device tables for one planned circuit.
 
     Planning is the numpy planner above (the plan portfolio from
     PORTFOLIO_MIN_QUBITS, relayouts folded from STREAM_RELAYOUT_MIN_QUBITS,
-    as in the JAX package); the tables go to ``device`` once, and
-    ``__call__`` maps a flat (2^n,) state pair through the chain.  Output is
-    in PHYSICAL positions (undo ``final_position``).
+    as in the JAX package); a flat program's tables go to ``device`` once,
+    and ``__call__`` maps a flat (2^n,) state pair through the chain.
+    Output is in PHYSICAL positions (undo ``final_position``).
+
+    ``inplace``: the split-state program.  The plan's relayouts are
+    involutions, every cross-tile prologue is hoisted into a pair-swap entry
+    of its own (``fold_xswap`` keeps it on its block instead, for the block
+    kernel's pair mode), the factors stay on the host (``SplitChain``), and
+    ``run_parts`` maps the four column halves through the chain inside
+    their own buffers.  ``__call__`` then splits the flat pair one
+    component at a time, runs the parts and joins them again.
     """
 
     def __init__(
@@ -1171,13 +1295,17 @@ class PrefetchProgram:
         final_layout: Optional[Sequence[int]] = None,
         reorder: bool = True,
         device="cuda",
+        inplace: bool = False,
+        fold_xswap: bool = False,
     ):
         n = num_qubits
         device = resolve_device(device)
         check_slice(n, precision)
         plan = plan_circuit(ops, n, reorder=reorder, cap_steps=cap_steps,
-                            cap_mats=cap_mats, final_layout=final_layout)
+                            cap_mats=cap_mats, final_layout=final_layout,
+                            involution_relayout=inplace)
         self.num_qubits = n
+        self.inplace = inplace
         self.final_position = plan.final_position
         self.num_ops = plan.num_ops
         self.num_tswaps = plan.num_tswaps
@@ -1186,20 +1314,55 @@ class PrefetchProgram:
         R2 = 1 << (n - LOCAL_QUBITS)
         grid_rows = max(R2 // tile_rows(n), 1)
         max_chunk = max(32, DISPATCH_GRID_BUDGET // grid_rows)
+        blocks = plan.blocks
+        if inplace and not fold_xswap:
+            blocks = hoist_prologues(blocks)
         entries = materialize_entries(
-            plan.blocks, cap_steps, cap_mats, np.float32,
-            single_class=cap_mats <= 4, max_chunk=max_chunk,
-            fold_relayout=resolve_stream_relayout(n, False),
-            mono_as_mat=plan.mono_as_mat)
+            blocks, cap_steps, cap_mats, np.float32, inplace=inplace,
+            single_class=(not inplace) and cap_mats <= 4,
+            max_chunk=max_chunk,
+            fold_relayout=resolve_stream_relayout(n, inplace),
+            mono_as_mat=plan.mono_as_mat, fold_xswap=fold_xswap)
         self._chain = program_from_entries(entries, n, device, cap_steps,
-                                           precision)
+                                           precision, inplace=inplace)
 
     @property
     def mode_rows(self) -> dict:
         return self._chain.mode_rows
 
+    def run_parts(self, re0, re1, im0, im1):
+        """In-place execution on the four column-half tensors, which are
+        overwritten and returned."""
+        if not self.inplace:
+            raise ValueError("run_parts requires the in-place program "
+                             "(inplace=True)")
+        return self._chain(re0, re1, im0, im1)
+
     def __call__(self, re: torch.Tensor, im: torch.Tensor):
-        return self._chain(re, im)
+        if not self.inplace:
+            return self._chain(re, im)
+        # one component at a time: the caller's flat tensor can be freed
+        # before the next one is split
+        re0, re1 = split_halves(re)
+        del re
+        im0, im1 = split_halves(im)
+        del im
+        return join_halves(*self.run_parts(re0, re1, im0, im1))
+
+
+def hoist_prologues(blocks: Sequence[_Block]) -> List[_Block]:
+    """Each block's cross-tile prologue as a standalone pair-swap entry
+    before it (scal mode 2 once packed with ``inplace=True``); relayout
+    entries pass through."""
+    out: List[_Block] = []
+    for blk in blocks:
+        if blk.relayout is not None:
+            out.append(blk)
+            continue
+        if blk.prologue is not None:
+            out.append(_Block(prologue=blk.prologue))
+        out.append(_Block(kinds=blk.kinds, midx=blk.midx, mats=blk.mats))
+    return out
 
 
 _PROGRAM_CACHE: dict = {}
@@ -1215,15 +1378,17 @@ def build_prefetch_program(
     final_layout: Optional[Sequence[int]] = None,
     reorder: bool = True,
     device="cuda",
+    inplace: bool = False,
+    fold_xswap: bool = False,
 ) -> PrefetchProgram:
     device = resolve_device(device)
     h = hashlib.sha256(
         f"p|{num_qubits}|{precision}|{cap_steps}|{cap_mats}|{reorder}"
         f"|{device}|{tile_rows(num_qubits)}"
-        f"|{relayout_rows(num_qubits)}"
-        f"|{resolve_mono_as_mat(num_qubits)}|{PERM_AS_MAT}"
+        f"|{relayout_rows(num_qubits)}|{inplace}|{fold_xswap}"
+        f"|{resolve_mono_as_mat(num_qubits, inplace)}|{PERM_AS_MAT}"
         f"|{num_qubits >= PORTFOLIO_MIN_QUBITS}"
-        f"|{resolve_stream_relayout(num_qubits)}"
+        f"|{resolve_stream_relayout(num_qubits, inplace)}"
         f"|{None if final_layout is None else list(final_layout)}".encode()
     )
     for op in ops:
@@ -1237,6 +1402,7 @@ def build_prefetch_program(
         prog = PrefetchProgram(
             ops, num_qubits, precision, cap_steps, cap_mats,
             final_layout=final_layout, reorder=reorder, device=device,
+            inplace=inplace, fold_xswap=fold_xswap,
         )
         if len(_PROGRAM_CACHE) >= _PROGRAM_CACHE_LIMIT:
             _PROGRAM_CACHE.pop(next(iter(_PROGRAM_CACHE)))
@@ -1244,12 +1410,18 @@ def build_prefetch_program(
     return prog
 
 
-def run_prefetch(circuit, config, device, initial=None):
+def run_prefetch(circuit, config, device, initial=None,
+                 return_halves: bool = False):
     """Simulator facade entry; returns (re, im, num_items, residual_perm).
 
     ``re``/``im`` are flat tensors on ``device`` in the ORIGINAL qubit basis
     (the plan routes the state back itself, so the residual is always None).
     ``initial``: optional complex start vector in the original basis.
+
+    ``return_halves``: with the in-place engine, skip the final join and
+    return the four (R2, 128) column halves ``(re0, re1, im0, im1)`` in
+    place of ``re`` (and None in place of ``im``): the measurement helpers
+    of sampling.py work on the halves, and no flat 2^n tensor is made.
     """
     from ..config import resolve_precision
     from ..ops.apply import initial_state_parts, split_state
@@ -1258,18 +1430,16 @@ def run_prefetch(circuit, config, device, initial=None):
 
     n = circuit.num_qubits
     precision = resolve_precision(getattr(config, "precision", "highest"), n)
-    # the JAX package's default: in place from n = 30 (not ported, so it
-    # raises); an explicit prefetch_inplace=False runs the flat plan, which
-    # fits the card at n = 30 (8 GB state pair + 8 GB scratch pair)
-    inplace = getattr(config, "prefetch_inplace", None)
-    if inplace is None:
-        inplace = n >= MAX_QUBITS
     if config.dtype != "complex64":
         raise ValueError(
             "the prefetch strategy is float32-only; use the JAX package's "
             "mxu/reference strategies for complex128 parity checks")
     device = resolve_device(device)
     if n < MIN_QUBITS:
+        if return_halves:
+            raise ValueError(
+                f"split-state halves need the (rows, 256) layout, i.e. "
+                f"n >= {MIN_QUBITS}; got n = {n}")
         # the megakernel arm, before the rung is read: it ignores the rung
         from ..passes.fuse4x4 import fuse_4x4
         from ..passes.fuse_k import fuse_k
@@ -1278,24 +1448,31 @@ def run_prefetch(circuit, config, device, initial=None):
         ops = fuse_k(fuse_4x4(circuit),
                      max_qubits=min(config.max_fused_qubits, n))
         return run_megakernel(ops, n, device, initial)
-    check_slice(n, precision, bool(inplace))   # before planning/allocating
+    check_slice(n, precision)                  # before planning/allocating
 
     # relabel hot qubits low and have the plan itself route the state back
     # to the ORIGINAL basis
     perm = plan_permutation(circuit)
     if np.array_equal(perm, np.arange(n)):
         perm = None
+    # in place from n = 30 unless the config says otherwise, as in the JAX
+    # package (whose trigger is its 16 GB of device memory; a trigger from
+    # this card's memory is ROADMAP queue A, item 8)
+    inplace = getattr(config, "prefetch_inplace", None)
+    if inplace is None:
+        inplace = n >= MAX_QUBITS
+    inplace = bool(inplace)
     reorder = getattr(config, "prefetch_reorder", None)
     if reorder is None:
         reorder = True
-    max_high, cap_mats, window = resolve_prefetch_knobs(config, n, False)
+    max_high, cap_mats, window = resolve_prefetch_knobs(config, n, inplace)
 
     run_key = (
         _circuit_fingerprint(circuit), precision, config.max_fused_qubits,
-        bool(reorder), max_high, cap_mats, window, str(device),
+        inplace, bool(reorder), max_high, cap_mats, window, str(device),
         tile_rows(n), relayout_rows(n),
-        resolve_mono_as_mat(n), PERM_AS_MAT,
-        n >= PORTFOLIO_MIN_QUBITS, resolve_stream_relayout(n),
+        resolve_mono_as_mat(n, inplace), PERM_AS_MAT,
+        n >= PORTFOLIO_MIN_QUBITS, resolve_stream_relayout(n, inplace),
     )
     prog = _RUN_CACHE.get(run_key)
     if prog is None:
@@ -1310,18 +1487,33 @@ def run_prefetch(circuit, config, device, initial=None):
             max_high=max_high, window=window)
         prog = build_prefetch_program(
             ops, n, precision=precision, cap_mats=cap_mats,
-            final_layout=final_layout, reorder=bool(reorder), device=device)
+            final_layout=final_layout, reorder=bool(reorder), device=device,
+            inplace=inplace)
         if len(_RUN_CACHE) >= _RUN_CACHE_LIMIT:
             _RUN_CACHE.pop(next(iter(_RUN_CACHE)))
         _RUN_CACHE[run_key] = prog
 
-    if initial is None:
-        re, im = initial_state_parts(n, device=device)
-    else:
-        iv = np.asarray(initial)
+    if initial is not None:
+        initial = np.asarray(initial)
         if perm is not None:
             # map original-basis amplitudes into the relabeled basis
-            iv = unpermute_state(iv, np.argsort(perm))
-        re, im = split_state(iv, device=device)
-    re, im = prog(re, im)
-    return re, im, prog.num_ops + prog.num_tswaps + prog.num_xswaps, None
+            initial = unpermute_state(initial, np.argsort(perm))
+    total = prog.num_ops + prog.num_tswaps + prog.num_xswaps
+    if prog.inplace:
+        # the state is made as column halves, never as a flat pair
+        parts = (initial_halves(n, device) if initial is None
+                 else halves_from_host(initial, device))
+        parts = prog.run_parts(*parts)
+        if return_halves:
+            return parts, None, total, None
+        re, im = join_halves(*parts)
+    else:
+        if return_halves:
+            raise ValueError("return_halves requires the in-place engine "
+                             "(prefetch_inplace=True or n >= 30)")
+        if initial is None:
+            re, im = initial_state_parts(n, device=device)
+        else:
+            re, im = split_state(initial, device=device)
+        re, im = prog(re, im)
+    return re, im, total, None

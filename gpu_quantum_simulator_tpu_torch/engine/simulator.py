@@ -9,6 +9,10 @@ smallest widths).  Every other strategy, and every width or precision rung
 outside the port's slice, raises NotImplementedError naming its ROADMAP
 item; n > 30, and vmem above n = 19, raise ValueError, as in the JAX
 package.  Nothing runs on another device than the one asked for.
+
+``prefetch`` runs in place on four column halves from n = 30 (or with
+``prefetch_inplace=True``); ``run_device_halves`` returns those halves and
+``sample`` reads them, through sampling.py, without a flat 2^n tensor.
 """
 
 from __future__ import annotations
@@ -71,6 +75,72 @@ class Simulator:
     # ------------------------------------------------------------------ API
     def run(self, circuit: Circuit, initial=None) -> np.ndarray:
         return self.run_detailed(circuit, initial=initial).state
+
+    def sample(self, circuit: Circuit, num_samples: int,
+               seed: int = 0) -> np.ndarray:
+        """Measurement sampling (ref: quantum_simulator.c:256-283): int64
+        basis indices.
+
+        Above n = 22 the distribution, its CDFs and the searches run on the
+        simulator's device (sampling.py) and only the indices reach the
+        host: on the column halves when prefetch runs in place, else on the
+        flat pair.  Up to n = 22 it is the host sampler (ref/cpu.py) on the
+        final state, the JAX package's samples bit for bit.
+        """
+        sim = self._resolved(circuit.num_qubits)
+        if sim is not self:
+            return sim.sample(circuit, num_samples, seed=seed)
+        n = circuit.num_qubits
+        if n > 22:
+            from .. import sampling
+
+            if self._prefetch_inplace(n):
+                parts, _ = self.run_device_halves(circuit)
+                return sampling.sample_halves(*parts, n, num_samples, seed)
+            re, im, _ = self.run_device(circuit)
+            return sampling.sample_state_device(re, im, n, num_samples, seed)
+        from ..ref.cpu import sample
+
+        return sample(self.run(circuit), num_samples,
+                      np.random.default_rng(seed))
+
+    def _prefetch_inplace(self, n: int) -> bool:
+        cfg = self.config
+        if cfg.strategy != "prefetch":
+            return False
+        if cfg.prefetch_inplace is not None:
+            return bool(cfg.prefetch_inplace)
+        return n >= 30
+
+    def run_device_halves(self, circuit: Circuit, initial=None):
+        """Run through the in-place prefetch engine and return the state as
+        its four (R2, 128) column halves on the simulator's device:
+        ``((re0, re1, im0, im1), num_ops)``, original qubit basis.
+
+        The halves are the engine's own buffers; the measurement helpers of
+        sampling.py (``sample_halves``, ``norm_halves``, ...) read them as
+        they are.  ``initial``: optional complex start vector (original
+        basis), split into halves on the host.
+        """
+        sim = self._resolved(circuit.num_qubits)
+        if sim is not self:
+            return sim.run_device_halves(circuit, initial=initial)
+        n = circuit.num_qubits
+        if not self._prefetch_inplace(n):
+            raise ValueError(
+                "run_device_halves requires strategy='prefetch' with the "
+                "in-place engine (prefetch_inplace=True or n >= 30)")
+        _check_run(self.config, n)
+        if initial is not None and np.asarray(initial).shape != (1 << n,):
+            raise ValueError("initial state has wrong length")
+        from .prefetch import run_prefetch
+
+        parts, _, num_ops, _ = run_prefetch(
+            circuit, self.config, self.device, initial=initial,
+            return_halves=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return parts, num_ops
 
     def run_device(self, circuit: Circuit, initial=None):
         """Run and return (re, im, num_ops): flat float32 tensors on the

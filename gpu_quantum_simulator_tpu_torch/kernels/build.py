@@ -108,6 +108,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_gather_step.argtypes = [P, P, P, P, L, I, I, I, P, P, P, I, I, P]
     lib.qsim_relayout.restype = I
     lib.qsim_relayout.argtypes = [P, P, P, P, L, I, P, I, P]
+    lib.qsim_relayout_inplace.restype = I
+    lib.qsim_relayout_inplace.argtypes = [P, P, P, P, L, I, P, I, P]
+    lib.qsim_split_mat_step.restype = I
+    lib.qsim_split_mat_step.argtypes = [P, P, P, P, P, P, L, I, P]
+    lib.qsim_split_mat_step_high.restype = I
+    lib.qsim_split_mat_step_high.argtypes = [P, P, P, P, P, L, I, P]
+    lib.qsim_split_swap_rows.restype = I
+    lib.qsim_split_swap_rows.argtypes = [P, P, P, P, L, I, P]
+    lib.qsim_split_tswap_pair.restype = I
+    lib.qsim_split_tswap_pair.argtypes = [P, P, P, P, L, I, I, P]
+    lib.qsim_split_row_step.restype = I
+    lib.qsim_split_row_step.argtypes = [P, P, P, P, L, I, P, P, I, P]
     lib.qsim_wide_chain.restype = I
     lib.qsim_wide_chain.argtypes = [P, P, P, P, P, P, L, I, L, P]
     lib.qsim_wide_chain_high.restype = I

@@ -3,6 +3,7 @@
     python3 -m gpu_quantum_simulator_tpu_torch.profiling [--widths 18 22]
         [--strategy prefetch mxu pallas vmem] [--precision auto]
         [--mono-as-mat auto 0 1] [--runs 5] [--sweep] [--plan-only]
+        [--inplace]
 
 Widths 9..30.  For each strategy (prefetch: each mono-lowering arm,
 ``auto`` the planner's default, ``0``/``1`` forcing the mono step or
@@ -27,6 +28,15 @@ reference up to n = 23 (above it the reference is not run: its time grows
 ``torch.profiler``: device busy time (the union of the device events), the
 profiled wall time, the device's idle share, and each device event's count
 and total time by name.
+
+``--inplace`` profiles prefetch's in-place split-state engine instead
+(``prefetch_inplace=True``): the plan's entries by scal mode (2: pair
+swaps, 3: in-place relayouts; the packed scal table adds padding rows of
+mode 0), and per run the enqueue, the time to the sync and ``norm_halves``
+on the four column halves (no copy to the host), launches by kind, the peak
+device memory, the error against the f64 reference up to n = 23, and the
+profile.  Without it prefetch at n = 30 runs in place all the same (the
+default there), through ``run_detailed``, and its plan is counted so.
 
 ``--sweep`` also runs prefetch at n = 9..20 at three tile geometries (the
 planner's (512, 64) and the shrunken (4, 1) and (16, 2), which put
@@ -54,9 +64,11 @@ from .engine import simulator as S
 from .engine import vmem as V
 from .engine import wide as W
 from .engine.simulator import Simulator, _fuse_pipeline
-from .kernels import block, vmem, wide
+from . import sampling
+from .kernels import block, split, vmem, wide
 from .kernels.block import run_block
-from .kernels.relayout import run_relayout
+from .kernels.relayout import run_relayout, run_relayout_inplace
+from .kernels.split import run_split_block, run_xswap
 from .ops.apply import join_state
 from .passes.fuse4x4 import fuse_4x4
 from .passes.fuse_k import fuse_k
@@ -87,7 +99,9 @@ def _reset_launches() -> None:
     block.reset_launches()
     wide.reset_launches()
     vmem.reset_launches()
+    split.reset_launches()
     run_relayout.launches = 0
+    run_relayout_inplace.launches = 0
 
 
 def _launches() -> dict:
@@ -95,12 +109,17 @@ def _launches() -> dict:
             "kh0": wide.kh0_chain.launches["highest"],
             "kh0_high": wide.kh0_chain.launches["high"],
             "block128": wide.apply_block128.launches,
-            "vmem": vmem.vmem_chunk.launches}
+            "vmem": vmem.vmem_chunk.launches,
+            **{f"split_{k}": v for k, v in run_split_block.launches.items()},
+            "xswap": run_xswap.launches,
+            "relayout_inplace": run_relayout_inplace.launches}
 
 
 def plan_counts(n: int, strategy: str = "prefetch",
-                precision: str = "auto") -> dict:
+                precision: str = "auto", inplace: bool = False) -> dict:
     """The plan the Simulator builds for the benchmark circuit, counted."""
+    if inplace:
+        return _inplace_counts(n, precision)
     if strategy == "mxu":
         return _mxu_counts(n, precision)
     if strategy == "pallas":
@@ -130,6 +149,40 @@ def plan_counts(n: int, strategy: str = "prefetch",
         "relayouts": plan.num_relayouts,
         "folded_relayouts": sum(b.relayout_pro is not None for b in folded),
         "standalone_relayouts": sum(b.relayout is not None for b in folded),
+        "mat_steps": kinds.count(0),
+        "mono_steps": kinds.count(logt + 2),
+        "perm_steps": kinds.count(logt + 1),
+        "tswap_steps": sum(1 <= k <= logt for k in kinds),
+        "perm_folds": plan.num_pfolds,
+    }
+
+
+def _inplace_counts(n: int, precision: str) -> dict:
+    """The in-place plan (``prefetch_inplace=True``): involutive relayouts,
+    prologues hoisted into pair-swap entries, nothing folded."""
+    config = SimulatorConfig(strategy="prefetch", precision=precision,
+                             prefetch_inplace=True)
+    c = models.grover_like(n, GATES, SEED)
+    perm = plan_permutation(c)
+    max_high, cap_mats, window = PF.resolve_prefetch_knobs(config, n, True)
+    ops = _fuse_pipeline(c.relabeled(perm), PF.LANE_QUBITS,
+                         max_high=max_high, window=window)
+    plan = PF.plan_circuit(ops, n, cap_mats=cap_mats,
+                           final_layout=np.argsort(perm),
+                           involution_relayout=True)
+    entries = PF.hoist_prologues(plan.blocks)
+    logt = plan.logt
+    kinds = [k for b in plan.blocks for k in b.kinds]
+    return {
+        "n": n, "inplace": True,
+        "precision": resolve_precision(config.precision, n),
+        "max_high": max_high, "cap_mats": cap_mats, "window": window,
+        "mono_as_mat": plan.mono_as_mat, "fused_ops": len(ops),
+        "entries": len(entries),
+        "entries_by_mode": {
+            0: sum(b.prologue is None and b.relayout is None for b in entries),
+            2: sum(b.prologue is not None for b in entries),
+            3: sum(b.relayout is not None for b in entries)},
         "mat_steps": kinds.count(0),
         "mono_steps": kinds.count(logt + 2),
         "perm_steps": kinds.count(logt + 1),
@@ -179,15 +232,15 @@ def _vmem_counts(n: int) -> dict:
             "chunks": -(-len(ops) // V.CHUNK_OPS)}
 
 
-def _device_profile(sim, c) -> dict:
-    """One run_detailed under torch.profiler; device events by name."""
+def _device_profile(run) -> dict:
+    """One call of ``run`` under torch.profiler; device events by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        sim.run_detailed(c)
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
@@ -242,7 +295,55 @@ def run_width(n: int, runs: int, strategy: str = "prefetch",
             **{k: statistics.median(v) for k, v in split.items()},
             "launches_per_run": launches, "max_abs_err_f64": err,
             "norm": float(np.linalg.norm(state)),
-            "profile": _device_profile(sim, c)}
+            "profile": _device_profile(lambda: sim.run_detailed(c))}
+
+
+def run_width_inplace(n: int, runs: int, precision: str = "auto") -> dict:
+    """The in-place engine through ``run_device_halves``: timed runs, their
+    split (enqueue, to the sync, ``norm_halves``), launches by kind, peak
+    device memory, the error up to n = 23, a profile."""
+    cfg = SimulatorConfig(strategy="prefetch", precision=precision,
+                          prefetch_inplace=True)
+    sim = Simulator(cfg, device="cuda")
+    c = models.grover_like(n, GATES, SEED)
+    t0 = time.perf_counter()
+    sim.run_device_halves(c)
+    warm = time.perf_counter() - t0
+    split_ms = {"enqueue_ms": [], "to_sync_ms": [], "norm_ms": []}
+    secs = []
+    _reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    parts = None
+    for _ in range(runs):
+        del parts              # one state on the card at a time
+        t0 = time.perf_counter()
+        parts, _, _, _ = PF.run_prefetch(c, cfg, sim.device,
+                                         return_halves=True)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        norm = sampling.norm_halves(*parts)
+        t3 = time.perf_counter()
+        secs.append(t2 - t0)
+        split_ms["enqueue_ms"].append((t1 - t0) * 1e3)
+        split_ms["to_sync_ms"].append((t2 - t0) * 1e3)
+        split_ms["norm_ms"].append((t3 - t2) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v // runs for k, v in _launches().items()}
+    err = None
+    if n <= REF_MAX_QUBITS:
+        state = join_state(*PF.join_halves(*parts))
+        err = float(np.max(np.abs(state - simulate_native(c))))
+    del parts
+    (prog,) = PF._RUN_CACHE.values()
+    return {"n": n, "warmup_s": warm, "median_s": statistics.median(secs),
+            "runs_s": secs,
+            **{k: statistics.median(v) for k, v in split_ms.items()},
+            "launches_per_run": launches, "max_abs_err_f64": err,
+            "norm": norm ** 0.5, "peak_bytes": peak,
+            "state_bytes": 8 << n, "scal_rows_by_mode": dict(prog.mode_rows),
+            "profile": _device_profile(lambda: sim.run_device_halves(c))}
 
 
 def sweep() -> list:
@@ -274,11 +375,17 @@ def sweep() -> list:
 
 def _print_width(rec: dict) -> None:
     p = rec["profile"]
-    print(f"  run_detailed median {rec['median_s'] * 1e3:.2f} ms (runs "
+    last = (f"D2H+join {rec['d2h_join_ms']:.2f} ms" if "d2h_join_ms" in rec
+            else f"norm_halves {rec['norm_ms']:.2f} ms; peak device memory "
+            f"{rec['peak_bytes'] / 2 ** 30:.3f} GiB for a state of "
+            f"{rec['state_bytes'] / 2 ** 30:.3f} GiB; scal rows by mode "
+            f"{rec['scal_rows_by_mode']}")
+    what = "run_detailed" if "d2h_join_ms" in rec else "run_device_halves"
+    print(f"  {what} median {rec['median_s'] * 1e3:.2f} ms (runs "
           f"{[round(s * 1e3, 2) for s in rec['runs_s']]} ms, warm-up "
           f"{rec['warmup_s']:.4f} s); enqueue {rec['enqueue_ms']:.2f} ms, to "
-          f"sync {rec['to_sync_ms']:.2f} ms, D2H+join {rec['d2h_join_ms']:.2f}"
-          f" ms; launches/run {rec['launches_per_run']}; max|amp - f64| "
+          f"sync {rec['to_sync_ms']:.2f} ms, {last}; launches/run "
+          f"{rec['launches_per_run']}; max|amp - f64| "
           + ("not measured" if rec["max_abs_err_f64"] is None
              else f"{rec['max_abs_err_f64']:.3e}") + f"; norm {rec['norm']:.8f}")
     if p["device_busy_ms"] is None:
@@ -304,7 +411,11 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--plan-only", action="store_true")
+    ap.add_argument("--inplace", action="store_true",
+                    help="prefetch's in-place split-state engine")
     args = ap.parse_args(argv)
+    if args.inplace and args.strategy != ["prefetch"]:
+        ap.error("--inplace profiles the prefetch strategy")
     if not args.plan_only and not torch.cuda.is_available():
         print("profiling: no CUDA card; pass --plan-only to count plans",
               file=sys.stderr)
@@ -331,13 +442,19 @@ def main(argv=None) -> int:
                 PF.MONO_AS_MAT = _arm(arm)
                 _clear_caches()
                 for n in args.widths:
+                    # prefetch's default at its ceiling is the in-place plan
+                    inplace = args.inplace or (strategy == "prefetch"
+                                               and n >= PF.MAX_QUBITS)
                     rec = {"strategy": strategy, "mono_as_mat_arm": arm,
-                           "plan": plan_counts(n, strategy, args.precision)}
+                           "plan": plan_counts(n, strategy, args.precision,
+                                               inplace)}
                     print(f"{strategy} arm {arm} n={n} plan: "
                           f"{json.dumps(rec['plan'])}")
                     if not args.plan_only:
-                        rec.update(run_width(n, args.runs, strategy,
-                                             args.precision))
+                        rec.update(
+                            run_width_inplace(n, args.runs, args.precision)
+                            if args.inplace else
+                            run_width(n, args.runs, strategy, args.precision))
                         _print_width(rec)
                         _clear_caches()  # free the width's device tables
                         torch.cuda.empty_cache()

@@ -30,6 +30,11 @@ def _ops():
 BUILDERS = {
     "PrefetchProgram": lambda: TPF.PrefetchProgram(_ops(), N),
     "build_prefetch_program": lambda: TPF.build_prefetch_program(_ops(), N),
+    "PrefetchProgram_inplace": lambda: TPF.PrefetchProgram(
+        _ops(), N, inplace=True),
+    "build_prefetch_program_inplace": lambda: TPF.build_prefetch_program(
+        _ops(), N, inplace=True, fold_xswap=True),
+    "initial_halves": lambda: TPF.initial_halves(N),
     "WideProgram": lambda: TW.WideProgram(_ops(), N),
     "build_wide_program": lambda: TW.build_wide_program(_ops(), N),
     "PallasProgram": lambda: TP.PallasProgram(

@@ -5,8 +5,8 @@ At "high" every real product of a mat step is the 3-pass bf16 split
 ``_make_dot("high")``); perm, tswap and mono steps stay exact gathers.
 The port's plain versions run here; the CUDA kernel (csrc/mat_high.cu) is
 held to them on the card by chip_smoke.py.  Also the fences of the slice
-at its edges: the "default" rung, n > 30, and the in-place default at
-n = 30.
+at its edges: the "default" rung and n > 30, also at n = 30, where the
+engine runs in place by default.
 """
 
 import numpy as np
@@ -112,15 +112,16 @@ def test_check_slice_fences():
         TPF.check_slice(12, "default")
     with pytest.raises(ValueError, match="ceiling"):
         TPF.check_slice(31, "highest")
-    with pytest.raises(NotImplementedError, match="in-place"):
-        TPF.check_slice(30, "high", inplace=True)
-    TPF.check_slice(30, "high")          # the flat plan at n = 30 is in
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TPF.check_slice(30, "default")   # in place by default, still fenced
+    TPF.check_slice(30, "high")          # n = 30 is in, flat and in place
 
 
 @pytest.mark.parametrize("n,kw,exc", [
     (31, {}, ValueError),
-    (30, {}, NotImplementedError),                  # in place by default
-    (30, {"prefetch_inplace": True}, NotImplementedError),
+    (30, {"precision": "default"}, NotImplementedError),   # in place there
+    (30, {"prefetch_inplace": True, "precision": "default"},
+     NotImplementedError),
     (12, {"precision": "default"}, NotImplementedError),
 ])
 def test_simulator_raises_before_running(n, kw, exc):

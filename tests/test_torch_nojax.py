@@ -21,6 +21,13 @@ for strategy in ("prefetch", "mxu", "pallas", "vmem", "megakernel"):
 s = T.Simulator(T.SimulatorConfig(strategy="mxu"), device="cpu").run(
     T.models.grover_like(5, 100, 1))
 assert s.shape == (1 << 5,) and abs(np.linalg.norm(s) - 1) < 1e-5
+from gpu_quantum_simulator_tpu_torch import sampling
+sim = T.Simulator(T.SimulatorConfig(strategy="prefetch", prefetch_inplace=True),
+                  device="cpu")
+parts, _ = sim.run_device_halves(c)
+assert abs(sampling.norm_halves(*parts) - 1) < 1e-5
+assert sampling.sample_halves(*parts, 10, 50, 1).shape == (50,)
+assert sim.sample(c, 50, seed=1).shape == (50,)
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "gpu_quantum_simulator_tpu"))]
 print("LOADED", loaded)
@@ -53,5 +60,6 @@ def test_no_source_imports_jax_or_the_jax_package():
     rel = {os.path.relpath(f, PORT) for f in files}
     assert {"engine/wide.py", "engine/pallas_engine.py", "kernels/wide.py",
             "passes/shard.py", "utils/roofline.py", "engine/vmem.py",
-            "kernels/vmem.py", "engine/megakernel.py"} <= rel, rel
+            "kernels/vmem.py", "engine/megakernel.py", "kernels/split.py",
+            "sampling.py", "ref/cpu.py"} <= rel, rel
     assert len(files) > 15 and not bad, bad

@@ -137,21 +137,28 @@ def test_auto_resolves_to_prefetch():
 
 @pytest.mark.parametrize("kind", ["n8", "n30", "default", "mxu", "inplace"])
 def test_outside_the_slice_raises(kind):
-    # n = 30 runs in place by default, as in the JAX package (not ported).
+    # n = 30 runs in place by default, as in the JAX package, and keeps the
+    # rung fence there (raised before anything is planned or allocated);
+    # the halves of a flat run do not exist ("inplace").
     # n = 8 (prefetch) and n = 7 (mxu) run the megakernel arm, which keeps
     # the float32 fence: prefetch's ValueError, as in the JAX package, and
     # the port's complex128 NotImplementedError for mxu
     n = {"n8": 8, "n30": 30, "mxu": 7}.get(kind, 10)
     c = T.models.grover_like(n, 40, 1)
     kw = {"default": dict(precision="default"),
+          "n30": dict(precision="default"),
           "mxu": dict(strategy="mxu", dtype="complex128"),
           "n8": dict(dtype="complex128"),
-          "inplace": dict(prefetch_inplace=True)}.get(kind, {})
-    cfg = T.SimulatorConfig(**{"strategy": "prefetch", **kw})
-    exc, match = ((ValueError, "float32-only") if kind == "n8"
-                  else (NotImplementedError, "ROADMAP"))
+          "inplace": dict(prefetch_inplace=False)}.get(kind, {})
+    sim = T.Simulator(T.SimulatorConfig(**{"strategy": "prefetch", **kw}),
+                      device="cpu")
+    exc, match = {"n8": (ValueError, "float32-only"),
+                  "inplace": (ValueError, "in-place engine")}.get(
+        kind, (NotImplementedError, "ROADMAP"))
+    TPF._RUN_CACHE.clear()
     with pytest.raises(exc, match=match):
-        T.Simulator(cfg, device="cpu").run(c)
+        sim.run_device_halves(c) if kind == "inplace" else sim.run(c)
+    assert not TPF._RUN_CACHE            # nothing was planned or built
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):
