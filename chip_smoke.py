@@ -87,7 +87,24 @@ failure raises and the script exits non-zero:
    memory <= the state's 8 GiB + 2 GiB, amplitudes at the top-64 and 4096
    random indices against the flat run of the same circuit
    (``prefetch_inplace=False``, peak above 16 GiB), and
-   ``Simulator.sample`` reproducible from its seed.
+   ``Simulator.sample`` reproducible from its seed.  A resume at n=22:
+   ``run_device_halves(second, initial_parts=...)`` from the device halves
+   of a run of the circuit's first 1200 gates and from their flat pair,
+   equal to each other and within 1e-6 of the f64 reference.
+6. the public op and the probes no engine calls (as in the JAX package).
+   Kernel 10, ``ops/pallas_kernels.py`` ``apply_butterfly_high`` at n=30:
+   three random unitaries on row bits 0, 11 and 22 of a normalised state
+   against its plain version (<= 1e-6), in place against out of place
+   (bit-exact), timed beside its bound, the plain version and
+   ``ops/apply.py`` ``apply_1q``.  Kernel 11, the copy probe harness
+   (``dma_probe.py``) at n = 24, 28 and 30: every route (grid, stream,
+   direct TMA) and tile shape copies bit for bit; GB/s beside ``copy_``'s.
+
+Phase 3 also pins the "high" mat step's norm drift: 200 chained steps at
+n=24 on a normalised random state over eight random unitary tables, the
+drift printed after every step for the kernel and its plain version; after
+200 steps the kernel's |1 - norm| may be at most 3 times the plain
+version's.  At n=30 (phase 5) ``norm_halves`` must be within 1e-5 of 1.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Matmuls in plain torch run in IEEE
@@ -132,6 +149,12 @@ FOLD_WIDTH = 24             # phase 3 geometry of the folded block
 WIDE_WIDTH = 24             # phase 3 geometry of the chain kernel
 LOW_ONLY = (24, 600, 3)     # (n, gates, seed) of the low-only circuit
 HIGH_STEPS = ((24, 20), (28, 3))   # (n, timing reps) of the "high" mat step
+DRIFT_WIDTH = 24            # the "high" mat step's norm drift, chained
+DRIFT_STEPS = 200
+DRIFT_SLOTS = 8             # table slots of one block entry (cap_mats 8)
+DRIFT_RATIO = 3.0           # kernel |1 - norm| after 200 steps <= 3 x the
+                            # plain version's (which differs from 0 by the
+                            # rung's own rounding of the tables)
 TIMED_RUNS = 5
 ENGINE_RUNS = 3             # timed runs of mxu / pallas per width
 SPIN_CYCLES = 200_000_000   # ~0.1 s at 2 GHz: covers queuing 20 calls
@@ -154,12 +177,25 @@ VMEM_TPU = "gpu_quantum_simulator_tpu/engine/vmem.py:62"
 INPLACE_RELAYOUT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1690"
 SPLIT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1824"
 STREAM_SPLIT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1952"
+BUTTERFLY_SRC = "gpu_quantum_simulator_tpu_torch/csrc/butterfly_high.cu"
+BUTTERFLY_TPU = "gpu_quantum_simulator_tpu/ops/pallas_kernels.py:116"
+COPY_SRC = "gpu_quantum_simulator_tpu_torch/csrc/copy_probe.cu"
+COPY_TPU = {"grid": "scripts/dma_probe.py:51",
+            "stream": "scripts/dma_probe.py:82",
+            "direct": "scripts/dma_probe.py:164"}
+BUTTERFLY_WIDTH = 30        # kernel 10 at full width
+BUTTERFLY_BITS = (0, 11, 22)
+BUTTERFLY_TOL = 1e-6        # the kernel rounds each product and sum as the
+                            # plain version does, in the same order
+COPY_WIDTHS = (24, 28, 30)  # kernel 11's harness
 SPLIT_WIDTH = 24            # phase 5 geometry of the in-place kernel checks
 SPLIT_MAT_TOL = 1e-6        # in-place fp32 mat step vs plain, |x| ~ 1/16
 INPLACE_WIDTHS = (18, 22, 23)   # in-place path held to the f64 reference
 INPLACE_SMALL = range(9, 18)    # in place below the first cross-tile swap
+RESUME_AT = 1200            # gate after which a run resumes from its state
 FULL_WIDTH = 30             # the width where prefetch runs in place unasked
 FULL_PEAK_SLACK = 2 << 30   # peak device memory allowed above the state
+FULL_NORM_TOL = 1e-5        # n=30 norm_halves after its 692 "high" steps
 SAMPLES = 200_000
 SAMPLE_BINS = 4096
 
@@ -586,6 +622,69 @@ def check_high_mat(torch, rng):
         del re, im, scratch, got
         torch.cuda.empty_cache()
     return rec
+
+
+def check_high_drift(torch):
+    """200 chained "high" mat steps at n=24 on a normalised random state,
+    the tables eight random 256 x 256 unitaries taken in turn (a block
+    entry's eight slots): the norm's drift after every step, kernel and
+    plain version each on its own chain.  A unitary keeps the norm; what
+    remains is the rung's rounding, and in the kernel the tensor core's
+    truncating adds (mma_high.cuh).  Its draws have a seed of their own,
+    so the phases after it draw as they did without it."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.block import (
+        run_block, run_block_plain, split_tables)
+
+    n, cap = DRIFT_WIDTH, PF.CAP_STEPS
+    R2 = 1 << (n - PF.LOCAL_QUBITS)
+    logt = int(np.log2(PF.tile_rows(n)))
+    rng = np.random.default_rng(DRIFT_STEPS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(DRIFT_STEPS)
+    mats = [random_unitary(rng, 256) for _ in range(DRIFT_SLOTS)]
+    a_tab = torch.tensor(np.stack([m.real.T for m in mats]),
+                         dtype=torch.float32, device="cuda").contiguous()
+    b_tab = torch.tensor(np.stack([m.imag.T for m in mats]),
+                         dtype=torch.float32, device="cuda").contiguous()
+    mono = torch.zeros(DRIFT_SLOTS, 256, dtype=torch.int32, device="cuda")
+    w16 = split_tables(a_tab, b_tab)
+    re, im = (torch.randn(R2, 256, device="cuda", generator=gen)
+              for _ in range(2))
+    scale = norm2((re, im)) ** -0.5
+    start = (re * scale, im * scale)
+    n0 = norm2(start)
+
+    def row(j):           # one mat step on slot j
+        return [1, 0, 0, 0] + [0] * cap + [j] + [0] * (cap - 1)
+
+    kern, spare = start, (torch.empty_like(re), torch.empty_like(im))
+    kern = (kern[0].clone(), kern[1].clone())
+    plain = start
+    drift = {"kernel": [], "plain": []}
+    for step in range(DRIFT_STEPS):
+        j = step % DRIFT_SLOTS
+        out = run_block(row(j), *kern, a_tab, b_tab, mono, logt, cap,
+                        scratch=spare, precision="high", w16=w16)
+        spare, kern = kern, out
+        plain = run_block_plain(row(j), *plain, a_tab, b_tab, mono, logt,
+                                cap, precision="high")
+        drift["kernel"].append(norm2(kern) / n0 - 1.0)
+        drift["plain"].append(norm2(plain) / n0 - 1.0)
+    for k, v in drift.items():
+        print(f"high drift n={n} {k}: |out|^2/|in|^2 - 1 after steps "
+              f"1..{DRIFT_STEPS}: " + json.dumps([float(f"{x:.4g}")
+                                                  for x in v]))
+    last_k, last_p = abs(drift["kernel"][-1]), abs(drift["plain"][-1])
+    print(f"high drift n={n}: |1 - norm| after {DRIFT_STEPS} steps kernel "
+          f"{last_k:.4e}, plain {last_p:.4e} (ratio {last_k / last_p:.3f}, "
+          f"bar {DRIFT_RATIO}); the state's norm at the start "
+          f"{n0:.10f}")
+    if not last_k <= DRIFT_RATIO * last_p:
+        raise AssertionError(f"high drift n={n}: kernel {last_k} > "
+                             f"{DRIFT_RATIO} x plain {last_p}")
+    del kern, spare, plain, start, re, im
+    torch.cuda.empty_cache()
 
 
 def check_wide_chain(torch, rng):
@@ -1707,6 +1806,34 @@ def run_inplace_path(torch, T, refs, add):
             raise AssertionError(f"fold_xswap n={n}: modes {fmodes} against "
                                  f"the hoisted plan's {modes}")
 
+    # a resume on the card: the rest of the benchmark circuit from the
+    # halves of a run of its first part, and from their flat pair, both on
+    # the device (the plan relabels the qubits, so both forms are relabeled
+    # there first)
+    from gpu_quantum_simulator_tpu_torch.ops.apply import join_state
+
+    n = INPLACE_WIDTHS[1]
+    c = T.models.grover_like(n, 2445, 318)
+    first, second = T.Circuit(n), T.Circuit(n)
+    first.gates, second.gates = c.gates[:RESUME_AT], c.gates[RESUME_AT:]
+    parts, _ = sim().run_device_halves(first)
+    pair = PF.join_halves(*parts)
+    reset_counts()
+    from_halves, _ = sim().run_device_halves(second, initial_parts=parts)
+    from_pair, _ = sim().run_device_halves(second, initial_parts=pair)
+    counts = launch_counts()
+    add(counts)
+    err = float(np.max(np.abs(join_state(*PF.join_halves(*from_halves))
+                              - refs[n])))
+    same = equal4(torch, from_halves, from_pair)
+    print(f"in place n={n} resumed after gate {RESUME_AT} from device "
+          f"halves and from a device flat pair: equal {same}; max|amp - "
+          f"f64| {err:.3e}; launches {counts}")
+    if not (same and err <= AMP_TOL):
+        raise AssertionError(f"in place n={n} resume: equal {same}, "
+                             f"max|amp diff| {err}")
+    del parts, pair, from_halves, from_pair
+
     # n=24: "high" against the engine's own "highest" run, both arms
     n = HIGH_WIDTH
     c = T.models.grover_like(n, 2445, 318)
@@ -1880,8 +2007,8 @@ def run_full_width(torch, T, add):
     if not (prog.inplace and all(p.shape == (1 << (n - 8), 128)
                                  for p in parts)):
         raise AssertionError("n=30 did not run in place on four halves")
-    if not abs(norm - 1.0) <= NORM_TOL:
-        raise AssertionError(f"n={n}: norm_halves {norm}")
+    if not abs(norm - 1.0) <= FULL_NORM_TOL:
+        raise AssertionError(f"n={n}: norm_halves {norm}, bar {FULL_NORM_TOL}")
     if not peak <= state_bytes + FULL_PEAK_SLACK:
         raise AssertionError(f"n={n}: peak {peak} B exceeds the state + 2 GiB")
     check_inplace_counts(n, counts, modes, 1, True)
@@ -1957,6 +2084,114 @@ def run_inplace_phase(torch, T, refs, add, rng):
     return ((block, "split_gather"), (mat, "split_mat"),
             (high, "split_mat_high"), (xswap, "xswap"), (pair, "split_pair"),
             (relayout, "relayout_inplace"))
+
+
+# ------------------------------------- phase 6: the public op and the probe
+def check_butterfly(torch, rng, add):
+    """Kernel 10, the public op ``apply_butterfly_high`` at n=30 (no engine
+    calls it, as in the JAX package): three random 2 x 2 unitaries on row
+    bits 0, 11 and 22 of a normalised random state, each against its plain
+    version (<= 1e-6), in place against out of place (bit-exact), timed
+    beside the plain version and ``ops/apply.py`` ``apply_1q`` on the same
+    state."""
+    from gpu_quantum_simulator_tpu_torch.ops import pallas_kernels as PK
+    from gpu_quantum_simulator_tpu_torch.ops.apply import apply_1q
+
+    n = BUTTERFLY_WIDTH
+    R = 1 << (n - PK.LANE_QUBITS)
+    re, im = (torch.randn(R, PK.LANES, device="cuda") for _ in range(2))
+    scale = norm2((re, im)) ** -0.5
+    re.mul_(scale)
+    im.mul_(scale)
+    gates = [random_unitary(rng, 2) for _ in range(3)]
+    out = (torch.empty_like(re), torch.empty_like(im))
+    if PK.apply_butterfly_high.launches:
+        raise AssertionError("kernel 10 was launched on an engine path")
+    PK.reset_launches()
+    err = 0.0
+    for hb in BUTTERFLY_BITS:
+        for u in gates:
+            PK.apply_butterfly_high(re, im, u, hb, out=out)
+            want = PK.apply_butterfly_high_plain(re, im, u, hb)
+            torch.cuda.synchronize()
+            err = max(err, max_diff(out, want))
+            del want
+    launches = PK.apply_butterfly_high.launches
+    add({"butterfly": launches})
+    own = (re.clone(), im.clone())
+    PK.apply_butterfly_high(*own, gates[0], 0, out=own)
+    PK.apply_butterfly_high(re, im, gates[0], 0, out=out)
+    inplace_ok = torch.equal(own[0], out[0]) and torch.equal(own[1], out[1])
+    del own
+    torch.cuda.empty_cache()
+    times = {hb: device_ms(torch, lambda hb=hb: PK.apply_butterfly_high(
+        re, im, gates[0], hb, out=out), reps=5, rounds=3)
+        for hb in BUTTERFLY_BITS}
+    hb = BUTTERFLY_BITS[-1]
+    plain_ms = device_ms(torch, lambda: PK.apply_butterfly_high_plain(
+        re, im, gates[0], hb), reps=2, rounds=3)
+    ur = torch.tensor(gates[0].real, dtype=torch.float32, device="cuda")
+    ui = torch.tensor(gates[0].imag, dtype=torch.float32, device="cuda")
+    lib_ms = device_ms(torch, lambda: apply_1q(
+        re.view(-1), im.view(-1), ur, ui, hb + PK.LANE_QUBITS, n),
+        reps=2, rounds=3)
+    bnd = bound(nbytes=2.0 * 8 * (1 << n))  # the state read and written once
+    ms = max(times.values())
+    print(f"butterfly n={n}: kernel " + ", ".join(
+        f"high_bit {b} {t:.4f} ms" for b, t in times.items())
+        + f"; plain {plain_ms:.4f} ms, apply_1q {lib_ms:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.1%} of it reached); "
+        f"max|diff| vs plain {err:.3e} over {launches} launches; in place "
+        f"{'bit-exact' if inplace_ok else 'DIFFERS'}")
+    if not (err <= BUTTERFLY_TOL and inplace_ok and launches == 9):
+        raise AssertionError(f"butterfly n={n}: max|diff| {err}, in place "
+                             f"equal {inplace_ok}, launches {launches}")
+    del re, im, out
+    torch.cuda.empty_cache()
+    return record("butterfly_high", BUTTERFLY_SRC, BUTTERFLY_TPU, err, ms,
+                  plain_ms, bnd, lib_ms)
+
+
+def check_copy_probes(torch, add):
+    """Kernel 11, the copy probe harness (gpu_quantum_simulator_tpu_torch/
+    dma_probe.py) at n = 24, 28 and 30: every route and tile shape copies
+    bit for bit; GB/s per variant beside ``copy_``'s.  The records take each
+    route's fastest pair copy at n=30."""
+    from gpu_quantum_simulator_tpu_torch import dma_probe
+    from gpu_quantum_simulator_tpu_torch.kernels import copy as KC
+
+    routes = {"grid": ("grid2_", KC.grid_copy),
+              "stream": ("stream_", KC.stream_copy),
+              "direct": ("direct_", KC.hbm_direct)}
+    launches = dict.fromkeys(routes, 0)
+    if any(fn.launches for _, fn in routes.values()):
+        raise AssertionError("a copy probe kernel ran on an engine path")
+    for n in COPY_WIDTHS:
+        KC.reset_launches()
+        res = dma_probe.measure(n)
+        for k, (_, fn) in routes.items():
+            launches[k] += fn.launches
+        print(f"copy probe n={n}: " + json.dumps(
+            {k: v["GBps"] for k, v in res.items()}))
+        bad = [k for k, v in res.items() if not v["exact"]]
+        if bad:
+            raise AssertionError(f"copy probe n={n}: not bit-exact: {bad}")
+        torch.cuda.empty_cache()
+    add({f"copy_{k}": v for k, v in launches.items()})
+    lib = res["torch_copy"]
+    bnd = bound(nbytes=2.0 * 8 * (1 << COPY_WIDTHS[-1]))
+    recs = []
+    for k, (prefix, _) in routes.items():
+        name = max((v for v in res if v.startswith(prefix)),
+                   key=lambda v: res[v]["GBps"])
+        print(f"copy probe n={COPY_WIDTHS[-1]} {k}: fastest {name} "
+              f"{res[name]['ms']:.4f} ms ({res[name]['GBps']:.1f} GB/s); "
+              f"copy_ {lib['ms']:.4f} ms ({lib['GBps']:.1f} GB/s); bound "
+              f"{bnd[0]:.4f} ms ({HBM_BYTES / 1e9:.0f} GB/s)")
+        recs.append((record(f"copy_{k}", COPY_SRC, COPY_TPU[k], 0.0,
+                            res[name]["ms"], lib["ms"], bnd, lib["ms"]),
+                     f"copy_{k}"))
+    return recs
 
 
 def run_main_path(torch, T, refs, add):
@@ -2040,6 +2275,7 @@ def main() -> int:
     high = check_high_mat(torch, rng)
     chain, chain_high, block128 = check_wide_chain(torch, rng)
     vmem_chunk, vmem_op = check_vmem_kernel(torch, T)
+    check_high_drift(torch)
     torch.cuda.empty_cache()
 
     # phase 4: the main paths, counting launches; phase 5: the in-place
@@ -2047,10 +2283,14 @@ def main() -> int:
     refs = references(T, set(REF_WIDTHS) | set(VMEM_WIDTHS))
     run_main_path(torch, T, refs, add)
     inplace = run_inplace_phase(torch, T, refs, add, rng)
+    # phase 6: the public op (kernel 10) and the copy probes (kernel 11)
+    butterfly = check_butterfly(torch, rng, add)
+    copies = check_copy_probes(torch, add)
     kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
              (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
              (chain_high, "kh0_high"), (block128, "block128"),
-             (vmem_chunk, "vmem"), (vmem_op, "vmem"), *inplace)
+             (vmem_chunk, "vmem"), (vmem_op, "vmem"), *inplace,
+             (butterfly, "butterfly"), *copies)
     for rec, kind in kinds:
         rec["launches"] = totals[kind]
         if not rec["launches"] > 0:

@@ -31,8 +31,8 @@ def resolve_precision(precision: str, num_qubits: int) -> str:
 
 
 # Every strategy of the JAX package.  The port runs "mxu", "pallas",
-# "prefetch", "vmem", "megakernel" and "auto"; the others raise
-# NotImplementedError (ROADMAP A).
+# "prefetch", "vmem", "megakernel", "reference" and "auto"; the others
+# raise NotImplementedError (ROADMAP A).
 STRATEGIES = (
     "auto",        # width-based dispatch; in the port always prefetch
                    # (engine.simulator._auto_strategy)
@@ -78,6 +78,10 @@ class SimulatorConfig:
     # default, resolve_prefetch_knobs).  Wider windows pack more gates per
     # fused block by absorbing ops into older blocks past disjoint newer ones.
     fusion_window: Optional[int] = None
+    # kh-cost-aware fusion of the mxu engine (None = on, as in the JAX
+    # package).  Splits the low/high width caps and picks absorb candidates
+    # by predicted wide-engine block cost (utils.roofline.kh_block_costs).
+    fusion_cost_model: Optional[bool] = None
     # prefetch commutation-aware op scheduling.  None = automatic (on).
     prefetch_reorder: Optional[bool] = None
     # prefetch in-place execution on four column halves, with no second

@@ -12,9 +12,11 @@
 // Complex form: SCHOOLBOOK, four real products per complex product (the
 // JAX default is Karatsuba, three products on combined operands):
 //   out_re = xr.A - xi.B,  out_im = xr.B + xi.A,
-// A = M_re^T, B = M_im^T (the block kernel's tables), so 12 bf16 MMA passes
-// per complex product.  Schoolbook splits the raw state, not sums of its
-// parts, so it is the more accurate of the two, and needs no operand adds.
+// A = M_re^T, B = M_im^T (the block kernel's tables).  Schoolbook splits the
+// raw state, not sums of its parts, so it is the more accurate of the two,
+// and needs no operand adds.  The passes and where their sums are kept
+// (every partial product summed in fp32 on the CUDA cores, so that the
+// tensor core's truncating adds do not shrink the norm) are mma_high.cuh.
 //
 // Operands: the state is split as it is loaded, in registers, into the
 // mma.sync A fragments (fp32 -> bf16 hi + bf16 lo).  The tables are split
@@ -41,11 +43,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_high.cuh"
 #include "rowmap.cuh"
 
 namespace {
 
-constexpr int DVIEW = 256;
+using high::DVIEW;
 constexpr int HALF = 128;
 constexpr int WARPS_M = 2, WARPS_N = 4;
 constexpr int WM = 32, WN = 32;            // warp tile
@@ -54,29 +57,11 @@ constexpr int BN = WN * WARPS_N;           // 128 columns per CTA
 constexpr int THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int MT = WM / 16;                // m16 tiles per warp
 constexpr int NT = WN / 8;                 // n8 tiles per warp
-constexpr int TAB = DVIEW * DVIEW / 2;     // 32-bit words per bf16 table
-
-// (x0, x1) -> bf16x2 hi and bf16x2 lo (x0 in the low 16 bits)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // out = map(in) @ (A + iB) on an (rows, 256) state at the "high" rung.
 // w: the slot's four bf16 tables as 32-bit words, [A_hi, A_lo, B_hi, B_lo].
+// FORM: where the sums are kept (mma_high.cuh); the engine runs TERM4_RN.
+template <int FORM>
 __global__ void __launch_bounds__(THREADS)
 mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
                 float* __restrict__ out_re, float* __restrict__ out_im,
@@ -87,13 +72,8 @@ mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
   const long long row0 = (long long)blockIdx.x * BM + (warp / WARPS_N) * WM;
   const int col0 = blockIdx.y * BN + (warp % WARPS_N) * WN;
 
-  float acc_r[MT][NT][4], acc_i[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_r[i][j][e] = acc_i[i][j][e] = 0.f;
+  high::Acc<MT, NT> acc;
+  acc.zero();
 
   // this thread's A-fragment rows: row0 + 16 mt + g + 8 h
   bool valid[MT][2];
@@ -140,39 +120,12 @@ mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
             vr = *reinterpret_cast<const float2*>(in_re + o);
             vi = *reinterpret_cast<const float2*>(in_im + o);
           }
-          split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
-          split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
+          high::split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
+          high::split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
         }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        // B fragments (col-major 16 x 8): b0 = k 2t, 2t + 1; b1 = k + 8;
-        // column n = g of the n8 tile; tables are [n][k] bf16
-        const int n = col0 + nt * 8 + g;
-        const int kw = (half * HALF + kk) / 2 + t;
-        const uint32_t* wn = w + (long long)n * (DVIEW / 2) + kw;
-        const uint32_t ah0 = __ldg(wn), ah1 = __ldg(wn + 4);
-        const uint32_t al0 = __ldg(wn + TAB), al1 = __ldg(wn + TAB + 4);
-        const uint32_t bh0 = __ldg(wn + 2 * TAB), bh1 = __ldg(wn + 2 * TAB + 4);
-        const uint32_t bl0 = __ldg(wn + 3 * TAB), bl1 = __ldg(wn + 3 * TAB + 4);
-        const uint32_t sign = 0x80008000u;   // -B, exact
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          float* cr = acc_r[mt][nt];
-          float* ci = acc_i[mt][nt];
-          mma(cr, xrh[mt], ah0, ah1);
-          mma(cr, xrl[mt], ah0, ah1);
-          mma(cr, xrh[mt], al0, al1);
-          mma(cr, xih[mt], bh0 ^ sign, bh1 ^ sign);
-          mma(cr, xil[mt], bh0 ^ sign, bh1 ^ sign);
-          mma(cr, xih[mt], bl0 ^ sign, bl1 ^ sign);
-          mma(ci, xrh[mt], bh0, bh1);
-          mma(ci, xrl[mt], bh0, bh1);
-          mma(ci, xrh[mt], bl0, bl1);
-          mma(ci, xih[mt], ah0, ah1);
-          mma(ci, xil[mt], ah0, ah1);
-          mma(ci, xih[mt], al0, al1);
-        }
-      }
+      // B fragments (col-major 16 x 8) of column n = col0 + 8 nt + g
+      high::chunk<MT, NT, FORM>(acc, xrh, xrl, xih, xil, w, col0 + g,
+                                (half * HALF + kk) / 2 + t);
     }
   }
 
@@ -187,11 +140,28 @@ mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
       for (int nt = 0; nt < NT; ++nt) {
         const long long o = r * DVIEW + col0 + nt * 8 + 2 * t;
         *reinterpret_cast<float2*>(out_re + o) =
-            make_float2(acc_r[mt][nt][2 * h], acc_r[mt][nt][2 * h + 1]);
+            make_float2(acc.template re<FORM>(mt, nt, 2 * h),
+                        acc.template re<FORM>(mt, nt, 2 * h + 1));
         *reinterpret_cast<float2*>(out_im + o) =
-            make_float2(acc_i[mt][nt][2 * h], acc_i[mt][nt][2 * h + 1]);
+            make_float2(acc.template im<FORM>(mt, nt, 2 * h),
+                        acc.template im<FORM>(mt, nt, 2 * h + 1));
       }
     }
+}
+
+template <int FORM>
+int launch(const float* in_re, const float* in_im, float* out_re,
+           float* out_im, const void* w16, long long rows, int steer_bit,
+           const int* sigma, int m, int tr, void* stream) {
+  Fold fold;
+  if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((unsigned)((rows + BM - 1) / BM), DVIEW / BN);
+  mat_high_kernel<FORM>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          in_re, in_im, out_re, out_im, static_cast<const uint32_t*>(w16),
+          rows, steer_bit >= 0 ? steer_bit - 8 : -1, fold);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -206,14 +176,30 @@ int qsim_mat_step_high(const float* in_re, const float* in_im, float* out_re,
                        float* out_im, const void* w16, long long rows,
                        int steer_bit, const int* sigma, int m, int tr,
                        void* stream) {
-  Fold fold;
-  if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((unsigned)((rows + BM - 1) / BM), DVIEW / BN);
-  mat_high_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in_re, in_im, out_re, out_im, static_cast<const uint32_t*>(w16), rows,
-      steer_bit >= 0 ? steer_bit - 8 : -1, fold);
-  return static_cast<int>(cudaGetLastError());
+  return launch<high::TERM4_RN>(in_re, in_im, out_re, out_im, w16, rows,
+                                steer_bit, sigma, m, tr, stream);
+}
+
+// The same step with the sums kept as `form` (high::Form) says, for the
+// measurement of the forms side by side; no engine calls it.
+int qsim_mat_step_high_form(const float* in_re, const float* in_im,
+                            float* out_re, float* out_im, const void* w16,
+                            long long rows, int form, void* stream) {
+  switch (form) {
+    case high::ONE_ACC:
+      return launch<high::ONE_ACC>(in_re, in_im, out_re, out_im, w16, rows,
+                                   -1, nullptr, 0, 1, stream);
+    case high::SPLIT_ACC:
+      return launch<high::SPLIT_ACC>(in_re, in_im, out_re, out_im, w16,
+                                     rows, -1, nullptr, 0, 1, stream);
+    case high::CHUNK_RN:
+      return launch<high::CHUNK_RN>(in_re, in_im, out_re, out_im, w16, rows,
+                                    -1, nullptr, 0, 1, stream);
+    case high::TERM4_RN:
+      return launch<high::TERM4_RN>(in_re, in_im, out_re, out_im, w16, rows,
+                                    -1, nullptr, 0, 1, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -20,7 +20,7 @@
 //   mat      a row of 256 columns is one matrix-vector product: a CTA owns
 //            whole rows (all four halves of them), stages them, then writes.
 //            fp32 FMA in the order of prefetch_block.cu ("highest"), or the
-//            3-pass bf16 mma.sync arithmetic of mat_high.cu ("high"): both
+//            3-pass bf16 mma.sync arithmetic of mma_high.cuh ("high"): both
 //            give the flat kernels' results bit for bit.
 //   tswap k  flat bits 7 and 7 + k: h1[r] <-> h0[r + s], s = 2^(k-1), for
 //            rows r with that bit clear; one thread owns both ends.
@@ -43,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_high.cuh"
 
 namespace {
 
@@ -188,29 +190,10 @@ constexpr int WARPS_N = 8;                 // 8 x 32 = all 256 output columns
 constexpr int WM = 32, WN = 32;            // warp tile, as mat_high.cu
 constexpr int HIGH_THREADS = 32 * WARPS_N;
 constexpr int MT = WM / 16, NT = WN / 8;
-constexpr int TAB = DVIEW * DVIEW / 2;     // 32-bit words per bf16 table
 
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The "high" mat step in place: mat_high_kernel's warp tile and pass order
-// (mat_high.cu), with eight warps side by side covering 32 whole rows and
-// one CTA barrier between the last read and the first write.  (Sixteen
+// The "high" mat step in place: mat_high_kernel's warp tile and arithmetic
+// (mat_high.cu, mma_high.cuh), with eight warps side by side covering 32
+// whole rows and one CTA barrier between the last read and the first write.  (Sixteen
 // warps on 64 rows halve the table traffic from L2 but are capped at 128
 // registers and spill; on an H100 at n = 24 they were no faster.)
 __global__ void __launch_bounds__(HIGH_THREADS)
@@ -221,13 +204,8 @@ mat_high_halves_kernel(float* re0, float* re1, float* im0, float* im1,
   const int g = lane >> 2, t = lane & 3;
   const int col0 = warp * WN;
 
-  float acc_r[MT][NT][4], acc_i[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_r[i][j][e] = acc_i[i][j][e] = 0.f;
+  high::Acc<MT, NT> acc;
+  acc.zero();
 
   // this thread's A-fragment rows: slots 16 mt + g + 8 h
   long long frow[MT][2];
@@ -268,37 +246,11 @@ mat_high_halves_kernel(float* re0, float* re1, float* im0, float* im1,
             vr = *reinterpret_cast<const float2*>(pr[mt][h] + o);
             vi = *reinterpret_cast<const float2*>(pi[mt][h] + o);
           }
-          split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
-          split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
+          high::split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
+          high::split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
         }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = col0 + nt * 8 + g;
-        const int kw = (half * HALF + kk) / 2 + t;
-        const uint32_t* wn = w + (long long)n * (DVIEW / 2) + kw;
-        const uint32_t ah0 = __ldg(wn), ah1 = __ldg(wn + 4);
-        const uint32_t al0 = __ldg(wn + TAB), al1 = __ldg(wn + TAB + 4);
-        const uint32_t bh0 = __ldg(wn + 2 * TAB), bh1 = __ldg(wn + 2 * TAB + 4);
-        const uint32_t bl0 = __ldg(wn + 3 * TAB), bl1 = __ldg(wn + 3 * TAB + 4);
-        const uint32_t sign = 0x80008000u;   // -B, exact
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          float* cr = acc_r[mt][nt];
-          float* ci = acc_i[mt][nt];
-          mma(cr, xrh[mt], ah0, ah1);
-          mma(cr, xrl[mt], ah0, ah1);
-          mma(cr, xrh[mt], al0, al1);
-          mma(cr, xih[mt], bh0 ^ sign, bh1 ^ sign);
-          mma(cr, xil[mt], bh0 ^ sign, bh1 ^ sign);
-          mma(cr, xih[mt], bl0 ^ sign, bl1 ^ sign);
-          mma(ci, xrh[mt], bh0, bh1);
-          mma(ci, xrl[mt], bh0, bh1);
-          mma(ci, xrh[mt], bl0, bl1);
-          mma(ci, xih[mt], ah0, ah1);
-          mma(ci, xil[mt], ah0, ah1);
-          mma(ci, xih[mt], al0, al1);
-        }
-      }
+      high::chunk(acc, xrh, xrl, xih, xil, w, col0 + g,
+                  (half * HALF + kk) / 2 + t);
     }
   }
 
@@ -316,9 +268,9 @@ mat_high_halves_kernel(float* re0, float* re1, float* im0, float* im1,
       for (int nt = 0; nt < NT; ++nt) {
         const long long o = frow[mt][h] * LANES + (col0 & (HALF - 1)) + nt * 8 + 2 * t;
         *reinterpret_cast<float2*>(out_re + o) =
-            make_float2(acc_r[mt][nt][2 * h], acc_r[mt][nt][2 * h + 1]);
+            make_float2(acc.r[mt][nt][2 * h], acc.r[mt][nt][2 * h + 1]);
         *reinterpret_cast<float2*>(out_im + o) =
-            make_float2(acc_i[mt][nt][2 * h], acc_i[mt][nt][2 * h + 1]);
+            make_float2(acc.i[mt][nt][2 * h], acc.i[mt][nt][2 * h + 1]);
       }
     }
 }

@@ -8,12 +8,12 @@ then run the low-region planner (passes/shard.py ``plan_sharded`` with the
 top n - 7 qubits as the "global" region): every block is rewritten onto
 qubits 0..6 plus explicit low <-> high qubit swaps.  Each block expands to
 a dense 128 x 128 unitary applied by the chain kernel with one matrix
-(kernels/wide.py ``apply_block128``, TPU kernel 9), always in IEEE fp32 —
-the JAX package hard-codes its precision there, whatever
-``config.precision`` says.  Each swap is one torch transpose copy
-(``swap_low_high``).  The state comes back in PHYSICAL positions;
-``run_pallas`` returns the plan's ``final_position`` as the residual
-layout.
+(``apply_block128``, TPU kernel 9, imported from ops/pallas_kernels.py as
+in the JAX package), always in IEEE fp32 — the JAX package hard-codes its
+precision there, whatever ``config.precision`` says.  Each swap is one
+torch transpose copy (ops/pallas_kernels.py ``swap_low_high``).  The state
+comes back in PHYSICAL positions; ``run_pallas`` returns the plan's
+``final_position`` as the residual layout.
 """
 
 from __future__ import annotations
@@ -24,25 +24,12 @@ import numpy as np
 import torch
 
 from ..ir.oplist import expand_unitary, op_matrix
-from ..kernels.wide import apply_block128
 from ..ops.apply import resolve_device
+from ..ops.pallas_kernels import apply_block128, swap_low_high
 from ..passes.shard import ShardPlan, SwapItem
 
 LANE_QUBITS = 7
 LANES = 1 << LANE_QUBITS
-
-
-def swap_low_high(re: torch.Tensor, im: torch.Tensor, low_bit: int,
-                  qubit: int, n: int):
-    """Swap low qubit ``low_bit`` (< 7) with ``qubit`` (>= 7): one
-    transposed copy of each (hi, 2, mid, 2, lo) view."""
-    a, b = low_bit, qubit
-    shape = (1 << (n - b - 1), 2, 1 << (b - a - 1), 2, 1 << a)
-
-    def one(x):
-        return x.reshape(shape).transpose(1, 3).reshape(x.shape)
-
-    return one(re), one(im)
 
 
 class PallasProgram:

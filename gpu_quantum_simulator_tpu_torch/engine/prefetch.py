@@ -50,11 +50,11 @@ import numpy as np
 import torch
 
 from ..ir.oplist import Op, op_matrix
-from ..kernels.block import run_block, split_tables
+from ..kernels.block import run_block, split_tables, swap_bits
 from ..kernels.relayout import run_relayout, run_relayout_inplace
 from ..kernels.split import (join_component, run_split_block, run_xswap,
                              split_halves)
-from ..ops.apply import resolve_device
+from ..ops.apply import bit_transpositions, resolve_device, unpermute_device
 
 LANE_QUBITS = 7
 LANES = 1 << LANE_QUBITS
@@ -1234,14 +1234,99 @@ def initial_halves(n: int, device="cuda"):
     return halves
 
 
-def halves_from_host(iv: np.ndarray, device):
-    """A complex host vector as the four halves on ``device``: split on the
-    host, so no flat pair ever lies on the device."""
-    x = np.asarray(iv).reshape(-1, DVIEW)
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(h, dtype=np.float32)).to(device)
-        for h in (x.real[:, :LANES], x.real[:, LANES:],
-                  x.imag[:, :LANES], x.imag[:, LANES:]))
+def _component(x, shape, device) -> torch.Tensor:
+    """One state component as a contiguous float32 tensor of ``shape`` on
+    ``device``.  A numpy array is copied; a float32 tensor that already lies
+    there, contiguous, is returned as it is (the engine takes it over)."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(np.asarray(x), dtype=torch.float32)
+    if x.numel() != int(np.prod(shape)):
+        raise ValueError(f"initial state has wrong length: a component of "
+                         f"{tuple(x.shape)} for {tuple(shape)}")
+    return x.to(device=device, dtype=torch.float32).reshape(shape).contiguous()
+
+
+def _check_parts(initial_parts) -> int:
+    if len(initial_parts) not in (2, 4):
+        raise ValueError("initial_parts: a flat (re, im) pair or the four "
+                         "(R2, 128) column halves (re0, re1, im0, im1), got "
+                         f"{len(initial_parts)} arrays")
+    return len(initial_parts)
+
+
+def _halves_in(initial_parts, n: int, device):
+    R2 = 1 << (n - LOCAL_QUBITS)
+    for h in initial_parts:
+        if tuple(h.shape) != (R2, LANES):
+            raise ValueError(f"initial state has wrong length: column "
+                             f"halves must be ({R2}, {LANES}), got "
+                             f"{tuple(h.shape)}")
+    return [_component(h, (R2, LANES), device) for h in initial_parts]
+
+
+def start_pair(initial_parts, n: int, device, perm=None):
+    """The flat (re, im) start state on ``device`` from ``initial_parts``
+    (a flat pair or the four column halves, original basis), relabeled into
+    the plan's basis: bit ``perm[q]`` holds original qubit q."""
+    if _check_parts(initial_parts) == 4:
+        h = _halves_in(initial_parts, n, device)
+        re, im = (join_component(h[0], h[1]).reshape(-1),
+                  join_component(h[2], h[3]).reshape(-1))
+    else:
+        re, im = (_component(x, (1 << n,), device) for x in initial_parts)
+    if perm is not None:
+        re, im = unpermute_device(re, im, np.argsort(perm))
+    return re, im
+
+
+def start_halves(initial_parts, n: int, device, perm=None):
+    """The four (R2, 128) column halves of the start state on ``device``,
+    relabeled as ``start_pair`` does, without a flat 2^n tensor when given
+    halves.  A flat pair is split one component at a time (on the host for
+    numpy arrays).  Float32 halves already on ``device`` become the
+    engine's buffers and are overwritten by the run."""
+    if _check_parts(initial_parts) == 2:
+        pair = initial_parts
+        if perm is not None:
+            pair = start_pair(pair, n, device, perm)
+        halves = []
+        for x in pair:
+            if not isinstance(x, torch.Tensor):
+                x = np.asarray(x)
+                if x.size != 1 << n:
+                    raise ValueError("initial state has wrong length")
+                x = x.reshape(-1, DVIEW)
+                x = (x[:, :LANES], x[:, LANES:])
+            else:
+                x = split_halves(_component(x, (1 << n,), device))
+            halves += [_component(h, (x[0].shape[0], LANES), device)
+                       for h in x]
+        return tuple(halves)
+    halves = _halves_in(initial_parts, n, device)
+    if perm is not None:
+        for a, b in bit_transpositions(np.argsort(perm)):
+            _swap_bits_halves(halves, a, b)
+    return tuple(halves)
+
+
+def _swap_bits_halves(halves: list, a: int, b: int) -> None:
+    """Exchange flat bits a < b of the state held as four column halves.
+    Flat bit 7 is the half; a half's own index has the lane bits 0..6 and
+    the row bits above, so flat bit k > 7 is its bit k - 1."""
+    hbit = lambda k: k if k < LANE_QUBITS else k - 1
+    if LANE_QUBITS not in (a, b):
+        for i, h in enumerate(halves):
+            halves[i] = swap_bits(h, hbit(a), hbit(b))
+        return
+    # bit 7 with bit c: element (c = 1) of half 0 trades places with
+    # element (c = 0) of half 1
+    c = hbit(b if a == LANE_QUBITS else a)
+    for h0, h1 in (halves[0:2], halves[2:4]):
+        v0 = h0.view(-1, 2, 1 << c)[:, 1]
+        v1 = h1.view(-1, 2, 1 << c)[:, 0]
+        tmp = v0.clone()
+        v0.copy_(v1)
+        v1.copy_(tmp)
 
 
 def join_halves(re0, re1, im0, im1):
@@ -1410,13 +1495,15 @@ def build_prefetch_program(
     return prog
 
 
-def run_prefetch(circuit, config, device, initial=None,
+def run_prefetch(circuit, config, device, initial_parts=None,
                  return_halves: bool = False):
     """Simulator facade entry; returns (re, im, num_items, residual_perm).
 
     ``re``/``im`` are flat tensors on ``device`` in the ORIGINAL qubit basis
     (the plan routes the state back itself, so the residual is always None).
-    ``initial``: optional complex start vector in the original basis.
+    ``initial_parts``: optional start state in the original basis, a flat
+    (re, im) pair or the four (R2, 128) column halves, numpy arrays or
+    tensors (``start_pair``, ``start_halves``).
 
     ``return_halves``: with the in-place engine, skip the final join and
     return the four (R2, 128) column halves ``(re0, re1, im0, im1)`` in
@@ -1424,8 +1511,8 @@ def run_prefetch(circuit, config, device, initial=None,
     of sampling.py work on the halves, and no flat 2^n tensor is made.
     """
     from ..config import resolve_precision
-    from ..ops.apply import initial_state_parts, split_state
-    from ..passes.permute import plan_permutation, unpermute_state
+    from ..ops.apply import initial_state_parts, join_state
+    from ..passes.permute import plan_permutation
     from .simulator import _fuse_pipeline
 
     n = circuit.num_qubits
@@ -1447,6 +1534,8 @@ def run_prefetch(circuit, config, device, initial=None,
 
         ops = fuse_k(fuse_4x4(circuit),
                      max_qubits=min(config.max_fused_qubits, n))
+        initial = (None if initial_parts is None else
+                   join_state(*start_pair(initial_parts, n, device)))
         return run_megakernel(ops, n, device, initial)
     check_slice(n, precision)                  # before planning/allocating
 
@@ -1493,16 +1582,11 @@ def run_prefetch(circuit, config, device, initial=None,
             _RUN_CACHE.pop(next(iter(_RUN_CACHE)))
         _RUN_CACHE[run_key] = prog
 
-    if initial is not None:
-        initial = np.asarray(initial)
-        if perm is not None:
-            # map original-basis amplitudes into the relabeled basis
-            initial = unpermute_state(initial, np.argsort(perm))
     total = prog.num_ops + prog.num_tswaps + prog.num_xswaps
     if prog.inplace:
         # the state is made as column halves, never as a flat pair
-        parts = (initial_halves(n, device) if initial is None
-                 else halves_from_host(initial, device))
+        parts = (initial_halves(n, device) if initial_parts is None
+                 else start_halves(initial_parts, n, device, perm))
         parts = prog.run_parts(*parts)
         if return_halves:
             return parts, None, total, None
@@ -1511,9 +1595,9 @@ def run_prefetch(circuit, config, device, initial=None,
         if return_halves:
             raise ValueError("return_halves requires the in-place engine "
                              "(prefetch_inplace=True or n >= 30)")
-        if initial is None:
+        if initial_parts is None:
             re, im = initial_state_parts(n, device=device)
         else:
-            re, im = split_state(initial, device=device)
+            re, im = start_pair(initial_parts, n, device, perm)
         re, im = prog(re, im)
     return re, im, total, None

@@ -3,9 +3,11 @@
 Mirrors ``gpu_quantum_simulator_tpu/engine/simulator.py`` on an explicit
 ``device`` for ``strategy="mxu"`` (the default, engine/wide.py),
 ``"pallas"`` (engine/pallas_engine.py), ``"prefetch"`` (engine/
-prefetch.py; ``"auto"`` resolves to it), ``"vmem"`` (engine/vmem.py) and
+prefetch.py; ``"auto"`` resolves to it), ``"vmem"`` (engine/vmem.py),
 ``"megakernel"`` (engine/megakernel.py, also every strategy's arm at the
-smallest widths).  Every other strategy, and every width or precision rung
+smallest widths) and ``"reference"`` (ref/cpu.py: numpy complex128 on the
+host, whatever the device; ``run`` and ``run_detailed`` only, as in the JAX
+package).  Every other strategy, and every width or precision rung
 outside the port's slice, raises NotImplementedError naming its ROADMAP
 item; n > 30, and vmem above n = 19, raise ValueError, as in the JAX
 package.  Nothing runs on another device than the one asked for.
@@ -91,7 +93,7 @@ class Simulator:
         if sim is not self:
             return sim.sample(circuit, num_samples, seed=seed)
         n = circuit.num_qubits
-        if n > 22:
+        if n > 22 and self.config.strategy != "reference":
             from .. import sampling
 
             if self._prefetch_inplace(n):
@@ -112,31 +114,32 @@ class Simulator:
             return bool(cfg.prefetch_inplace)
         return n >= 30
 
-    def run_device_halves(self, circuit: Circuit, initial=None):
+    def run_device_halves(self, circuit: Circuit, initial_parts=None):
         """Run through the in-place prefetch engine and return the state as
         its four (R2, 128) column halves on the simulator's device:
         ``((re0, re1, im0, im1), num_ops)``, original qubit basis.
 
         The halves are the engine's own buffers; the measurement helpers of
         sampling.py (``sample_halves``, ``norm_halves``, ...) read them as
-        they are.  ``initial``: optional complex start vector (original
-        basis), split into halves on the host.
+        they are.  ``initial_parts`` resumes from a prior state (original
+        basis): a flat (re, im) pair of length 2^n or the four (R2, 128)
+        column halves, numpy arrays or tensors (engine/prefetch.py
+        ``start_halves``: float32 halves already on the simulator's device
+        become the engine's buffers and are overwritten).
         """
         sim = self._resolved(circuit.num_qubits)
         if sim is not self:
-            return sim.run_device_halves(circuit, initial=initial)
+            return sim.run_device_halves(circuit, initial_parts=initial_parts)
         n = circuit.num_qubits
         if not self._prefetch_inplace(n):
             raise ValueError(
                 "run_device_halves requires strategy='prefetch' with the "
                 "in-place engine (prefetch_inplace=True or n >= 30)")
         _check_run(self.config, n)
-        if initial is not None and np.asarray(initial).shape != (1 << n,):
-            raise ValueError("initial state has wrong length")
         from .prefetch import run_prefetch
 
         parts, _, num_ops, _ = run_prefetch(
-            circuit, self.config, self.device, initial=initial,
+            circuit, self.config, self.device, initial_parts=initial_parts,
             return_halves=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -152,6 +155,10 @@ class Simulator:
         sim = self._resolved(circuit.num_qubits)
         if sim is not self:
             return sim.run_device(circuit, initial=initial)
+        if self.config.strategy == "reference":
+            raise ValueError(
+                "strategy='reference' runs on the host (ref/cpu.py) and "
+                "returns no device state: use run or run_detailed")
         _check_run(self.config, circuit.num_qubits)  # before any planning
         work, perm, initial = self._relabel(circuit, initial)
         re, im, num_ops, residual = self._execute(work, initial)
@@ -206,6 +213,14 @@ class Simulator:
         if sim is not self:
             return sim.run_detailed(circuit, initial=initial)
         t0 = time.perf_counter()
+        if self.config.strategy == "reference":
+            from ..ref.cpu import simulate_reference
+
+            state = simulate_reference(circuit, initial=initial)
+            return RunResult(
+                state, circuit.num_qubits, len(circuit), len(circuit),
+                time.perf_counter() - t0, self.config.strategy,
+            )
         re, im, num_ops = self.run_device(circuit, initial=initial)
         state = A.join_state(re, im)
         return RunResult(
@@ -220,7 +235,9 @@ class Simulator:
         if cfg.strategy == "prefetch":
             from .prefetch import run_prefetch
 
-            return run_prefetch(circuit, cfg, self.device, initial=initial)
+            return run_prefetch(
+                circuit, cfg, self.device, initial_parts=None
+                if initial is None else (initial.real, initial.imag))
         if cfg.strategy == "pallas":
             from .pallas_engine import run_pallas
 
@@ -280,14 +297,16 @@ class Simulator:
         k = min(cfg.max_fused_qubits, n)
         # the JAX package's defaults: window-8 cost-model fusion
         window = cfg.fusion_window if cfg.fusion_window else 8
+        costm = (cfg.fusion_cost_model
+                 if cfg.fusion_cost_model is not None else True)
         # plan cache: a repeat run neither re-fuses nor re-hashes the fused
         # matrices; the device takes the place of the JAX backend's name
-        key = (_circuit_fingerprint(circuit), n, precision, k, window,
+        key = (_circuit_fingerprint(circuit), n, precision, k, window, costm,
                str(self.device))
 
         def plan():
             ops = _fuse_pipeline(circuit, k, max_high=2, window=window,
-                                 cost_model=True)
+                                 cost_model=costm)
             return ops, build_wide_program(ops, n, precision=precision,
                                            device=self.device)
 
@@ -311,8 +330,8 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
     if cfg.strategy not in ("mxu", "pallas", "vmem", "megakernel"):
         raise NotImplementedError(
             f"strategy {cfg.strategy!r} is not yet ported; the port runs "
-            "'mxu', 'pallas', 'prefetch', 'vmem', 'megakernel' and 'auto' "
-            "(ROADMAP queue A)")
+            "'mxu', 'pallas', 'prefetch', 'vmem', 'megakernel', 'reference' "
+            "and 'auto' (ROADMAP queue A)")
     if cfg.dtype != "complex64":
         raise NotImplementedError(
             "dtype complex128: the port runs complex64 (split float32) only "

@@ -104,6 +104,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_mat_step.argtypes = [P, P, P, P, P, P, L, I, P, I, I, P]
     lib.qsim_mat_step_high.restype = I
     lib.qsim_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, I, P]
+    lib.qsim_mat_step_high_form.restype = I
+    lib.qsim_mat_step_high_form.argtypes = [P, P, P, P, P, L, I, P]
     lib.qsim_gather_step.restype = I
     lib.qsim_gather_step.argtypes = [P, P, P, P, L, I, I, I, P, P, P, I, I, P]
     lib.qsim_relayout.restype = I
@@ -124,6 +126,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_wide_chain.argtypes = [P, P, P, P, P, P, L, I, L, P]
     lib.qsim_wide_chain_high.restype = I
     lib.qsim_wide_chain_high.argtypes = [P, P, P, P, P, I, L, P]
+    lib.qsim_butterfly_high.restype = I
+    lib.qsim_butterfly_high.argtypes = [P, P, P, P, L, I, P, P]
+    for fn in (lib.qsim_copy_stream, lib.qsim_copy_direct):
+        fn.restype = I
+        fn.argtypes = [P, P, I, L, I, I, P]
+    lib.qsim_copy_grid.restype = I
+    lib.qsim_copy_grid.argtypes = [P, P, I, L, L, P]
     lib.qsim_vmem_chunk.restype = I
     lib.qsim_vmem_chunk.argtypes = [P, P, P, P, P, P, I, I, I,
                                     ctypes.POINTER(I), P]

@@ -120,20 +120,31 @@ def unpermute_device(re: torch.Tensor, im: torch.Tensor, perm):
 
         return f(re), f(im)
 
+    for q, p in bit_transpositions(perm):
+        re, im = _swap_bits_device(re, im, q, p, n)
+    return re, im
+
+
+def bit_transpositions(perm) -> list:
+    """The exact bit exchanges (a, b), a < b, that undo a qubit relabeling
+    when applied in order (the JAX package's sequence; ``perm`` as in
+    ``unpermute_device``)."""
+    n = len(perm)
     # position -> original qubit currently there (state given in the
     # relabeled basis: original q sits at position perm[q])
     inv = np.argsort(np.asarray(perm))
     qubit_at = [int(inv[p]) for p in range(n)]
     pos_of = [int(p) for p in np.asarray(perm)]
+    out = []
     for q in range(n):
         p = pos_of[q]
         if p == q:
             continue
-        re, im = _swap_bits_device(re, im, q, p, n)
+        out.append((q, p))
         ql = qubit_at[q]
         qubit_at[q], qubit_at[p] = q, ql
         pos_of[q], pos_of[ql] = q, p
-    return re, im
+    return out
 
 
 def _swap_bits_device(re: torch.Tensor, im: torch.Tensor, a: int, b: int,

@@ -447,11 +447,76 @@ def test_inplace_initial_state_resume(tiles):
     got = sim.run(second, initial=mid)
     assert np.max(np.abs(got - simulate_reference(
         JM.grover_like(n, 200, 31)))) < SIM_TOL
-    parts, _ = sim.run_device_halves(second, initial=mid)
+    parts, _ = sim.run_device_halves(second,
+                                     initial_parts=(mid.real, mid.imag))
     re, im = TPF.join_halves(*parts)
     assert np.array_equal(re.numpy() + 1j * im.numpy(), got)
     with pytest.raises(ValueError, match="wrong length"):
-        sim.run_device_halves(second, initial=mid[:-1])
+        sim.run_device_halves(second,
+                              initial_parts=(mid.real[:-1], mid.imag[:-1]))
+
+
+def _as_halves(v):
+    x = v.reshape(-1, TPF.DVIEW)
+    lanes = TPF.LANES
+    return [np.ascontiguousarray(h) for h in
+            (x.real[:, :lanes], x.real[:, lanes:],
+             x.imag[:, :lanes], x.imag[:, lanes:])]
+
+
+@pytest.mark.parametrize("permute", [False, True])
+@pytest.mark.parametrize("form", ["pair", "halves", "pair_tensor",
+                                  "halves_tensor"])
+def test_run_device_halves_initial_parts(tiles, form, permute):
+    """``initial_parts`` as a flat (re, im) pair or the four column halves,
+    numpy or tensors on the simulator's device, equals ``run(initial=)``
+    (the JAX package's forms).  The plan relabels the qubits, with swaps
+    of flat bit 7 among them, so the four halves are relabeled in place."""
+    tiles(TILE, 1)
+    n = 11
+    full = T.models.grover_like(n, 200, 31)
+    first, second = T.Circuit(n), T.Circuit(n)
+    first.gates = full.gates[:100]
+    second.gates = full.gates[100:]
+    sim = _port(prefetch_inplace=True, permute=permute)
+    mid = sim.run(first)
+    want = sim.run(second, initial=mid)
+    parts = ([mid.real, mid.imag] if form.startswith("pair")
+             else _as_halves(mid))
+    if form.endswith("tensor"):
+        parts = [torch.tensor(p, dtype=torch.float32) for p in parts]
+    held = [p.clone() if isinstance(p, torch.Tensor) else p.copy()
+            for p in parts]
+    got, _ = sim.run_device_halves(second, initial_parts=tuple(parts))
+    re, im = TPF.join_halves(*got)
+    assert np.array_equal(re.numpy() + 1j * im.numpy(), want)
+    assert np.max(np.abs(want - simulate_reference(
+        JM.grover_like(n, 200, 31)))) < SIM_TOL
+    if not form.endswith("tensor"):      # numpy inputs are copied
+        assert all(np.array_equal(p, h) for p, h in zip(parts, held))
+
+
+def test_initial_parts_relabel_halves_matches_flat():
+    """``start_halves`` relabels four halves without a flat tensor, and
+    agrees with the flat relabel (``start_pair``) for every bit exchange,
+    bit 7 (the half) included; the JAX package's error forms."""
+    rng = np.random.default_rng(5)
+    n = 10
+    v = (rng.standard_normal(1 << n)
+         + 1j * rng.standard_normal(1 << n)).astype(np.complex64)
+    for perm in (np.arange(n), rng.permutation(n), rng.permutation(n),
+                 np.array([7, 0, 1, 2, 3, 4, 5, 6, 8, 9])):
+        re, im = TPF.start_pair((v.real, v.imag), n, "cpu", perm)
+        want = _as_halves(re.numpy() + 1j * im.numpy())
+        for parts in (_as_halves(v), (v.real, v.imag)):
+            got = TPF.start_halves(parts, n, "cpu", perm)
+            assert all(np.array_equal(g.numpy(), w)
+                       for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="flat \\(re, im\\) pair or the four"):
+        TPF.start_halves((v.real,), n, "cpu")
+    with pytest.raises(ValueError, match="wrong length"):
+        TPF.start_halves(_as_halves(v)[:2] + [v.real[:8], v.imag[:8]], n,
+                         "cpu")
 
 
 def test_inplace_knobs_and_mono_lowering_follow_jax():

@@ -28,6 +28,19 @@ parts, _ = sim.run_device_halves(c)
 assert abs(sampling.norm_halves(*parts) - 1) < 1e-5
 assert sampling.sample_halves(*parts, 10, 50, 1).shape == (50,)
 assert sim.sample(c, 50, seed=1).shape == (50,)
+parts, _ = sim.run_device_halves(c, initial_parts=parts)
+assert abs(sampling.norm_halves(*parts) - 1) < 1e-5
+r = T.Simulator(T.SimulatorConfig(strategy="reference"), device="cpu").run(c)
+assert r.shape == (1 << 10,) and abs(np.linalg.norm(r) - 1) < 1e-12
+import torch
+from gpu_quantum_simulator_tpu_torch import dma_probe
+from gpu_quantum_simulator_tpu_torch.kernels import copy as KC
+from gpu_quantum_simulator_tpu_torch.ops import pallas_kernels as PK
+x = torch.ones(8, 128)
+y = PK.apply_butterfly_high(x, x, np.eye(2), 2)
+assert torch.equal(y[0], x) and torch.equal(y[1], x)
+assert torch.equal(KC.hbm_direct([x, x], 2, 2)[1], x)
+assert len(dma_probe.routes((x.repeat(64, 2),) * 2, (x.repeat(64, 2),) * 2))
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "gpu_quantum_simulator_tpu"))]
 print("LOADED", loaded)
@@ -61,5 +74,6 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert {"engine/wide.py", "engine/pallas_engine.py", "kernels/wide.py",
             "passes/shard.py", "utils/roofline.py", "engine/vmem.py",
             "kernels/vmem.py", "engine/megakernel.py", "kernels/split.py",
-            "sampling.py", "ref/cpu.py"} <= rel, rel
+            "sampling.py", "ref/cpu.py", "ops/pallas_kernels.py",
+            "kernels/copy.py", "dma_probe.py"} <= rel, rel
     assert len(files) > 15 and not bad, bad
