@@ -101,10 +101,12 @@ failure raises and the script exits non-zero:
    direct TMA) and tile shape copies bit for bit; GB/s beside ``copy_``'s.
 
 Phase 3 also pins the "high" mat step's norm drift: 200 chained steps at
-n=24 on a normalised random state over eight random unitary tables, the
-drift printed after every step for the kernel and its plain version; after
-200 steps the kernel's |1 - norm| may be at most 3 times the plain
-version's.  At n=30 (phase 5) ``norm_halves`` must be within 1e-5 of 1.
+n=24 on a normalised random state over eight random unitary tables, for
+six seeds, the drift printed after every step for the kernel and its plain
+version; after 200 steps the kernel's largest |1 - norm| over the seeds may
+be at most 3 times the plain version's largest, and on every seed the
+kernel's drift may differ from the plain version's by at most 2e-6.  At
+n=30 (phase 5) ``norm_halves`` must be within 1e-5 of 1.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Matmuls in plain torch run in IEEE
@@ -152,9 +154,17 @@ HIGH_STEPS = ((24, 20), (28, 3))   # (n, timing reps) of the "high" mat step
 DRIFT_WIDTH = 24            # the "high" mat step's norm drift, chained
 DRIFT_STEPS = 200
 DRIFT_SLOTS = 8             # table slots of one block entry (cap_mats 8)
-DRIFT_RATIO = 3.0           # kernel |1 - norm| after 200 steps <= 3 x the
-                            # plain version's (which differs from 0 by the
-                            # rung's own rounding of the tables)
+DRIFT_SEEDS = (200, 201, 202, 203, 204, 205)  # one state and table set each
+DRIFT_RATIO = 3.0           # the kernel's largest |1 - norm| after 200 steps
+                            # over the seeds <= 3 x the plain version's
+                            # largest (which differs from 0 by the rung's
+                            # own rounding, and moves ~10x from seed to
+                            # seed, so one seed's ratio is no measure)
+DRIFT_EXCESS = 2e-6         # and on every seed the kernel's drift beyond
+                            # the plain version's (signed) within 2e-6 after
+                            # 200 steps: -5.9e-7..-6.7e-7 over the six seeds
+                            # on an H100, against -5.9e-4 for one tensor-core
+                            # accumulator
 TIMED_RUNS = 5
 ENGINE_RUNS = 3             # timed runs of mxu / pallas per width
 SPIN_CYCLES = 200_000_000   # ~0.1 s at 2 GHz: covers queuing 20 calls
@@ -628,10 +638,11 @@ def check_high_drift(torch):
     """200 chained "high" mat steps at n=24 on a normalised random state,
     the tables eight random 256 x 256 unitaries taken in turn (a block
     entry's eight slots): the norm's drift after every step, kernel and
-    plain version each on its own chain.  A unitary keeps the norm; what
-    remains is the rung's rounding, and in the kernel the tensor core's
-    truncating adds (mma_high.cuh).  Its draws have a seed of their own,
-    so the phases after it draw as they did without it."""
+    plain version each on its own chain, for every seed of DRIFT_SEEDS (a
+    state and tables each).  A unitary keeps the norm; what remains is the
+    rung's rounding, and in the kernel the tensor core's truncating adds
+    (mma_high.cuh).  Its draws have seeds of their own, so the phases after
+    it draw as they did without it."""
     from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
     from gpu_quantum_simulator_tpu_torch.kernels.block import (
         run_block, run_block_plain, split_tables)
@@ -639,52 +650,65 @@ def check_high_drift(torch):
     n, cap = DRIFT_WIDTH, PF.CAP_STEPS
     R2 = 1 << (n - PF.LOCAL_QUBITS)
     logt = int(np.log2(PF.tile_rows(n)))
-    rng = np.random.default_rng(DRIFT_STEPS)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(DRIFT_STEPS)
-    mats = [random_unitary(rng, 256) for _ in range(DRIFT_SLOTS)]
-    a_tab = torch.tensor(np.stack([m.real.T for m in mats]),
-                         dtype=torch.float32, device="cuda").contiguous()
-    b_tab = torch.tensor(np.stack([m.imag.T for m in mats]),
-                         dtype=torch.float32, device="cuda").contiguous()
     mono = torch.zeros(DRIFT_SLOTS, 256, dtype=torch.int32, device="cuda")
-    w16 = split_tables(a_tab, b_tab)
-    re, im = (torch.randn(R2, 256, device="cuda", generator=gen)
-              for _ in range(2))
-    scale = norm2((re, im)) ** -0.5
-    start = (re * scale, im * scale)
-    n0 = norm2(start)
 
     def row(j):           # one mat step on slot j
         return [1, 0, 0, 0] + [0] * cap + [j] + [0] * (cap - 1)
 
-    kern, spare = start, (torch.empty_like(re), torch.empty_like(im))
-    kern = (kern[0].clone(), kern[1].clone())
-    plain = start
-    drift = {"kernel": [], "plain": []}
-    for step in range(DRIFT_STEPS):
-        j = step % DRIFT_SLOTS
-        out = run_block(row(j), *kern, a_tab, b_tab, mono, logt, cap,
-                        scratch=spare, precision="high", w16=w16)
-        spare, kern = kern, out
-        plain = run_block_plain(row(j), *plain, a_tab, b_tab, mono, logt,
-                                cap, precision="high")
-        drift["kernel"].append(norm2(kern) / n0 - 1.0)
-        drift["plain"].append(norm2(plain) / n0 - 1.0)
-    for k, v in drift.items():
-        print(f"high drift n={n} {k}: |out|^2/|in|^2 - 1 after steps "
-              f"1..{DRIFT_STEPS}: " + json.dumps([float(f"{x:.4g}")
-                                                  for x in v]))
-    last_k, last_p = abs(drift["kernel"][-1]), abs(drift["plain"][-1])
-    print(f"high drift n={n}: |1 - norm| after {DRIFT_STEPS} steps kernel "
-          f"{last_k:.4e}, plain {last_p:.4e} (ratio {last_k / last_p:.3f}, "
-          f"bar {DRIFT_RATIO}); the state's norm at the start "
-          f"{n0:.10f}")
-    if not last_k <= DRIFT_RATIO * last_p:
-        raise AssertionError(f"high drift n={n}: kernel {last_k} > "
-                             f"{DRIFT_RATIO} x plain {last_p}")
-    del kern, spare, plain, start, re, im
-    torch.cuda.empty_cache()
+    last = {}
+    for seed in DRIFT_SEEDS:
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        mats = [random_unitary(rng, 256) for _ in range(DRIFT_SLOTS)]
+        a_tab = torch.tensor(np.stack([m.real.T for m in mats]),
+                             dtype=torch.float32, device="cuda").contiguous()
+        b_tab = torch.tensor(np.stack([m.imag.T for m in mats]),
+                             dtype=torch.float32, device="cuda").contiguous()
+        w16 = split_tables(a_tab, b_tab)
+        re, im = (torch.randn(R2, 256, device="cuda", generator=gen)
+                  for _ in range(2))
+        scale = norm2((re, im)) ** -0.5
+        start = (re * scale, im * scale)
+        n0 = norm2(start)
+        kern = (start[0].clone(), start[1].clone())
+        spare = (torch.empty_like(re), torch.empty_like(im))
+        plain = start
+        drift = {"kernel": [], "plain": []}
+        for step in range(DRIFT_STEPS):
+            j = step % DRIFT_SLOTS
+            out = run_block(row(j), *kern, a_tab, b_tab, mono, logt, cap,
+                            scratch=spare, precision="high", w16=w16)
+            spare, kern = kern, out
+            plain = run_block_plain(row(j), *plain, a_tab, b_tab, mono, logt,
+                                    cap, precision="high")
+            drift["kernel"].append(norm2(kern) / n0 - 1.0)
+            drift["plain"].append(norm2(plain) / n0 - 1.0)
+        for k, v in drift.items():
+            print(f"high drift n={n} seed {seed} {k}: |out|^2/|in|^2 - 1 "
+                  f"after steps 1..{DRIFT_STEPS}: "
+                  + json.dumps([float(f"{x:.3g}") for x in v]))
+        last[seed] = (drift["kernel"][-1], drift["plain"][-1])
+        k, p = last[seed]
+        print(f"high drift n={n} seed {seed}: |1 - norm| after {DRIFT_STEPS} "
+              f"steps kernel {abs(k):.4e}, plain {abs(p):.4e} (ratio "
+              f"{abs(k / p):.3f}); the kernel's beyond the plain's "
+              f"{k - p:.4e}; the state's norm at the start {n0:.10f}")
+        del kern, spare, plain, start, re, im, out, a_tab, b_tab, w16
+        torch.cuda.empty_cache()
+    worst_k = max(abs(k) for k, _ in last.values())
+    worst_p = max(abs(p) for _, p in last.values())
+    excess = max(abs(k - p) for k, p in last.values())
+    print(f"high drift n={n} over seeds {list(DRIFT_SEEDS)}: largest |1 - "
+          f"norm| after {DRIFT_STEPS} steps kernel {worst_k:.4e}, plain "
+          f"{worst_p:.4e} (ratio {worst_k / worst_p:.3f}, bar {DRIFT_RATIO}); "
+          f"largest |kernel - plain| {excess:.4e} (bar {DRIFT_EXCESS}); "
+          f"per-seed ratios " + json.dumps(
+              {s: round(abs(k / p), 3) for s, (k, p) in last.items()}))
+    if not (worst_k <= DRIFT_RATIO * worst_p and excess <= DRIFT_EXCESS):
+        raise AssertionError(f"high drift n={n}: kernel {worst_k} against "
+                             f"{DRIFT_RATIO} x plain {worst_p}; beyond the "
+                             f"plain {excess} against {DRIFT_EXCESS}")
 
 
 def check_wide_chain(torch, rng):
@@ -1818,6 +1842,7 @@ def run_inplace_path(torch, T, refs, add):
     first.gates, second.gates = c.gates[:RESUME_AT], c.gates[RESUME_AT:]
     parts, _ = sim().run_device_halves(first)
     pair = PF.join_halves(*parts)
+    held = [x.clone() for x in parts]
     reset_counts()
     from_halves, _ = sim().run_device_halves(second, initial_parts=parts)
     from_pair, _ = sim().run_device_halves(second, initial_parts=pair)
@@ -1826,13 +1851,15 @@ def run_inplace_path(torch, T, refs, add):
     err = float(np.max(np.abs(join_state(*PF.join_halves(*from_halves))
                               - refs[n])))
     same = equal4(torch, from_halves, from_pair)
+    kept = equal4(torch, parts, held)       # the caller's halves: copied
     print(f"in place n={n} resumed after gate {RESUME_AT} from device "
-          f"halves and from a device flat pair: equal {same}; max|amp - "
-          f"f64| {err:.3e}; launches {counts}")
-    if not (same and err <= AMP_TOL):
+          f"halves and from a device flat pair: equal {same}; the given "
+          f"halves unchanged {kept}; max|amp - f64| {err:.3e}; launches "
+          f"{counts}")
+    if not (same and kept and err <= AMP_TOL):
         raise AssertionError(f"in place n={n} resume: equal {same}, "
-                             f"max|amp diff| {err}")
-    del parts, pair, from_halves, from_pair
+                             f"unchanged {kept}, max|amp diff| {err}")
+    del parts, pair, held, from_halves, from_pair
 
     # n=24: "high" against the engine's own "highest" run, both arms
     n = HIGH_WIDTH
@@ -2156,7 +2183,7 @@ def check_copy_probes(torch, add):
     """Kernel 11, the copy probe harness (gpu_quantum_simulator_tpu_torch/
     dma_probe.py) at n = 24, 28 and 30: every route and tile shape copies
     bit for bit; GB/s per variant beside ``copy_``'s.  The records take each
-    route's fastest pair copy at n=30."""
+    route's fastest pair copy at n=30, with its max |dst - src|."""
     from gpu_quantum_simulator_tpu_torch import dma_probe
     from gpu_quantum_simulator_tpu_torch.kernels import copy as KC
 
@@ -2188,8 +2215,9 @@ def check_copy_probes(torch, add):
               f"{res[name]['ms']:.4f} ms ({res[name]['GBps']:.1f} GB/s); "
               f"copy_ {lib['ms']:.4f} ms ({lib['GBps']:.1f} GB/s); bound "
               f"{bnd[0]:.4f} ms ({HBM_BYTES / 1e9:.0f} GB/s)")
-        recs.append((record(f"copy_{k}", COPY_SRC, COPY_TPU[k], 0.0,
-                            res[name]["ms"], lib["ms"], bnd, lib["ms"]),
+        recs.append((record(f"copy_{k}", COPY_SRC, COPY_TPU[k],
+                            res[name]["max_abs_err"], res[name]["ms"],
+                            lib["ms"], bnd, lib["ms"]),
                      f"copy_{k}"))
     return recs
 

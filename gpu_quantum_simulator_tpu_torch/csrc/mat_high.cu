@@ -60,8 +60,6 @@ constexpr int NT = WN / 8;                 // n8 tiles per warp
 
 // out = map(in) @ (A + iB) on an (rows, 256) state at the "high" rung.
 // w: the slot's four bf16 tables as 32-bit words, [A_hi, A_lo, B_hi, B_lo].
-// FORM: where the sums are kept (mma_high.cuh); the engine runs TERM4_RN.
-template <int FORM>
 __global__ void __launch_bounds__(THREADS)
 mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
                 float* __restrict__ out_re, float* __restrict__ out_im,
@@ -124,8 +122,8 @@ mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
           high::split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
         }
       // B fragments (col-major 16 x 8) of column n = col0 + 8 nt + g
-      high::chunk<MT, NT, FORM>(acc, xrh, xrl, xih, xil, w, col0 + g,
-                                (half * HALF + kk) / 2 + t);
+      high::chunk(acc, xrh, xrl, xih, xil, w, col0 + g,
+                  (half * HALF + kk) / 2 + t);
     }
   }
 
@@ -140,28 +138,11 @@ mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
       for (int nt = 0; nt < NT; ++nt) {
         const long long o = r * DVIEW + col0 + nt * 8 + 2 * t;
         *reinterpret_cast<float2*>(out_re + o) =
-            make_float2(acc.template re<FORM>(mt, nt, 2 * h),
-                        acc.template re<FORM>(mt, nt, 2 * h + 1));
+            make_float2(acc.r[mt][nt][2 * h], acc.r[mt][nt][2 * h + 1]);
         *reinterpret_cast<float2*>(out_im + o) =
-            make_float2(acc.template im<FORM>(mt, nt, 2 * h),
-                        acc.template im<FORM>(mt, nt, 2 * h + 1));
+            make_float2(acc.i[mt][nt][2 * h], acc.i[mt][nt][2 * h + 1]);
       }
     }
-}
-
-template <int FORM>
-int launch(const float* in_re, const float* in_im, float* out_re,
-           float* out_im, const void* w16, long long rows, int steer_bit,
-           const int* sigma, int m, int tr, void* stream) {
-  Fold fold;
-  if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((unsigned)((rows + BM - 1) / BM), DVIEW / BN);
-  mat_high_kernel<FORM>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          in_re, in_im, out_re, out_im, static_cast<const uint32_t*>(w16),
-          rows, steer_bit >= 0 ? steer_bit - 8 : -1, fold);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -176,30 +157,14 @@ int qsim_mat_step_high(const float* in_re, const float* in_im, float* out_re,
                        float* out_im, const void* w16, long long rows,
                        int steer_bit, const int* sigma, int m, int tr,
                        void* stream) {
-  return launch<high::TERM4_RN>(in_re, in_im, out_re, out_im, w16, rows,
-                                steer_bit, sigma, m, tr, stream);
-}
-
-// The same step with the sums kept as `form` (high::Form) says, for the
-// measurement of the forms side by side; no engine calls it.
-int qsim_mat_step_high_form(const float* in_re, const float* in_im,
-                            float* out_re, float* out_im, const void* w16,
-                            long long rows, int form, void* stream) {
-  switch (form) {
-    case high::ONE_ACC:
-      return launch<high::ONE_ACC>(in_re, in_im, out_re, out_im, w16, rows,
-                                   -1, nullptr, 0, 1, stream);
-    case high::SPLIT_ACC:
-      return launch<high::SPLIT_ACC>(in_re, in_im, out_re, out_im, w16,
-                                     rows, -1, nullptr, 0, 1, stream);
-    case high::CHUNK_RN:
-      return launch<high::CHUNK_RN>(in_re, in_im, out_re, out_im, w16, rows,
-                                    -1, nullptr, 0, 1, stream);
-    case high::TERM4_RN:
-      return launch<high::TERM4_RN>(in_re, in_im, out_re, out_im, w16, rows,
-                                    -1, nullptr, 0, 1, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  Fold fold;
+  if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((unsigned)((rows + BM - 1) / BM), DVIEW / BN);
+  mat_high_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      in_re, in_im, out_re, out_im, static_cast<const uint32_t*>(w16), rows,
+      steer_bit >= 0 ? steer_bit - 8 : -1, fold);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

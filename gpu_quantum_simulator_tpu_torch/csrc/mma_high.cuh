@@ -24,20 +24,16 @@
 //     significand fits tf32's 11), and so are their products.  On an H100
 //     the truncation's loss grew with the terms per pass (16, 8 and 4
 //     were tried); chip_smoke.py's "high" drift phase holds this form to
-//     3x the drift of the plain fp32 version;
+//     the drift of the plain fp32 version over six seeds;
 //   * the four correction passes (xl.mh, xh.ml) of a k-chunk, 2^-8 the
 //     size of the hi.hi terms, run from a zeroed fragment of their own and
 //     are added to the same fp32 sum, so their truncation is 2^-8 smaller
 //     again and nothing stays in a tensor-core accumulator across chunks.
 //
-// The kernels run that form, TERM4_RN.  Three others stay, to be measured
-// beside it on the card in one call (profiling.py --high-forms):
-//   ONE_ACC    the form before: every pass of every k-chunk into one
-//              tensor-core accumulator;
-//   SPLIT_ACC  the hi.hi passes and the corrections each in a tensor-core
-//              accumulator of their own, added at the end;
-//   CHUNK_RN   each k-chunk's six passes from a zeroed fragment, added to
-//              the fp32 sum on the CUDA cores.
+// The other places for the sums that were measured beside this one (one
+// tensor-core accumulator for all passes; hi.hi and corrections in
+// accumulators of their own; each k-chunk from a zeroed fragment) drift
+// 16x to 180x more over 200 steps: PERF.md section 6 holds the readings.
 
 #pragma once
 
@@ -45,8 +41,6 @@
 #include <stdint.h>
 
 namespace high {
-
-enum Form { ONE_ACC, SPLIT_ACC, CHUNK_RN, TERM4_RN };
 
 constexpr int DVIEW = 256;
 constexpr int TAB = DVIEW * DVIEW / 2;     // 32-bit words per bf16 table
@@ -113,12 +107,10 @@ __device__ __forceinline__ void mma_rn(float* sum, const uint32_t* a,
   for (int e = 0; e < 4; ++e) sum[e] += t[e];
 }
 
-// A warp's MT x NT tile of m16n8 fragments, both output components: the
-// sums (SPLIT_ACC keeps its corrections' apart, in cr and ci).
+// A warp's MT x NT tile of m16n8 fragments, both output components' sums.
 template <int MT, int NT>
 struct Acc {
   float r[MT][NT][4], i[MT][NT][4];
-  float cr[MT][NT][4], ci[MT][NT][4];
 
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -126,50 +118,14 @@ struct Acc {
 #pragma unroll
       for (int b = 0; b < NT; ++b)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          r[a][b][e] = i[a][b][e] = cr[a][b][e] = ci[a][b][e] = 0.f;
-  }
-
-  // element e of fragment (mt, nt) of each output component
-  template <int FORM>
-  __device__ __forceinline__ float re(int mt, int nt, int e) const {
-    return FORM == SPLIT_ACC ? r[mt][nt][e] + cr[mt][nt][e] : r[mt][nt][e];
-  }
-  template <int FORM>
-  __device__ __forceinline__ float im(int mt, int nt, int e) const {
-    return FORM == SPLIT_ACC ? i[mt][nt][e] + ci[mt][nt][e] : i[mt][nt][e];
+        for (int e = 0; e < 4; ++e) r[a][b][e] = i[a][b][e] = 0.f;
   }
 };
-
-// The passes of one k-chunk in a tensor-core accumulator each: hi.hi into
-// (hr, hi), the corrections into (cr, ci), in the order of the form before.
-__device__ __forceinline__ void passes(float* hr, float* hi, float* cr,
-                                       float* ci, const uint32_t* xrh,
-                                       const uint32_t* xrl,
-                                       const uint32_t* xih,
-                                       const uint32_t* xil, uint32_t ah0,
-                                       uint32_t ah1, uint32_t al0,
-                                       uint32_t al1, uint32_t bh0,
-                                       uint32_t bh1, uint32_t bl0,
-                                       uint32_t bl1) {
-  mma(hr, xrh, ah0, ah1);
-  mma(cr, xrl, ah0, ah1);
-  mma(cr, xrh, al0, al1);
-  mma(hr, xih, bh0 ^ SIGN, bh1 ^ SIGN);
-  mma(cr, xil, bh0 ^ SIGN, bh1 ^ SIGN);
-  mma(cr, xih, bl0 ^ SIGN, bl1 ^ SIGN);
-  mma(hi, xrh, bh0, bh1);
-  mma(ci, xrl, bh0, bh1);
-  mma(ci, xrh, bl0, bl1);
-  mma(hi, xih, ah0, ah1);
-  mma(ci, xil, ah0, ah1);
-  mma(ci, xih, al0, al1);
-}
 
 // One k-chunk of 16 for the warp tile: A fragments of the state (split as
 // loaded), B fragments from the four [n][k] bf16 tables w = [A_hi, A_lo,
 // B_hi, B_lo] at column n0 + 8 nt of the n8 tile and 32-bit word kw of k.
-template <int MT, int NT, int FORM = TERM4_RN>
+template <int MT, int NT>
 __device__ __forceinline__ void chunk(Acc<MT, NT>& acc,
                                       const uint32_t (&xrh)[MT][4],
                                       const uint32_t (&xrl)[MT][4],
@@ -187,29 +143,6 @@ __device__ __forceinline__ void chunk(Acc<MT, NT>& acc,
     const uint32_t bl0 = __ldg(wn + 3 * TAB), bl1 = __ldg(wn + 3 * TAB + 4);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
-      float* r = acc.r[mt][nt];
-      float* i = acc.i[mt][nt];
-      if (FORM == ONE_ACC) {
-        passes(r, i, r, i, xrh[mt], xrl[mt], xih[mt], xil[mt], ah0, ah1, al0,
-               al1, bh0, bh1, bl0, bl1);
-        continue;
-      }
-      if (FORM == SPLIT_ACC) {
-        passes(r, i, acc.cr[mt][nt], acc.ci[mt][nt], xrh[mt], xrl[mt],
-               xih[mt], xil[mt], ah0, ah1, al0, al1, bh0, bh1, bl0, bl1);
-        continue;
-      }
-      if (FORM == CHUNK_RN) {
-        float tr[4] = {0.f, 0.f, 0.f, 0.f}, ti[4] = {0.f, 0.f, 0.f, 0.f};
-        passes(tr, ti, tr, ti, xrh[mt], xrl[mt], xih[mt], xil[mt], ah0, ah1,
-               al0, al1, bh0, bh1, bl0, bl1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          r[e] += tr[e];
-          i[e] += ti[e];
-        }
-        continue;
-      }
       mma_rn(acc.r[mt][nt], xrh[mt], ah0, ah1);
       mma_rn(acc.r[mt][nt], xih[mt], bh0 ^ SIGN, bh1 ^ SIGN);
       mma_rn(acc.i[mt][nt], xrh[mt], bh0, bh1);

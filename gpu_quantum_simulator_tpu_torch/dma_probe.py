@@ -83,8 +83,9 @@ def routes(src, dst):
 
 
 def measure(n: int, seed: int = 0, device="cuda") -> dict:
-    """Every route at width n: ``{name: {"ms", "GBps", "exact"}}`` and the
-    library copy under ``torch_copy`` (its "exact" is its own check)."""
+    """Every route at width n: ``{name: {"ms", "GBps", "exact",
+    "max_abs_err"}}`` (max |dst - src| after one call) and the library copy
+    under ``torch_copy`` (its "exact" is its own check)."""
     device = resolve_device(device)
     if device.type != "cuda":
         raise RuntimeError("the copy probe measures the card: device='cuda'")
@@ -101,9 +102,13 @@ def measure(n: int, seed: int = 0, device="cuda") -> dict:
         call()
         torch.cuda.synchronize()
         exact = all(torch.equal(a, b) for a, b in zip(s, d))
+        # NaN where an element was not written
+        err = float(torch.stack([(b - a).abs().max()
+                                 for a, b in zip(s, d)]).max())
         ms = _time_ms(call)
         nbytes = 2 * sum(x.numel() * 4 for x in s)
-        res[name] = {"ms": ms, "GBps": nbytes / ms / 1e6, "exact": exact}
+        res[name] = {"ms": ms, "GBps": nbytes / ms / 1e6, "exact": exact,
+                     "max_abs_err": err}
 
     def library():
         for a, b in zip(src, dst):

@@ -1234,16 +1234,22 @@ def initial_halves(n: int, device="cuda"):
     return halves
 
 
+def _size(x) -> int:
+    return x.numel() if isinstance(x, torch.Tensor) else np.asarray(x).size
+
+
 def _component(x, shape, device) -> torch.Tensor:
-    """One state component as a contiguous float32 tensor of ``shape`` on
-    ``device``.  A numpy array is copied; a float32 tensor that already lies
-    there, contiguous, is returned as it is (the engine takes it over)."""
-    if not isinstance(x, torch.Tensor):
-        x = torch.tensor(np.asarray(x), dtype=torch.float32)
-    if x.numel() != int(np.prod(shape)):
+    """One state component as a new contiguous float32 tensor of ``shape``
+    on ``device``.  The caller's array or tensor is copied, never changed,
+    as in the JAX package: the engine runs in place on what it returns."""
+    if _size(x) != int(np.prod(shape)):
         raise ValueError(f"initial state has wrong length: a component of "
                          f"{tuple(x.shape)} for {tuple(shape)}")
-    return x.to(device=device, dtype=torch.float32).reshape(shape).contiguous()
+    if isinstance(x, torch.Tensor):
+        x = x.to(device=device, dtype=torch.float32, copy=True)
+    else:
+        x = torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+    return x.reshape(shape).contiguous()
 
 
 def _check_parts(initial_parts) -> int:
@@ -1283,24 +1289,20 @@ def start_halves(initial_parts, n: int, device, perm=None):
     """The four (R2, 128) column halves of the start state on ``device``,
     relabeled as ``start_pair`` does, without a flat 2^n tensor when given
     halves.  A flat pair is split one component at a time (on the host for
-    numpy arrays).  Float32 halves already on ``device`` become the
-    engine's buffers and are overwritten by the run."""
+    numpy arrays).  The caller's arrays are copied, never changed."""
     if _check_parts(initial_parts) == 2:
         pair = initial_parts
         if perm is not None:
             pair = start_pair(pair, n, device, perm)
         halves = []
         for x in pair:
+            if _size(x) != 1 << n:
+                raise ValueError("initial state has wrong length")
             if not isinstance(x, torch.Tensor):
                 x = np.asarray(x)
-                if x.size != 1 << n:
-                    raise ValueError("initial state has wrong length")
-                x = x.reshape(-1, DVIEW)
-                x = (x[:, :LANES], x[:, LANES:])
-            else:
-                x = split_halves(_component(x, (1 << n,), device))
-            halves += [_component(h, (x[0].shape[0], LANES), device)
-                       for h in x]
+            x = x.reshape(-1, DVIEW)             # views, copied below
+            halves += [_component(h, (x.shape[0], LANES), device)
+                       for h in (x[:, :LANES], x[:, LANES:])]
         return tuple(halves)
     halves = _halves_in(initial_parts, n, device)
     if perm is not None:

@@ -123,9 +123,9 @@ class Simulator:
         sampling.py (``sample_halves``, ``norm_halves``, ...) read them as
         they are.  ``initial_parts`` resumes from a prior state (original
         basis): a flat (re, im) pair of length 2^n or the four (R2, 128)
-        column halves, numpy arrays or tensors (engine/prefetch.py
-        ``start_halves``: float32 halves already on the simulator's device
-        become the engine's buffers and are overwritten).
+        column halves, numpy arrays or tensors, on the host or the device
+        (engine/prefetch.py ``start_halves``).  They are copied, never
+        changed, as in the JAX package.
         """
         sim = self._resolved(circuit.num_qubits)
         if sim is not self:

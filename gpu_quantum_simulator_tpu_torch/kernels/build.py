@@ -104,8 +104,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_mat_step.argtypes = [P, P, P, P, P, P, L, I, P, I, I, P]
     lib.qsim_mat_step_high.restype = I
     lib.qsim_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, I, P]
-    lib.qsim_mat_step_high_form.restype = I
-    lib.qsim_mat_step_high_form.argtypes = [P, P, P, P, P, L, I, P]
     lib.qsim_gather_step.restype = I
     lib.qsim_gather_step.argtypes = [P, P, P, P, L, I, I, I, P, P, P, I, I, P]
     lib.qsim_relayout.restype = I

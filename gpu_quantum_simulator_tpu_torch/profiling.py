@@ -3,7 +3,7 @@
     python3 -m gpu_quantum_simulator_tpu_torch.profiling [--widths 18 22]
         [--strategy prefetch mxu pallas vmem] [--precision auto]
         [--mono-as-mat auto 0 1] [--runs 5] [--sweep] [--plan-only]
-        [--inplace] [--high-forms]
+        [--inplace]
 
 Widths 9..30.  For each strategy (prefetch: each mono-lowering arm,
 ``auto`` the planner's default, ``0``/``1`` forcing the mono step or
@@ -37,14 +37,6 @@ on the four column halves (no copy to the host), launches by kind, the peak
 device memory, the error against the f64 reference up to n = 23, and the
 profile.  Without it prefetch at n = 30 runs in place all the same (the
 default there), through ``run_detailed``, and its plan is counted so.
-
-``--high-forms`` measures the "high" mat step's accumulation forms
-(csrc/mma_high.cuh ``high::Form``) side by side: 200 chained steps at the
-first width on a normalised random state over eight random 256 x 256
-unitary tables, |psi|^2 - 1 after steps 1, 10, 50, 100 and 200 for each
-form and for the plain torch version (``mat_high_plain``); then each
-form's device ms per step at every width, the forms timed in one order
-and again in the reverse order.
 
 ``--sweep`` also runs prefetch at n = 9..20 at three tile geometries (the
 planner's (512, 64) and the shrunken (4, 1) and (16, 2), which put
@@ -412,90 +404,6 @@ def _print_width(rec: dict) -> None:
         print(f"    {v['count']:6d} x {v['ms']:10.3f} ms  {name[:70]}")
 
 
-HIGH_FORMS = ("one_acc", "split_acc", "chunk_rn", "term4_rn")  # high::Form
-DRIFT_MARKS = (1, 10, 50, 100, 200)
-
-
-def high_forms(widths, seed: int = 200) -> dict:
-    """``--high-forms``: each accumulation form's norm drift and time."""
-    from .kernels.block import mat_high_plain, split_tables
-
-    lib = build.load()
-    stream = torch.cuda.current_stream().cuda_stream
-    rng = np.random.default_rng(seed)
-    mats = []
-    for _ in range(8):
-        q, r = np.linalg.qr(rng.standard_normal((256, 256))
-                            + 1j * rng.standard_normal((256, 256)))
-        mats.append(q * (np.diag(r) / np.abs(np.diag(r))))
-    a = torch.tensor(np.stack([m.real.T for m in mats]), dtype=torch.float32,
-                     device="cuda").contiguous()
-    b = torch.tensor(np.stack([m.imag.T for m in mats]), dtype=torch.float32,
-                     device="cuda").contiguous()
-    w16 = split_tables(a, b)
-    slot = w16[0].numel() * w16.element_size()
-
-    def step(form, src, dst, j):
-        build.check(lib, lib.qsim_mat_step_high_form(
-            src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
-            dst[1].data_ptr(), w16.data_ptr() + j * slot, src[0].shape[0],
-            form, stream), "high mat step form")
-
-    def norm(x):
-        return float(x[0].double().square().sum()
-                     + x[1].double().square().sum())
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    rows = 1 << (widths[0] - PF.LOCAL_QUBITS)
-    start = [torch.randn(rows, 256, device="cuda", generator=gen)
-             for _ in range(2)]
-    scale = norm(start) ** -0.5
-    start = [x * scale for x in start]
-    n0 = norm(start)
-    drift = {}
-    for form, name in enumerate(HIGH_FORMS + ("plain",)):
-        x = tuple(t.clone() for t in start)
-        spare = tuple(torch.empty_like(t) for t in start)
-        marks = []
-        for k in range(DRIFT_MARKS[-1]):
-            if name == "plain":
-                x = mat_high_plain(*x, a[k % 8], b[k % 8])
-            else:
-                step(form, x, spare, k % 8)
-                x, spare = spare, x
-            if k + 1 in DRIFT_MARKS:
-                marks.append(norm(x) / n0 - 1.0)
-        drift[name] = marks
-        print(f"high form {name} n={widths[0]}: |psi|^2 - 1 after steps "
-              f"{DRIFT_MARKS}: " + ", ".join(f"{v:.4e}" for v in marks))
-    del x, spare, start
-    times = {}
-    for n in widths:
-        rows = 1 << (n - PF.LOCAL_QUBITS)
-        src = [torch.randn(rows, 256, device="cuda") for _ in range(2)]
-        dst = [torch.empty_like(t) for t in src]
-        reps = max(2, 20 >> max(0, n - 24))
-        order = list(enumerate(HIGH_FORMS))
-        for form, name in order + order[::-1]:
-            step(form, src, dst, 0)
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            for _ in range(reps):
-                step(form, src, dst, 0)
-            t1.record()
-            t1.synchronize()
-            times.setdefault(f"{name}_n{n}", []).append(
-                t0.elapsed_time(t1) / reps)
-        for name in HIGH_FORMS:
-            print(f"high form {name} n={n}: ms per step "
-                  + ", ".join(f"{v:.4f}" for v in times[f"{name}_n{n}"]))
-        del src, dst
-        torch.cuda.empty_cache()
-    return {"drift": drift, "drift_marks": DRIFT_MARKS, "ms": times}
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--widths", type=int, nargs="+", default=[18, 22],
@@ -512,8 +420,6 @@ def main(argv=None) -> int:
     ap.add_argument("--plan-only", action="store_true")
     ap.add_argument("--inplace", action="store_true",
                     help="prefetch's in-place split-state engine")
-    ap.add_argument("--high-forms", action="store_true",
-                    help="the \"high\" mat step's accumulation forms")
     args = ap.parse_args(argv)
     if args.inplace and args.strategy != ["prefetch"]:
         ap.error("--inplace profiles the prefetch strategy")
@@ -532,12 +438,6 @@ def main(argv=None) -> int:
             check=True, capture_output=True, text=True).stdout.strip()
         print(report["card"])
         build.load()       # keep the kernels' build out of the warm-up
-    if args.high_forms:
-        if args.plan_only:
-            ap.error("--high-forms runs on the card")
-        report["high_forms"] = high_forms(args.widths)
-        print(json.dumps(report))
-        return 0
     saved = PF.MONO_AS_MAT
     try:
         for strategy in args.strategy:

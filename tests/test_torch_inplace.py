@@ -492,8 +492,12 @@ def test_run_device_halves_initial_parts(tiles, form, permute):
     assert np.array_equal(re.numpy() + 1j * im.numpy(), want)
     assert np.max(np.abs(want - simulate_reference(
         JM.grover_like(n, 200, 31)))) < SIM_TOL
-    if not form.endswith("tensor"):      # numpy inputs are copied
-        assert all(np.array_equal(p, h) for p, h in zip(parts, held))
+    # the caller's arrays are copied, never changed (tensors on the
+    # simulator's device too), so the same state resumes twice alike
+    assert all(np.array_equal(np.asarray(p), np.asarray(h))
+               for p, h in zip(parts, held))
+    again, _ = sim.run_device_halves(second, initial_parts=tuple(parts))
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 def test_initial_parts_relabel_halves_matches_flat():
@@ -512,6 +516,17 @@ def test_initial_parts_relabel_halves_matches_flat():
             got = TPF.start_halves(parts, n, "cpu", perm)
             assert all(np.array_equal(g.numpy(), w)
                        for g, w in zip(got, want))
+            # float32 tensors on the device: copied, never changed, and
+            # the engine's buffers share no memory with them
+            given = [torch.tensor(p) for p in parts]
+            held = [p.clone() for p in given]
+            got = TPF.start_halves(given, n, "cpu", perm)
+            assert all(np.array_equal(g.numpy(), w)
+                       for g, w in zip(got, want))
+            assert all(torch.equal(p, h) for p, h in zip(given, held))
+            mine = {g.untyped_storage().data_ptr() for g in got}
+            assert not mine & {p.untyped_storage().data_ptr()
+                               for p in given}
     with pytest.raises(ValueError, match="flat \\(re, im\\) pair or the four"):
         TPF.start_halves((v.real,), n, "cpu")
     with pytest.raises(ValueError, match="wrong length"):
