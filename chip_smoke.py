@@ -100,13 +100,18 @@ failure raises and the script exits non-zero:
    (``dma_probe.py``) at n = 24, 28 and 30: every route (grid, stream,
    direct TMA) and tile shape copies bit for bit; GB/s beside ``copy_``'s.
 
-Phase 3 also pins the "high" mat step's norm drift: 200 chained steps at
-n=24 on a normalised random state over eight random unitary tables, for
-six seeds, the drift printed after every step for the kernel and its plain
-version; after 200 steps the kernel's largest |1 - norm| over the seeds may
-be at most 3 times the plain version's largest, and on every seed the
-kernel's drift may differ from the plain version's by at most 2e-6.  At
-n=30 (phase 5) ``norm_halves`` must be within 1e-5 of 1.
+Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
+steps at n=24 on a normalised random state over eight random unitary
+tables, and 25 launches of the chain kernel's "high" arm with P = 8
+random 128 x 128 unitaries (200 products) at n=24, each for six seeds, the
+drift printed after every step (launch) for the kernel and its plain
+version; after 200 products the kernel's largest |1 - norm| over the seeds
+may be at most 3 times the plain version's largest, and on every seed the
+kernel's drift may differ from the plain version's by at most 2e-6.  The
+mxu engine's "high" mm step (its bf16 GEMMs) gets the same 200-step
+measurement on one kh = 1 block, printed and not barred.  At n=30 (phase
+5) ``norm_halves`` must be within 1e-5 of 1.  Phase 3's relayout check
+also times ``copy_`` of the same pair at n=22: the card's copy rate there.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Matmuls in plain torch run in IEEE
@@ -165,6 +170,7 @@ DRIFT_EXCESS = 2e-6         # and on every seed the kernel's drift beyond
                             # 200 steps: -5.9e-7..-6.7e-7 over the six seeds
                             # on an H100, against -5.9e-4 for one tensor-core
                             # accumulator
+CHAIN_DRIFT_LAUNCHES = 25   # kernel 7's "high" chain: 25 launches of P = 8
 TIMED_RUNS = 5
 ENGINE_RUNS = 3             # timed runs of mxu / pallas per width
 SPIN_CYCLES = 200_000_000   # ~0.1 s at 2 GHz: covers queuing 20 calls
@@ -460,11 +466,18 @@ def check_relayout_kernel(torch, rng):
             and torch.equal(lib[1], got[1].reshape(-1))):
         raise AssertionError("relayout: the permute-copy differs")
     library_ms = device_ms(torch, lambda: bit_permute(pair, src))
+    # the card's measured copy rate at this width: copy_ of the same pair
+    dst = torch.empty_like(pair)
+    copy_ms = device_ms(torch, lambda: dst.copy_(pair))
+    rate = 8.0 * pair.numel() / (copy_ms * 1e-3)      # bytes read + written
     gbs = 4 * re.numel() * 4 / (ms * 1e-3) / 1e9
     bnd = bound(0.0, 16.0 * re.numel())
     print(f"relayout kernel n={n} sigma={sigma.tolist()}: bit-exact; kernel "
           f"{ms:.4f} ms ({gbs:.0f} GB/s), plain {plain_ms:.4f} ms, "
-          f"permute-copy {library_ms:.4f} ms, bound {bnd[0]:.4f} ms")
+          f"permute-copy {library_ms:.4f} ms, bound {bnd[0]:.4f} ms; copy_ "
+          f"of the pair {copy_ms:.4f} ms ({rate / 1e9:.1f} GB/s), the bytes "
+          f"at that rate {16.0 * re.numel() / rate * 1e3:.4f} ms")
+    del dst
     return record("relayout", RELAYOUT_SRC, RELAYOUT_TPU, 0.0, ms, plain_ms,
                   bnd, library_ms)
 
@@ -634,6 +647,48 @@ def check_high_mat(torch, rng):
     return rec
 
 
+def random_state(torch, gen, shape):
+    """A normalised random (re, im) pair of ``shape`` from ``gen``."""
+    re, im = (torch.randn(*shape, device="cuda", generator=gen)
+              for _ in range(2))
+    scale = norm2((re, im)) ** -0.5
+    return re * scale, im * scale
+
+
+def drift_seed(what, seed, drift, n0, steps):
+    """Print one seed's drift series; return its (kernel, plain) last pair."""
+    for k, v in drift.items():
+        print(f"{what} seed {seed} {k}: |out|^2/|in|^2 - 1 after {steps}: "
+              + json.dumps([float(f"{x:.3g}") for x in v]))
+    k, p = drift["kernel"][-1], drift["plain"][-1]
+    print(f"{what} seed {seed}: |1 - norm| at the end kernel {abs(k):.4e}, "
+          f"plain {abs(p):.4e} (ratio {abs(k / p):.3f}); the kernel's beyond "
+          f"the plain's {k - p:.4e}; the state's norm at the start "
+          f"{n0:.10f}")
+    return k, p
+
+
+def drift_verdict(what, last, barred=True):
+    """Over the seeds: the largest kernel |1 - norm| against DRIFT_RATIO x
+    the largest plain one, and every seed's kernel drift within
+    DRIFT_EXCESS of the plain one's; raises when ``barred`` and either
+    fails."""
+    worst_k = max(abs(k) for k, _ in last.values())
+    worst_p = max(abs(p) for _, p in last.values())
+    excess = max(abs(k - p) for k, p in last.values())
+    print(f"{what} over seeds {list(last)}: largest |1 - norm| kernel "
+          f"{worst_k:.4e}, plain {worst_p:.4e} (ratio {worst_k / worst_p:.3f}"
+          f", bar {DRIFT_RATIO}); largest |kernel - plain| {excess:.4e} (bar "
+          f"{DRIFT_EXCESS}){'' if barred else ' -- not barred'}; per-seed "
+          f"ratios " + json.dumps(
+              {s: round(abs(k / p), 3) for s, (k, p) in last.items()}))
+    if barred and not (worst_k <= DRIFT_RATIO * worst_p
+                       and excess <= DRIFT_EXCESS):
+        raise AssertionError(f"{what}: kernel {worst_k} against "
+                             f"{DRIFT_RATIO} x plain {worst_p}; beyond the "
+                             f"plain {excess} against {DRIFT_EXCESS}")
+
+
 def check_high_drift(torch):
     """200 chained "high" mat steps at n=24 on a normalised random state,
     the tables eight random 256 x 256 unitaries taken in turn (a block
@@ -666,13 +721,10 @@ def check_high_drift(torch):
         b_tab = torch.tensor(np.stack([m.imag.T for m in mats]),
                              dtype=torch.float32, device="cuda").contiguous()
         w16 = split_tables(a_tab, b_tab)
-        re, im = (torch.randn(R2, 256, device="cuda", generator=gen)
-                  for _ in range(2))
-        scale = norm2((re, im)) ** -0.5
-        start = (re * scale, im * scale)
+        start = random_state(torch, gen, (R2, 256))
         n0 = norm2(start)
         kern = (start[0].clone(), start[1].clone())
-        spare = (torch.empty_like(re), torch.empty_like(im))
+        spare = (torch.empty_like(kern[0]), torch.empty_like(kern[1]))
         plain = start
         drift = {"kernel": [], "plain": []}
         for step in range(DRIFT_STEPS):
@@ -684,31 +736,106 @@ def check_high_drift(torch):
                                     cap, precision="high")
             drift["kernel"].append(norm2(kern) / n0 - 1.0)
             drift["plain"].append(norm2(plain) / n0 - 1.0)
-        for k, v in drift.items():
-            print(f"high drift n={n} seed {seed} {k}: |out|^2/|in|^2 - 1 "
-                  f"after steps 1..{DRIFT_STEPS}: "
-                  + json.dumps([float(f"{x:.3g}") for x in v]))
-        last[seed] = (drift["kernel"][-1], drift["plain"][-1])
-        k, p = last[seed]
-        print(f"high drift n={n} seed {seed}: |1 - norm| after {DRIFT_STEPS} "
-              f"steps kernel {abs(k):.4e}, plain {abs(p):.4e} (ratio "
-              f"{abs(k / p):.3f}); the kernel's beyond the plain's "
-              f"{k - p:.4e}; the state's norm at the start {n0:.10f}")
-        del kern, spare, plain, start, re, im, out, a_tab, b_tab, w16
+        last[seed] = drift_seed(f"high drift n={n}", seed, drift, n0,
+                                f"steps 1..{DRIFT_STEPS}")
+        del kern, spare, plain, start, out, a_tab, b_tab, w16
         torch.cuda.empty_cache()
-    worst_k = max(abs(k) for k, _ in last.values())
-    worst_p = max(abs(p) for _, p in last.values())
-    excess = max(abs(k - p) for k, p in last.values())
-    print(f"high drift n={n} over seeds {list(DRIFT_SEEDS)}: largest |1 - "
-          f"norm| after {DRIFT_STEPS} steps kernel {worst_k:.4e}, plain "
-          f"{worst_p:.4e} (ratio {worst_k / worst_p:.3f}, bar {DRIFT_RATIO}); "
-          f"largest |kernel - plain| {excess:.4e} (bar {DRIFT_EXCESS}); "
-          f"per-seed ratios " + json.dumps(
-              {s: round(abs(k / p), 3) for s, (k, p) in last.items()}))
-    if not (worst_k <= DRIFT_RATIO * worst_p and excess <= DRIFT_EXCESS):
-        raise AssertionError(f"high drift n={n}: kernel {worst_k} against "
-                             f"{DRIFT_RATIO} x plain {worst_p}; beyond the "
-                             f"plain {excess} against {DRIFT_EXCESS}")
+    drift_verdict(f"high drift n={n}, {DRIFT_STEPS} steps", last)
+
+
+def check_chain_drift(torch):
+    """Kernel 7's "high" chain, the same measurement: at n=24 a normalised
+    random (R, 128) state through CHAIN_DRIFT_LAUNCHES launches of
+    ``kh0_chain(..., "high")`` with P = KH0_BATCH random 128 x 128
+    unitaries (200 products), kernel and plain version each on its own
+    chain, for every seed of DRIFT_SEEDS; held to the same bars."""
+    from gpu_quantum_simulator_tpu_torch.engine.wide import KH0_BATCH
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+
+    n = WIDE_WIDTH
+    R = 1 << (n - 7)
+    last = {}
+    for seed in DRIFT_SEEDS:
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        us = [random_unitary(rng, 128) for _ in range(KH0_BATCH)]
+        tabs = torch.tensor(np.stack([np.stack([u.real, u.imag]) for u in us]),
+                            dtype=torch.float32, device="cuda")
+        w16 = KW.split_wide_tables(tabs)
+        start = random_state(torch, gen, (R, 128))
+        n0 = norm2(start)
+        kern = (start[0].clone(), start[1].clone())
+        plain = start
+        drift = {"kernel": [], "plain": []}
+        for _ in range(CHAIN_DRIFT_LAUNCHES):
+            KW.kh0_chain(*kern, tabs, "high", out=kern, w16=w16)
+            plain = KW.kh0_chain_plain(*plain, tabs, "high")
+            drift["kernel"].append(norm2(kern) / n0 - 1.0)
+            drift["plain"].append(norm2(plain) / n0 - 1.0)
+        last[seed] = drift_seed(
+            f"chain high drift n={n} P={KH0_BATCH}", seed, drift, n0,
+            f"launches 1..{CHAIN_DRIFT_LAUNCHES}")
+        del kern, plain, start, tabs, w16
+        torch.cuda.empty_cache()
+    drift_verdict(f"chain high drift n={n}, "
+                  f"{CHAIN_DRIFT_LAUNCHES * KH0_BATCH} products", last)
+
+
+def mxu_high_drift(torch):
+    """The mxu engine's "high" mm step, measured and printed, not barred:
+    ``engine/wide.py`` ``_mm_step`` through ``_dot_high`` (Karatsuba
+    tables split to bf16, three bf16 GEMMs per real product whose fp32 sums
+    stay in the tensor core) on one kh = 1 block (D = 256, row bit 0) at
+    n=24, DRIFT_STEPS steps over DRIFT_SLOTS random unitaries taken in
+    turn, for every seed of DRIFT_SEEDS.  Beside it the same steps with
+    every bf16 product summed in IEEE fp32 (the plain version, the CPU
+    arithmetic of ``_dot_high``) and the "highest" step (fp32 GEMMs)."""
+    from gpu_quantum_simulator_tpu_torch.engine import wide as TW
+    from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
+
+    n = WIDE_WIDTH
+    R = 1 << (n - 7)
+    engine_dot = TW._dot_high
+
+    def plain_dot(x, mh, ml):
+        xh, xl = bf16_split(x)
+        return xh @ mh.float() + xl @ mh.float() + xh @ ml.float()
+
+    last = {}
+    for seed in DRIFT_SEEDS:
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        us = [random_unitary(rng, 256) for _ in range(DRIFT_SLOTS)]
+        m32 = torch.tensor(np.stack([np.stack([u.real.T, (u.imag - u.real).T,
+                                               (u.real + u.imag).T])
+                                     for u in us]),
+                           dtype=torch.float32, device="cuda")
+        hi, lo = (p.to(torch.bfloat16) for p in bf16_split(m32))
+        start = random_state(torch, gen, (R, 128))
+        n0 = norm2(start)
+        chains = {k: list(start) for k in ("kernel", "plain", "fp32")}
+        drift = {k: [] for k in chains}
+        for step in range(DRIFT_STEPS):
+            j = step % DRIFT_SLOTS
+            TW._mm_step(chains["kernel"], (hi[j], lo[j]), (0,), R, "high")
+            TW._dot_high = plain_dot
+            try:
+                TW._mm_step(chains["plain"], (hi[j], lo[j]), (0,), R, "high")
+            finally:
+                TW._dot_high = engine_dot
+            TW._mm_step(chains["fp32"], m32[j], (0,), R, "highest")
+            for k, v in chains.items():
+                drift[k].append(norm2(v) / n0 - 1.0)
+        print(f"mxu high drift n={n} seed {seed}: fp32 step |out|^2/|in|^2 "
+              f"- 1 after {DRIFT_STEPS} steps {drift.pop('fp32')[-1]:.4e}")
+        last[seed] = drift_seed(f"mxu high drift n={n}", seed, drift, n0,
+                                f"steps 1..{DRIFT_STEPS}")
+        del chains, start, m32, hi, lo
+        torch.cuda.empty_cache()
+    drift_verdict(f"mxu high drift n={n}, {DRIFT_STEPS} steps", last,
+                  barred=False)
 
 
 def check_wide_chain(torch, rng):
@@ -771,8 +898,9 @@ def check_wide_chain(torch, rng):
                   f"{e:.3e}, vs complex64 matmul {e_lib:.3e}; in place "
                   f"bit-exact; kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
                   f"TFLOP/s, Karatsuba count), plain {plain_ms:.4f} ms, "
-                  f"complex64 torch.matmul x{P} {library_ms:.4f} ms, bound "
-                  f"{bnd[0]:.4f} ms ({bnd[1]})")
+                  f"complex64 torch.matmul x{P} {library_ms:.4f} ms "
+                  f"({flop / library_ms / 1e9:.1f}), bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]})")
             if P == 8:
                 name = "wide_chain_kh0" + ("_high" if prec == "high" else "")
                 recs[prec] = record(name, WIDE_SRC, KH0_TPU, e, ms, plain_ms,
@@ -793,10 +921,12 @@ def check_wide_chain(torch, rng):
                 re, im, tabs[0, 0], tabs[0, 1]), reps=10)
             bnd = bound(6.0 * R * 128 * 128,
                         16.0 * R * 128 + 2 * 128 * 128 * 4)
+            flop = 6.0 * R * 128 * 128
             print(f"apply_block128 n={n}: max|diff| vs plain {e:.3e}; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, complex64 "
-                  f"torch.matmul {library_ms:.4f} ms, bound {bnd[0]:.4f} ms "
-                  f"({bnd[1]})")
+                  f"{ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s, Karatsuba "
+                  f"count), plain {plain_ms:.4f} ms, complex64 torch.matmul "
+                  f"{library_ms:.4f} ms ({flop / library_ms / 1e9:.1f}), "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]})")
             recs["block128"] = record("apply_block128", WIDE_SRC,
                                       BLOCK128_TPU, e, ms, plain_ms, bnd,
                                       library_ms)
@@ -1480,11 +1610,14 @@ def check_split_block(torch, rng):
         else:
             bnd = bound(3 * flop, 16.0 * R2 * 256 + 4 * 256 * 256 * 2,
                         BF16_FLOPS)
+        tf = 1e-9 * (flop if rung == "highest" else 3 * flop)
         print(f"split mat step n={n} {rung}: max|diff| vs plain {e:.3e}, "
               f"without the imaginary-table products {e_drop:.3e}; kernel "
-              f"{ms:.4f} ms in place, flat kernel {flat_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library "
-              + ("none" if library_ms is None else f"{library_ms:.4f} ms")
+              f"{ms:.4f} ms in place ({tf / ms:.1f} TFLOP/s, Karatsuba "
+              f"count), flat kernel {flat_ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, library "
+              + ("none" if library_ms is None else
+                 f"{library_ms:.4f} ms ({tf / library_ms:.1f})")
               + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
         recs[rung] = record(
             "split_mat_step" + ("_high" if rung == "high" else ""), SPLIT_SRC,
@@ -2304,6 +2437,8 @@ def main() -> int:
     chain, chain_high, block128 = check_wide_chain(torch, rng)
     vmem_chunk, vmem_op = check_vmem_kernel(torch, T)
     check_high_drift(torch)
+    check_chain_drift(torch)
+    mxu_high_drift(torch)
     torch.cuda.empty_cache()
 
     # phase 4: the main paths, counting launches; phase 5: the in-place

@@ -33,7 +33,14 @@
 
 #include <algorithm>
 
+#include "async_copy.cuh"
+
 namespace {
+
+using async::bar_init;
+using async::bar_wait;
+using async::bulk_load;
+using async::smem_u32;
 
 constexpr int MAX_OPS = 4;
 constexpr int MAX_STAGES = 16;
@@ -66,42 +73,6 @@ grid_copy_kernel(Ops ops, long long quads, long long tile_quads) {
     d[i] = s[i];
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA bulk copy global -> shared, `bytes` (a multiple of 16), completing
-// on `bar`, which expects exactly these bytes in its current phase.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // TMA bulk copy shared -> global, one bulk group.
 __device__ __forceinline__ void bulk_store(void* dst, const void* src,
                                            uint32_t bytes) {
@@ -113,7 +84,7 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
 
 __device__ __forceinline__ void init_stages(uint64_t* full, int stages) {
   for (int s = 0; s < stages; ++s) bar_init(&full[s]);
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  async::bar_init_fence();
 }
 
 // Tile u of the concatenated operands: (operand, byte offset).
@@ -156,7 +127,7 @@ stream_copy_kernel(Ops ops, int nops, long long per_op, int unit,
       const long long next = u + stages * step;
       if (next < total) {
         // order the threads' reads of the stage before the async refill
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        async::fence_async();
         bulk_load(ring + s * unit, tile_src(ops, next, per_op, unit), unit,
                   &full[s]);
       }

@@ -1,5 +1,7 @@
 // The "high" rung's arithmetic on Hopper tensor cores, shared by the flat
-// mat step (mat_high.cu) and the in-place one (split_block.cu).
+// mat step (mat_high.cu), the in-place one (split_block.cu) and the lane-
+// layout chain (wide_chain.cu, whose tables are 128 wide: the table width
+// D is a template parameter of chunk).
 //
 // Each real product x.m is XLA's 3-pass bf16 decomposition
 // xh.mh + xl.mh + xh.ml (h = x rounded to bf16, l = the bf16 of the
@@ -42,8 +44,7 @@
 
 namespace high {
 
-constexpr int DVIEW = 256;
-constexpr int TAB = DVIEW * DVIEW / 2;     // 32-bit words per bf16 table
+constexpr int DVIEW = 256;                 // the mat steps' table width
 constexpr uint32_t SIGN = 0x80008000u;     // flips two bf16 signs: -B, exact
 
 // (x0, x1) -> bf16x2 hi and bf16x2 lo (x0 in the low 16 bits)
@@ -123,9 +124,10 @@ struct Acc {
 };
 
 // One k-chunk of 16 for the warp tile: A fragments of the state (split as
-// loaded), B fragments from the four [n][k] bf16 tables w = [A_hi, A_lo,
-// B_hi, B_lo] at column n0 + 8 nt of the n8 tile and 32-bit word kw of k.
-template <int MT, int NT>
+// loaded), B fragments from the four D x D [n][k] bf16 tables w = [A_hi,
+// A_lo, B_hi, B_lo] at column n0 + 8 nt of the n8 tile and 32-bit word kw
+// of k.
+template <int MT, int NT, int D = DVIEW>
 __device__ __forceinline__ void chunk(Acc<MT, NT>& acc,
                                       const uint32_t (&xrh)[MT][4],
                                       const uint32_t (&xrl)[MT][4],
@@ -133,10 +135,11 @@ __device__ __forceinline__ void chunk(Acc<MT, NT>& acc,
                                       const uint32_t (&xil)[MT][4],
                                       const uint32_t* __restrict__ w, int n0,
                                       int kw) {
+  constexpr int TAB = D * D / 2;           // 32-bit words per bf16 table
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     // B fragments (col-major 16 x 8): b0 = k 2t, 2t + 1; b1 = k + 8
-    const uint32_t* wn = w + (long long)(n0 + nt * 8) * (DVIEW / 2) + kw;
+    const uint32_t* wn = w + (long long)(n0 + nt * 8) * (D / 2) + kw;
     const uint32_t ah0 = __ldg(wn), ah1 = __ldg(wn + 4);
     const uint32_t al0 = __ldg(wn + TAB), al1 = __ldg(wn + TAB + 4);
     const uint32_t bh0 = __ldg(wn + 2 * TAB), bh1 = __ldg(wn + 2 * TAB + 4);

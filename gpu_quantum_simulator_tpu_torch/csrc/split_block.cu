@@ -17,11 +17,9 @@
 // memory), so in place means an OWNERSHIP rule per launch: a CTA (or a
 // thread) owns a set of elements that the step maps onto itself, reads all
 // of it into shared memory or registers, and only then writes.
-//   mat      a row of 256 columns is one matrix-vector product: a CTA owns
-//            whole rows (all four halves of them), stages them, then writes.
-//            fp32 FMA in the order of prefetch_block.cu ("highest"), or the
-//            3-pass bf16 mma.sync arithmetic of mma_high.cuh ("high"): both
-//            give the flat kernels' results bit for bit.
+//   mat      a row of 256 columns is one matrix-vector product: a cluster
+//            of CTAs owns whole rows (all four halves of them), reads them
+//            all, then writes.
 //   tswap k  flat bits 7 and 7 + k: h1[r] <-> h0[r + s], s = 2^(k-1), for
 //            rows r with that bit clear; one thread owns both ends.
 //   xswap    the same exchange with a cross-tile row bit (kernel 5(b)): the
@@ -35,15 +33,44 @@
 //
 // What bounds them on the card: the index steps move bytes only (tswap and
 // xswap half the state, read and written once; perm and mono all of it), so
-// HBM bandwidth (3.35 TB/s published); the mat steps as their flat twins
-// (fp32: 67 TFLOP/s CUDA cores; "high": tensor cores), with the whole-row
-// rule costing the fp32 step a 64 KB row stage per CTA.  wgmma, TMA and a
-// tile resident across steps are later work.
+// HBM bandwidth (3.35 TB/s published); the mat steps arithmetic (fp32: the
+// 67 TFLOP/s of the CUDA cores; "high": the tensor cores).
+//
+// The fp32 mat step.  The TPU kernel (_make_mat_step, form "karatsuba")
+// computes three dots per step on a VMEM-resident (512, 256) tile.  At
+// n = 24 a step is 6 x 2^16 x 256 x 256 flops in that form, 0.385 ms at
+// 67 TFLOP/s, against 0.08 ms to move the state once: the CUDA cores bound
+// it.  In place, a CTA may write a row only when every reader of the row
+// is done with it, and every owner of few rows reads all 512 KB of tables
+// again.  mat_halves_kernel:
+//   * A cluster of four CTAs owns 64 rows; CTA rank c computes columns
+//     [64 c, 64 c + 64) of them, so the tables are read once per 64 rows,
+//     a 64-column share each.  All four read every k of the rows, and one
+//     cluster barrier (barrier.cluster) stands between the last read and
+//     the first write: the step stays in place with no second buffer.
+//     The rows a cluster reads are its own (owned_row), through the
+//     pending swap in pair mode.
+//   * k-slices of 16 in a two-stage ring: each thread copies 16 bytes of
+//     the rows and of each table with cp.async one slice ahead, the tables
+//     straight into the stage, the rows transposed to k-major by the
+//     thread that copied them; one CTA barrier per slice.
+//   * Schoolbook, in prefetch_block.cu's FMA order: a thread owns 4 rows x
+//     4 columns, 32 sums, four float4 loads for 64 FMAs a k.  77 registers
+//     and 41 KB let three CTAs share an SM.  The flat and in-place steps
+//     give the same values, bit for bit.
+//   Karatsuba (three sums an output, 25% fewer FMAs) kept the 1e-6 bar
+//   with margin but ran slower in every form tried on an H100: its
+//   operands s, m2, m3 cost shared-memory loads that the FMAs saved do not
+//   pay for (PERF.md section 6, PR 8).
+// The "high" step (mat_high_halves_kernel) is mat_high.cu's arithmetic
+// (mma_high.cuh), bit for bit.  wgmma and a tile resident across steps are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "mma_high.cuh"
 
 namespace {
@@ -52,10 +79,10 @@ constexpr int LANES = 128;
 constexpr int DVIEW = 256;
 constexpr int QUADS = DVIEW / 4;      // float4 per 256-wide row
 
-// Row owned by slot s of CTA c, bm slots per CTA.  pair_bit < 0: the rows
-// c * bm + s.  pair_bit = b: slots [0, bm/2) are rows with bit b clear,
-// slots [bm/2, bm) their partners r | 2^b, so the set is closed under
-// flipping bit b.
+// Row owned by slot s of owner c (a CTA, or a cluster of them), bm slots
+// per owner.  pair_bit < 0: the rows c * bm + s.  pair_bit = b: slots
+// [0, bm/2) are rows with bit b clear, slots [bm/2, bm) their partners
+// r | 2^b, so the set is closed under flipping bit b.
 __device__ __forceinline__ long long owned_row(long long c, int s, int bm,
                                                int pair_bit) {
   if (pair_bit < 0) return c * bm + s;
@@ -82,105 +109,124 @@ __device__ __forceinline__ void pair_source(long long r, int hc, int pair_bit,
 }
 
 // ------------------------------------------------------------- fp32 mat
-constexpr int MAT_BM = 32;        // rows per CTA
-constexpr int MAT_BK = 16;        // table rows staged per slice
+constexpr int MAT_BM = 64;                     // rows a cluster owns
+constexpr int MAT_BN = 64;                     // columns a CTA computes
+constexpr int MAT_CLUSTER = DVIEW / MAT_BN;    // CTAs sharing the rows
 constexpr int MAT_THREADS = 256;
-constexpr int MAT_SMEM = (2 * MAT_BM + 2 * MAT_BK) * DVIEW * 4;   // 96 KB
+constexpr int MAT_BK = 16;                     // k per slice
+constexpr int MAT_SLICES = DVIEW / MAT_BK;
+constexpr int MAT_XLD = MAT_BM + 4;            // k-major row stride (floats)
+// a stage: x_re, x_im slices [k][MAT_XLD] | A, B slices [k][MAT_BN]
+constexpr int MAT_STAGE_F = 2 * MAT_BK * MAT_XLD + 2 * MAT_BK * MAT_BN;
+// two stages | the thread's 16 bytes of x_re and of x_im
+constexpr size_t MAT_SMEM =
+    (2 * MAT_STAGE_F + 2 * MAT_THREADS * 4) * sizeof(float);
 
-// rows <- rows @ (A + iB) for the CTA's rows, in place.  Thread (tx, ty)
-// computes rows ty*4..+3 at columns tx*4..+3 of each half; sums run over k
-// ascending with the FMA order of mat_step_kernel (prefetch_block.cu).
-__global__ void __launch_bounds__(MAT_THREADS)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// rows <- rows @ (A + iB), in place, A and B float32 [k][n].  A cluster of
+// four CTAs owns 64 rows (owned_row); CTA rank c computes their columns
+// [64 c, 64 c + 64).  See the header note.
+__global__ void __cluster_dims__(MAT_CLUSTER, 1, 1)
+__launch_bounds__(MAT_THREADS)
 mat_halves_kernel(float* re0, float* re1, float* im0, float* im1,
                   const float* __restrict__ A, const float* __restrict__ B,
                   long long rows, int pair_bit) {
-  extern __shared__ __align__(16) float smem[];
-  float (*xr)[DVIEW] = reinterpret_cast<float (*)[DVIEW]>(smem);
-  float (*xi)[DVIEW] = xr + MAT_BM;
-  float (*a_s)[DVIEW] = xi + MAT_BM;
-  float (*b_s)[DVIEW] = a_s + MAT_BK;
+  extern __shared__ __align__(128) float smem[];
+  float* raw = smem + 2 * MAT_STAGE_F;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;  // 16 x 16
+  const long long cl = blockIdx.x / MAT_CLUSTER;              // the row set
+  const int n0 = (int)(blockIdx.x % MAT_CLUSTER) * MAT_BN;
+  // this thread's piece of every x slice: row slot lr, k quad lk (read
+  // through the pending swap); of every table slice: k row ak, columns an
+  const int lr = tid >> 2, lk = (tid & 3) * 4;
+  const long long xrow = owned_row(cl, lr, MAT_BM, pair_bit);
+  const bool xok = xrow < rows;
+  const int ak = tid >> 4, an = (tid & 15) * 4;
 
-  const int tid = threadIdx.x;
-  for (int t = tid; t < MAT_BM * QUADS; t += MAT_THREADS) {
-    const int s = t >> 6, q = t & 63;
-    const long long r = owned_row(blockIdx.x, s, MAT_BM, pair_bit);
-    float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
-    if (r < rows) {
-      long long sr;
-      int sh;
-      pair_source(r, q >> 5, pair_bit, sr, sh);
-      const long long o = sr * LANES + (q & 31) * 4;
-      vr = *reinterpret_cast<const float4*>((sh ? re1 : re0) + o);
-      vi = *reinterpret_cast<const float4*>((sh ? im1 : im0) + o);
-    }
-    *reinterpret_cast<float4*>(&xr[s][q * 4]) = vr;
-    *reinterpret_cast<float4*>(&xi[s][q * 4]) = vi;
-  }
+  // slice q: x pieces into `raw`, A and B straight into stage q
+  auto issue_slice = [&](int q) {
+    if (q >= MAT_SLICES) return;
+    const int k = q * MAT_BK + lk;
+    long long sr = 0;
+    int sh = 0;
+    if (xok) pair_source(xrow, k >> 7, pair_bit, sr, sh);
+    const long long o = sr * LANES + (k & (LANES - 1));
+    async::cp16(raw + tid * 4, (sh ? re1 : re0) + o, xok);
+    async::cp16(raw + (MAT_THREADS + tid) * 4, (sh ? im1 : im0) + o, xok);
+    float* st = smem + (q & 1) * MAT_STAGE_F + 2 * MAT_BK * MAT_XLD;
+    const long long t = (long long)(q * MAT_BK + ak) * DVIEW + n0 + an;
+    async::cp16(st + ak * MAT_BN + an, A + t);
+    async::cp16(st + (MAT_BK + ak) * MAT_BN + an, B + t);
+  };
+  // this thread's x pieces of slice q, transposed into stage q (k-major)
+  auto form_slice = [&](int q) {
+    float* xr = smem + (q & 1) * MAT_STAGE_F;
+    float* xi = xr + MAT_BK * MAT_XLD;
+    const float4 a = ld4(raw + tid * 4), b = ld4(raw + (MAT_THREADS + tid) * 4);
+    xr[(lk + 0) * MAT_XLD + lr] = a.x; xr[(lk + 1) * MAT_XLD + lr] = a.y;
+    xr[(lk + 2) * MAT_XLD + lr] = a.z; xr[(lk + 3) * MAT_XLD + lr] = a.w;
+    xi[(lk + 0) * MAT_XLD + lr] = b.x; xi[(lk + 1) * MAT_XLD + lr] = b.y;
+    xi[(lk + 2) * MAT_XLD + lr] = b.z; xi[(lk + 3) * MAT_XLD + lr] = b.w;
+  };
 
-  const int tx = tid & 31, ty = tid >> 5;
-  float acc_r[4][8], acc_i[4][8];
+  float acc_r[4][4], acc_i[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < DVIEW; k0 += MAT_BK) {
-    for (int t = tid; t < MAT_BK * QUADS; t += MAT_THREADS) {
-      const int kk = t >> 6, q = t & 63;
-      const long long o = (long long)(k0 + kk) * DVIEW + q * 4;
-      *reinterpret_cast<float4*>(&a_s[kk][q * 4]) =
-          *reinterpret_cast<const float4*>(A + o);
-      *reinterpret_cast<float4*>(&b_s[kk][q * 4]) =
-          *reinterpret_cast<const float4*>(B + o);
+    for (int j = 0; j < 4; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
+  issue_slice(0);
+  async::commit();
+  async::wait_groups<0>();
+  form_slice(0);
+  __syncthreads();
+  for (int q = 0; q < MAT_SLICES; ++q) {
+    issue_slice(q + 1);
+    async::commit();
+    const float* xr = smem + (q & 1) * MAT_STAGE_F;
+    const float* xi = xr + MAT_BK * MAT_XLD;
+    const float* sa = xi + MAT_BK * MAT_XLD;
+    const float* sb = sa + MAT_BK * MAT_BN;
+#pragma unroll
+    for (int kk = 0; kk < MAT_BK; ++kk) {
+      const float4 r4 = ld4(xr + kk * MAT_XLD + ty * 4);
+      const float4 i4 = ld4(xi + kk * MAT_XLD + ty * 4);
+      const float4 a4 = ld4(sa + kk * MAT_BN + tx * 4);
+      const float4 b4 = ld4(sb + kk * MAT_BN + tx * 4);
+      const float r[4] = {r4.x, r4.y, r4.z, r4.w};
+      const float m[4] = {i4.x, i4.y, i4.z, i4.w};
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {          // prefetch_block.cu's order
+          acc_r[i][j] = fmaf(r[i], a[j], acc_r[i][j]);
+          acc_r[i][j] = fmaf(-m[i], b[j], acc_r[i][j]);
+          acc_i[i][j] = fmaf(r[i], b[j], acc_i[i][j]);
+          acc_i[i][j] = fmaf(m[i], a[j], acc_i[i][j]);
+        }
     }
-    __syncthreads();   // also orders the row stage above before its first use
-
-#pragma unroll
-    for (int kq = 0; kq < MAT_BK; kq += 4) {
-      float xrv[4][4], xiv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&xr[ty * 4 + i][k0 + kq]);
-        const float4 i4 = *reinterpret_cast<const float4*>(&xi[ty * 4 + i][k0 + kq]);
-        xrv[i][0] = r4.x; xrv[i][1] = r4.y; xrv[i][2] = r4.z; xrv[i][3] = r4.w;
-        xiv[i][0] = i4.x; xiv[i][1] = i4.y; xiv[i][2] = i4.z; xiv[i][3] = i4.w;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 al = *reinterpret_cast<const float4*>(&a_s[kq + e][tx * 4]);
-        const float4 ah = *reinterpret_cast<const float4*>(&a_s[kq + e][LANES + tx * 4]);
-        const float4 bl = *reinterpret_cast<const float4*>(&b_s[kq + e][tx * 4]);
-        const float4 bh = *reinterpret_cast<const float4*>(&b_s[kq + e][LANES + tx * 4]);
-        const float a[8] = {al.x, al.y, al.z, al.w, ah.x, ah.y, ah.z, ah.w};
-        const float b[8] = {bl.x, bl.y, bl.z, bl.w, bh.x, bh.y, bh.z, bh.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc_r[i][j] = fmaf(xrv[i][e], a[j], acc_r[i][j]);
-            acc_r[i][j] = fmaf(-xiv[i][e], b[j], acc_r[i][j]);
-            acc_i[i][j] = fmaf(xrv[i][e], b[j], acc_i[i][j]);
-            acc_i[i][j] = fmaf(xiv[i][e], a[j], acc_i[i][j]);
-          }
-      }
-    }
-    __syncthreads();
+    async::wait_groups<0>();
+    if (q + 1 < MAT_SLICES) form_slice(q + 1);
+    __syncthreads();            // stage q + 1 formed; stage q read out
   }
-
-  // every read of the state went into xr/xi before the first barrier
+  // every CTA of the cluster has read all of the rows: then write
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  float* ore = n0 >= LANES ? re1 : re0;
+  float* oim = n0 >= LANES ? im1 : im0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const long long r = owned_row(blockIdx.x, ty * 4 + i, MAT_BM, pair_bit);
+    const long long r = owned_row(cl, ty * 4 + i, MAT_BM, pair_bit);
     if (r >= rows) continue;
-    const long long o = r * LANES + tx * 4;
-    *reinterpret_cast<float4*>(re0 + o) =
+    const long long o = r * LANES + (n0 & (LANES - 1)) + tx * 4;
+    *reinterpret_cast<float4*>(ore + o) =
         make_float4(acc_r[i][0], acc_r[i][1], acc_r[i][2], acc_r[i][3]);
-    *reinterpret_cast<float4*>(re1 + o) =
-        make_float4(acc_r[i][4], acc_r[i][5], acc_r[i][6], acc_r[i][7]);
-    *reinterpret_cast<float4*>(im0 + o) =
+    *reinterpret_cast<float4*>(oim + o) =
         make_float4(acc_i[i][0], acc_i[i][1], acc_i[i][2], acc_i[i][3]);
-    *reinterpret_cast<float4*>(im1 + o) =
-        make_float4(acc_i[i][4], acc_i[i][5], acc_i[i][6], acc_i[i][7]);
   }
 }
 
@@ -405,11 +451,8 @@ extern "C" {
 int qsim_split_mat_step(float* re0, float* re1, float* im0, float* im1,
                         const float* a, const float* b, long long rows,
                         int pair_bit, void* stream) {
-  cudaError_t rc = cudaFuncSetAttribute(
-      mat_halves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAT_SMEM);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  mat_halves_kernel<<<ceil_div(rows, MAT_BM), MAT_THREADS, MAT_SMEM,
-                      static_cast<cudaStream_t>(stream)>>>(
+  mat_halves_kernel<<<ceil_div(rows, MAT_BM) * MAT_CLUSTER, MAT_THREADS,
+                      MAT_SMEM, static_cast<cudaStream_t>(stream)>>>(
       re0, re1, im0, im1, a, b, rows, pair_bit);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,41 +16,65 @@
 // and the tile crosses device memory once per chain instead of once per
 // product.  The identity pads that make a run's length a power of two in
 // the JAX package's step list are not passed in: nmats is the run's true
-// length.
+// length.  Tables are M itself, [n][k] with k contiguous: float32 [M_re,
+// M_im] at "highest"; at "high" the four bf16 tables [Mre_hi, Mre_lo,
+// Mim_hi, Mim_lo], split once per program (kernels/wide.py
+// split_wide_tables), the col-major B fragment of mma.m16n8k16.
 //
-// Complex form: SCHOOLBOOK, four real products per complex product,
-//   out_re = xr.Mr^T - xi.Mi^T,  out_im = xr.Mi^T + xi.Mr^T,
-// where the JAX package uses Karatsuba (three products on combined
-// operands).  Schoolbook rounds the raw state and tables, not sums of them,
-// and at "high" splits only raw values into bf16 parts (as mat_high.cu).
-// Tables are M itself, [n][k] with k contiguous: float32 [M_re, M_im] at
-// "highest"; at "high" the four bf16 tables [Mre_hi, Mre_lo, Mim_hi,
-// Mim_lo] split once per program on the host side (kernels/wide.py
-// split_wide_tables), which is the col-major B fragment of mma.m16n8k16.
+// On the TPU both kernels compute Karatsuba: t1 = (r + i).m1, t2 = r.m2,
+// t3 = i.m3 with m1 = Mr^T, m2 = (Mi - Mr)^T, m3 = (Mr + Mi)^T, and
+// re = t1 - t3, im = t1 + t2: three real products per complex one on the
+// MXU, the tile resident in VMEM, tables in VMEM for the whole grid.
 //
-// Design (simple, right first): one CTA of 256 threads per 64-row tile.
-// The tile lives in shared memory, double-buffered between products (row
-// stride 136 floats: the bf16 path's float2 fragments are conflict-free);
-// two buffers x (re, im) x 64 x 136 x 4 B = 139 KB, so dynamic shared
-// memory above 48 KB (cudaFuncSetAttribute).  The matrices are read from
-// global memory (128 KB per product, L2-resident across CTAs).
-//   "highest": IEEE fp32 FMA on the CUDA cores.  Each warp owns 8 rows,
-//     each lane 4 columns (32 complex accumulators); M is staged 16 k at a
-//     time into shared memory as [k][n] (16 KB more); the tile's values are
-//     broadcast reads.
-//   "high": the 3-pass bf16 product xh.mh + xl.mh + xh.ml with fp32
-//     accumulation on the tensor cores (mma.sync m16n8k16, 12 per k-slice
-//     per output tile), the state split to bf16 hi/lo in registers as it is
-//     read, -Mi as a sign flip of the bf16 words; 2 x 4 warps of 32 x 32.
-// A CTA reads its whole tile before it writes any of it and touches no
-// other rows, so the output may be the input pair (the engines run in
-// place).  No wgmma, TMA or tuning yet.
+// What bounds it on the H100.  "highest" is IEEE fp32, so the CUDA cores:
+// at n = 24 one product is 3 x 2^17 x 128 x 128 FMAs, 0.192 ms at the
+// 67 TFLOP/s fp32 peak, against 0.08 ms to read and write the state once
+// at 3.35 TB/s; a chain of 8 is further from memory still.  The CUDA
+// cores have to be kept busy: an SM has 227 KB of shared memory (a TPU
+// tile is 1 MB), registers hold the sums, and every table byte comes from
+// L2 again for each row tile.
 //
-// What bounds it on the card: at n = 24 one product is 4 real products of
-// (2^17 x 128) @ (128 x 128), 17.2 GFLOP, ~0.26 ms at 67 TFLOP/s fp32,
-// against 256 MB of state moved per chain (~0.08 ms at 3.35 TB/s): at
-// "highest" it is bound by fp32 throughput even at one product, so
-// chaining saves traffic the CUDA cores do not need.  At "high" one
+// "highest" design (chain_f32_kernel): Karatsuba, as the TPU kernels, 25%
+// fewer FMAs than the four-product form.
+//   * A persistent grid, one CTA of 256 threads per SM (220 KB of shared
+//     memory), walks over 64-row tiles.  The tile lives in shared memory
+//     once, as x_re, x_im and s = x_re + x_im (s formed once per element);
+//     each product keeps its results in registers, and after one CTA
+//     barrier writes them back into the tile it read (a chain) or to the
+//     output rows (the last product).  The next tile's rows are already in
+//     flight: a TMA bulk copy into a staging buffer, issued as soon as the
+//     current tile has left it, completing on an mbarrier.
+//   * The tables stream through a ring of two k-slices of 16: each thread
+//     copies its 32 bytes of M_re and of M_im straight into the stage's m1
+//     and m2 with cp.async one slice ahead, then forms m2 and m3 from its
+//     own copies; one CTA barrier per slice (slices of 8 ran slower on an
+//     H100).  Stages are [n][k] with a row stride of 20 floats,
+//     conflict-free for the float4 reads below.
+//   * Each warp owns 8 rows, each lane the columns lane + 32 c (c < 4):
+//     96 fp32 sums a thread (t1, t2, t3 of 32 outputs), k summed in
+//     ascending order by FMA.  Row values are float4 broadcasts along k;
+//     table values float4 along k.
+// What still holds it back: Karatsuba's extra operands.  A thread loads
+// s, x_re, x_im and m1, m2, m3 where the four-product form loads two of
+// each, and a warp's 16-byte shared-memory load seems to cost the pipe the
+// same four cycles whether or not its lanes share the address; the FMAs
+// saved do not pay for the loads.  Other forms tried on an H100 (k-major
+// tiles and 4 x 4 thread tiles with 512 threads or two CTAs an SM; m2, m3
+// and s formed in registers) were slower than this one (PERF.md section
+// 6, PR 8).
+// The output may be the input pair (the engines run in place): a tile is
+// read whole, into shared memory, before any of its rows is written, and
+// no CTA touches another's rows.  Ragged and tiny R (R = 2 at n = 8) work:
+// rows past R are zeros in shared memory and are not stored.
+//
+// "high" (chain_high_kernel): the 3-pass bf16 product xh.mh + xl.mh +
+// xh.ml on the tensor cores (mma.sync), schoolbook, the state split to
+// bf16 hi/lo in registers as it is read; one CTA per 64-row tile, the tile
+// double-buffered in shared memory between products.  Its sums are
+// mma_high.cuh's: hi.hi products as 4-term tf32 passes from a zeroed
+// fragment, every partial added in fp32 on the CUDA cores.  (One tensor-
+// core accumulator for all passes, the first form, shrank |psi|^2 by
+// 3.0e-4 over 200 products at n = 24: PERF.md section 6.)  At n = 24 one
 // product is 51.5 GFLOP of bf16 MMA (0.05 ms at 989 TFLOP/s): one product
 // is bound by memory, a chain of 8 by the tensor cores.
 
@@ -58,23 +82,242 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
+#include "mma_high.cuh"
+
 namespace {
 
 constexpr int LANES = 128;
-constexpr int TILE = 64;                     // state rows per CTA
+constexpr int TILE = 64;                     // state rows per tile
 constexpr int THREADS = 256;
+
+// ------------------------------------------------------------ "highest"
+constexpr int BK = 16;                       // k per table slice
+constexpr int SLICES = LANES / BK;           // slices per product
+constexpr int CK = BK + 4;                   // stage row stride ([n][CK])
+constexpr int CHUNKS = LANES * BK / 4 / THREADS;  // 16-byte pieces a thread
+constexpr int TILE_F = TILE * LANES;         // floats per tile component
+constexpr int STAGE_F = 3 * LANES * CK;      // floats per stage: m1, m2, m3
+// tile x_re, x_im, s | staging re, im | two stages
+constexpr size_t F32_SMEM = (5 * TILE_F + 2 * STAGE_F) * sizeof(float);
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// A thread's 8 rows x 4 columns of Karatsuba sums: t1 = s.m1, t2 =
+// x_re.m2, t3 = x_im.m3; out_re = t1 - t3, out_im = t1 + t2.
+struct Acc {
+  float t1[8][4], t2[8][4], t3[8][4];     // [row][column]
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) t1[i][c] = t2[i][c] = t3[i][c] = 0.f;
+  }
+  __device__ __forceinline__ float re(int i, int c) const {
+    return t1[i][c] - t3[i][c];
+  }
+  __device__ __forceinline__ float im(int i, int c) const {
+    return t1[i][c] + t2[i][c];
+  }
+};
+
+// m1, m2, m3 at 4 consecutive k (e) for the thread's 4 columns (c)
+struct Cols {
+  float m1[4][4], m2[4][4], m3[4][4];     // [k][column]
+};
+
+// The sums of 4 consecutive k for 8 rows: s, x_re, x_im of row i at
+// xs + i * LANES, ... (4 floats, k ascending; every lane the same rows).
+__device__ __forceinline__ void rows8(Acc& acc, const float* xs,
+                                      const float* xr, const float* xi,
+                                      const Cols& m) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 s4 = ld4(xs + i * LANES), r4 = ld4(xr + i * LANES),
+                 x4 = ld4(xi + i * LANES);
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    const float r[4] = {r4.x, r4.y, r4.z, r4.w};
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc.t1[i][c] = fmaf(s[e], m.m1[e][c], acc.t1[i][c]);
+        acc.t2[i][c] = fmaf(r[e], m.m2[e][c], acc.t2[i][c]);
+        acc.t3[i][c] = fmaf(x[e], m.m3[e][c], acc.t3[i][c]);
+      }
+  }
+}
+
+// in/out are not __restrict__: the engines pass the same pair for both.
+__global__ void __launch_bounds__(THREADS, 1)
+chain_f32_kernel(const float* in_re, const float* in_im, float* out_re,
+                 float* out_im, const float* __restrict__ m_re,
+                 const float* __restrict__ m_im, long long mat_stride,
+                 int nmats, long long rows) {
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) uint64_t landed;   // the staged tile's barrier
+  float* xr = smem;                          // row-major [TILE][LANES]
+  float* xi = xr + TILE_F;
+  float* xs = xi + TILE_F;
+  float* nr = xs + TILE_F;                   // staging: the next tile
+  float* ni = nr + TILE_F;
+  float* stages = ni + TILE_F;
+
+  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 8;
+  const long long tiles = (rows + TILE - 1) / TILE;
+  const long long mine = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const long long total = mine * nmats * SLICES;    // slices of this CTA
+
+  // the tile's rows from device memory into the staging buffer (thread 0)
+  auto stage_tile = [&](long long it) {
+    const long long row0 = (blockIdx.x + it * gridDim.x) * TILE;
+    const long long valid = rows - row0 < TILE ? rows - row0 : TILE;
+    const uint32_t bytes = (uint32_t)valid * LANES * sizeof(float);
+    async::fence_async();
+    async::bar_expect(&landed, 2 * bytes);
+    async::bulk_copy(nr, in_re + row0 * LANES, bytes, &landed);
+    async::bulk_copy(ni, in_im + row0 * LANES, bytes, &landed);
+  };
+  // staging -> tile (x_re, x_im, s); rows past R become zeros
+  auto take_tile = [&](long long it) {
+    const long long row0 = (blockIdx.x + it * gridDim.x) * TILE;
+#pragma unroll
+    for (int u = 0; u < TILE_F / 4 / THREADS; ++u) {
+      const int q = (tid + u * THREADS) * 4;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (row0 + q / LANES < rows) {
+        a = ld4(nr + q);
+        b = ld4(ni + q);
+      }
+      st4(xr + q, a);
+      st4(xi + q, b);
+      st4(xs + q, make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w));
+    }
+  };
+  // table slice g: this thread's 16-byte pieces j of M_re (into stage g's
+  // m1) and of M_im (into its m2), column j / 4, k-quad j % 4
+  auto issue_slice = [&](long long g) {
+    if (g >= total) return;
+#pragma unroll
+    for (int u = 0; u < CHUNKS; ++u) {
+      const int j = tid + u * THREADS, cn = j >> 2, cq = (j & 3) * 4;
+      const long long o = (g / SLICES % nmats) * mat_stride + cn * LANES +
+                          (g % SLICES) * BK + cq;
+      float* st = stages + (g & 1) * STAGE_F + cn * CK + cq;
+      async::cp16(st, m_re + o);
+      async::cp16(st + LANES * CK, m_im + o);
+    }
+  };
+  // m2 = M_im - M_re (in place of M_im), m3 = M_re + M_im, from this
+  // thread's own copies
+  auto form_slice = [&](long long g) {
+#pragma unroll
+    for (int u = 0; u < CHUNKS; ++u) {
+      const int j = tid + u * THREADS, cn = j >> 2, cq = (j & 3) * 4;
+      float* st = stages + (g & 1) * STAGE_F + cn * CK + cq;
+      const float4 a = ld4(st), b = ld4(st + LANES * CK);
+      st4(st + LANES * CK, make_float4(b.x - a.x, b.y - a.y, b.z - a.z,
+                                       b.w - a.w));
+      st4(st + 2 * LANES * CK, make_float4(a.x + b.x, a.y + b.y, a.z + b.z,
+                                           a.w + b.w));
+    }
+  };
+
+  if (tid == 0) {
+    async::bar_init(&landed);
+    async::bar_init_fence();
+  }
+  __syncthreads();
+  uint32_t phase = 0;
+  if (tid == 0) stage_tile(0);
+  issue_slice(0);
+  async::commit();
+  async::bar_wait(&landed, phase);
+  phase ^= 1;
+  async::wait_groups<0>();
+  take_tile(0);
+  form_slice(0);
+  __syncthreads();                           // staging read out; tile, stage 0
+  if (tid == 0 && mine > 1) stage_tile(1);
+
+  Acc acc;
+  long long g = 0;
+  for (long long it = 0; it < mine; ++it) {
+    const long long row0 = (blockIdx.x + it * gridDim.x) * TILE;
+    for (int j = 0; j < nmats; ++j) {
+      acc.zero();
+      for (int q = 0; q < SLICES; ++q, ++g) {
+        issue_slice(g + 1);
+        async::commit();
+        const float* st = stages + (g & 1) * STAGE_F;
+#pragma unroll
+        for (int kq = 0; kq < BK; kq += 4) {
+          Cols m;                            // columns lane + 32 c
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int o = (lane + 32 * c) * CK + kq;
+            const float4 a1 = ld4(st + o), a2 = ld4(st + LANES * CK + o),
+                         a3 = ld4(st + 2 * LANES * CK + o);
+            m.m1[0][c] = a1.x; m.m1[1][c] = a1.y; m.m1[2][c] = a1.z; m.m1[3][c] = a1.w;
+            m.m2[0][c] = a2.x; m.m2[1][c] = a2.y; m.m2[2][c] = a2.z; m.m2[3][c] = a2.w;
+            m.m3[0][c] = a3.x; m.m3[1][c] = a3.y; m.m3[2][c] = a3.z; m.m3[3][c] = a3.w;
+          }
+          const int o = r0 * LANES + q * BK + kq;
+          rows8(acc, xs + o, xr + o, xi + o, m);
+        }
+        async::wait_groups<0>();
+        if (g + 1 < total) form_slice(g + 1);
+        if (q + 1 < SLICES) __syncthreads();    // stage g + 1 formed
+      }
+      __syncthreads();          // every read of the tile (and stage) done
+      if (j + 1 < nmats) {
+        // the next product's input: the results, back into the tile
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int o = (r0 + i) * LANES + lane + 32 * c;
+            const float re = acc.re(i, c), im = acc.im(i, c);
+            xr[o] = re;
+            xi[o] = im;
+            xs[o] = re + im;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (row0 + r0 + i >= rows) continue;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const long long o = (row0 + r0 + i) * LANES + lane + 32 * c;
+            out_re[o] = acc.re(i, c);
+            out_im[o] = acc.im(i, c);
+          }
+        }
+        if (it + 1 < mine) {
+          async::bar_wait(&landed, phase);
+          phase ^= 1;
+          take_tile(it + 1);
+        }
+      }
+      __syncthreads();          // the tile (re)written, stage g formed
+      if (j + 1 == nmats && tid == 0 && it + 2 < mine) stage_tile(it + 2);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- "high"
 constexpr int LD = LANES + 8;                // shared row stride (floats)
 constexpr int BUF = TILE * LD;               // floats per component buffer
-constexpr int BK = 16;                       // k-slice staged ("highest")
 constexpr size_t STATE_SMEM = 4 * BUF * sizeof(float);
-constexpr size_t F32_SMEM = STATE_SMEM + 2 * BK * LANES * sizeof(float);
-constexpr int TAB = LANES * LANES / 2;       // 32-bit words per bf16 table
-constexpr int WARPS_N = 4, WM = 32, WN = 32; // "high" warp grid and tile
+constexpr int WARPS_N = 4, WM = 32, WN = 32; // warp grid and tile
 constexpr int MT = WM / 16, NT = WN / 8;
-
-__device__ __forceinline__ float lane_of(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
 
 // The CTA's rows [row0, row0 + TILE) into shared memory; zeros past rows.
 __device__ void load_tile(const float* in_re, const float* in_im, float* s_re,
@@ -84,124 +327,24 @@ __device__ void load_tile(const float* in_re, const float* in_im, float* s_re,
     float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
     if (row0 + r < rows) {
       const long long o = (row0 + r) * LANES + c;
-      vr = *reinterpret_cast<const float4*>(in_re + o);
-      vi = *reinterpret_cast<const float4*>(in_im + o);
+      vr = ld4(in_re + o);
+      vi = ld4(in_im + o);
     }
-    *reinterpret_cast<float4*>(s_re + r * LD + c) = vr;
-    *reinterpret_cast<float4*>(s_im + r * LD + c) = vi;
+    st4(s_re + r * LD + c, vr);
+    st4(s_im + r * LD + c, vi);
   }
-}
-
-// o = x . M^T at "highest" for the CTA's tile x (shared, stride LD); o has
-// row stride ldo and `valid` rows are stored.
-__device__ void product_f32(const float* x_re, const float* x_im,
-                            const float* __restrict__ m_re,
-                            const float* __restrict__ m_im, float* a_re,
-                            float* a_im, float* o_re, float* o_im, int ldo,
-                            long long valid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 8, c0 = lane * 4;
-  const int sn = threadIdx.x & (LANES - 1), sk = (threadIdx.x >> 7) * 8;
-  float acc_r[8][4], acc_i[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < LANES; k0 += BK) {
-    __syncthreads();          // the tile is written, the last slice consumed
-    // stage a[k][n] = M[n][k0 + k] for k < BK: 8 k of one n per thread
-    const float* gr = m_re + sn * LANES + k0 + sk;
-    const float* gi = m_im + sn * LANES + k0 + sk;
-    const float4 r0v = __ldg(reinterpret_cast<const float4*>(gr));
-    const float4 r1v = __ldg(reinterpret_cast<const float4*>(gr + 4));
-    const float4 i0v = __ldg(reinterpret_cast<const float4*>(gi));
-    const float4 i1v = __ldg(reinterpret_cast<const float4*>(gi + 4));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      a_re[(sk + e) * LANES + sn] = lane_of(r0v, e);
-      a_re[(sk + 4 + e) * LANES + sn] = lane_of(r1v, e);
-      a_im[(sk + e) * LANES + sn] = lane_of(i0v, e);
-      a_im[(sk + 4 + e) * LANES + sn] = lane_of(i1v, e);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kq = 0; kq < BK; kq += 4) {
-      float4 xr4[8], xi4[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int o = (r0 + i) * LD + k0 + kq;
-        xr4[i] = *reinterpret_cast<const float4*>(x_re + o);
-        xi4[i] = *reinterpret_cast<const float4*>(x_im + o);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 ar4 = *reinterpret_cast<const float4*>(a_re + (kq + e) * LANES + c0);
-        const float4 ai4 = *reinterpret_cast<const float4*>(a_im + (kq + e) * LANES + c0);
-        const float ar[4] = {ar4.x, ar4.y, ar4.z, ar4.w};
-        const float ai[4] = {ai4.x, ai4.y, ai4.z, ai4.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float xr = lane_of(xr4[i], e), xi = lane_of(xi4[i], e);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc_r[i][j] = fmaf(xr, ar[j], acc_r[i][j]);
-            acc_r[i][j] = fmaf(-xi, ai[j], acc_r[i][j]);
-            acc_i[i][j] = fmaf(xr, ai[j], acc_i[i][j]);
-            acc_i[i][j] = fmaf(xi, ar[j], acc_i[i][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (r0 + i >= valid) continue;
-    const long long o = (long long)(r0 + i) * ldo + c0;
-    *reinterpret_cast<float4*>(o_re + o) =
-        make_float4(acc_r[i][0], acc_r[i][1], acc_r[i][2], acc_r[i][3]);
-    *reinterpret_cast<float4*>(o_im + o) =
-        make_float4(acc_i[i][0], acc_i[i][1], acc_i[i][2], acc_i[i][3]);
-  }
-}
-
-// (x0, x1) -> bf16x2 hi and bf16x2 lo (x0 in the low 16 bits), as in
-// mat_high.cu
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // o = x . M^T at "high" for the CTA's tile x (shared, stride LD); w: the
-// product's four bf16 tables as 32-bit words.
+// product's four bf16 tables as 32-bit words.  The sums are mma_high.cuh's.
 __device__ void product_high(const float* x_re, const float* x_im,
                              const uint32_t* __restrict__ w, float* o_re,
                              float* o_im, int ldo, long long valid) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;   // mma group / thread in group
   const int row0 = (warp / WARPS_N) * WM, col0 = (warp % WARPS_N) * WN;
-  float acc_r[MT][NT][4], acc_i[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_r[i][j][e] = acc_i[i][j][e] = 0.f;
+  high::Acc<MT, NT> acc;
+  acc.zero();
 
 #pragma unroll 2
   for (int kk = 0; kk < LANES; kk += 16) {
@@ -216,38 +359,11 @@ __device__ void product_high(const float* x_re, const float* x_im,
                       (q >> 1) * 8;
         const float2 vr = *reinterpret_cast<const float2*>(x_re + o);
         const float2 vi = *reinterpret_cast<const float2*>(x_im + o);
-        split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
-        split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
+        high::split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
+        high::split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
       }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      // B fragments (col-major 16 x 8): b0 = k 2t, 2t + 1; b1 = k + 8;
-      // column n = g of the n8 tile; tables are [n][k] bf16
-      const int n = col0 + nt * 8 + g;
-      const uint32_t* wn = w + n * (LANES / 2) + kk / 2 + t;
-      const uint32_t ah0 = __ldg(wn), ah1 = __ldg(wn + 4);
-      const uint32_t al0 = __ldg(wn + TAB), al1 = __ldg(wn + TAB + 4);
-      const uint32_t bh0 = __ldg(wn + 2 * TAB), bh1 = __ldg(wn + 2 * TAB + 4);
-      const uint32_t bl0 = __ldg(wn + 3 * TAB), bl1 = __ldg(wn + 3 * TAB + 4);
-      const uint32_t sign = 0x80008000u;   // -Mi, exact
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        float* cr = acc_r[mt][nt];
-        float* ci = acc_i[mt][nt];
-        mma(cr, xrh[mt], ah0, ah1);
-        mma(cr, xrl[mt], ah0, ah1);
-        mma(cr, xrh[mt], al0, al1);
-        mma(cr, xih[mt], bh0 ^ sign, bh1 ^ sign);
-        mma(cr, xil[mt], bh0 ^ sign, bh1 ^ sign);
-        mma(cr, xih[mt], bl0 ^ sign, bl1 ^ sign);
-        mma(ci, xrh[mt], bh0, bh1);
-        mma(ci, xrl[mt], bh0, bh1);
-        mma(ci, xrh[mt], bl0, bl1);
-        mma(ci, xih[mt], ah0, ah1);
-        mma(ci, xil[mt], ah0, ah1);
-        mma(ci, xih[mt], al0, al1);
-      }
-    }
+    high::chunk<MT, NT, LANES>(acc, xrh, xrl, xih, xil, w, col0 + g,
+                               kk / 2 + t);
   }
 
   // C fragments: e = 0, 1 row g, columns 2t, 2t + 1; e = 2, 3 row g + 8
@@ -261,46 +377,18 @@ __device__ void product_high(const float* x_re, const float* x_im,
       for (int nt = 0; nt < NT; ++nt) {
         const long long o = (long long)r * ldo + col0 + nt * 8 + 2 * t;
         *reinterpret_cast<float2*>(o_re + o) =
-            make_float2(acc_r[mt][nt][2 * h], acc_r[mt][nt][2 * h + 1]);
+            make_float2(acc.r[mt][nt][2 * h], acc.r[mt][nt][2 * h + 1]);
         *reinterpret_cast<float2*>(o_im + o) =
-            make_float2(acc_i[mt][nt][2 * h], acc_i[mt][nt][2 * h + 1]);
+            make_float2(acc.i[mt][nt][2 * h], acc.i[mt][nt][2 * h + 1]);
       }
     }
-}
-
-// in/out are not __restrict__: the engines pass the same pair for both.
-__global__ void __launch_bounds__(THREADS, 1)
-chain_f32_kernel(const float* in_re, const float* in_im, float* out_re,
-                 float* out_im, const float* __restrict__ m_re,
-                 const float* __restrict__ m_im, long long mat_stride,
-                 int nmats, long long rows) {
-  extern __shared__ __align__(16) float smem[];
-  float* a_re = smem + 4 * BUF;
-  float* a_im = a_re + BK * LANES;
-  const long long row0 = (long long)blockIdx.x * TILE;
-  const long long valid = rows - row0 < TILE ? rows - row0 : TILE;
-  load_tile(in_re, in_im, smem, smem + BUF, row0, rows);
-  int cur = 0;
-  for (int j = 0; j < nmats; ++j) {
-    const float* x = smem + 2 * BUF * cur;
-    const float* mr = m_re + j * mat_stride;
-    const float* mi = m_im + j * mat_stride;
-    if (j == nmats - 1) {
-      product_f32(x, x + BUF, mr, mi, a_re, a_im, out_re + row0 * LANES,
-                  out_im + row0 * LANES, LANES, valid);
-    } else {
-      float* y = smem + 2 * BUF * (cur ^ 1);
-      product_f32(x, x + BUF, mr, mi, a_re, a_im, y, y + BUF, LD, TILE);
-      cur ^= 1;
-    }
-  }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
 chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
                   float* out_im, const uint32_t* __restrict__ w, int nmats,
                   long long rows) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const long long row0 = (long long)blockIdx.x * TILE;
   const long long valid = rows - row0 < TILE ? rows - row0 : TILE;
   load_tile(in_re, in_im, smem, smem + BUF, row0, rows);
@@ -308,7 +396,7 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
   for (int j = 0; j < nmats; ++j) {
     __syncthreads();          // the tile (or the last product) is written
     const float* x = smem + 2 * BUF * cur;
-    const uint32_t* wj = w + (long long)j * 4 * TAB;
+    const uint32_t* wj = w + (long long)j * 2 * LANES * LANES;
     if (j == nmats - 1) {
       product_high(x, x + BUF, wj, out_re + row0 * LANES,
                    out_im + row0 * LANES, LANES, valid);
@@ -329,6 +417,7 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
   return e;
 }
 
+
 }  // namespace
 
 extern "C" {
@@ -336,15 +425,23 @@ extern "C" {
 // The "highest" chain on an (rows, 128) state pair: nmats products with
 // tables M_j at m_re + j * mat_stride and m_im + j * mat_stride (float32,
 // [n][k]; mat_stride 0 with nmats 1 is one product).  out may be in.
+// Every pointer 16-byte aligned.  The grid is persistent: as many CTAs as
+// fit on the device, at most one per tile.
 int qsim_wide_chain(const float* in_re, const float* in_im, float* out_re,
                     float* out_im, const float* m_re, const float* m_im,
                     long long mat_stride, int nmats, long long rows,
                     void* stream) {
   static bool attr = false;
+  static int slots = 0;
   if (nmats < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = allow_smem(chain_f32_kernel, F32_SMEM, &attr);
+  cudaError_t e = allow_smem(chain_f32_kernel, F32_SMEM, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned grid = (unsigned)((rows + TILE - 1) / TILE);
+  if (slots == 0 &&
+      (e = async::persistent_slots(chain_f32_kernel, THREADS, F32_SMEM,
+                                   &slots)) != cudaSuccess)
+    return static_cast<int>(e);
+  const long long tiles = (rows + TILE - 1) / TILE;
+  const unsigned grid = (unsigned)(tiles < slots ? tiles : slots);
   chain_f32_kernel<<<grid, THREADS, F32_SMEM,
                      static_cast<cudaStream_t>(stream)>>>(
       in_re, in_im, out_re, out_im, m_re, m_im, mat_stride, nmats, rows);

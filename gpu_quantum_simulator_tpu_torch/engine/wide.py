@@ -16,8 +16,9 @@ half differs:
 
 * a run of up to ``KH0_BATCH`` consecutive kh = 0 blocks (``("kh0", run,
   P)``) is one launch of the chain kernel (kernels/wide.py ``kh0_chain``,
-  csrc/wide_chain.cu; TPU kernel 7), in place, schoolbook complex
-  products, without the identity pads (P records the padded length);
+  csrc/wide_chain.cu; TPU kernel 7), in place, Karatsuba products at
+  "highest" and schoolbook 3-pass bf16 products at "high", without the
+  identity pads (P records the padded length);
 * every other block (``("mm", D, idx, row_bits)``) is the JAX package's
   Karatsuba product in torch calls, as the JAX package leaves it to XLA:
   the row shuffle is a ``permute`` copy, the three real products are

@@ -13,12 +13,14 @@ JAX package:
 The state is the (R, 128) float32 pair with the low 7 qubits on the
 columns; each product is ``x <- x @ M^T`` (complex).  A chain's tables are
 (L, 2, 128, 128) float32 ``[M_re, M_im]``, each stored as M itself ([n][k],
-the output index first).  The complex form is schoolbook (four real
-products), in the kernel and in the plain versions alike; the JAX package
-uses Karatsuba (three real products on combined operands).  At "high"
-every real product is the 3-pass bf16 split ``xh.mh + xl.mh + xh.ml``
-(kernels/block.py), with the tables split once per program
-(``split_wide_tables``).
+the output index first).  At "highest" the complex form is the JAX
+package's Karatsuba, in the kernel and in the plain versions alike: three
+IEEE fp32 products ``t1 = (x_re + x_im) @ M_re^T``, ``t2 = x_re @ (M_im -
+M_re)^T``, ``t3 = x_im @ (M_re + M_im)^T``, then ``re = t1 - t3``,
+``im = t1 + t2``; the kernel forms the combinations from the tables as it
+stages them.  At "high" it is schoolbook (four real products, each the
+3-pass bf16 split ``xh.mh + xl.mh + xh.ml``, kernels/block.py), with the
+tables split once per program (``split_wide_tables``).
 
 For a CUDA state the wrappers launch the kernel; for a CPU state they run
 the plain torch version; any other device raises.  ``kh0_chain.launches``
@@ -76,13 +78,17 @@ def _product_plain(re, im, m_re, m_im, precision):
     if precision == "high":
         return mat_high_plain(re, im, m_re.T, m_im.T)
     with ieee_fp32():
-        return (re @ m_re.T - im @ m_im.T, re @ m_im.T + im @ m_re.T)
+        t1 = (re + im) @ m_re.T
+        t2 = re @ (m_im - m_re).T
+        t3 = im @ (m_re + m_im).T
+        return t1 - t3, t1 + t2
 
 
 def kh0_chain_plain(re: torch.Tensor, im: torch.Tensor,
                     tables: torch.Tensor, precision: str = "highest") -> Pair:
     """The chain in plain torch, on any device: ``x <- x @ M_j^T`` for each
-    table j in order (schoolbook, at the rung's arithmetic)."""
+    table j in order, in the kernel's arithmetic (Karatsuba in IEEE fp32 at
+    "highest", the schoolbook 3-pass bf16 split at "high")."""
     _check_rung(precision)
     for j in range(tables.shape[0]):
         re, im = _product_plain(re, im, tables[j, 0], tables[j, 1], precision)
@@ -91,7 +97,7 @@ def kh0_chain_plain(re: torch.Tensor, im: torch.Tensor,
 
 def apply_block128_plain(re: torch.Tensor, im: torch.Tensor,
                          m_re: torch.Tensor, m_im: torch.Tensor) -> Pair:
-    """One product ``x @ M^T`` in IEEE fp32, on any device."""
+    """One product ``x @ M^T``: Karatsuba in IEEE fp32, on any device."""
     return _product_plain(re, im, m_re, m_im, "highest")
 
 
@@ -112,6 +118,9 @@ def _check_cuda(tensors, dtypes, what: str) -> None:
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{what}: expected contiguous {dt}, got "
                              f"{t.dtype} (contiguous={t.is_contiguous()})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensors must be 16-byte aligned "
+                             f"(the kernel copies 16-byte pieces)")
 
 
 def _state_out(re, im, out, what: str) -> Pair:

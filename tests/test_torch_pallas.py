@@ -30,7 +30,7 @@ from gpu_quantum_simulator_tpu_torch.passes import shard as TSH
 from gpu_quantum_simulator_tpu_torch.passes.fuse4x4 import fuse_4x4
 from gpu_quantum_simulator_tpu_torch.passes.fuse_k import fuse_k
 
-from test_torch_wide import low_only
+from test_torch_wide import KARATSUBA_TOL, low_only
 
 AMP_TOL = 1e-6       # "highest" amplitudes (BASELINE.md bar)
 MAT_TOL = 1e-12      # fused matrices: the same f64 products
@@ -89,9 +89,11 @@ def test_carried_ops_plan_like_jax():
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_apply_block128_plain_matches_jax_kernel(seed):
-    """apply_block128_plain (schoolbook, IEEE fp32) against the JAX kernel 9
-    in interpret mode (Karatsuba at HIGHEST) on a normalized state, to
-    1e-6; the wrapper takes the plain version for CPU tensors."""
+    """apply_block128_plain (Karatsuba, IEEE fp32) against the JAX kernel 9
+    in interpret mode (Karatsuba at HIGHEST, its combinations formed from
+    the same fp32 matrices) on a normalized state, to KARATSUBA_TOL, which
+    the schoolbook product misses; the wrapper takes the plain version for
+    CPU tensors."""
     rng = np.random.default_rng(seed)
     R = 64
     v = rng.standard_normal((2, R, 128))
@@ -108,7 +110,10 @@ def test_apply_block128_plain_matches_jax_kernel(seed):
                              jnp.asarray(m_im.numpy()), tile_rows=32,
                              interpret=True)
     for g, w in zip(got, want):
-        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= AMP_TOL
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= KARATSUBA_TOL
+    school = (re @ m_re.T - im @ m_im.T, re @ m_im.T + im @ m_re.T)
+    assert max(np.max(np.abs(g.numpy() - np.asarray(w)))
+               for g, w in zip(school, want)) > KARATSUBA_TOL
     KW.reset_launches()
     out = (re.clone(), im.clone())
     wrapped = KW.apply_block128(*out, m_re, m_im, out=out)

@@ -242,9 +242,10 @@ def _unitaries(rng, count):
 @pytest.mark.parametrize("precision,tol", [("highest", 1e-6), ("high", 4e-6)])
 @pytest.mark.parametrize("P", [1, 8])
 def test_kh0_chain_plain_matches_jax_kernel(P, precision, tol):
-    """kh0_chain_plain (schoolbook) against get_kh0_kernel in interpret mode
-    (Karatsuba) on a normalized n = 12 state; and the wrapper takes the
-    plain version for CPU tensors."""
+    """kh0_chain_plain (Karatsuba at "highest", schoolbook at "high")
+    against get_kh0_kernel in interpret mode (Karatsuba, its combinations
+    formed in f64 as the JAX engine forms them) on a normalized n = 12
+    state; and the wrapper takes the plain version for CPU tensors."""
     rng = np.random.default_rng(P)
     R = 32
     v = rng.standard_normal((2, R, 128))
@@ -266,6 +267,43 @@ def test_kh0_chain_plain_matches_jax_kernel(P, precision, tol):
     wrapped = KW.kh0_chain(re, im, tables, precision)
     assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
     assert KW.kh0_chain.launches == {"highest": 0, "high": 0}
+
+
+# kh0_chain_plain at "highest" computes the JAX kernel's three fp32 products
+# on the same fp32 combinations, so only the order inside a 128-term sum
+# may differ between torch's and XLA's CPU matmuls (bit-equal on the CPU
+# these tests were written on).  1e-8 is ~3 fp32 ulps at the states' peak
+# |amp| (~0.044); the four-product (schoolbook) form misses it.
+KARATSUBA_TOL = 1e-8
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("P", [1, 8])
+def test_kh0_chain_plain_is_the_jax_karatsuba(P, seed):
+    """The "highest" plain chain step by step against get_kh0_kernel in
+    interpret mode, both given the fp32 tables' own combinations
+    (m1 = M_re^T, m2 = (M_im - M_re)^T, m3 = (M_re + M_im)^T), n = 12;
+    within KARATSUBA_TOL, which the schoolbook chain misses."""
+    rng = np.random.default_rng(100 + seed)
+    R = 32
+    v = rng.standard_normal((2, R, 128))
+    v = (v / np.linalg.norm(v)).astype(np.float32)
+    t32 = np.stack([np.stack([u.real, u.imag])
+                    for u in _unitaries(rng, P)]).astype(np.float32)
+    mr, mi = t32[:, 0], t32[:, 1]
+    m = [jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1)))
+         for x in (mr, mi - mr, mr + mi)]
+    want = JW.get_kh0_kernel(R, P, np.float32, "highest", True)(
+        jnp.asarray(v[0]), jnp.asarray(v[1]), *m)
+    tables = torch.from_numpy(t32)
+    re, im = torch.from_numpy(v[0]), torch.from_numpy(v[1])
+    got = KW.kh0_chain_plain(re, im, tables)
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= KARATSUBA_TOL
+    for t in tables:
+        re, im = re @ t[0].T - im @ t[1].T, re @ t[1].T + im @ t[0].T
+    assert max(np.max(np.abs(g.numpy() - np.asarray(w)))
+               for g, w in zip((re, im), want)) > KARATSUBA_TOL
 
 
 def test_kh0_chain_writes_into_out_and_rejects_default():
