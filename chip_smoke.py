@@ -20,7 +20,11 @@ failure raises and the script exits non-zero:
    cores) at n=24 and n=28 (<= 1e-5), and the lane-layout chain kernel at
    n=24 on a normalized state: chains of P = 1 and 8 products at both
    rungs (<= 1e-7; in place bit-exact) and one product as
-   ``apply_block128`` (<= 1e-7), and the vmem chunk kernel (kernel 8) at
+   ``apply_block128`` (<= 1e-7), the mxu engine's "high" mm step
+   (csrc/mm_high.cu) at n=24 on a normalized state shuffled for D=512 and
+   D=256 blocks (<= 1e-7; the plain version without one correction pass
+   must miss that bar; timed beside the cuBLAS bf16 GEMMs it replaced),
+   and the vmem chunk kernel (kernel 8) at
    n=18 on a normalized state with the first 96-op chunk of the benchmark
    circuit's vmem fusion (<= 1e-7; the same chunk with one op's imaginary
    products dropped must miss that bar; timed also as 96 one-op launches,
@@ -49,7 +53,8 @@ failure raises and the script exits non-zero:
    plan's kh0 runs) against the same circuit at max_fused_qubits=7 (one
    P = 1 chain) at "highest" (<= 1e-6) and "high" (the rung's bar scaled
    to the state's peak amplitude); ``Simulator(device="cuda")`` with the
-   default config.  pallas: n=18 and 22 against the f64 reference
+   default config; at "high" the mm kernel's launches equal the plan's mm
+   steps per run (no cuBLAS GEMM).  pallas: n=18 and 22 against the f64 reference
    (<= 1e-6), kernel-9 launches equal to the plan's mat items per run.
    vmem: n=18 and 19 (one warm-up, five timed runs) against the f64
    reference (<= 1e-6, norm within 1e-4), kernel-8 launches equal to the
@@ -64,7 +69,8 @@ failure raises and the script exits non-zero:
    second state buffer).  Kernel checks at n=24 on halves: a block of every
    step kind (kernel 5(a)) against its plain version and against the flat
    block kernel on the joined state (index steps bit-exact, the fp32 mat
-   step <= 1e-6, the "high" one <= 1e-5), the pair swap (kernel 5(b)) on
+   step <= 1e-6, the "high" one <= 1e-5; one fp32 mat step alone bit for
+   bit, both kernels keeping the same sums), the pair swap (kernel 5(b)) on
    two tile bits (bit-exact), pair mode (kernel 6) with a mat first step at
    both rungs and a tswap, perm or mono first step against "pair swap, then
    the plain block" (bit-exact for the gathers; a plain version without its
@@ -108,8 +114,9 @@ drift printed after every step (launch) for the kernel and its plain
 version; after 200 products the kernel's largest |1 - norm| over the seeds
 may be at most 3 times the plain version's largest, and on every seed the
 kernel's drift may differ from the plain version's by at most 2e-6.  The
-mxu engine's "high" mm step (its bf16 GEMMs) gets the same 200-step
-measurement on one kh = 1 block, printed and not barred.  At n=30 (phase
+mxu engine's "high" mm step (csrc/mm_high.cu) gets the same 200-step
+measurement and bars on a kh = 2 block (D = 512, row bits 0 and 1) and a
+kh = 1 block (D = 256, row bit 0).  At n=30 (phase
 5) ``norm_halves`` must be within 1e-5 of 1.  Phase 3's relayout check
 also times ``copy_`` of the same pair at n=22: the card's copy rate there.
 
@@ -171,6 +178,9 @@ DRIFT_EXCESS = 2e-6         # and on every seed the kernel's drift beyond
                             # on an H100, against -5.9e-4 for one tensor-core
                             # accumulator
 CHAIN_DRIFT_LAUNCHES = 25   # kernel 7's "high" chain: 25 launches of P = 8
+MM_ROW_BITS = ((0, 1), (0,))   # the mxu "high" mm step's checks: D = 512
+                               # (kh = 2, 574 of mxu's 582 mm steps at n=24)
+                               # and D = 256 (kh = 1)
 TIMED_RUNS = 5
 ENGINE_RUNS = 3             # timed runs of mxu / pallas per width
 SPIN_CYCLES = 200_000_000   # ~0.1 s at 2 GHz: covers queuing 20 calls
@@ -184,6 +194,8 @@ HIGH_SRC = "gpu_quantum_simulator_tpu_torch/csrc/mat_high.cu"
 WIDE_SRC = "gpu_quantum_simulator_tpu_torch/csrc/wide_chain.cu"
 VMEM_SRC = "gpu_quantum_simulator_tpu_torch/csrc/vmem_chunk.cu"
 SPLIT_SRC = "gpu_quantum_simulator_tpu_torch/csrc/split_block.cu"
+MM_SRC = "gpu_quantum_simulator_tpu_torch/csrc/mm_high.cu"
+MM_TPU = "gpu_quantum_simulator_tpu/engine/wide.py:184"   # an XLA dot there
 BLOCK_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1214"
 RELAYOUT_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1586"
 STREAM_TPU = "gpu_quantum_simulator_tpu/engine/prefetch.py:1376"
@@ -214,6 +226,13 @@ FULL_PEAK_SLACK = 2 << 30   # peak device memory allowed above the state
 FULL_NORM_TOL = 1e-5        # n=30 norm_halves after its 692 "high" steps
 SAMPLES = 200_000
 SAMPLE_BINS = 4096
+# the redesigned kernels' previous designs, each read twice in one call of
+# chip_ab.py beside the current ones (H100 80GB HBM3 at 700 W; PERF.md
+# section 6): printed beside this run's times
+BEFORE_MS = {"fp32 mat step n=22": "0.1941-0.1951",
+             "fp32 mat step n=24 (flat)": "0.7439-0.7481",
+             "vmem chunk n=18": "3.2107-3.2258",
+             "vmem one D=512 op n=18": "0.0329-0.0331"}
 
 
 def norm2(pair):
@@ -432,9 +451,11 @@ def mat_step_timing(torch, PF, rng, run_block, run_block_plain):
     flop = 6.0 * R2 * 256 * 256      # three real products (Karatsuba)
     bnd = bound(flop, 16.0 * R2 * 256 + 2 * 256 * 256 * 4)
     print(f"mat step n={n}: kernel {ms:.4f} ms ({flop / ms / 1e9:.2f} "
-          f"TFLOP/s), plain {plain_ms:.4f} ms ({flop / plain_ms / 1e9:.2f} "
-          f"TFLOP/s), fp32 torch.matmul {library_ms:.4f} ms, bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]}), max|diff| {e:.3e}")
+          f"TFLOP/s; previous design "
+          f"{BEFORE_MS['fp32 mat step n=22']} ms), plain {plain_ms:.4f} ms "
+          f"({flop / plain_ms / 1e9:.2f} TFLOP/s), fp32 torch.matmul "
+          f"{library_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), max|diff| "
+          f"{e:.3e}")
     return record("prefetch_mat_step", BLOCK_SRC, BLOCK_TPU, e, ms, plain_ms,
                   bnd, library_ms)
 
@@ -782,60 +803,152 @@ def check_chain_drift(torch):
                   f"{CHAIN_DRIFT_LAUNCHES * KH0_BATCH} products", last)
 
 
-def mxu_high_drift(torch):
-    """The mxu engine's "high" mm step, measured and printed, not barred:
-    ``engine/wide.py`` ``_mm_step`` through ``_dot_high`` (Karatsuba
-    tables split to bf16, three bf16 GEMMs per real product whose fp32 sums
-    stay in the tensor core) on one kh = 1 block (D = 256, row bit 0) at
-    n=24, DRIFT_STEPS steps over DRIFT_SLOTS random unitaries taken in
-    turn, for every seed of DRIFT_SEEDS.  Beside it the same steps with
-    every bf16 product summed in IEEE fp32 (the plain version, the CPU
-    arithmetic of ``_dot_high``) and the "highest" step (fp32 GEMMs)."""
-    from gpu_quantum_simulator_tpu_torch.engine import wide as TW
+def mm_unitary_tables(torch, rng, D, count):
+    """``count`` random D x D unitaries as the mxu engine's float32
+    Karatsuba tables (count, 3, D, D): m1 = M_re^T, m2 = (M_im - M_re)^T,
+    m3 = (M_re + M_im)^T."""
+    us = [random_unitary(rng, D) for _ in range(count)]
+    return torch.tensor(np.stack([np.stack([u.real.T, (u.imag - u.real).T,
+                                            (u.real + u.imag).T])
+                                  for u in us]),
+                        dtype=torch.float32, device="cuda")
+
+
+def cublas_trio(torch, bf16_split):
+    """The mxu "high" mm step as the port ran it before its kernel, the
+    yardstick beside it: three real products, each three cuBLAS bf16 GEMMs
+    with fp32 output, on the (hi, lo) bfloat16 tables [k][n]."""
+    def dot(x, mh, ml):
+        xh = x.to(torch.bfloat16)
+        xl = (x - xh.float()).to(torch.bfloat16)
+        out = torch.mm(xh, mh, out_dtype=torch.float32)
+        out += torch.mm(xl, mh, out_dtype=torch.float32)
+        out += torch.mm(xh, ml, out_dtype=torch.float32)
+        return out
+
+    def step(xr, xi, hi, lo):
+        t1 = dot(xr + xi, hi[0], lo[0])
+        t2 = dot(xr, hi[1], lo[1])
+        t3 = dot(xi, hi[2], lo[2])
+        return t1 - t3, t1 + t2
+
+    return step
+
+
+def check_mm_high(torch):
+    """The mxu engine's "high" mm step (csrc/mm_high.cu) at n=24 on a
+    normalized state, shuffled for a D = 512 (row bits 0, 1) and a D = 256
+    (row bit 0) block: against its plain version (<= CHAIN_TOL; the plain
+    version without the xh.m1_lo correction must miss that bar), timed
+    beside its bound, the plain version and the cuBLAS GEMMs it replaced
+    (no single PyTorch call computes the 3-pass product).  The record is
+    D = 512's, the main path's shape.  Its draws have seeds of their own,
+    so the phases after it draw as they did without it."""
+    from gpu_quantum_simulator_tpu_torch.engine.wide import row_shuffles
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
     from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
 
     n = WIDE_WIDTH
     R = 1 << (n - 7)
-    engine_dot = TW._dot_high
-
-    def plain_dot(x, mh, ml):
-        xh, xl = bf16_split(x)
-        return xh @ mh.float() + xl @ mh.float() + xh @ ml.float()
-
-    last = {}
-    for seed in DRIFT_SEEDS:
-        rng = np.random.default_rng(seed)
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(seed)
-        us = [random_unitary(rng, 256) for _ in range(DRIFT_SLOTS)]
-        m32 = torch.tensor(np.stack([np.stack([u.real.T, (u.imag - u.real).T,
-                                               (u.real + u.imag).T])
-                                     for u in us]),
-                           dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    rng = np.random.default_rng(n)
+    re, im = random_state(torch, gen, (R, 128))
+    trio = cublas_trio(torch, bf16_split)
+    rec, err = None, 0.0
+    for row_bits in MM_ROW_BITS:
+        D = 128 << len(row_bits)
+        M = (1 << n) // D
+        fwd, _ = row_shuffles(row_bits, R)
+        xr, xi = fwd(re), fwd(im)
+        m32 = mm_unitary_tables(torch, rng, D, 1)[0]
+        w16 = KW.split_mm_tables(m32)
+        got = KW.mm_step_high(xr, xi, w16)
+        want = KW.mm_step_high_plain(xr, xi, w16)
+        tabs = KW.mm_tables_f32(w16)
+        tabs[1] = torch.zeros_like(tabs[1])
+        dropped = KW.karatsuba_high(xr, xi, tabs)
         hi, lo = (p.to(torch.bfloat16) for p in bf16_split(m32))
-        start = random_state(torch, gen, (R, 128))
-        n0 = norm2(start)
-        chains = {k: list(start) for k in ("kernel", "plain", "fp32")}
-        drift = {k: [] for k in chains}
-        for step in range(DRIFT_STEPS):
-            j = step % DRIFT_SLOTS
-            TW._mm_step(chains["kernel"], (hi[j], lo[j]), (0,), R, "high")
-            TW._dot_high = plain_dot
-            try:
-                TW._mm_step(chains["plain"], (hi[j], lo[j]), (0,), R, "high")
-            finally:
-                TW._dot_high = engine_dot
-            TW._mm_step(chains["fp32"], m32[j], (0,), R, "highest")
-            for k, v in chains.items():
-                drift[k].append(norm2(v) / n0 - 1.0)
-        print(f"mxu high drift n={n} seed {seed}: fp32 step |out|^2/|in|^2 "
-              f"- 1 after {DRIFT_STEPS} steps {drift.pop('fp32')[-1]:.4e}")
-        last[seed] = drift_seed(f"mxu high drift n={n}", seed, drift, n0,
-                                f"steps 1..{DRIFT_STEPS}")
-        del chains, start, m32, hi, lo
-        torch.cuda.empty_cache()
-    drift_verdict(f"mxu high drift n={n}, {DRIFT_STEPS} steps", last,
-                  barred=False)
+        old = trio(xr, xi, hi, lo)
+        torch.cuda.synchronize()
+        e, e_drop, e_old = (max_diff(got, x) for x in (want, dropped, old))
+        if not e <= CHAIN_TOL:
+            raise AssertionError(f"mm step D={D}: {e} > {CHAIN_TOL}")
+        if not e_drop > CHAIN_TOL:
+            raise AssertionError(f"mm step D={D}: a dropped correction "
+                                 f"passes ({e_drop})")
+        err = max(err, e)
+        del want, dropped, tabs, old
+        out = (torch.empty_like(xr), torch.empty_like(xi))
+        ms = device_ms(torch, lambda: KW.mm_step_high(xr, xi, w16, out=out),
+                       reps=10)
+        plain_ms = device_ms(torch, lambda: KW.mm_step_high_plain(
+            xr, xi, w16), reps=3)
+        trio_ms = device_ms(torch, lambda: trio(xr, xi, hi, lo), reps=10)
+        flop = 9 * 2.0 * M * D * D      # three real products, 3 passes each
+        bnd = bound(flop, 16.0 * M * D + 6 * D * D * 2, BF16_FLOPS)
+        print(f"mm step high n={n} D={D} row bits {row_bits}: max|diff| vs "
+              f"plain {e:.3e}, without xh.m1_lo {e_drop:.3e}, vs the cuBLAS "
+              f"bf16 GEMMs {e_old:.3e}; kernel {ms:.4f} ms "
+              f"({flop / ms / 1e9:.1f} bf16 TFLOP/s), plain {plain_ms:.4f} "
+              f"ms, cuBLAS bf16 GEMMs (9 torch.mm + elementwise) "
+              f"{trio_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if rec is None:
+            rec = record("mm_step_high", MM_SRC, MM_TPU, e, ms, plain_ms,
+                         bnd, None)
+        del got, out, xr, xi, hi, lo, w16, m32
+    rec["max_abs_err"] = err
+    del re, im
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mxu_high_drift(torch):
+    """The mxu engine's "high" mm step, the drift measurement with its
+    bars: ``engine/wide.py`` ``_mm_step`` (the kernel csrc/mm_high.cu) at
+    n=24 on a D = 512 block (row bits 0, 1) and a D = 256 block (row bit
+    0), DRIFT_STEPS steps over DRIFT_SLOTS random unitaries taken in turn,
+    for every seed of DRIFT_SEEDS; beside it the plain version
+    (``karatsuba_high``, every bf16 product summed in IEEE fp32) and the
+    "highest" step (fp32 GEMMs).  Held to DRIFT_RATIO and DRIFT_EXCESS at
+    each D."""
+    from gpu_quantum_simulator_tpu_torch.engine import wide as TW
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+
+    n = WIDE_WIDTH
+    R = 1 << (n - 7)
+    for row_bits in MM_ROW_BITS:
+        D = 128 << len(row_bits)
+        fwd, bwd = TW.row_shuffles(row_bits, R)
+        last = {}
+        for seed in DRIFT_SEEDS:
+            rng = np.random.default_rng(seed)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed)
+            m32 = mm_unitary_tables(torch, rng, D, DRIFT_SLOTS)
+            w16 = KW.split_mm_tables(m32)
+            tabs = [KW.mm_tables_f32(w16[j]) for j in range(DRIFT_SLOTS)]
+            start = random_state(torch, gen, (R, 128))
+            n0 = norm2(start)
+            chains = {k: list(start) for k in ("kernel", "plain", "fp32")}
+            drift = {k: [] for k in chains}
+            for step in range(DRIFT_STEPS):
+                j = step % DRIFT_SLOTS
+                TW._mm_step(chains["kernel"], w16[j], row_bits, R, "high")
+                out = KW.karatsuba_high(*(fwd(x) for x in chains["plain"]),
+                                        tabs[j])
+                chains["plain"] = [bwd(x) for x in out]
+                TW._mm_step(chains["fp32"], m32[j], row_bits, R, "highest")
+                for k, v in chains.items():
+                    drift[k].append(norm2(v) / n0 - 1.0)
+            print(f"mxu high drift n={n} D={D} seed {seed}: fp32 step "
+                  f"|out|^2/|in|^2 - 1 after {DRIFT_STEPS} steps "
+                  f"{drift.pop('fp32')[-1]:.4e}")
+            last[seed] = drift_seed(f"mxu high drift n={n} D={D}", seed,
+                                    drift, n0, f"steps 1..{DRIFT_STEPS}")
+            del chains, start, m32, w16, tabs, out
+            torch.cuda.empty_cache()
+        drift_verdict(f"mxu high drift n={n} D={D}, {DRIFT_STEPS} steps",
+                      last)
 
 
 def check_wide_chain(torch, rng):
@@ -1003,7 +1116,8 @@ def check_vmem_kernel(torch, T):
           f", D=256 {by_d.count(256)}), grid {grid}; max|diff| vs plain "
           f"{e:.3e}, with op 0's imaginary products dropped {e_drop:.3e}; "
           f"kernel {ms:.4f} ms ({ms / len(by_d) * 1e3:.2f} us per op, "
-          f"{flop / ms / 1e9:.1f} TFLOP/s as Karatsuba), plain "
+          f"{flop / ms / 1e9:.1f} TFLOP/s as Karatsuba; previous design "
+          f"{BEFORE_MS['vmem chunk n=18']} ms), plain "
           f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
     chunk = record("vmem_chunk", VMEM_SRC, VMEM_TPU, e, ms, plain_ms, bnd,
                    None)
@@ -1046,7 +1160,8 @@ def check_vmem_kernel(torch, T):
     bnd1 = bound(6.0 * (1 << n) * D, 16.0 * (1 << n) + 8.0 * D * D)
     print(f"vmem one op n={n} D={D} row bits {row_bits}: max|diff| vs plain "
           f"{e1:.3e}, vs complex64 matmul {e_lib:.3e}; kernel {ms1:.4f} ms "
-          f"(the chunk's per-op share {ms / len(by_d):.4f} ms), plain "
+          f"(previous design {BEFORE_MS['vmem one D=512 op n=18']} ms; the "
+          f"chunk's per-op share {ms / len(by_d):.4f} ms), plain "
           f"{plain1:.4f} ms, complex64 torch.matmul on the shuffled state "
           f"{library_ms:.4f} ms, bound {bnd1[0]:.4f} ms ({bnd1[1]})")
     op = record("vmem_chunk_one_op", VMEM_SRC, VMEM_TPU, e1, ms1, plain1,
@@ -1063,6 +1178,7 @@ def launch_counts():
             "kh0": wide.kh0_chain.launches["highest"],
             "kh0_high": wide.kh0_chain.launches["high"],
             "block128": wide.apply_block128.launches,
+            "mm_high": wide.mm_step_high.launches,
             "vmem": vmem.vmem_chunk.launches,
             **{f"split_{k}": v
                for k, v in split.run_split_block.launches.items()},
@@ -1270,6 +1386,9 @@ def run_mxu_path(torch, T, refs, highest24, add):
         return prog, [st[2] for seg in prog.segments for st in seg.steps
                       if st[0] == "kh0"]
 
+    def mm_steps(prog):
+        return sum(st[0] == "mm" for seg in prog.segments for st in seg.steps)
+
     kh0 = {"highest": "kh0", "high": "kh0_high"}
     runs = ENGINE_RUNS + 1
     for n in ENGINE_REF_WIDTHS:
@@ -1303,7 +1422,9 @@ def run_mxu_path(torch, T, refs, highest24, add):
                                      S._MXU_PLAN_CACHE)
     add(counts)
     prog, ps = plan()
-    check_only(n, counts, runs, kh0_high=prog.num_kh0_runs)
+    # every mm step one launch of the "high" mm kernel (no cuBLAS GEMM)
+    check_only(n, counts, runs, kh0_high=prog.num_kh0_runs,
+               mm_high=mm_steps(prog))
     ref, ref_secs, ref_counts = drive_engine(
         torch, mxu(precision="highest"), c, 0, S._MXU_PLAN_CACHE)
     add(ref_counts)
@@ -1312,7 +1433,8 @@ def run_mxu_path(torch, T, refs, highest24, add):
     norm = float(np.linalg.norm(res.state))
     report(n, res, secs, counts, f"mxu 'high'; vs its 'highest' run "
            f"{err:.3e} ('highest' run {ref_secs[0]:.4f} s); 'highest' vs "
-           f"prefetch 'highest' {e_pf:.3e}; norm {norm:.8f}; kh0 runs {ps}")
+           f"prefetch 'highest' {e_pf:.3e}; norm {norm:.8f}; kh0 runs {ps}; "
+           f"mm steps {mm_steps(prog)}")
     if not 0.0 < err <= HIGH_TOL:
         raise AssertionError(f"mxu n={n}: 'high' vs 'highest' {err}")
     if not e_pf <= AMP_TOL:
@@ -1335,7 +1457,8 @@ def run_mxu_path(torch, T, refs, highest24, add):
             prog, ps = plan()
             report(n, res, secs, counts, f"mxu low-only {prec} "
                    f"max_fused_qubits={k}: kh0 runs {ps}")
-            check_only(n, counts, 2, **{kh0[prec]: prog.num_kh0_runs})
+            check_only(n, counts, 2, **{kh0[prec]: prog.num_kh0_runs},
+                       mm_high=mm_steps(prog) if prec == "high" else 0)
             if ps != ([8] * 9 if k == 3 else [1]):
                 raise AssertionError(f"low-only k={k}: kh0 runs {ps}")
             states[k] = res.state
@@ -1573,14 +1696,25 @@ def check_split_block(torch, rng):
                                      precision=rung)
         miss = run_split_block_plain(scal[i], clone4(h), *dropped,
                                      precision=rung)
+        # the flat step (kernel 1) on the joined state: the same sums in
+        # the same order at "highest", so bit for bit
+        flat = run_block(scal[i], *joined(torch, h), *args, precision=rung,
+                         w16=w16[i])
         torch.cuda.synchronize()
         e, e_drop = diff4(got, want), diff4(got, miss)
+        e_flat = max_diff(joined(torch, got), flat)
+        print(f"split mat step n={n} {rung}: in place vs the flat step "
+              f"max|diff| {e_flat:.3e}"
+              + (" (bar 0.0)" if rung == "highest" else ""))
+        if rung == "highest" and e_flat != 0.0:
+            raise AssertionError(f"split mat step: flat and in place differ "
+                                 f"({e_flat})")
         if not e <= tols[rung]:
             raise AssertionError(f"split mat step {rung}: {e} > {tols[rung]}")
         if not e_drop > tols[rung]:
             raise AssertionError(f"split mat step {rung}: dropped products "
                                  f"pass ({e_drop})")
-        del want, miss
+        del want, miss, flat
         reps = 10
         ms = device_ms(torch, lambda: run_split_block(
             scal[i], h, *args, precision=rung, w16=w16[i]), reps=reps)
@@ -1614,8 +1748,11 @@ def check_split_block(torch, rng):
         print(f"split mat step n={n} {rung}: max|diff| vs plain {e:.3e}, "
               f"without the imaginary-table products {e_drop:.3e}; kernel "
               f"{ms:.4f} ms in place ({tf / ms:.1f} TFLOP/s, Karatsuba "
-              f"count), flat kernel {flat_ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, library "
+              f"count), flat kernel {flat_ms:.4f} ms"
+              + (f" (previous design "
+                 f"{BEFORE_MS['fp32 mat step n=24 (flat)']} ms)"
+                 if rung == "highest" else "")
+              + f", plain {plain_ms:.4f} ms, library "
               + ("none" if library_ms is None else
                  f"{library_ms:.4f} ms ({tf / library_ms:.1f})")
               + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
@@ -1827,7 +1964,7 @@ def check_inplace_relayout(torch):
 
 
 FLAT_KINDS = ("mat", "mat_high", "gather", "folded", "relayout", "kh0",
-              "kh0_high", "block128", "vmem")
+              "kh0_high", "block128", "vmem", "mm_high")
 
 
 def check_inplace_counts(n, counts, modes, runs, high):
@@ -2435,6 +2572,7 @@ def main() -> int:
     folded = check_folded_block(torch, rng)
     high = check_high_mat(torch, rng)
     chain, chain_high, block128 = check_wide_chain(torch, rng)
+    mm_high = check_mm_high(torch)
     vmem_chunk, vmem_op = check_vmem_kernel(torch, T)
     check_high_drift(torch)
     check_chain_drift(torch)
@@ -2452,6 +2590,7 @@ def main() -> int:
     kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
              (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
              (chain_high, "kh0_high"), (block128, "block128"),
+             (mm_high, "mm_high"),
              (vmem_chunk, "vmem"), (vmem_op, "vmem"), *inplace,
              (butterfly, "butterfly"), *copies)
     for rec, kind in kinds:

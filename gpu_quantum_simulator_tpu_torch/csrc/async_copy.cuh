@@ -95,6 +95,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
   bulk_copy(dst, src, bytes, bar);
 }
 
+// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB), once:
+// *done is set when the attribute has been set.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
+  if (*done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  *done = e == cudaSuccess;
+  return e;
+}
+
 // The CTAs of `kernel` that fit on the current device at once: the grid of
 // a persistent kernel.
 template <typename K>

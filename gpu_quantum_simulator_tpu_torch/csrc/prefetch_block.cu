@@ -34,24 +34,40 @@
 //
 // What bounds it on the card: at n = 22 a mat step is 2 * 2^14 * 256 * 256
 // * 4 = 8.6 GFLOP against 64 MB of state moved, ~134 FLOP/B, so it is bound
-// by fp32 CUDA-core throughput (67 TFLOP/s published at 700 W).  The design
-// keeps the operands in registers: a 64 x 64 output tile per 256-thread
-// CTA, 4 x 4 complex outputs per thread, K staged 16 at a time in shared
-// memory (16 FMA per operand load).  Every other step is a pure
-// gather, bound by memory bandwidth (2 x 2 x state bytes per pass).
-// wgmma/3xTF32, TMA and keeping a tile resident across steps are later work.
+// by fp32 CUDA-core throughput (67 TFLOP/s published at 700 W).  Every
+// other step is a pure gather, bound by memory bandwidth (2 x 2 x state
+// bytes per pass).
+//
+// The mat step's design.  Each output keeps ONE fp32 sum, k ascending,
+// with the four fmaf of a k in a fixed order (re: +xr.A, -xi.B; im: +xr.B,
+// +xi.A), so the flat step and the in-place one (split_block.cu, which
+// shares this micro-kernel's order) agree bit for bit.  A 256-thread CTA
+// owns a 64 x 64 output tile, a thread 4 x 4 complex outputs; three CTAs
+// (68 KB of shared memory, at most 85 registers a thread) share an SM.
+// Around that:
+//   * k-slices of 16 in a three-stage ring: every thread copies a 16-byte
+//     piece of the x rows (through the input map) and of both tables with
+//     cp.async two slices ahead; the tables land where they are read, the
+//     rows land row-major and are transposed to k-major one slice ahead, a
+//     warp reading 32 consecutive rows' same k quad (landing rows padded to
+//     20 floats) and writing 32 consecutive floats, both without bank
+//     conflicts; one CTA barrier a slice;
+//   * the four operand loads of k + 1 are issued before k's 64 FMAs.
+// On an H100, 8 x 8 outputs a thread (128 x 128 tiles, eight loads for
+// 256 FMAs) ran no faster than this form and other tilings slower (PERF.md
+// section 6): the sum order above pins the FMA count, and the fp32 pipe,
+// not the shared-memory loads, sets the pace.  wgmma/3xTF32, TMA and
+// keeping a tile resident across steps are later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "rowmap.cuh"
 
 namespace {
 
 constexpr int DVIEW = 256;
-constexpr int BM = 64;        // output rows per CTA
-constexpr int BN = 64;        // output columns per CTA
-constexpr int BK = 16;        // contraction slice staged in shared memory
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ long long swap_bits(long long x, int a, int b) {
@@ -59,30 +75,92 @@ __device__ __forceinline__ long long swap_bits(long long x, int a, int b) {
   return x ^ ((d << a) | (d << b));
 }
 
+// ------------------------------------------------------------ fp32 mat
+constexpr int BM = 64;                 // output rows per CTA
+constexpr int BN = 64;                 // output columns per CTA
+constexpr int BK = 16;                 // k per slice
+constexpr int SLICES = DVIEW / BK;
+constexpr int STAGES = 3;              // the slice ring
+constexpr int RAW_LD = BK + 4;         // landing row stride (floats): the
+                                       // transposing reads are conflict-free
+constexpr int XS = BK * BM;            // one x component's slice, k-major
+constexpr int TS = BK * BN;            // one table's slice, [k][n]
+constexpr int RAW = BM * RAW_LD;       // one x component's slice as landed
+// a stage: x_re, x_im k-major | A, B; then two landing slots of x_re, x_im
+// rows (slice q lands in slot q % 2: it is transposed one slice before
+// slice q + 2 lands)
+constexpr int STAGE = 2 * XS + 2 * TS;
+constexpr size_t MAT_SMEM =
+    (size_t)(STAGES * STAGE + 2 * 2 * RAW) * sizeof(float);
+static_assert(BM * BK / 4 == THREADS && BK * BN / 4 == THREADS,
+              "one 16-byte piece of each slice a thread");
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 // out = map(in) @ (A + iB) on an (rows, 256) state; steer_row >= 0 reads
 // the input with column bit 7 exchanged with row bit steer_row, fold.m > 0
-// reads row r from row fold_row(r).
-__global__ void __launch_bounds__(THREADS)
+// reads row r from row fold_row(r).  See the header note.
+__global__ void __launch_bounds__(THREADS, 3)
 mat_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
                 float* __restrict__ out_re, float* __restrict__ out_im,
                 const float* __restrict__ A, const float* __restrict__ B,
                 long long rows, int steer_row, Fold fold) {
-  __shared__ __align__(16) float xr_s[BK][BM + 4];   // X slice, k-major
-  __shared__ __align__(16) float xi_s[BK][BM + 4];
-  __shared__ __align__(16) float a_s[BK][BN];
-  __shared__ __align__(16) float b_s[BK][BN];
-
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;             // 16 x 16 threads
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
+  // the DVIEW / BN column tiles of a row block are neighbouring CTAs, so
+  // the block's rows are read from device memory once and then hit in L2
+  const long long row0 = (long long)(blockIdx.x / (DVIEW / BN)) * BM;
+  const int col0 = (blockIdx.x % (DVIEW / BN)) * BN;
 
-  // loader roles: X slice = 64 rows x 16 k, one float4 per thread;
-  // table slice = 16 k x 64 cols, one float4 per thread
+  // copy roles: row lr of the tile, k quad lk of the slice (read through
+  // the input map); table row ak, columns an
   const int lr = tid >> 2, lk = (tid & 3) * 4;
   const int ak = tid >> 4, an = (tid & 15) * 4;
   const long long r = row0 + lr;
-  const long long fr = fold.m > 0 ? fold_row(r, fold) : r;
+  const bool xok = r < rows;
+  const long long fr = fold.m > 0 && xok ? fold_row(r, fold) : r;
+  // transposing role: row tr of the tile, k quad tq (a warp: 32 rows)
+  const int tr = tid % BM, tq = tid / BM;
+
+  auto stage = [&](int q) { return smem + (q % STAGES) * STAGE; };
+  auto landing = [&](int q) {
+    return smem + STAGES * STAGE + (q & 1) * 2 * RAW;
+  };
+  // slice q: the x rows into the landing buffer, A and B into the stage
+  auto issue = [&](int q) {
+    if (q >= SLICES) return;
+    float* st = stage(q);
+    long long sr = fr;
+    int sk = q * BK + lk;
+    if (steer_row >= 0 && (((sk >> 7) ^ (int)(r >> steer_row)) & 1)) {
+      sr = r ^ (1LL << steer_row);
+      sk ^= 128;
+    }
+    const long long o = xok ? sr * DVIEW + sk : 0;
+    float* raw = landing(q) + lr * RAW_LD + lk;
+    async::cp16(raw, in_re + o, xok);
+    async::cp16(raw + RAW, in_im + o, xok);
+    const long long t = (long long)(q * BK + ak) * DVIEW + col0 + an;
+    async::cp16(st + 2 * XS + ak * BN + an, A + t);
+    async::cp16(st + 2 * XS + TS + ak * BN + an, B + t);
+  };
+  // slice q's landed rows, k-major: a warp reads 32 consecutive rows' same
+  // k quad and writes 32 consecutive floats of each k
+  auto transpose = [&](int q) {
+    float* x = stage(q) + tq * 4 * BM + tr;
+    const float* raw = landing(q) + tr * RAW_LD + tq * 4;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float4 v = ld4(raw + c * RAW);
+      x[c * XS] = v.x;
+      x[c * XS + BM] = v.y;
+      x[c * XS + 2 * BM] = v.z;
+      x[c * XS + 3 * BM] = v.w;
+    }
+  };
 
   float acc_r[4][4], acc_i[4][4];
 #pragma unroll
@@ -90,49 +168,48 @@ mat_step_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < DVIEW; k0 += BK) {
-    float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
-    if (r < rows) {
-      long long sr = fr;
-      int sk = k0 + lk;
-      if (steer_row >= 0 && (((sk >> 7) ^ (int)(r >> steer_row)) & 1)) {
-        sr = r ^ (1LL << steer_row);
-        sk ^= 128;
-      }
-      vr = *reinterpret_cast<const float4*>(in_re + sr * DVIEW + sk);
-      vi = *reinterpret_cast<const float4*>(in_im + sr * DVIEW + sk);
-    }
-    xr_s[lk + 0][lr] = vr.x; xr_s[lk + 1][lr] = vr.y;
-    xr_s[lk + 2][lr] = vr.z; xr_s[lk + 3][lr] = vr.w;
-    xi_s[lk + 0][lr] = vi.x; xi_s[lk + 1][lr] = vi.y;
-    xi_s[lk + 2][lr] = vi.z; xi_s[lk + 3][lr] = vi.w;
-    *reinterpret_cast<float4*>(&a_s[ak][an]) =
-        *reinterpret_cast<const float4*>(A + (long long)(k0 + ak) * DVIEW + col0 + an);
-    *reinterpret_cast<float4*>(&b_s[ak][an]) =
-        *reinterpret_cast<const float4*>(B + (long long)(k0 + ak) * DVIEW + col0 + an);
-    __syncthreads();
-
+  issue(0);
+  async::commit();
+  issue(1);
+  async::commit();
+  async::wait_groups<1>();
+  __syncthreads();                       // slice 0 landed
+  transpose(0);
+  for (int q = 0; q < SLICES; ++q) {
+    async::wait_groups<0>();
+    __syncthreads();   // slice q + 1 landed, slice q formed, slice q - 1 read
+    if (q + 1 < SLICES) transpose(q + 1);
+    issue(q + 2);
+    async::commit();
+    const float* xr = stage(q);
+    const float* sa = xr + 2 * XS;
+    // the operands of k + 1 are read while k's FMAs run
+    float4 fr4[2], fi4[2], fa4[2], fb4[2];
+    auto frag = [&](int kk, int u) {
+      fr4[u] = ld4(xr + kk * BM + ty * 4);
+      fi4[u] = ld4(xr + XS + kk * BM + ty * 4);
+      fa4[u] = ld4(sa + kk * BN + tx * 4);
+      fb4[u] = ld4(sa + TS + kk * BN + tx * 4);
+    };
+    frag(0, 0);
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 xr4 = *reinterpret_cast<const float4*>(&xr_s[kk][ty * 4]);
-      const float4 xi4 = *reinterpret_cast<const float4*>(&xi_s[kk][ty * 4]);
-      const float4 a4 = *reinterpret_cast<const float4*>(&a_s[kk][tx * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&b_s[kk][tx * 4]);
-      const float xr[4] = {xr4.x, xr4.y, xr4.z, xr4.w};
-      const float xi[4] = {xi4.x, xi4.y, xi4.z, xi4.w};
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
+      const int u = kk & 1;
+      if (kk + 1 < BK) frag(kk + 1, u ^ 1);
+      const float x_r[4] = {fr4[u].x, fr4[u].y, fr4[u].z, fr4[u].w};
+      const float x_i[4] = {fi4[u].x, fi4[u].y, fi4[u].z, fi4[u].w};
+      const float a[4] = {fa4[u].x, fa4[u].y, fa4[u].z, fa4[u].w};
+      const float b[4] = {fb4[u].x, fb4[u].y, fb4[u].z, fb4[u].w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc_r[i][j] = fmaf(xr[i], a[j], acc_r[i][j]);
-          acc_r[i][j] = fmaf(-xi[i], b[j], acc_r[i][j]);
-          acc_i[i][j] = fmaf(xr[i], b[j], acc_i[i][j]);
-          acc_i[i][j] = fmaf(xi[i], a[j], acc_i[i][j]);
+        for (int j = 0; j < 4; ++j) {   // one sum an output, k ascending
+          acc_r[i][j] = fmaf(x_r[i], a[j], acc_r[i][j]);
+          acc_r[i][j] = fmaf(-x_i[i], b[j], acc_r[i][j]);
+          acc_i[i][j] = fmaf(x_r[i], b[j], acc_i[i][j]);
+          acc_i[i][j] = fmaf(x_i[i], a[j], acc_i[i][j]);
         }
     }
-    __syncthreads();
   }
 
 #pragma unroll
@@ -210,8 +287,12 @@ int qsim_mat_step(const float* in_re, const float* in_im, float* out_re,
   Fold fold;
   if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((unsigned)((rows + BM - 1) / BM), DVIEW / BN);
-  mat_step_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  static bool attr = false;
+  const cudaError_t e = async::allow_smem(mat_step_kernel, MAT_SMEM, &attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned grid = (unsigned)((rows + BM - 1) / BM) * (DVIEW / BN);
+  mat_step_kernel<<<grid, THREADS, MAT_SMEM,
+                    static_cast<cudaStream_t>(stream)>>>(
       in_re, in_im, out_re, out_im, a, b, rows,
       steer_bit >= 0 ? steer_bit - 8 : -1, fold);
   return static_cast<int>(cudaGetLastError());

@@ -23,35 +23,47 @@
 // input) and a scratch pair: op t reads pair t & 1 and writes the other,
 // so the result lies in the input pair after an even number of ops and in
 // the scratch pair after an odd one.  At n <= 19 both pairs (8 MiB) stay
-// in the 50 MB L2, which stands in for VMEM; state loads bypass L1
-// (__ldcg), since other CTAs rewrite those lines between ops.  For each op
-// the CTAs split the output tiles (32 view rows x 64 columns) among
-// themselves; a CTA stages its A rows, read through the row map with no
-// copy, and its Mt columns, 32 k at a time, in shared memory, its two
-// 128-thread halves each take 16 of the 32 k (4 x 4 complex outputs per
-// thread) and are summed through shared memory at the end.  A grid-wide
-// barrier (cooperative_groups grid sync, the launch being cooperative)
-// separates consecutive ops.  Each op's descriptor (kh, b1, b2, offset of
-// its tables) is read by every block from a small device table.
+// in the 50 MB L2, which stands in for VMEM; state reads bypass L1
+// (cp.async.cg), since other CTAs rewrite those lines between ops.  A
+// grid-wide barrier (cooperative_groups grid sync, the launch being
+// cooperative) separates consecutive ops; each op's descriptor (kh, b1,
+// b2, offset of its tables) is read by every block from a small device
+// table.  For each op the CTAs split the output tiles (32 view rows x 64
+// columns) among themselves:
+//   * a CTA of 256 threads is four k-groups of 64; group g sums the
+//     tile's products over k in [g D / 4, (g + 1) D / 4), a thread 4 x 8
+//     complex outputs (rows 8 apart, two runs of four columns), so six
+//     16-byte shared loads feed 128 FMAs a k (7 FMAs a float loaded);
+//   * each group stages its own k-slices of 16 (the A rows, read through
+//     the row map with no copy, row-major; the Mt slices) with
+//     cp.async in a three-slice ring two slices ahead, across the tiles of
+//     an op, with one 64-thread named barrier a slice;
+//   * at a tile's end the four groups' sums meet in shared memory, added
+//     in group order, and the CTA writes the tile through the row map;
+//   * the table slices of the next op's first two slices are copied
+//     before the grid barrier (the tables do not depend on the state), its
+//     rows after it.
 //
 // Grid fill: a tile is 2048 complex outputs and every op has 2^n outputs,
 // so once an op has >= 32 view rows there are 2^n / 2048 tiles whatever D
 // is: 128 at n = 18, 256 at n = 19.  The grid is the smaller of the most
-// tiles of the chunk's ops and the co-resident blocks (occupancy x SMs),
-// so at n = 18 each of 128 SMs holds one tile per op.
+// tiles of the chunk's ops and the co-resident blocks (one an SM, for its
+// 220 KB of shared memory and 256 threads of many registers), so at n = 18
+// each of 128 SMs holds one tile per op, with eight warps.
 //
 // What bounds it on the card: an op is 2^n x D complex multiply-adds, at
 // least three real products (Karatsuba) = 6 * 2^n * D FLOP, 1.07 GFLOP
 // for D = 512 at n = 18 (16 us at 67 TFLOP/s fp32), against 2 MiB of its
 // matrices read once from device memory (0.6 us at 3.35 TB/s): fp32
-// throughput, not bytes.  The design keeps the state out of device memory
-// (L2) and the operands in registers (16 FMA per shared-memory load); it
-// spends a fourth real product for the schoolbook form.  wgmma, TMA and
-// 3xTF32 are later work.
+// throughput, not bytes.  A Karatsuba form (three products, two more
+// tables of combinations, 96 FMAs a k) ran barely faster on an H100 for
+// twice the tables.  wgmma, TMA and 3xTF32 are later work.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -59,19 +71,27 @@ namespace {
 
 constexpr int LANES = 128;
 constexpr int THREADS = 256;
-constexpr int BM = 32;                 // view rows per tile
-constexpr int BN = 64;                 // output columns per tile
-constexpr int BK = 32;                 // k staged per round
-constexpr int KG = BK / 2;             // k per thread half per round
-constexpr int LDA = BK + 4;            // A tile row stride (floats)
-constexpr int A_FLOATS = BM * LDA;     // per component
-constexpr int B_FLOATS = BK * BN;      // per component
-constexpr int SMEM_FLOATS = 2 * A_FLOATS + 2 * B_FLOATS;
-static_assert(2 * BM * BN <= SMEM_FLOATS, "the reduction buffer must fit");
-static_assert(LANES % BK == 0 && LANES % BN == 0, "a round stays in a row");
+constexpr int GROUPS = 4;                      // k-groups of 64 threads
+constexpr int GT = THREADS / GROUPS;
+constexpr int BM = 32;                         // view rows per tile
+constexpr int BN = 64;                         // output columns per tile
+constexpr int BK = 16;                         // k per slice
+constexpr int STAGES = 3;                      // a group's slice ring
+constexpr int LDA = BK + 4;                    // A row stride (floats)
+constexpr int A_F = BM * LDA;                  // A, one component
+constexpr int M_F = BK * BN;                   // Mt slice, one component
+constexpr int SLOT = 2 * A_F + 2 * M_F;        // one slice of one group
+constexpr int RING = GROUPS * STAGES * SLOT;
+constexpr int RED = GROUPS * 2 * BM * BN;      // the groups' partial tiles
+constexpr size_t SMEM = (size_t)(RING + RED) * sizeof(float);
+static_assert(LANES % BN == 0 && LANES % BK == 0, "a slice stays in a row");
 
 __device__ __forceinline__ float lane_of(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 // State row of view row p for D-index high part h (bit 0 -> row bit b1,
@@ -84,144 +104,216 @@ __device__ __forceinline__ int row_of(int p, int h, int kh, int b1, int b2) {
   return r;
 }
 
-// One 32 x 64 output tile of one op: view rows [p0, p0 + BM) (< P valid),
-// columns [i0, i0 + BN).
-__device__ void tile_product(const float* src_re, const float* src_im,
-                             float* dst_re, float* dst_im,
-                             const float* __restrict__ mre,
-                             const float* __restrict__ mim, int D, int P,
-                             int kh, int b1, int b2, int p0, int i0,
-                             float* smem) {
-  float* as_re = smem;
-  float* as_im = smem + A_FLOATS;
-  float* bs_re = smem + 2 * A_FLOATS;
-  float* bs_im = bs_re + B_FLOATS;
-  const int tid = threadIdx.x;
-  const int half = tid >> 7, lt = tid & 127, ty = lt >> 4, tx = lt & 15;
-  float acc_r[4][4], acc_i[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
+// One op as the CTAs see it.
+struct OpView {
+  int kh, b1, b2, D, P, itiles, ntiles, nsl, mine;
+  const float* mre;
+  const float* src_re;
+  const float* src_im;
+  float* dst_re;
+  float* dst_im;
+};
 
-  const int a_row = tid >> 3, a_k = (tid & 7) * 4;
-  const int ap = p0 + a_row;
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    __syncthreads();     // the last round (or the last tile's sums) is read
-    // A: one float4 of one view row per thread and component
-    float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
-    if (ap < P) {
-      const long long o = (long long)row_of(ap, k0 >> 7, kh, b1, b2) * LANES +
-                          (k0 & (LANES - 1)) + a_k;
-      vr = __ldcg(reinterpret_cast<const float4*>(src_re + o));
-      vi = __ldcg(reinterpret_cast<const float4*>(src_im + o));
-    }
-    *reinterpret_cast<float4*>(as_re + a_row * LDA + a_k) = vr;
-    *reinterpret_cast<float4*>(as_im + a_row * LDA + a_k) = vi;
-    // Mt rows k0 .. k0 + BK, columns i0 .. i0 + BN: two float4 each
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int idx = tid + s * THREADS;
-      const int kk = idx >> 4, iq = (idx & 15) * 4;
-      const long long o = (long long)(k0 + kk) * D + i0 + iq;
-      *reinterpret_cast<float4*>(bs_re + kk * BN + iq) =
-          __ldg(reinterpret_cast<const float4*>(mre + o));
-      *reinterpret_cast<float4*>(bs_im + kk * BN + iq) =
-          __ldg(reinterpret_cast<const float4*>(mim + o));
-    }
-    __syncthreads();
+__device__ __forceinline__ OpView op_view(const int4* __restrict__ desc,
+                                          const float* mats, int t, int amps,
+                                          float* re0, float* im0, float* re1,
+                                          float* im1) {
+  const int4 d = desc[t];
+  OpView v;
+  v.kh = d.x;
+  v.b1 = d.y;
+  v.b2 = d.z;
+  v.D = LANES << v.kh;
+  v.P = amps / v.D;
+  v.itiles = v.D / BN;
+  v.ntiles = ((v.P + BM - 1) / BM) * v.itiles;
+  v.nsl = v.D / (GROUPS * BK);
+  v.mine = (int)blockIdx.x < v.ntiles
+               ? (v.ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+               : 0;
+  v.mre = mats + d.w;
+  const bool odd = t & 1;
+  v.src_re = odd ? re1 : re0;
+  v.src_im = odd ? im1 : im0;
+  v.dst_re = odd ? re0 : re1;
+  v.dst_im = odd ? im0 : im1;
+  return v;
+}
 
-#pragma unroll
-    for (int kq = 0; kq < KG; kq += 4) {
-      const int k = half * KG + kq;
-      float4 ar[4], ai[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ar[i] = *reinterpret_cast<const float4*>(as_re + (ty * 4 + i) * LDA + k);
-        ai[i] = *reinterpret_cast<const float4*>(as_im + (ty * 4 + i) * LDA + k);
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 br4 = *reinterpret_cast<const float4*>(bs_re + (k + e) * BN + tx * 4);
-        const float4 bi4 = *reinterpret_cast<const float4*>(bs_im + (k + e) * BN + tx * 4);
-        const float br[4] = {br4.x, br4.y, br4.z, br4.w};
-        const float bi[4] = {bi4.x, bi4.y, bi4.z, bi4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float xr = lane_of(ar[i], e), xi = lane_of(ai[i], e);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc_r[i][j] = fmaf(xr, br[j], acc_r[i][j]);
-            acc_r[i][j] = fmaf(-xi, bi[j], acc_r[i][j]);
-            acc_i[i][j] = fmaf(xr, bi[j], acc_i[i][j]);
-            acc_i[i][j] = fmaf(xi, br[j], acc_i[i][j]);
-          }
-        }
-      }
-    }
-  }
-
-  // the two halves' sums meet in shared memory; half 0 writes the tile
-  __syncthreads();
-  float* red_re = smem;
-  float* red_im = smem + BM * BN;
-  if (half == 1) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int o = (ty * 4 + i) * BN + tx * 4;
-      *reinterpret_cast<float4*>(red_re + o) =
-          make_float4(acc_r[i][0], acc_r[i][1], acc_r[i][2], acc_r[i][3]);
-      *reinterpret_cast<float4*>(red_im + o) =
-          make_float4(acc_i[i][0], acc_i[i][1], acc_i[i][2], acc_i[i][3]);
-    }
-  }
-  __syncthreads();
-  if (half == 0) {
-    const int lane0 = (i0 & (LANES - 1)) + tx * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = p0 + ty * 4 + i;
-      if (p >= P) continue;
-      const int o = (ty * 4 + i) * BN + tx * 4;
-      const float4 rr = *reinterpret_cast<const float4*>(red_re + o);
-      const float4 ri = *reinterpret_cast<const float4*>(red_im + o);
-      const long long g =
-          (long long)row_of(p, i0 >> 7, kh, b1, b2) * LANES + lane0;
-      *reinterpret_cast<float4*>(dst_re + g) =
-          make_float4(acc_r[i][0] + rr.x, acc_r[i][1] + rr.y,
-                      acc_r[i][2] + rr.z, acc_r[i][3] + rr.w);
-      *reinterpret_cast<float4*>(dst_im + g) =
-          make_float4(acc_i[i][0] + ri.x, acc_i[i][1] + ri.y,
-                      acc_i[i][2] + ri.z, acc_i[i][3] + ri.w);
-    }
-  }
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(GT) : "memory");
 }
 
 // desc[t] = (kh, b1, b2, offset of op t's Mt_re in mats; Mt_im follows).
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
 vmem_chunk_kernel(float* re0, float* im0, float* re1, float* im1,
                   const float* __restrict__ mats,
                   const int4* __restrict__ desc, int nops, int num_qubits) {
-  __shared__ __align__(16) float smem[SMEM_FLOATS];
+  extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const int amps = 1 << num_qubits;
-  for (int t = 0; t < nops; ++t) {
-    const int4 d = desc[t];
-    const int kh = d.x, D = LANES << kh, P = amps / D;
-    const int itiles = D / BN, ntiles = ((P + BM - 1) / BM) * itiles;
-    const float* mre = mats + d.w;
-    const float* mim = mre + (long long)D * D;
-    const bool odd = t & 1;
-    const float* src_re = odd ? re1 : re0;
-    const float* src_im = odd ? im1 : im0;
-    float* dst_re = odd ? re0 : re1;
-    float* dst_im = odd ? im0 : im1;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int pt = tile / itiles;
-      tile_product(src_re, src_im, dst_re, dst_im, mre, mim, D, P, kh, d.y,
-                   d.z, pt * BM, (tile - pt * itiles) * BN, smem);
+  const int tid = threadIdx.x, g = tid / GT, gt = tid % GT;
+  const int tx = gt & 7, ty = gt >> 3;     // 8 column runs x 8 row groups
+  float* ring = smem + g * STAGES * SLOT;
+  float* red = smem + RING;
+
+  // item i of the op: slice i % nsl of this CTA's tile i / nsl, this
+  // group's k range; the Mt part and the A part copied separately
+  auto tile_of = [&](const OpView& v, int i) {
+    return (int)blockIdx.x + (i / v.nsl) * (int)gridDim.x;
+  };
+  auto k_of = [&](const OpView& v, int i) {
+    return g * (v.D / GROUPS) + (i % v.nsl) * BK;
+  };
+  auto issue_m = [&](const OpView& v, int i) {
+    if (i >= v.mine * v.nsl) return;
+    const int tile = tile_of(v, i), k0 = k_of(v, i);
+    const int i0 = (tile % v.itiles) * BN;
+    float* mr = ring + (i % STAGES) * SLOT + 2 * A_F;
+    const float* mim = v.mre + (long long)v.D * v.D;
+#pragma unroll
+    for (int u = 0; u < M_F / 4 / GT; ++u) {
+      const int p = gt + GT * u, kk = p >> 4, nq = (p & 15) * 4;
+      const long long o = (long long)(k0 + kk) * v.D + i0 + nq;
+      async::cp16(mr + kk * BN + nq, v.mre + o);
+      async::cp16(mr + M_F + kk * BN + nq, mim + o);
     }
-    if (t + 1 < nops) grid.sync();   // op t's writes before op t + 1 reads
+  };
+  auto issue_a = [&](const OpView& v, int i) {
+    if (i >= v.mine * v.nsl) return;
+    const int tile = tile_of(v, i), k0 = k_of(v, i);
+    const int p0 = (tile / v.itiles) * BM;
+    float* ar = ring + (i % STAGES) * SLOT;
+#pragma unroll
+    for (int u = 0; u < BM * BK / 4 / GT; ++u) {
+      const int p = gt + GT * u, row = p / (BK / 4), kq = p % (BK / 4) * 4;
+      const bool ok = p0 + row < v.P;
+      const int k = k0 + kq;
+      const long long o =
+          ok ? (long long)row_of(p0 + row, k >> 7, v.kh, v.b1, v.b2) * LANES +
+                   (k & (LANES - 1))
+             : 0;
+      async::cp16(ar + row * LDA + kq, v.src_re + o, ok);
+      async::cp16(ar + A_F + row * LDA + kq, v.src_im + o, ok);
+    }
+  };
+
+  float acc_r[4][8], acc_i[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc_r[i][j] = acc_i[i][j] = 0.f;
+
+  OpView v = op_view(desc, mats, 0, amps, re0, im0, re1, im1);
+  issue_m(v, 0);
+  async::commit();
+  issue_m(v, 1);
+  async::commit();
+  for (int t = 0; t < nops; ++t) {
+    issue_a(v, 0);
+    async::commit();
+    issue_a(v, 1);
+    async::commit();
+    const int items = v.mine * v.nsl;
+    for (int i = 0; i < items; ++i) {
+      async::wait_groups<1>();
+      group_sync(g);       // slice i landed; the group is done with i - 1
+      issue_m(v, i + 2);
+      issue_a(v, i + 2);
+      async::commit();
+      const float* ar = ring + (i % STAGES) * SLOT;
+      const float* ai = ar + A_F;
+      const float* mr = ai + A_F;
+      const float* mi = mr + M_F;
+#pragma unroll
+      for (int kq = 0; kq < BK; kq += 4) {
+        float4 xr4[4], xi4[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          xr4[r] = ld4(ar + (ty + 8 * r) * LDA + kq);
+          xi4[r] = ld4(ai + (ty + 8 * r) * LDA + kq);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float br[8], bi[8];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 a4 = ld4(mr + (kq + e) * BN + h * 32 + tx * 4);
+            const float4 b4 = ld4(mi + (kq + e) * BN + h * 32 + tx * 4);
+            br[4 * h] = a4.x; br[4 * h + 1] = a4.y;
+            br[4 * h + 2] = a4.z; br[4 * h + 3] = a4.w;
+            bi[4 * h] = b4.x; bi[4 * h + 1] = b4.y;
+            bi[4 * h + 2] = b4.z; bi[4 * h + 3] = b4.w;
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float xr = lane_of(xr4[r], e), xi = lane_of(xi4[r], e);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              acc_r[r][j] = fmaf(xr, br[j], acc_r[r][j]);
+              acc_r[r][j] = fmaf(-xi, bi[j], acc_r[r][j]);
+              acc_i[r][j] = fmaf(xr, bi[j], acc_i[r][j]);
+              acc_i[r][j] = fmaf(xi, br[j], acc_i[r][j]);
+            }
+          }
+        }
+      }
+      if (i % v.nsl != v.nsl - 1) continue;
+
+      // the tile's end: the groups' sums meet in shared memory
+      float* mine_re = red + g * 2 * BM * BN;
+      float* mine_im = mine_re + BM * BN;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = (ty + 8 * r) * BN + h * 32 + tx * 4;
+          *reinterpret_cast<float4*>(mine_re + o) =
+              make_float4(acc_r[r][4 * h], acc_r[r][4 * h + 1],
+                          acc_r[r][4 * h + 2], acc_r[r][4 * h + 3]);
+          *reinterpret_cast<float4*>(mine_im + o) =
+              make_float4(acc_i[r][4 * h], acc_i[r][4 * h + 1],
+                          acc_i[r][4 * h + 2], acc_i[r][4 * h + 3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc_r[r][4 * h + e] = acc_i[r][4 * h + e] = 0.f;
+        }
+      __syncthreads();
+      const int tile = tile_of(v, i);
+      const int p0 = (tile / v.itiles) * BM, i0 = (tile % v.itiles) * BN;
+#pragma unroll
+      for (int u = 0; u < 2 * BM * BN / 4 / THREADS; ++u) {
+        const int p = tid + THREADS * u;      // float4 of the tile
+        const int c = p / (BM * BN / 4), w = p % (BM * BN / 4);
+        const int row = w / (BN / 4), q = (w % (BN / 4)) * 4;
+        const float* part = red + c * BM * BN + row * BN + q;
+        float4 sum = ld4(part);
+#pragma unroll
+        for (int h = 1; h < GROUPS; ++h) {
+          const float4 x = ld4(part + h * 2 * BM * BN);
+          sum.x += x.x;
+          sum.y += x.y;
+          sum.z += x.z;
+          sum.w += x.w;
+        }
+        if (p0 + row < v.P) {
+          const long long o =
+              (long long)row_of(p0 + row, i0 >> 7, v.kh, v.b1, v.b2) * LANES +
+              (i0 & (LANES - 1)) + q;
+          *reinterpret_cast<float4*>((c ? v.dst_im : v.dst_re) + o) = sum;
+        }
+      }
+      __syncthreads();     // the partial tiles are read before the next
+    }
+    if (t + 1 < nops) {
+      // the next op's first Mt slices before the barrier, its rows after
+      v = op_view(desc, mats, t + 1, amps, re0, im0, re1, im1);
+      issue_m(v, 0);
+      async::commit();
+      issue_m(v, 1);
+      async::commit();
+      grid.sync();         // op t's writes before op t + 1 reads
+    }
   }
 }
 
@@ -241,15 +333,17 @@ int qsim_vmem_chunk(float* re0, float* im0, float* re1, float* im1,
                     void* stream) {
   if (nops < 1 || num_qubits < 8 || num_qubits > 30 || max_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  static bool attr = false;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = async::allow_smem(vmem_chunk_kernel, SMEM, &attr);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, vmem_chunk_kernel, THREADS, 0);
+        &per_sm, vmem_chunk_kernel, THREADS, SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -259,7 +353,7 @@ int qsim_vmem_chunk(float* re0, float* im0, float* re1, float* im1,
   const int4* d4 = reinterpret_cast<const int4*>(desc);
   void* args[] = {&re0, &im0, &re1, &im1, &mats, &d4, &nops, &num_qubits};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(vmem_chunk_kernel),
-                                  dim3(grid), dim3(THREADS), args, 0,
+                                  dim3(grid), dim3(THREADS), args, SMEM,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

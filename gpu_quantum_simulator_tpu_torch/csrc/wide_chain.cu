@@ -408,16 +408,6 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  *done = e == cudaSuccess;
-  return e;
-}
-
-
 }  // namespace
 
 extern "C" {
@@ -434,7 +424,7 @@ int qsim_wide_chain(const float* in_re, const float* in_im, float* out_re,
   static bool attr = false;
   static int slots = 0;
   if (nmats < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = allow_smem(chain_f32_kernel, F32_SMEM, &attr);
+  cudaError_t e = async::allow_smem(chain_f32_kernel, F32_SMEM, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (slots == 0 &&
       (e = async::persistent_slots(chain_f32_kernel, THREADS, F32_SMEM,
@@ -455,7 +445,8 @@ int qsim_wide_chain_high(const float* in_re, const float* in_im,
                          int nmats, long long rows, void* stream) {
   static bool attr = false;
   if (nmats < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = allow_smem(chain_high_kernel, STATE_SMEM, &attr);
+  const cudaError_t e =
+      async::allow_smem(chain_high_kernel, STATE_SMEM, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned grid = (unsigned)((rows + TILE - 1) / TILE);
   chain_high_kernel<<<grid, THREADS, STATE_SMEM,

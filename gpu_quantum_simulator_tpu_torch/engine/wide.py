@@ -20,16 +20,19 @@ half differs:
   "highest" and schoolbook 3-pass bf16 products at "high", without the
   identity pads (P records the padded length);
 * every other block (``("mm", D, idx, row_bits)``) is the JAX package's
-  Karatsuba product in torch calls, as the JAX package leaves it to XLA:
-  the row shuffle is a ``permute`` copy, the three real products are
-  ``torch.matmul`` in IEEE fp32 at "highest" (whatever the process-wide
-  TF32 setting) or the 3-pass bf16 split at "high" (bf16 GEMMs with fp32
-  output on a card, fp32 GEMMs of bf16-exact parts on the CPU).  The
+  Karatsuba product between row shuffles (``permute`` copies).  At
+  "highest" the three real products are ``torch.matmul`` in IEEE fp32
+  (whatever the process-wide TF32 setting), as the JAX package leaves
+  them to XLA.  At "high" the step is one launch of the hand-written
+  kernel csrc/mm_high.cu (kernels/wide.py ``mm_step_high``; its plain
+  version on the CPU), which keeps every fp32 sum out of the tensor
+  core's truncating adds, as the mat steps do (csrc/mma_high.cuh).  The
   shuffled temporaries are dropped as soon as each step no longer needs
   them (the JAX package donates its state pair instead).
 
 Tables go to the device once per program (``build_wide_program`` caches
-programs by their ops); at "high" they are split to bf16 once as well.
+programs by their ops); at "high" they are split to bf16 once as well
+(``split_mm_tables``, ``split_wide_tables``).
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ import numpy as np
 import torch
 
 from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
-from ..kernels.block import RUNGS, bf16_split
-from ..kernels.wide import ieee_fp32, kh0_chain, split_wide_tables
+from ..kernels.block import RUNGS
+from ..kernels.wide import (ieee_fp32, kh0_chain, mm_step_high,
+                            split_mm_tables, split_wide_tables)
 from ..ops.apply import resolve_device
 
 LANE_QUBITS = 7
@@ -109,46 +113,31 @@ def row_shuffles(row_bits, R):
     return fwd2, bwd2
 
 
-def _dot_high(x: torch.Tensor, mh: torch.Tensor, ml: torch.Tensor):
-    """xh @ mh + xl @ mh + xh @ ml with float32 sums; mh/ml bfloat16."""
-    if x.is_cuda:
-        xh = x.to(torch.bfloat16)
-        xl = (x - xh.float()).to(torch.bfloat16)
-        out = torch.mm(xh, mh, out_dtype=torch.float32)
-        out += torch.mm(xl, mh, out_dtype=torch.float32)
-        out += torch.mm(xh, ml, out_dtype=torch.float32)
-        return out
-    xh, xl = bf16_split(x)
-    mh, ml = mh.float(), ml.float()
-    return xh @ mh + xl @ mh + xh @ ml
-
-
 def _mm_step(state: list, m, row_bits, R: int, precision: str) -> None:
     """One kh >= 1 block (or kh = 0 without the chain kernel) on
     ``state = [re, im]``, replaced in place by the result.
 
-    ``m``: the (3, D, D) Karatsuba combinations m1 = M_re^T,
-    m2 = (M_im - M_re)^T, m3 = (M_re + M_im)^T — float32 at "highest",
-    their (hi, lo) bfloat16 parts at "high".  out_re = t1 - t3,
-    out_im = t1 + t2 with t1 = (x_re + x_im) @ m1, t2 = x_re @ m2,
-    t3 = x_im @ m3."""
+    ``m``: at "highest" the (3, D, D) float32 Karatsuba combinations
+    m1 = M_re^T, m2 = (M_im - M_re)^T, m3 = (M_re + M_im)^T, and out_re =
+    t1 - t3, out_im = t1 + t2 with t1 = (x_re + x_im) @ m1, t2 = x_re @ m2,
+    t3 = x_im @ m3 in IEEE fp32; at "high" their (6, D, D) bfloat16
+    ``split_mm_tables``, the same product as one ``mm_step_high`` (the
+    kernel csrc/mm_high.cu on a card, its plain version on the CPU)."""
     fwd, bwd = row_shuffles(row_bits, R)
     xr, xi = fwd(state[0]), fwd(state[1])
     state.clear()
     if precision == "high":
-        def dot(x, c):
-            return _dot_high(x, m[0][c], m[1][c])
+        t1, t2 = mm_step_high(xr, xi, m)
+        del xr, xi
     else:
-        def dot(x, c):
-            return x @ m[c]
-    t1 = dot(xr + xi, 0)
-    t2 = dot(xr, 1)
-    del xr
-    t3 = dot(xi, 2)
-    del xi
-    t2 += t1
-    t1 -= t3
-    del t3
+        t1 = (xr + xi) @ m[0]
+        t2 = xr @ m[1]
+        del xr
+        t3 = xi @ m[2]
+        del xi
+        t2 += t1
+        t1 -= t3
+        del t3
     state.append(bwd(t1))
     del t1
     state.append(bwd(t2))
@@ -207,7 +196,8 @@ def plan_segments(ops: Sequence[Op], num_qubits: int):
 class _Segment:
     steps: list                     # the JAX package's step tuples
     mm: dict                        # D -> (count, 3, D, D) float32, or at
-                                    # "high" its (hi, lo) bfloat16 parts
+                                    # "high" (count, 6, D, D) bfloat16
+                                    # (split_mm_tables)
     runs: List[torch.Tensor]        # (L, 2, 128, 128) float32 [M_re, M_im]
     runs_w16: list                  # split_wide_tables per run (card, "high")
 
@@ -251,8 +241,7 @@ class WideProgram:
                                             (bre + bim).T]))
                 mm[D] = dev(np.stack(combos))
                 if high:
-                    hi, lo = bf16_split(mm[D])
-                    mm[D] = (hi.to(torch.bfloat16), lo.to(torch.bfloat16))
+                    mm[D] = split_mm_tables(mm[D])
             run_tabs = [dev(np.stack([np.stack(_op_spec(ops[i], n)[3:])
                                       for i in run])) for run in runs]
             w16 = ([split_wide_tables(t) for t in run_tabs]
@@ -262,7 +251,6 @@ class WideProgram:
 
     def __call__(self, re: torch.Tensor, im: torch.Tensor):
         R = self._R
-        high = self.precision == "high"
         state = [re.reshape(R, LANES), im.reshape(R, LANES)]
         del re, im
         with ieee_fp32():
@@ -274,9 +262,8 @@ class WideProgram:
                                   out=tuple(state), w16=seg.runs_w16[r])
                     else:
                         _, D, idx, row_bits = st
-                        m = seg.mm[D]
-                        _mm_step(state, (m[0][idx], m[1][idx]) if high
-                                 else m[idx], row_bits, R, self.precision)
+                        _mm_step(state, seg.mm[D][idx], row_bits, R,
+                                 self.precision)
         return state[0].reshape(-1), state[1].reshape(-1)
 
 

@@ -22,9 +22,20 @@ stages them.  At "high" it is schoolbook (four real products, each the
 3-pass bf16 split ``xh.mh + xl.mh + xh.ml``, kernels/block.py), with the
 tables split once per program (``split_wide_tables``).
 
+A second kernel (``csrc/mm_high.cu``) is the mxu engine's mm step at the
+"high" rung, ``mm_step_high``: on the already-shuffled (M, D) state, D =
+128 << kh, the JAX package's Karatsuba product (``engine/wide.py``
+``_apply_wide_karatsuba``, three XLA dots at ``Precision.HIGH``), each
+real product the 3-pass bf16 split with every sum kept as
+``csrc/mma_high.cuh`` keeps it, the tables split once per program
+(``split_mm_tables``).  The JAX package computes it outside any Pallas
+kernel; it is hand-written here because cuBLAS's bf16 GEMMs keep their
+fp32 sums in the tensor core, whose truncating adds shrink the norm.
+
 For a CUDA state the wrappers launch the kernel; for a CPU state they run
 the plain torch version; any other device raises.  ``kh0_chain.launches``
-counts launches by rung, ``apply_block128.launches`` its own.
+counts launches by rung, ``apply_block128.launches`` and
+``mm_step_high.launches`` their own.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from . import build
 from .block import RUNGS, bf16_split, mat_high_plain
 
 LANES = 128
+MM_WIDTHS = (128, 256, 512)     # the mm step's D = 128 << kh, kh <= 2
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -207,10 +219,88 @@ def apply_block128(re: torch.Tensor, im: torch.Tensor, m_re: torch.Tensor,
     return out
 
 
+def split_mm_tables(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, D, D) float32 Karatsuba tables [m1, m2, m3], each [k][n]
+    (the step is ``x @ m``) -> (..., 6, D, D) bfloat16 [m1_hi, m1_lo,
+    m2_hi, m2_lo, m3_hi, m3_lo], each transposed to [n][k]: the operands
+    of ``mm_step_high`` (the col-major B fragment of ``mma.m16n8k16``)."""
+    hi, lo = bf16_split(m.transpose(-1, -2))
+    parts = torch.stack([hi, lo], dim=-3).to(torch.bfloat16)
+    return parts.reshape(*m.shape[:-3], 6, *m.shape[-2:]).contiguous()
+
+
+def mm_tables_f32(w16: torch.Tensor) -> list:
+    """The six float32 [k][n] tables of a step's ``split_mm_tables``:
+    [m1_hi, m1_lo, m2_hi, m2_lo, m3_hi, m3_lo], bf16-exact values."""
+    return [w16[j].float().T.contiguous() for j in range(6)]
+
+
+def karatsuba_high(xr: torch.Tensor, xi: torch.Tensor, tabs) -> Pair:
+    """t1 = (xr + xi).m1, t2 = xr.m2, t3 = xi.m3, each real product
+    ``xh @ mh + xl @ mh + xh @ ml`` of bf16-exact float32 values summed in
+    IEEE fp32; returns (t1 - t3, t1 + t2).  ``tabs``: ``mm_tables_f32``."""
+    def dot(x, c):
+        xh, xl = bf16_split(x)
+        return xh @ tabs[2 * c] + xl @ tabs[2 * c] + xh @ tabs[2 * c + 1]
+
+    with ieee_fp32():
+        t1 = dot(xr + xi, 0)
+        t2 = dot(xr, 1)
+        t3 = dot(xi, 2)
+        return t1 - t3, t1 + t2
+
+
+def mm_step_high_plain(xr: torch.Tensor, xi: torch.Tensor,
+                       w16: torch.Tensor) -> Pair:
+    """The "high" mm step in plain torch, on any device: ``karatsuba_high``
+    on the step's ``split_mm_tables`` ``w16``."""
+    return karatsuba_high(xr, xi, mm_tables_f32(w16))
+
+
+def mm_step_high(xr: torch.Tensor, xi: torch.Tensor, w16: torch.Tensor,
+                 out: Optional[Pair] = None) -> Pair:
+    """The mxu engine's "high" mm step on the shuffled (M, D) pair: one
+    launch of ``csrc/mm_high.cu`` for CUDA tensors, ``mm_step_high_plain``
+    for CPU tensors.  ``w16``: (6, D, D) bfloat16, ``split_mm_tables`` of
+    the step's tables; the result lands in ``out`` (allocated when None;
+    it must not be the input pair)."""
+    D = xr.shape[-1] if xr.dim() == 2 else -1
+    if D not in MM_WIDTHS or xi.shape != xr.shape:
+        raise ValueError(f"mm step: state must be (M, D) with D in "
+                         f"{MM_WIDTHS}, got {tuple(xr.shape)} and "
+                         f"{tuple(xi.shape)}")
+    if w16.shape != (6, D, D) or w16.dtype != torch.bfloat16:
+        raise ValueError(f"mm step: tables must be (6, {D}, {D}) bfloat16, "
+                         f"got {tuple(w16.shape)} {w16.dtype}")
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
+        raise ValueError(f"mm step: state must be float32, got {xr.dtype} "
+                         f"and {xi.dtype}")
+    if xr.device.type == "cpu":
+        return _to_out(mm_step_high_plain(xr, xi, w16), out)
+    if not xr.is_cuda:
+        raise ValueError(f"mm step: unsupported device {xr.device}")
+    if out is None:
+        out = (torch.empty_like(xr), torch.empty_like(xi))
+    if out[0].shape != xr.shape or out[1].shape != xr.shape:
+        raise ValueError("mm step: out must match the state's shape")
+    _check_cuda([xr, xi, *out, w16], [torch.float32] * 4 + [torch.bfloat16],
+                "mm step")
+    lib = build.load()
+    rc = lib.qsim_mm_step_high(
+        xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        w16.data_ptr(), xr.shape[0], D,
+        torch.cuda.current_stream(xr.device).cuda_stream)
+    build.check(lib, rc, f"mm step (high, D = {D})")
+    mm_step_high.launches += 1
+    return out
+
+
 def reset_launches() -> None:
-    """Set the launch counts of ``kh0_chain`` and ``apply_block128`` to 0."""
+    """Set the launch counts of ``kh0_chain``, ``apply_block128`` and
+    ``mm_step_high`` to 0."""
     kh0_chain.launches = dict.fromkeys(RUNGS, 0)
     apply_block128.launches = 0
+    mm_step_high.launches = 0
 
 
 reset_launches()

@@ -306,6 +306,108 @@ def test_kh0_chain_plain_is_the_jax_karatsuba(P, seed):
                for g, w in zip((re, im), want)) > KARATSUBA_TOL
 
 
+# The mxu "high" mm step's geometry per D: (row bits, D), n = 12 (R = 32).
+MM_CASES = {128: (), 256: (1,), 512: (0, 2)}
+
+
+def _mm_inputs(D, seed):
+    """A normalized n = 12 state, one random unitary over the lanes and
+    the case's row bits, its float32 Karatsuba tables (3, D, D)."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal((2, 32, 128))
+    v = (v / np.linalg.norm(v)).astype(np.float32)
+    q, r = np.linalg.qr(rng.standard_normal((D, D))
+                        + 1j * rng.standard_normal((D, D)))
+    u = q * (np.diag(r) / np.abs(np.diag(r)))
+    m32 = np.stack([u.real.T, (u.imag - u.real).T,
+                    (u.real + u.imag).T]).astype(np.float32)
+    return v, m32
+
+
+# The CPU's sgemm (MKL here) may block a product's k-sum differently for
+# different buffers of the same right operand (readings up to 7.5e-9 on
+# one 8 x 512 @ 512 x 512 product, amplitudes ~0.02), so two runs of the
+# same arithmetic on separately made tables agree to a few ulps; on the
+# same table buffers they agree bit for bit.
+MKL_TOL = 3e-8
+
+
+@pytest.mark.parametrize("D", sorted(MM_CASES))
+def test_mm_step_high_plain(D):
+    """``mm_step_high_plain`` (what the mm kernel computes, and the CPU
+    path of ``_mm_step`` at "high"): its tables are the (hi, lo) bf16
+    parts the CPU mm step multiplied before the kernel, bit for bit, and
+    on those tables its arithmetic is that step's (``_dot_high``: fp32
+    matmuls of bf16-exact parts, then ``t2 += t1; t1 -= t3``) bit for bit;
+    within HIGH_TOL of the JAX package's ``_apply_wide_karatsuba`` at
+    precision "high" on the CPU; the wrapper takes the plain version for
+    CPU tensors and counts no launch."""
+    from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
+
+    row_bits = MM_CASES[D]
+    v, m32 = _mm_inputs(D, D)
+    R = 32
+    fwd, bwd = TW.row_shuffles(row_bits, R)
+    xr, xi = fwd(torch.from_numpy(v[0])), fwd(torch.from_numpy(v[1]))
+    w16 = KW.split_mm_tables(torch.from_numpy(m32))
+    assert w16.shape == (6, D, D) and w16.dtype == torch.bfloat16
+    tabs = KW.mm_tables_f32(w16)
+    hi, lo = bf16_split(torch.from_numpy(m32))
+    for c in range(3):
+        for got_t, want_t in ((tabs[2 * c], hi[c]), (tabs[2 * c + 1], lo[c])):
+            assert torch.equal(got_t.view(torch.int32),
+                               want_t.contiguous().view(torch.int32))
+    got = KW.karatsuba_high(xr, xi, tabs)
+
+    def dot(x, c):           # the CPU branch of the mm step before the kernel
+        xh, xl = bf16_split(x)
+        mh, ml = tabs[2 * c], tabs[2 * c + 1]
+        return xh @ mh + xl @ mh + xh @ ml
+
+    t1, t2, t3 = dot(xr + xi, 0), dot(xr, 1), dot(xi, 2)
+    t2 += t1
+    t1 -= t3
+    assert torch.equal(got[0], t1) and torch.equal(got[1], t2)
+
+    plain = KW.mm_step_high_plain(xr, xi, w16)
+    state = [torch.from_numpy(v[0]), torch.from_numpy(v[1])]
+    KW.reset_launches()
+    TW._mm_step(state, w16, row_bits, R, "high")
+    assert KW.mm_step_high.launches == 0
+    for g, p, w in zip(state, plain, (t1, t2)):
+        assert float((p - w).abs().max()) <= MKL_TOL
+        assert float((g - bwd(w)).abs().max()) <= MKL_TOL
+    want = JW._apply_wide_karatsuba(
+        jnp.asarray(v[0]), jnp.asarray(v[1]),
+        *(jnp.asarray(m32[c]) for c in range(3)), row_bits, D, R, "high")
+    for g, w in zip(state, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= HIGH_TOL
+
+
+def test_mm_step_high_refuses():
+    """The wrapper refuses other devices, dtypes and shapes; the wide
+    program, which owns the mm step, refuses the "default" rung."""
+    v, m32 = _mm_inputs(256, 1)
+    x = torch.from_numpy(v[0]).reshape(-1, 256)
+    w16 = KW.split_mm_tables(torch.from_numpy(m32))
+    meta = torch.zeros(16, 256, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        KW.mm_step_high(meta, meta, w16.to("meta"))
+    with pytest.raises(ValueError, match="float32"):
+        KW.mm_step_high(x.double(), x.double(), w16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        KW.mm_step_high(x, x, w16.float())
+    with pytest.raises(ValueError, match="bfloat16"):
+        KW.mm_step_high(x, x, w16[:3])
+    with pytest.raises(ValueError, match="D in"):
+        KW.mm_step_high(x[:, :64], x[:, :64], w16)
+    with pytest.raises(ValueError, match="D in"):
+        KW.mm_step_high(x, x[:8], w16)
+    ops = TS._fuse_pipeline(mixed(T.Circuit, 10), 7, max_high=2, window=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TW.WideProgram(ops, 10, precision="default", device="cpu")
+
+
 def test_kh0_chain_writes_into_out_and_rejects_default():
     rng = np.random.default_rng(3)
     re, im = (torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
