@@ -2,7 +2,8 @@
 """Compare checkouts of the port on one CUDA card, in turns.
 
     python3 chip_ab.py --trees ab/parent . . ab/parent \\
-        [--phases mat split vmem mm] [--profile "--strategy mxu --widths 24"] \\
+        [--phases mat high highdrift split vmem mm] \\
+        [--profile "--strategy mxu --widths 24"] \\
         [--out chiprun_out/ab]
 
 For each tree, in the order given (name a tree twice to run it twice, as
@@ -17,6 +18,8 @@ fails.
 
 Phases (chip_smoke function, where the tree has it):
   mat    check_block_kernel: the block kernel and the fp32 mat step, n=22
+  high   check_high_mat: the flat "high" mat step, n=24 and 28
+  highdrift  check_high_drift: the "high" mat step's norm drift, n=24
   split  check_split_block: the in-place mat steps beside the flat ones, n=24
   folded check_folded_block: the folded-relayout input (mat first), n=24
   vmem   check_vmem_kernel: kernel 8's chunk and one D=512 op, n=18
@@ -33,17 +36,20 @@ import sys
 
 PHASES = {
     "mat": "C.check_block_kernel(torch, rng)",
+    "high": "C.check_high_mat(torch, rng)",
+    "highdrift": "C.check_high_drift(torch)",
     "split": "C.check_split_block(torch, rng)",
     "folded": "C.check_folded_block(torch, rng)",
     "vmem": "C.check_vmem_kernel(torch, T)",
     "mm": "C.check_mm_high(torch)",
     "drift": "C.mxu_high_drift(torch)",
 }
-FUNCS = {"mat": "check_block_kernel", "split": "check_split_block",
+FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
+         "highdrift": "check_high_drift", "split": "check_split_block",
          "folded": "check_folded_block",
          "vmem": "check_vmem_kernel", "mm": "check_mm_high",
          "drift": "mxu_high_drift"}
-ECHO = ("mat step n=", "split mat step n=", "vmem one op",
+ECHO = ("mat step n=", "split mat step n=", "at the end kernel", "vmem one op",
         "vmem chunk kernel", "mm step high", "over seeds", "run_detailed",
         "busy", "NVIDIA", "kernels built")
 

@@ -8,7 +8,9 @@ package) through its main paths on the first CUDA device, in phases; any
 failure raises and the script exits non-zero:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from the repository's sources (build/);
+2. build the CUDA kernels from the repository's sources (build/), and
+   check in the library's SASS that both "high" mat-step kernels (flat and
+   in place) run on wgmma: HGMMA, and no tf32 mma.sync k4;
 3. hold each kernel against its plain torch version on the card at the
    main path's shapes — the block kernel at n=18 on synthetic blocks
    covering mat, mono, perm v=0..6 and tswap k=1..9 in plain and steered
@@ -69,8 +71,9 @@ failure raises and the script exits non-zero:
    second state buffer).  Kernel checks at n=24 on halves: a block of every
    step kind (kernel 5(a)) against its plain version and against the flat
    block kernel on the joined state (index steps bit-exact, the fp32 mat
-   step <= 1e-6, the "high" one <= 1e-5; one fp32 mat step alone bit for
-   bit, both kernels keeping the same sums), the pair swap (kernel 5(b)) on
+   step <= 1e-6, the "high" one <= 1e-5; one mat step alone at each rung
+   bit for bit, both kernels keeping the same sums; the "high" step timed in
+   place at n=30 too), the pair swap (kernel 5(b)) on
    two tile bits (bit-exact), pair mode (kernel 6) with a mat first step at
    both rungs and a tswap, perm or mono first step against "pair swap, then
    the plain block" (bit-exact for the gathers; a plain version without its
@@ -232,7 +235,11 @@ SAMPLE_BINS = 4096
 BEFORE_MS = {"fp32 mat step n=22": "0.1941-0.1951",
              "fp32 mat step n=24 (flat)": "0.7439-0.7481",
              "vmem chunk n=18": "3.2107-3.2258",
-             "vmem one D=512 op n=18": "0.0329-0.0331"}
+             "vmem one D=512 op n=18": "0.0329-0.0331",
+             "high mat step n=24 (flat)": "0.6867",
+             "high mat step n=28 (flat)": "10.5654",
+             "high mat step n=24 (in place)": "0.6671",
+             "high mat step n=30 (in place)": "41.26-41.27"}
 
 
 def norm2(pair):
@@ -360,6 +367,29 @@ def synthetic_blocks(PF, rng, logt):
                 b.mats += [mat(2)]
         blocks.append(b)
     return blocks
+
+
+def check_high_sass():
+    """The two "high" mat-step kernels, flat and in place, run on wgmma:
+    the built library's SASS of each holds HGMMA and none of the previous
+    design's tf32 mma.sync k4 (HMMA.1684.F32.TF32)."""
+    import re
+
+    from gpu_quantum_simulator_tpu_torch.kernels import build
+
+    counts = {}
+    for part in build.dump_sass().split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        m = re.search(r"\d(mat_high_kernel|mat_high_halves_kernel)E", name)
+        if m:
+            counts[m.group(1)] = (part.count("HGMMA"),
+                                  part.count("HMMA.1684.F32.TF32"))
+    for kernel in ("mat_high_kernel", "mat_high_halves_kernel"):
+        hgmma, tf32 = counts.get(kernel, (0, 0))
+        print(f"sass {kernel}: {hgmma} HGMMA, {tf32} HMMA.1684.F32.TF32")
+        if kernel not in counts or hgmma == 0 or tf32 != 0:
+            raise AssertionError(f"{kernel}: not the wgmma kernel "
+                                 f"({hgmma} HGMMA, {tf32} tf32 HMMA)")
 
 
 def check_block_kernel(torch, rng):
@@ -615,7 +645,7 @@ def check_high_mat(torch, rng):
     blk = PF._Block(kinds=[0], midx=[0],
                     mats=[(random_unitary(rng, 128), tuple(range(7)), None)])
     scal, a_tab, b_tab, mono_src = device_tables(torch, PF, [blk], 2)
-    w16 = split_tables(a_tab, b_tab)
+    high = split_tables(a_tab, b_tab)
     rec = None
     for n, reps in HIGH_STEPS:
         R2 = 1 << (n - PF.LOCAL_QUBITS)
@@ -625,7 +655,8 @@ def check_high_mat(torch, rng):
         args = (a_tab[0], b_tab[0], mono_src[0], logt, PF.CAP_STEPS)
         scratch = (torch.empty_like(re), torch.empty_like(im))
         got = run_block(scal[0], re.clone(), im.clone(), *args,
-                        scratch=scratch, precision="high", w16=w16[0])
+                        scratch=scratch, precision="high",
+                        high_tables=high[0])
         want = run_block_plain(scal[0], re, im, *args, precision="high")
         torch.cuda.synchronize()
         e = max_diff(got, want)
@@ -644,7 +675,7 @@ def check_high_mat(torch, rng):
         del fp32, want
         ms = device_ms(torch, lambda: run_block(
             scal[0], re, im, *args, scratch=scratch, precision="high",
-            w16=w16[0]), reps=reps)
+            high_tables=high[0]), reps=reps)
         ms32 = device_ms(torch, lambda: run_block(
             scal[0], re, im, *args, scratch=scratch), reps=reps)
         plain_ms = device_ms(torch, lambda: run_block_plain(
@@ -655,7 +686,9 @@ def check_high_mat(torch, rng):
         bnd = bound(3 * flop, 16.0 * R2 * 256 + 4 * 256 * 256 * 2,
                     BF16_FLOPS)
         print(f"high mat step n={n}: kernel {ms:.4f} ms ({3 * flop / ms / 1e9:.1f}"
-              f" bf16 TFLOP/s), plain {plain_ms:.4f} ms, fp32 kernel "
+              f" bf16 TFLOP/s; previous design "
+              f"{BEFORE_MS[f'high mat step n={n} (flat)']} ms), plain "
+              f"{plain_ms:.4f} ms, fp32 kernel "
               f"{ms32:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); max|diff| "
               f"vs plain {e:.3e}, vs fp32 step {e32:.3e}")
         if rec is None:
@@ -741,7 +774,7 @@ def check_high_drift(torch):
                              dtype=torch.float32, device="cuda").contiguous()
         b_tab = torch.tensor(np.stack([m.imag.T for m in mats]),
                              dtype=torch.float32, device="cuda").contiguous()
-        w16 = split_tables(a_tab, b_tab)
+        high = split_tables(a_tab, b_tab)
         start = random_state(torch, gen, (R2, 256))
         n0 = norm2(start)
         kern = (start[0].clone(), start[1].clone())
@@ -751,7 +784,8 @@ def check_high_drift(torch):
         for step in range(DRIFT_STEPS):
             j = step % DRIFT_SLOTS
             out = run_block(row(j), *kern, a_tab, b_tab, mono, logt, cap,
-                            scratch=spare, precision="high", w16=w16)
+                            scratch=spare, precision="high",
+                            high_tables=high)
             spare, kern = kern, out
             plain = run_block_plain(row(j), *plain, a_tab, b_tab, mono, logt,
                                     cap, precision="high")
@@ -759,7 +793,7 @@ def check_high_drift(torch):
             drift["plain"].append(norm2(plain) / n0 - 1.0)
         last[seed] = drift_seed(f"high drift n={n}", seed, drift, n0,
                                 f"steps 1..{DRIFT_STEPS}")
-        del kern, spare, plain, start, out, a_tab, b_tab, w16
+        del kern, spare, plain, start, out, a_tab, b_tab, high
         torch.cuda.empty_cache()
     drift_verdict(f"high drift n={n}, {DRIFT_STEPS} steps", last)
 
@@ -1637,7 +1671,7 @@ def check_split_block(torch, rng):
     blocks = [synthetic_blocks(PF, rng, logt)[0], index_only, one_mat]
     scal, a_tab, b_tab, mono_src = split_tables_for(torch, PF, blocks,
                                                     PF.CAP_MATS)
-    w16 = split_tables(a_tab, b_tab)
+    high = split_tables(a_tab, b_tab)
     h = random_halves(torch, n)
     tols = {"highest": SPLIT_MAT_TOL, "high": BLOCK_TOL}
     err = {}
@@ -1645,11 +1679,11 @@ def check_split_block(torch, rng):
         for rung in ("highest", "high")[: 2 - i]:
             args = (a_tab[i], b_tab[i], mono_src[i], logt, PF.CAP_STEPS)
             got = run_split_block(scal[i], clone4(h), *args, precision=rung,
-                                  w16=w16[i])
+                                  high_tables=high[i])
             want = run_split_block_plain(scal[i], clone4(h), *args,
                                          precision=rung)
             flat = run_block(scal[i], *joined(torch, h), *args,
-                             precision=rung, w16=w16[i])
+                             precision=rung, high_tables=high[i])
             torch.cuda.synchronize()
             e, e_flat = diff4(got, want), diff4(joined(torch, got), flat)
             print(f"split block n={n} {name} {rung}: max|diff| vs plain "
@@ -1691,7 +1725,7 @@ def check_split_block(torch, rng):
     flop = 6.0 * R2 * 256 * 256
     for rung in ("highest", "high"):
         got = run_split_block(scal[i], clone4(h), *args, precision=rung,
-                              w16=w16[i])
+                              high_tables=high[i])
         want = run_split_block_plain(scal[i], clone4(h), *args,
                                      precision=rung)
         miss = run_split_block_plain(scal[i], clone4(h), *dropped,
@@ -1699,16 +1733,16 @@ def check_split_block(torch, rng):
         # the flat step (kernel 1) on the joined state: the same sums in
         # the same order at "highest", so bit for bit
         flat = run_block(scal[i], *joined(torch, h), *args, precision=rung,
-                         w16=w16[i])
+                         high_tables=high[i])
         torch.cuda.synchronize()
         e, e_drop = diff4(got, want), diff4(got, miss)
         e_flat = max_diff(joined(torch, got), flat)
+        # both rungs: one kernel body, the same sums in the same order
         print(f"split mat step n={n} {rung}: in place vs the flat step "
-              f"max|diff| {e_flat:.3e}"
-              + (" (bar 0.0)" if rung == "highest" else ""))
-        if rung == "highest" and e_flat != 0.0:
-            raise AssertionError(f"split mat step: flat and in place differ "
-                                 f"({e_flat})")
+              f"max|diff| {e_flat:.3e} (bar 0.0)")
+        if e_flat != 0.0:
+            raise AssertionError(f"split mat step {rung}: flat and in place "
+                                 f"differ ({e_flat})")
         if not e <= tols[rung]:
             raise AssertionError(f"split mat step {rung}: {e} > {tols[rung]}")
         if not e_drop > tols[rung]:
@@ -1717,14 +1751,15 @@ def check_split_block(torch, rng):
         del want, miss, flat
         reps = 10
         ms = device_ms(torch, lambda: run_split_block(
-            scal[i], h, *args, precision=rung, w16=w16[i]), reps=reps)
+            scal[i], h, *args, precision=rung, high_tables=high[i]),
+            reps=reps)
         plain_ms = device_ms(torch, lambda: run_split_block_plain(
             scal[i], h, *args, precision=rung), reps=3)
         pair = joined(torch, h)
         scratch = (torch.empty_like(pair[0]), torch.empty_like(pair[1]))
         flat_ms = device_ms(torch, lambda: run_block(
             scal[i], *pair, *args, scratch=scratch, precision=rung,
-            w16=w16[i]), reps=reps)
+            high_tables=high[i]), reps=reps)
         library_ms = None
         if rung == "highest":
             x = torch.cat(joined(torch, h), 1)
@@ -1751,7 +1786,10 @@ def check_split_block(torch, rng):
               f"count), flat kernel {flat_ms:.4f} ms"
               + (f" (previous design "
                  f"{BEFORE_MS['fp32 mat step n=24 (flat)']} ms)"
-                 if rung == "highest" else "")
+                 if rung == "highest" else
+                 f" (previous design: in place "
+                 f"{BEFORE_MS['high mat step n=24 (in place)']} ms, flat "
+                 f"{BEFORE_MS['high mat step n=24 (flat)']} ms)")
               + f", plain {plain_ms:.4f} ms, library "
               + ("none" if library_ms is None else
                  f"{library_ms:.4f} ms ({tf / library_ms:.1f})")
@@ -1760,6 +1798,26 @@ def check_split_block(torch, rng):
             "split_mat_step" + ("_high" if rung == "high" else ""), SPLIT_SRC,
             SPLIT_TPU, e, ms, plain_ms, bnd, library_ms)
         del pair, scratch, got
+    torch.cuda.empty_cache()
+
+    # the "high" step in place at full width (the default n=30 path), timed
+    # beside its previous design; random halves from a generator of their
+    # own, so the phases after this one draw as they did
+    n30 = FULL_WIDTH
+    R30 = 1 << (n30 - PF.LOCAL_QUBITS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(n30)
+    big = tuple(torch.randn(R30, 128, device="cuda", generator=gen) / 16
+                for _ in range(4))
+    ms30 = device_ms(torch, lambda: run_split_block(
+        scal[i], big, *args, precision="high", high_tables=high[i]),
+        reps=3, rounds=3)
+    bnd30 = bound(3 * 6.0 * R30 * 256 * 256,
+                  16.0 * R30 * 256 + 4 * 256 * 256 * 2, BF16_FLOPS)
+    print(f"split mat step n={n30} high: kernel {ms30:.4f} ms in place "
+          f"(previous design {BEFORE_MS['high mat step n=30 (in place)']} "
+          f"ms), bound {bnd30[0]:.4f} ms ({bnd30[1]})")
+    del big
     torch.cuda.empty_cache()
     return block, recs["highest"], recs["high"]
 
@@ -1840,7 +1898,7 @@ def check_pair_mode(torch, rng):
     ]
     scal, a_tab, b_tab, mono_src = split_tables_for(
         torch, PF, [b for _, b in named], 2, inplace=True, fold_xswap=True)
-    w16 = split_tables(a_tab, b_tab)
+    high = split_tables(a_tab, b_tab)
     h = random_halves(torch, n)
     tols = {"highest": SPLIT_MAT_TOL, "high": BLOCK_TOL}
     err = 0.0
@@ -1850,7 +1908,7 @@ def check_pair_mode(torch, rng):
         plain_row = scal[i].copy()
         plain_row[1] = 0
         for rung in ("highest", "high") if name == "mat-first" else ("highest",):
-            kw = dict(precision=rung, w16=w16[i])
+            kw = dict(precision=rung, high_tables=high[i])
             one = run_split_block(scal[i], clone4(h), *args, **kw)
             two = run_split_block(plain_row, run_xswap(clone4(h), bit),
                                   *args, **kw)
@@ -2556,6 +2614,7 @@ def main() -> int:
         for line in built["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  ptxas:", line.strip())
+    check_high_sass()
     native_fuse.get_lib()
     native.get_lib()
 

@@ -14,156 +14,104 @@
 //   out_re = xr.A - xi.B,  out_im = xr.B + xi.A,
 // A = M_re^T, B = M_im^T (the block kernel's tables).  Schoolbook splits the
 // raw state, not sums of its parts, so it is the more accurate of the two,
-// and needs no operand adds.  The passes and where their sums are kept
-// (every partial product summed in fp32 on the CUDA cores, so that the
-// tensor core's truncating adds do not shrink the norm) are mma_high.cuh.
+// and needs no operand adds.
 //
-// Operands: the state is split as it is loaded, in registers, into the
-// mma.sync A fragments (fp32 -> bf16 hi + bf16 lo).  The tables are split
-// once per circuit on the host side of the call (kernels/block.py
-// split_tables): four bf16 tables [A_hi, A_lo, B_hi, B_lo], each stored
-// transposed, [n][k] with k contiguous, which is the col-major B fragment
-// of mma.m16n8k16 (two k-adjacent bf16 per 32-bit register).  -B is
-// formed by flipping the bf16 sign bits in registers (exact).
-//
-// What bounds it on the card: at n = 24 one step is 12 real products of
-// (2^16 x 256) @ (256 x 256), 103 GFLOP of bf16 MMA, against 256 MB of
-// state moved, ~400 FLOP/B: bound by tensor-core throughput (989 TFLOP/s
-// dense bf16 published at 700 W).  This first form is simple: mma.sync
-// (not wgmma), no shared memory, each warp computes a 32 x 32 tile of both
-// outputs from fragments loaded straight from global memory (the tables
-// are 512 KB per slot and stay in L2; the state rows are reused through
-// L1 by the CTA's four column warps).  wgmma, TMA staging and a tile
-// resident across steps are later work.
+// The kernel is wgmma_high.cuh's device body (shared with the in-place
+// step of split_block.cu, bit for bit): bf16 wgmma, each persistent CTA
+// keeping its column block of the tables resident in shared memory, the
+// state rows staged by cp.async through the input map, the hi.hi partials
+// summed in fp32 on the CUDA cores.  That header says what bounds it and
+// where its sums are kept.  The tables are split once per circuit on the
+// host side of the call (kernels/block.py split_tables) into the
+// shared-memory image the kernel copies.  A row block's four column-block
+// CTAs are neighbours in the grid and run at once, so its rows come from
+// device memory once and then from L2.
 //
 // Input maps as in prefetch_block.cu: steered (column bit 7 <-> a row bit)
 // or folded relayout (rowmap.cuh), first launch of a block only.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_high.cuh"
+#include <algorithm>
+
+#include "async_copy.cuh"
 #include "rowmap.cuh"
+#include "wgmma_high.cuh"
 
 namespace {
 
-using high::DVIEW;
-constexpr int HALF = 128;
-constexpr int WARPS_M = 2, WARPS_N = 4;
-constexpr int WM = 32, WN = 32;            // warp tile
-constexpr int BM = WM * WARPS_M;           // 64 rows per CTA
-constexpr int BN = WN * WARPS_N;           // 128 columns per CTA
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int MT = WM / 16;                // m16 tiles per warp
-constexpr int NT = WN / 8;                 // n8 tiles per warp
+using wgh::DVIEW;
+using wgh::HALF;
 
-// out = map(in) @ (A + iB) on an (rows, 256) state at the "high" rung.
-// w: the slot's four bf16 tables as 32-bit words, [A_hi, A_lo, B_hi, B_lo].
-__global__ void __launch_bounds__(THREADS)
-mat_high_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
-                float* __restrict__ out_re, float* __restrict__ out_im,
-                const uint32_t* __restrict__ w, long long rows, int steer_row,
-                Fold fold) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma group / thread in group
-  const long long row0 = (long long)blockIdx.x * BM + (warp / WARPS_N) * WM;
-  const int col0 = blockIdx.y * BN + (warp % WARPS_N) * WN;
+// (rows, 256) state pairs in and out; the input through the pending map
+struct FlatMap {
+  const float* in_re;
+  const float* in_im;
+  float* out_re;
+  float* out_im;
+  long long rows;
+  int steer_row;   // row bit exchanged with column bit 7 on input, or -1
+  Fold fold;
 
-  high::Acc<MT, NT> acc;
-  acc.zero();
-
-  // this thread's A-fragment rows: row0 + 16 mt + g + 8 h
-  bool valid[MT][2];
-  long long frow[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long r = row0 + mt * 16 + g + 8 * h;
-      valid[mt][h] = r < rows;
-      frow[mt][h] = fold.m > 0 ? fold_row(r, fold) : r;
-    }
-
-  for (int half = 0; half < 2; ++half) {     // column half of the k index
-    // element offset of (row, k = 128 * half) through the input map
-    long long off[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long r = row0 + mt * 16 + g + 8 * h;
-        long long sr = frow[mt][h];
-        int sh = half;
-        if (steer_row >= 0 && ((half ^ (int)(r >> steer_row)) & 1)) {
-          sr = r ^ (1LL << steer_row);
-          sh ^= 1;
-        }
-        off[mt][h] = sr * DVIEW + sh * HALF;
-      }
-
-#pragma unroll 2
-    for (int kk = 0; kk < HALF; kk += 16) {
-      // A fragments (row-major 16 x 16): reg q holds row g + 8 (q & 1),
-      // columns 2t, 2t + 1 (+ 8 for q >= 2)
-      uint32_t xrh[MT][4], xrl[MT][4], xih[MT][4], xil[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int h = q & 1;
-          float2 vr = make_float2(0.f, 0.f), vi = vr;
-          if (valid[mt][h]) {
-            const long long o = off[mt][h] + kk + 2 * t + (q >> 1) * 8;
-            vr = *reinterpret_cast<const float2*>(in_re + o);
-            vi = *reinterpret_cast<const float2*>(in_im + o);
-          }
-          high::split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
-          high::split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
-        }
-      // B fragments (col-major 16 x 8) of column n = col0 + 8 nt + g
-      high::chunk(acc, xrh, xrl, xih, xil, w, col0 + g,
-                  (half * HALF + kk) / 2 + t);
-    }
+  __device__ long long row(long long rb, int s) const {
+    return rb * wgh::BM + s;
   }
-
-  // C fragments: e = 0, 1 row g, columns 2t, 2t + 1; e = 2, 3 row g + 8
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (!valid[mt][h]) continue;
-      const long long r = row0 + mt * 16 + g + 8 * h;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const long long o = r * DVIEW + col0 + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out_re + o) =
-            make_float2(acc.r[mt][nt][2 * h], acc.r[mt][nt][2 * h + 1]);
-        *reinterpret_cast<float2*>(out_im + o) =
-            make_float2(acc.i[mt][nt][2 * h], acc.i[mt][nt][2 * h + 1]);
-      }
+  __device__ uint32_t code(long long r, int hf) const {
+    long long sr = fold.m > 0 ? fold_row(r, fold) : r;
+    int sh = hf;
+    if (steer_row >= 0 && ((hf ^ (int)(r >> steer_row)) & 1)) {
+      sr = r ^ (1LL << steer_row);
+      sh ^= 1;
     }
+    return (uint32_t)(2 * sr + sh);
+  }
+  __device__ const float* src(int comp, uint32_t code) const {
+    return (comp ? in_im : in_re) + (long long)code * HALF;
+  }
+  __device__ float* out(int comp, long long r, int col) const {
+    return (comp ? out_im : out_re) + r * DVIEW + col;
+  }
+};
+
+__global__ void __launch_bounds__(wgh::THREADS, 1)
+mat_high_kernel(FlatMap map, const uint8_t* __restrict__ w) {
+  wgh::mat_step(map, w);
 }
+
+bool smem_set = false;
+int slots = 0;   // CTAs of the kernel that fit on the card at once
 
 }  // namespace
 
 extern "C" {
 
-// One "high"-rung mat step on an (rows, 256) state pair.  w16: the slot's
-// [A_hi, A_lo, B_hi, B_lo] bf16 tables, each (256, 256) as [n][k];
+// One "high"-rung mat step on an (rows, 256) state pair.  w: the slot's
+// tables as kernels/block.py split_tables lays them out (512 KB);
 // steer_bit: flat bit (>= 8) exchanged with bit 7 on input, or -1;
 // sigma/m/tr: the folded relayout on input (m = 0: none).
 int qsim_mat_step_high(const float* in_re, const float* in_im, float* out_re,
-                       float* out_im, const void* w16, long long rows,
+                       float* out_im, const void* w, long long rows,
                        int steer_bit, const int* sigma, int m, int tr,
                        void* stream) {
-  Fold fold;
-  if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
+  FlatMap map{in_re, in_im, out_re, out_im, rows,
+              steer_bit >= 0 ? steer_bit - 8 : -1, Fold{}};
+  if (rows < 1 || rows > (1LL << 30) / DVIEW ||
+      !make_fold(&map.fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((unsigned)((rows + BM - 1) / BM), DVIEW / BN);
-  mat_high_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in_re, in_im, out_re, out_im, static_cast<const uint32_t*>(w16), rows,
-      steer_bit >= 0 ? steer_bit - 8 : -1, fold);
+  cudaError_t e = async::allow_smem(mat_high_kernel, wgh::SMEM, &smem_set);
+  if (e == cudaSuccess && slots == 0)
+    e = async::persistent_slots(mat_high_kernel, wgh::THREADS, wgh::SMEM,
+                                &slots);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // persistent: CTA groups of the four column blocks, one row block each
+  // at a time
+  const long long blocks = (rows + wgh::BM - 1) / wgh::BM;
+  const long long groups =
+      std::min<long long>(blocks, slots / wgh::COL_BLOCKS);
+  mat_high_kernel<<<(unsigned)(groups * wgh::COL_BLOCKS), wgh::THREADS,
+                    wgh::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<const uint8_t*>(w));
   return static_cast<int>(cudaGetLastError());
 }
 

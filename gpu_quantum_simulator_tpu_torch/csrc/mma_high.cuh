@@ -1,8 +1,11 @@
-// The "high" rung's arithmetic on Hopper tensor cores, shared by the flat
-// mat step (mat_high.cu), the in-place one (split_block.cu), the lane-
-// layout chain (wide_chain.cu, whose tables are 128 wide: the table width
-// D is a template parameter of chunk) and the mxu engine's mm step
-// (mm_high.cu, Karatsuba: three real products, real_product).
+// The "high" rung's arithmetic on Hopper tensor cores (mma.sync), shared
+// by the lane-layout chain's "high" arm (wide_chain.cu, whose tables are
+// 128 wide: the table width D is a template parameter of chunk) and the
+// mxu engine's mm step (mm_high.cu, Karatsuba: three real products,
+// real_product).  The prefetch engine's mat steps (mat_high.cu,
+// split_block.cu) run on wgmma (wgmma_high.cuh), with the same
+// rule for where the sums are kept (hi.hi partials from zero, summed in
+// fp32 on the CUDA cores).
 //
 // Each real product x.m is XLA's 3-pass bf16 decomposition
 // xh.mh + xl.mh + xh.ml (h = x rounded to bf16, l = the bf16 of the
@@ -45,7 +48,6 @@
 
 namespace high {
 
-constexpr int DVIEW = 256;                 // the mat steps' table width
 constexpr uint32_t SIGN = 0x80008000u;     // flips two bf16 signs: -B, exact
 
 // (x0, x1) -> bf16x2 hi and bf16x2 lo (x0 in the low 16 bits)
@@ -143,7 +145,7 @@ struct Acc {
 // loaded), B fragments from the four D x D [n][k] bf16 tables w = [A_hi,
 // A_lo, B_hi, B_lo] at column n0 + 8 nt of the n8 tile and 32-bit word kw
 // of k.
-template <int MT, int NT, int D = DVIEW>
+template <int MT, int NT, int D>
 __device__ __forceinline__ void chunk(Acc<MT, NT>& acc,
                                       const uint32_t (&xrh)[MT][4],
                                       const uint32_t (&xrl)[MT][4],

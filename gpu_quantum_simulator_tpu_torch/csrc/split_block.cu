@@ -62,16 +62,21 @@
 //   with margin but ran slower in every form tried on an H100: its
 //   operands s, m2, m3 cost shared-memory loads that the FMAs saved do not
 //   pay for (PERF.md section 6, PR 8).
-// The "high" step (mat_high_halves_kernel) is mat_high.cu's arithmetic
-// (mma_high.cuh), bit for bit.  wgmma and a tile resident across steps are
-// later work.
+// The "high" step (mat_high_halves_kernel) is mat_high.cu's kernel body,
+// wgmma_high.cuh, so the two give the same values bit for bit: persistent
+// groups of four CTAs, each CTA 64 columns of both components of a 128-row
+// tile on bf16 wgmma with its column block of the tables resident in
+// shared memory.  The launch is cooperative, and the group's warps count
+// their reads of a tile on a counter in device memory, which each waits
+// for before it writes.  A tile resident across a block's steps is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "async_copy.cuh"
-#include "mma_high.cuh"
+#include "wgmma_high.cuh"
 
 namespace {
 
@@ -231,95 +236,48 @@ mat_halves_kernel(float* re0, float* re1, float* im0, float* im1,
 }
 
 // ----------------------------------------------------------- "high" mat
-constexpr int HALF = 128;
-constexpr int WARPS_N = 8;                 // 8 x 32 = all 256 output columns
-constexpr int WM = 32, WN = 32;            // warp tile, as mat_high.cu
-constexpr int HIGH_THREADS = 32 * WARPS_N;
-constexpr int MT = WM / 16, NT = WN / 8;
+// The four halves; a group of four CTAs (the column blocks) owns each tile
+// of 128 rows (owned_row), read through the pending swap in pair mode.
+struct HalvesMap {
+  float* re0;
+  float* re1;
+  float* im0;
+  float* im1;
+  long long rows;
+  int pair_bit;
 
-// The "high" mat step in place: mat_high_kernel's warp tile and arithmetic
-// (mat_high.cu, mma_high.cuh), with eight warps side by side covering 32
-// whole rows and one CTA barrier between the last read and the first write.  (Sixteen
-// warps on 64 rows halve the table traffic from L2 but are capped at 128
-// registers and spill; on an H100 at n = 24 they were no faster.)
-__global__ void __launch_bounds__(HIGH_THREADS)
-mat_high_halves_kernel(float* re0, float* re1, float* im0, float* im1,
-                       const uint32_t* __restrict__ w, long long rows,
-                       int pair_bit) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = warp * WN;
-
-  high::Acc<MT, NT> acc;
-  acc.zero();
-
-  // this thread's A-fragment rows: slots 16 mt + g + 8 h
-  long long frow[MT][2];
-  bool valid[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      frow[mt][h] = owned_row(blockIdx.x, mt * 16 + g + 8 * h, WM, pair_bit);
-      valid[mt][h] = frow[mt][h] < rows;
-    }
-
-  for (int half = 0; half < 2; ++half) {     // column half of the k index
-    const float* pr[MT][2];
-    const float* pi[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        long long sr;
-        int sh;
-        pair_source(frow[mt][h], half, pair_bit, sr, sh);
-        pr[mt][h] = (sh ? re1 : re0) + sr * LANES;
-        pi[mt][h] = (sh ? im1 : im0) + sr * LANES;
-      }
-
-#pragma unroll 2
-    for (int kk = 0; kk < HALF; kk += 16) {
-      uint32_t xrh[MT][4], xrl[MT][4], xih[MT][4], xil[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int h = q & 1;
-          float2 vr = make_float2(0.f, 0.f), vi = vr;
-          if (valid[mt][h]) {
-            const int o = kk + 2 * t + (q >> 1) * 8;
-            vr = *reinterpret_cast<const float2*>(pr[mt][h] + o);
-            vi = *reinterpret_cast<const float2*>(pi[mt][h] + o);
-          }
-          high::split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
-          high::split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
-        }
-      high::chunk(acc, xrh, xrl, xih, xil, w, col0 + g,
-                  (half * HALF + kk) / 2 + t);
-    }
+  __device__ long long row(long long rb, int s) const {
+    return owned_row(rb, s, wgh::BM, pair_bit);
   }
+  __device__ uint32_t code(long long r, int hf) const {
+    long long sr;
+    int sh;
+    pair_source(r, hf, pair_bit, sr, sh);
+    return (uint32_t)(2 * sr + sh);
+  }
+  __device__ const float* src(int comp, uint32_t code) const {
+    const float* h = code & 1 ? (comp ? im1 : re1) : (comp ? im0 : re0);
+    return h + (long long)(code >> 1) * LANES;
+  }
+  __device__ float* out(int comp, long long r, int col) const {
+    float* h = col >= LANES ? (comp ? im1 : re1) : (comp ? im0 : re0);
+    return h + r * LANES + (col & (LANES - 1));
+  }
+};
 
-  // the CTA's rows are read by all of its warps: none writes before all
-  // have their sums
-  __syncthreads();
-  float* out_re = col0 >= HALF ? re1 : re0;
-  float* out_im = col0 >= HALF ? im1 : im0;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (!valid[mt][h]) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const long long o = frow[mt][h] * LANES + (col0 & (HALF - 1)) + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(out_re + o) =
-            make_float2(acc.r[mt][nt][2 * h], acc.r[mt][nt][2 * h + 1]);
-        *reinterpret_cast<float2*>(out_im + o) =
-            make_float2(acc.i[mt][nt][2 * h], acc.i[mt][nt][2 * h + 1]);
-      }
-    }
+// The "high" mat step in place: mat_high.cu's kernel body
+// (wgmma_high.cuh), launched cooperatively so that the four CTAs of a row
+// block's group can wait for each other's reads through counters in
+// device memory (sync) before writing.  (As clusters of four, which must
+// each sit in one GPC, fewer of these one-an-SM CTAs run at once.)
+__global__ void __launch_bounds__(wgh::THREADS, 1)
+mat_high_halves_kernel(HalvesMap map, const uint8_t* __restrict__ w,
+                       int* sync) {
+  wgh::mat_step(map, w, sync);
 }
+
+bool high_smem_set = false;
+int high_slots = 0;   // CTAs of the kernel that fit on the card at once
 
 // ------------------------------------------------------------ index steps
 constexpr int THREADS = 256;
@@ -457,14 +415,32 @@ int qsim_split_mat_step(float* re0, float* re1, float* im0, float* im1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// w16: the slot's [A_hi, A_lo, B_hi, B_lo] bf16 tables (kernels/block.py
-// split_tables).
+// w: the slot's tables as kernels/block.py split_tables lays them out;
+// sync: 2 * sync_groups ints, zero (and left zero), for as many CTA groups.
 int qsim_split_mat_step_high(float* re0, float* re1, float* im0, float* im1,
-                             const void* w16, long long rows, int pair_bit,
-                             void* stream) {
-  mat_high_halves_kernel<<<ceil_div(rows, WM), HIGH_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      re0, re1, im0, im1, static_cast<const uint32_t*>(w16), rows, pair_bit);
+                             const void* w, long long rows, int pair_bit,
+                             int* sync, int sync_groups, void* stream) {
+  if (rows < 1 || rows > (1LL << 30) / DVIEW || sync_groups < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = async::allow_smem(mat_high_halves_kernel, wgh::SMEM,
+                                    &high_smem_set);
+  if (e == cudaSuccess && high_slots == 0)
+    e = async::persistent_slots(mat_high_halves_kernel, wgh::THREADS,
+                                wgh::SMEM, &high_slots);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // persistent: CTA groups of the four column blocks, one row block each
+  // at a time, every CTA resident
+  const long long blocks = (rows + wgh::BM - 1) / wgh::BM;
+  long long groups = high_slots / wgh::COL_BLOCKS;
+  if (groups > sync_groups) groups = sync_groups;
+  if (groups > blocks) groups = blocks;
+  HalvesMap map{re0, re1, im0, im1, rows, pair_bit};
+  void* args[] = {&map, &w, &sync};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(mat_high_halves_kernel),
+      dim3((unsigned)(groups * wgh::COL_BLOCKS)), dim3(wgh::THREADS), args,
+      wgh::SMEM, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

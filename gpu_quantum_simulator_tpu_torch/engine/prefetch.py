@@ -1073,7 +1073,7 @@ class DeviceChain:
     the two ping-pong buffer pairs, so the caller hands its state over (the
     port's stand-in for JAX's buffer donation).  ``mode_rows`` counts the
     scal rows by mode (3: standalone relayouts, 5: folded ones).  At the
-    "high" rung on a card the tables are also split once into the bf16
+    "high" rung on a card the tables are also split once into the
     operands of the "high" mat kernel (kernels/block.py ``split_tables``).
     """
 
@@ -1105,16 +1105,16 @@ class DeviceChain:
                 a_tab, b_tab, mono_src = expand_tables(
                     dev(u_re), dev(u_im), dev(mvec), dev(hvec), dev(mvec_o),
                     dev(hvec_o), dev(phases), dev(mono))
-                w16 = split_tables(a_tab, b_tab) if split else None
+                high = split_tables(a_tab, b_tab) if split else None
                 self._parts.append((scal[off : off + c].tolist(), a_tab,
-                                    b_tab, mono_src, w16))
+                                    b_tab, mono_src, high))
                 off += c
 
     def __call__(self, re: torch.Tensor, im: torch.Tensor):
         cur = (re.reshape(self._R2, DVIEW), im.reshape(self._R2, DVIEW))
         spare = None
         soff = 4 + 2 * self.cap_steps        # folded sigma in the scal tail
-        for scal, a_tab, b_tab, mono_src, w16 in self._parts:
+        for scal, a_tab, b_tab, mono_src, high in self._parts:
             for i, row in enumerate(scal):
                 mode = row[1]
                 if mode == 3:
@@ -1127,7 +1127,8 @@ class DeviceChain:
                                     mono_src[i], self._logt, self.cap_steps,
                                     scratch=spare, sigma=sigma, tr=self._tr,
                                     precision=self.precision,
-                                    w16=None if w16 is None else w16[i])
+                                    high_tables=None if high is None
+                                    else high[i])
                 else:
                     raise NotImplementedError(
                         f"scal mode {mode} in a flat chain: 2 (the pair "
@@ -1180,12 +1181,12 @@ class SplitChain:
         halves = (re0, re1, im0, im1)
         split = self.precision == "high" and self.device.type == "cuda"
         for scal, tabs in self._parts:
-            a_tab = b_tab = mono_src = w16 = None
+            a_tab = b_tab = mono_src = high = None
             if any(row[0] for row in scal):    # a part of swaps needs none
                 a_tab, b_tab, mono_src = expand_tables(
                     *(torch.from_numpy(t).to(self.device) for t in tabs))
                 if split:
-                    w16 = split_tables(a_tab, b_tab)
+                    high = split_tables(a_tab, b_tab)
             for i, row in enumerate(scal):
                 mode = row[1]
                 if mode == 3:
@@ -1198,14 +1199,15 @@ class SplitChain:
                               else (a_tab[i], b_tab[i], mono_src[i]))
                     run_split_block(row, halves, *tables, self._logt,
                                     self.cap_steps, precision=self.precision,
-                                    w16=None if w16 is None else w16[i])
+                                    high_tables=None if high is None
+                                    else high[i])
                 else:
                     raise NotImplementedError(
                         f"scal mode {mode} in an in-place chain: 5 (the "
                         "folded relayout) never occurs in place; 4 (mesh "
                         "gswap) is not in the port's slice yet (ROADMAP "
                         "queue A, item 8, parallel/)")
-            del a_tab, b_tab, mono_src, w16
+            del a_tab, b_tab, mono_src, high
         return halves
 
 

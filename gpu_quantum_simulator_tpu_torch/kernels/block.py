@@ -42,6 +42,8 @@ LANE_QUBITS = 7
 LOCAL_QUBITS = 8
 DVIEW = 256
 RUNGS = ("highest", "high")
+HIGH_COL_BLOCKS = 4        # the "high" kernel's column blocks of 64
+HIGH_SLOT_WORDS = DVIEW * DVIEW * 2   # int32 words: four bf16 tables a slot
 LAUNCH_KINDS = ("mat", "mat_high", "gather", "folded")
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
@@ -106,15 +108,38 @@ def mat_high_plain(re: torch.Tensor, im: torch.Tensor, a: torch.Tensor,
 
 
 def split_tables(a_tab: torch.Tensor, b_tab: torch.Tensor) -> torch.Tensor:
-    """(..., 256, 256) float32 tables -> (..., 4, 256, 256) bfloat16
-    [A_hi, A_lo, B_hi, B_lo], each transposed to [n][k]: the operand
-    layout of the "high" mat kernel (csrc/mat_high.cu).  Done once per
-    circuit (DeviceChain), since the tables are fixed."""
+    """(..., 256, 256) float32 tables [k][n] (A = M_re^T, B = M_im^T) ->
+    (..., HIGH_SLOT_WORDS) int32: the bfloat16 operands of the "high" mat
+    kernel (csrc/wgmma_high.cuh) in the shared-memory image it bulk-copies,
+    two to a 32-bit word.  Per 64-column block and k-chunk of 16, four
+    parts A_hi, A_lo, B_hi, B_lo (hi = the table rounded to bf16, lo = the
+    bf16 of the residual: the JAX package's mh, ml), each 16-byte core
+    matrices [kc 2][n 64][8], wgmma position 8 c + 2 a + b of the chunk
+    holding k 4 a + 2 c + b.  Done once per circuit (DeviceChain), or per
+    part in place, since the tables are fixed."""
+    lead = a_tab.shape[:-2]
     parts = []
     for t in (a_tab, b_tab):
-        hi, lo = bf16_split(t.transpose(-1, -2))
-        parts += [hi.to(torch.bfloat16), lo.to(torch.bfloat16)]
-    return torch.stack(parts, dim=-3).contiguous()
+        # k = 16 q + 4 a + 2 c + b, n = 64 cb + nn -> (cb, q, c, nn, a, b)
+        t = t.reshape(*lead, DVIEW // 16, 4, 2, 2, HIGH_COL_BLOCKS,
+                      DVIEW // HIGH_COL_BLOCKS)
+        t = t.permute(*range(len(lead)),
+                      *(t.dim() + d for d in (-2, -6, -4, -1, -5, -3)))
+        t = t.reshape(*lead, HIGH_COL_BLOCKS, DVIEW // 16, -1)
+        hi = t.to(torch.bfloat16)
+        parts += [hi, (t - hi.float()).to(torch.bfloat16)]
+    return torch.stack(parts, -2).reshape(*lead, -1).view(torch.int32)
+
+
+def check_high_tables(high_tables: torch.Tensor, cap: int,
+                      what: str) -> None:
+    """Raise unless ``high_tables`` is ``split_tables`` of ``cap`` slots."""
+    if high_tables.dtype != torch.int32 \
+            or tuple(high_tables.shape) != (cap, HIGH_SLOT_WORDS) \
+            or not high_tables.is_contiguous():
+        raise ValueError(f"{what}: high_tables must be contiguous int32 "
+                         f"({cap}, {HIGH_SLOT_WORDS}) (split_tables), got "
+                         f"{high_tables.dtype} {tuple(high_tables.shape)}")
 
 
 def run_block_plain(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
@@ -181,16 +206,19 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
               mono_src: torch.Tensor, logt: int, cap_steps: int,
               scratch: Pair = None, sigma: Optional[Sequence[int]] = None,
               tr: int = 1, precision: str = "highest",
-              w16: Optional[torch.Tensor] = None) -> Pair:
+              high_tables: Optional[torch.Tensor] = None) -> Pair:
     """Apply one block to the (R2, 256) float32 state pair (re, im).
 
     On CUDA the result lands in either the input pair or ``scratch`` (a
     pair of the same shape, allocated here when None); the other pair is
     free for the caller's next entry.  ``a_tab``/``b_tab`` are the entry's
     (cap, 256, 256) tables, ``mono_src`` its (cap, 256) int32 gathers,
-    ``sigma``/``tr`` a mode-5 block's folded relayout, and ``w16`` the
-    entry's ``split_tables`` for the "high" rung (computed here when None).
+    ``sigma``/``tr`` a mode-5 block's folded relayout, and
+    ``high_tables`` the entry's ``split_tables`` for the "high" rung
+    (computed here when None; checked on every device when given).
     """
+    if high_tables is not None:
+        check_high_tables(high_tables, a_tab.shape[0], "block kernel")
     if re.device.type == "cpu":
         return run_block_plain(scal, re, im, a_tab, b_tab, mono_src, logt,
                                cap_steps, sigma, tr, precision)
@@ -217,18 +245,16 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
         fold = np.ascontiguousarray(np.asarray(sigma, dtype=np.int32))
     high = precision == "high" and any(
         int(scal[4 + j]) == 0 for j in range(nsteps))
-    if high and w16 is None:
-        w16 = split_tables(a_tab, b_tab)
+    if high and high_tables is None:
+        high_tables = split_tables(a_tab, b_tab)
     if scratch is None:
         scratch = (torch.empty_like(re), torch.empty_like(im))
     f32 = torch.float32
     tensors = [re, im, *scratch, a_tab, b_tab, mono_src]
     dtypes = [f32] * 6 + [torch.int32]
     if high:
-        if w16.shape != (a_tab.shape[0], 4, DVIEW, DVIEW):
-            raise ValueError("block kernel: w16 must be (cap, 4, 256, 256)")
-        tensors.append(w16)
-        dtypes.append(torch.bfloat16)
+        tensors.append(high_tables)
+        dtypes.append(torch.int32)
     _check_cuda(tensors, dtypes)
     steer = _steer_bit(scal, logt)
     if nsteps == 0 and steer < 0:
@@ -237,7 +263,7 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
     stream = torch.cuda.current_stream(re.device).cuda_stream
     slot = DVIEW * DVIEW * 4               # bytes per table slot
     a0, b0, m0 = a_tab.data_ptr(), b_tab.data_ptr(), mono_src.data_ptr()
-    w0 = w16.data_ptr() if high else None
+    w0 = high_tables.data_ptr() if high else None
     total = rows * DVIEW
     src, dst = (re, im), scratch
     counts = run_block.launches
@@ -265,8 +291,8 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
             what = "mat_high"
             rc = lib.qsim_mat_step_high(
                 src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
-                dst[1].data_ptr(), w0 + idx * 4 * slot // 2, rows, steer,
-                *fold_args(), stream)
+                dst[1].data_ptr(), w0 + idx * HIGH_SLOT_WORDS * 4, rows,
+                steer, *fold_args(), stream)
         elif kind == 0:
             what = "mat"
             rc = lib.qsim_mat_step(

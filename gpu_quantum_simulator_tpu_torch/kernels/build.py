@@ -113,7 +113,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_split_mat_step.restype = I
     lib.qsim_split_mat_step.argtypes = [P, P, P, P, P, P, L, I, P]
     lib.qsim_split_mat_step_high.restype = I
-    lib.qsim_split_mat_step_high.argtypes = [P, P, P, P, P, L, I, P]
+    lib.qsim_split_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, P]
     lib.qsim_split_swap_rows.restype = I
     lib.qsim_split_swap_rows.argtypes = [P, P, P, P, L, I, P]
     lib.qsim_split_tswap_pair.restype = I
@@ -152,6 +152,15 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
         return lib
+
+
+def dump_sass() -> str:
+    """The SASS of the built library (``cuobjdump --dump-sass``, from the
+    toolkit that holds nvcc): what the card runs, per kernel."""
+    load()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "--dump-sass", _SO], check=True,
+                          capture_output=True, text=True).stdout
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

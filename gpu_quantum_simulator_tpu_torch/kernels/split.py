@@ -35,10 +35,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .block import DVIEW, _check_rung, run_block_plain, split_tables
+from .block import (DVIEW, HIGH_SLOT_WORDS, _check_rung, check_high_tables,
+                    run_block_plain, split_tables)
 
 LANES = 128
 LAUNCH_KINDS = ("mat", "mat_high", "gather", "pair")
+HIGH_SYNC_GROUPS = 64      # CTA groups the "high" step's counters serve
 
 Halves = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -99,6 +101,18 @@ def _cuda_halves(halves: Halves, what: str) -> int:
     return rows
 
 
+_SYNC: dict = {}
+
+
+def _high_sync(dev: torch.device) -> torch.Tensor:
+    """The "high" in-place step's counters on ``dev`` (two int32 a CTA
+    group), zero between launches: the kernel leaves them zero."""
+    if dev not in _SYNC:
+        _SYNC[dev] = torch.zeros(2 * HIGH_SYNC_GROUPS, dtype=torch.int32,
+                                 device=dev)
+    return _SYNC[dev]
+
+
 def run_xswap(halves: Halves, row_bit: int) -> Halves:
     """The cross-tile pair swap (scal mode 2) in the state's own buffers."""
     dev = halves[0].device
@@ -144,13 +158,16 @@ def run_split_block_plain(scal: Sequence[int], halves: Halves,
 def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
                     b_tab: torch.Tensor, mono_src: torch.Tensor, logt: int,
                     cap_steps: int, precision: str = "highest",
-                    w16: Optional[torch.Tensor] = None) -> Halves:
+                    high_tables: Optional[torch.Tensor] = None) -> Halves:
     """Apply one block to the four halves in place and return them.
 
     ``a_tab``/``b_tab`` are the entry's (cap, 256, 256) tables, ``mono_src``
-    its (cap, 256) int32 gathers and ``w16`` its ``split_tables`` for the
-    "high" rung (computed here when None); a block without steps reads no
-    table, and they may then be None."""
+    its (cap, 256) int32 gathers and ``high_tables`` its ``split_tables``
+    for the "high" rung (computed here when None; checked on every device
+    when given); a block without steps reads no table, and they may then be
+    None."""
+    if high_tables is not None:
+        check_high_tables(high_tables, a_tab.shape[0], "split block kernel")
     dev = halves[0].device
     if dev.type == "cpu":
         return run_split_block_plain(scal, halves, a_tab, b_tab, mono_src,
@@ -184,16 +201,14 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
                          "and mono_src (cap, 256)")
     high = precision == "high" and any(
         int(scal[4 + j]) == 0 for j in range(nsteps))
-    if high and w16 is None:
-        w16 = split_tables(a_tab, b_tab)
-    tensors = [a_tab, b_tab, mono_src] + ([w16] if high else [])
-    dtypes = [torch.float32, torch.float32, torch.int32, torch.bfloat16]
+    if high and high_tables is None:
+        high_tables = split_tables(a_tab, b_tab)
+    tensors = [a_tab, b_tab, mono_src] + ([high_tables] if high else [])
+    dtypes = [torch.float32, torch.float32, torch.int32, torch.int32]
     for t, dt in zip(tensors, dtypes):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"split block kernel: expected contiguous {dt} "
                              f"tables on {dev}, got {t.dtype} on {t.device}")
-    if high and w16.shape != (a_tab.shape[0], 4, DVIEW, DVIEW):
-        raise ValueError("split block kernel: w16 must be (cap, 4, 256, 256)")
     slot = DVIEW * DVIEW * 4               # bytes per table slot
     a0, b0, m0 = a_tab.data_ptr(), b_tab.data_ptr(), mono_src.data_ptr()
     for j in range(nsteps):
@@ -202,7 +217,8 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
         if kind == 0 and precision == "high":
             what = "mat_high"
             rc = lib.qsim_split_mat_step_high(
-                *ptrs, w16.data_ptr() + idx * 4 * slot // 2, rows, pair,
+                *ptrs, high_tables.data_ptr() + idx * HIGH_SLOT_WORDS * 4,
+                rows, pair, _high_sync(dev).data_ptr(), HIGH_SYNC_GROUPS,
                 stream)
         elif kind == 0:
             what = "mat"

@@ -24,7 +24,7 @@ import gpu_quantum_simulator_tpu_torch as T
 from gpu_quantum_simulator_tpu_torch.config import resolve_precision
 from gpu_quantum_simulator_tpu_torch.engine import prefetch as TPF
 from gpu_quantum_simulator_tpu_torch.kernels.block import (
-    bf16_split, mat_high_plain, split_tables)
+    HIGH_SLOT_WORDS, bf16_split, mat_high_plain, split_tables)
 
 SPLIT_TOL = 1e-5     # relative: both sum exact bf16 products in float32
 HIGH_TOL = 4e-6      # tests/test_precision_auto.py:68, the JAX rung's bar
@@ -61,18 +61,135 @@ def test_split_parts_are_bf16_exact():
     assert torch.all((x - hi - lo).abs() <= x.abs() * 2.0 ** -16)
 
 
+def _decode_image(w):
+    """The kernel's view of ``split_tables`` (csrc/wgmma_high.cuh), read
+    back into dense [n][k] float32 tables (A_hi, A_lo, B_hi, B_lo) for
+    every slot.  Per 64-column block cb and k-chunk q of 16 the bfloat16
+    values are four parts of 16-byte core matrices [kc 2][n 64][8]; wgmma
+    position p of the chunk holds k 4 ((p % 8) // 2) + 2 (p // 8) + p % 2."""
+    u = w.numpy().view(np.uint16).reshape(w.shape[0], 4, 16, 4, 2, 64, 8)
+    v = (u.astype(np.uint32) << 16).view(np.float32)
+    out = np.zeros((w.shape[0], 4, 256, 256), np.float32)
+    for cb in range(4):
+        n = cb * 64 + np.arange(64)
+        for q in range(16):
+            for kc in range(2):
+                for i in range(8):
+                    p = 8 * kc + i
+                    k = (16 * q + 4 * ((p % 8) // 2) + 2 * (p // 8)
+                         + p % 2)
+                    out[:, :, n, k] = v[:, cb, q, :, kc, :, i]
+    return out
+
+
 def test_split_tables_layout():
-    """split_tables stores [A_hi, A_lo, B_hi, B_lo], each as [n][k], so
-    that the mat kernel reads the transposed table (M itself)."""
+    """split_tables writes, for every 64-column block and k-chunk of 16,
+    A_hi, A_lo, B_hi, B_lo as bfloat16, each read back as [n][k]: the
+    transposed table (M itself)."""
     rng = np.random.default_rng(3)
     a = torch.from_numpy(rng.standard_normal((2, 256, 256)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal((2, 256, 256)).astype(np.float32))
     w = split_tables(a, b)
-    assert w.shape == (2, 4, 256, 256) and w.dtype == torch.bfloat16
+    assert w.shape == (2, HIGH_SLOT_WORDS) and w.dtype == torch.int32
+    dense = _decode_image(w)
     for j, t in enumerate((a, b)):
         hi, lo = bf16_split(t.transpose(-1, -2))
-        assert torch.equal(w[:, 2 * j].float(), hi)
-        assert torch.equal(w[:, 2 * j + 1].float(), lo)
+        assert np.array_equal(dense[:, 2 * j], hi.numpy())
+        assert np.array_equal(dense[:, 2 * j + 1], lo.numpy())
+    # and a leading dimension of entries is kept
+    assert split_tables(a[None], b[None]).shape == (1, 2, HIGH_SLOT_WORDS)
+
+
+@pytest.mark.parametrize("seed", [5, 6, 7])
+def test_split_tables_match_jax_make_dot_splits(seed):
+    """The image's parts, read back as [n][k], are bit for bit the JAX
+    package's ``_make_dot("high")`` splits of the tables: mh = m as bf16,
+    ml = the bf16 of m - mh."""
+    rng = np.random.default_rng(seed)
+    a, b = ((rng.standard_normal((3, 256, 256)) / 16).astype(np.float32)
+            for _ in range(2))
+    dense = _decode_image(split_tables(torch.from_numpy(a),
+                                       torch.from_numpy(b)))
+    for j, m in enumerate((a, b)):
+        mt = jnp.asarray(np.swapaxes(m, -1, -2))
+        mh = mt.astype(jnp.bfloat16)
+        ml = (mt - mh.astype(jnp.float32)).astype(jnp.bfloat16)
+        for part, want in ((2 * j, mh), (2 * j + 1, ml)):
+            assert np.array_equal(
+                dense[:, part].view(np.uint32),
+                np.asarray(want.astype(jnp.float32)).view(np.uint32))
+
+
+def _one_mat_block(seed):
+    """One "high" mat step (slot 1 of two) on an (R2, 256) state at n=12,
+    the tables random unitaries."""
+    rng = np.random.default_rng(seed)
+    us = []
+    for _ in range(2):
+        q, r = np.linalg.qr(rng.standard_normal((256, 256))
+                            + 1j * rng.standard_normal((256, 256)))
+        us.append(q * (np.diag(r) / np.abs(np.diag(r))))
+    a = torch.from_numpy(np.stack([u.real.T for u in us]).astype(np.float32))
+    b = torch.from_numpy(np.stack([u.imag.T for u in us]).astype(np.float32))
+    cap = TPF.CAP_STEPS
+    row = [1, 0, 0, 0] + [0] * cap + [1] + [0] * (cap - 1)
+    x = rng.standard_normal((2, 16, 256)).astype(np.float32)
+    return row, a, b, torch.zeros(2, 256, dtype=torch.int32), x, cap
+
+
+def _halves(re, im):
+    return tuple(h.contiguous() for x in (re, im)
+                 for h in (x[:, :128], x[:, 128:]))
+
+
+@pytest.mark.parametrize("site", ["flat", "inplace"])
+@pytest.mark.parametrize("bad", ["bf16 layout", "dtype", "slots", "words",
+                                 "strided"])
+def test_high_tables_fences(site, bad):
+    """Both launch sites of the "high" mat step refuse tables that are not
+    ``split_tables`` of the entry's slots, before choosing a device."""
+    from gpu_quantum_simulator_tpu_torch.kernels.block import run_block
+    from gpu_quantum_simulator_tpu_torch.kernels.split import run_split_block
+
+    row, a, b, mono, x, cap = _one_mat_block(8)
+    good = split_tables(a, b)
+    wrong = {
+        "bf16 layout": good.view(torch.bfloat16).reshape(2, 4, 256, 256),
+        "dtype": good.float(),
+        "slots": good[:1],
+        "words": good[:, :-4],
+        "strided": torch.stack([good, good], -1)[..., 0],
+    }[bad]
+    re, im = torch.from_numpy(x[0]), torch.from_numpy(x[1])
+    with pytest.raises(ValueError, match="high_tables"):
+        if site == "flat":
+            run_block(row, re, im, a, b, mono, 1, cap, precision="high",
+                      high_tables=wrong)
+        else:
+            run_split_block(row, _halves(re, im), a, b, mono, 1, cap,
+                            precision="high", high_tables=wrong)
+
+
+@pytest.mark.parametrize("seed", [9, 10])
+def test_plain_flat_and_inplace_high_steps_equal(seed):
+    """One "high" mat step through both launch sites on the CPU (their
+    plain versions), given the tables ``split_tables`` makes: the in-place
+    halves joined equal the flat pair bit for bit, and both equal
+    ``mat_high_plain`` on the slot's tables."""
+    from gpu_quantum_simulator_tpu_torch.kernels.block import run_block
+    from gpu_quantum_simulator_tpu_torch.kernels.split import run_split_block
+
+    row, a, b, mono, x, cap = _one_mat_block(seed)
+    high = split_tables(a, b)
+    re, im = torch.from_numpy(x[0]), torch.from_numpy(x[1])
+    flat = run_block(row, re, im, a, b, mono, 1, cap, precision="high",
+                     high_tables=high)
+    halves = run_split_block(row, _halves(re, im), a, b, mono, 1, cap,
+                             precision="high", high_tables=high)
+    assert torch.equal(torch.cat(halves[:2], 1), flat[0])
+    assert torch.equal(torch.cat(halves[2:], 1), flat[1])
+    want = mat_high_plain(re, im, a[1], b[1])
+    assert torch.equal(flat[0], want[0]) and torch.equal(flat[1], want[1])
 
 
 def test_mat_high_plain_is_the_schoolbook_split():
