@@ -2,7 +2,7 @@
 """Compare checkouts of the port on one CUDA card, in turns.
 
     python3 chip_ab.py --trees ab/parent . . ab/parent \\
-        [--phases mat high highdrift split vmem mm] \\
+        [--phases sass mat high highdrift split vmem mm drift mxupeak] \\
         [--profile "--strategy mxu --widths 24"] \\
         [--out chiprun_out/ab]
 
@@ -25,6 +25,11 @@ Phases (chip_smoke function, where the tree has it):
   vmem   check_vmem_kernel: kernel 8's chunk and one D=512 op, n=18
   mm     check_mm_high: the mxu "high" mm step, n=24, D = 512 and 256
   drift  mxu_high_drift: the mxu "high" mm step's norm drift, n=24
+  streams  check_two_streams: in-place "high" steps on two streams, n=24
+  sass   check_high_sass: HGMMA in the "high" kernels' SASS
+  mxupeak  (this script's own) peak device memory of the default config
+         (mxu, "auto") on grover_like at n = 24 and 28: one warm-up run,
+         then one run_detailed after reset_peak_memory_stats
 """
 
 from __future__ import annotations
@@ -43,15 +48,20 @@ PHASES = {
     "vmem": "C.check_vmem_kernel(torch, T)",
     "mm": "C.check_mm_high(torch)",
     "drift": "C.mxu_high_drift(torch)",
+    "streams": "C.check_two_streams(torch)",
+    "sass": "C.check_high_sass()",
+    "mxupeak": "mxu_peak((24, 28))",
 }
 FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "highdrift": "check_high_drift", "split": "check_split_block",
          "folded": "check_folded_block",
          "vmem": "check_vmem_kernel", "mm": "check_mm_high",
-         "drift": "mxu_high_drift"}
+         "drift": "mxu_high_drift", "streams": "check_two_streams",
+         "sass": "check_high_sass", "mxupeak": None}
 ECHO = ("mat step n=", "split mat step n=", "at the end kernel", "vmem one op",
         "vmem chunk kernel", "mm step high", "over seeds", "run_detailed",
-        "busy", "NVIDIA", "kernels built")
+        "busy", "NVIDIA", "kernels built", "mxu peak", "sass ",
+        "two streams", "ptxas")
 
 PHASE_RUN = """
 import sys, numpy as np, torch
@@ -67,11 +77,33 @@ print("kernels built" + ("" if build.last_build is None else
       " in %.1f s" % build.last_build["seconds"]))
 if build.last_build:
     for line in build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line or "wgmma" in line
+                or "Compiling" in line):
             print("  ptxas:", line.strip())
 rng = np.random.default_rng(2445)
+
+
+def mxu_peak(widths):
+    for n in widths:
+        sim = T.Simulator(T.SimulatorConfig(strategy="mxu"), device="cuda")
+        c = T.models.grover_like(n, 2445, 318)
+        sim.run_detailed(c)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        secs = sim.run_detailed(c).seconds
+        peak = torch.cuda.max_memory_allocated()
+        print("mxu peak n=%d: %.3f GiB peak device memory in run_detailed "
+              "(%.4f s), %.3f GiB held before it (program tables), state "
+              "pair %.3f GiB" % (n, peak / 2 ** 30, secs, held / 2 ** 30,
+                                 2 ** (n + 3) / 2 ** 30))
+        del sim
+        C.clear_caches(torch)
+
+
 for name, call in {calls!r}:
-    if not hasattr(C, name):
+    if name is not None and not hasattr(C, name):
         print("phase", name, "absent in this tree")
         continue
     eval(call)

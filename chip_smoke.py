@@ -10,7 +10,8 @@ failure raises and the script exits non-zero:
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from the repository's sources (build/), and
    check in the library's SASS that both "high" mat-step kernels (flat and
-   in place) run on wgmma: HGMMA, and no tf32 mma.sync k4;
+   in place) run on wgmma (HGMMA, and no tf32 mma.sync k4), and so does
+   the mxu mm step at every D (HGMMA, and no mma.sync HMMA at all);
 3. hold each kernel against its plain torch version on the card at the
    main path's shapes — the block kernel at n=18 on synthetic blocks
    covering mat, mono, perm v=0..6 and tswap k=1..9 in plain and steered
@@ -23,9 +24,10 @@ failure raises and the script exits non-zero:
    n=24 on a normalized state: chains of P = 1 and 8 products at both
    rungs (<= 1e-7; in place bit-exact) and one product as
    ``apply_block128`` (<= 1e-7), the mxu engine's "high" mm step
-   (csrc/mm_high.cu) at n=24 on a normalized state shuffled for D=512 and
-   D=256 blocks (<= 1e-7; the plain version without one correction pass
-   must miss that bar; timed beside the cuBLAS bf16 GEMMs it replaced),
+   (csrc/mm_high.cu) at n=24 on a normalized (R, 128) state read and
+   written through the row map of D=512 and D=256 blocks (<= 1e-7; the
+   plain version without one correction pass must miss that bar; timed
+   beside the cuBLAS bf16 GEMMs and row shuffles it replaced),
    and the vmem chunk kernel (kernel 8) at
    n=18 on a normalized state with the first 96-op chunk of the benchmark
    circuit's vmem fusion (<= 1e-7; the same chunk with one op's imaginary
@@ -73,7 +75,9 @@ failure raises and the script exits non-zero:
    block kernel on the joined state (index steps bit-exact, the fp32 mat
    step <= 1e-6, the "high" one <= 1e-5; one mat step alone at each rung
    bit for bit, both kernels keeping the same sums; the "high" step timed in
-   place at n=30 too), the pair swap (kernel 5(b)) on
+   place at n=30 too), two chains of in-place "high" steps launched
+   alternately on two streams (each equal to its one-stream chain bit for
+   bit, each stream's counters zero after), the pair swap (kernel 5(b)) on
    two tile bits (bit-exact), pair mode (kernel 6) with a mat first step at
    both rungs and a tswap, perm or mono first step against "pair swap, then
    the plain block" (bit-exact for the gathers; a plain version without its
@@ -221,6 +225,7 @@ BUTTERFLY_TOL = 1e-6        # the kernel rounds each product and sum as the
 COPY_WIDTHS = (24, 28, 30)  # kernel 11's harness
 SPLIT_WIDTH = 24            # phase 5 geometry of the in-place kernel checks
 SPLIT_MAT_TOL = 1e-6        # in-place fp32 mat step vs plain, |x| ~ 1/16
+TWO_STREAM_STEPS = 8        # in-place "high" steps on each of two streams
 INPLACE_WIDTHS = (18, 22, 23)   # in-place path held to the f64 reference
 INPLACE_SMALL = range(9, 18)    # in place below the first cross-tile swap
 RESUME_AT = 1200            # gate after which a run resumes from its state
@@ -239,7 +244,9 @@ BEFORE_MS = {"fp32 mat step n=22": "0.1941-0.1951",
              "high mat step n=24 (flat)": "0.6867",
              "high mat step n=28 (flat)": "10.5654",
              "high mat step n=24 (in place)": "0.6671",
-             "high mat step n=30 (in place)": "41.26-41.27"}
+             "high mat step n=30 (in place)": "41.26-41.27",
+             "mm step n=24 D=512": "1.4342",
+             "mm step n=24 D=256": "0.7629-0.7694"}
 
 
 def norm2(pair):
@@ -370,9 +377,11 @@ def synthetic_blocks(PF, rng, logt):
 
 
 def check_high_sass():
-    """The two "high" mat-step kernels, flat and in place, run on wgmma:
-    the built library's SASS of each holds HGMMA and none of the previous
-    design's tf32 mma.sync k4 (HMMA.1684.F32.TF32)."""
+    """The "high" kernels that run on wgmma: the two mat-step kernels
+    (flat and in place) hold HGMMA and none of their previous design's
+    tf32 mma.sync k4 (HMMA.1684.F32.TF32); every instantiation of the mxu
+    mm step (mm_high_kernel, one per D) holds HGMMA and no mma.sync HMMA
+    at all (its previous design's bf16 m16n8k16 and tf32 k4 passes)."""
     import re
 
     from gpu_quantum_simulator_tpu_torch.kernels import build
@@ -380,16 +389,23 @@ def check_high_sass():
     counts = {}
     for part in build.dump_sass().split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
-        m = re.search(r"\d(mat_high_kernel|mat_high_halves_kernel)E", name)
+        m = re.search(r"\d(mat_high_kernel|mat_high_halves_kernel|"
+                      r"mm_high_kernel)([EI]\w*?Li(\d+)E)?", name)
         if m:
-            counts[m.group(1)] = (part.count("HGMMA"),
-                                  part.count("HMMA.1684.F32.TF32"))
-    for kernel in ("mat_high_kernel", "mat_high_halves_kernel"):
-        hgmma, tf32 = counts.get(kernel, (0, 0))
-        print(f"sass {kernel}: {hgmma} HGMMA, {tf32} HMMA.1684.F32.TF32")
-        if kernel not in counts or hgmma == 0 or tf32 != 0:
+            key = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+            counts[key] = (part.count("HGMMA"),
+                           part.count("HMMA.1684.F32.TF32"),
+                           len(re.findall(r"\bHMMA\.", part)))
+    want = ["mat_high_kernel", "mat_high_halves_kernel"] + [
+        f"mm_high_kernel<{d}>" for d in (128, 256, 512)]
+    for kernel in want:
+        hgmma, tf32, hmma = counts.get(kernel, (0, 0, 0))
+        print(f"sass {kernel}: {hgmma} HGMMA, {tf32} HMMA.1684.F32.TF32, "
+              f"{hmma} HMMA in all")
+        old = hmma if kernel.startswith("mm_") else tf32
+        if kernel not in counts or hgmma == 0 or old != 0:
             raise AssertionError(f"{kernel}: not the wgmma kernel "
-                                 f"({hgmma} HGMMA, {tf32} tf32 HMMA)")
+                                 f"({hgmma} HGMMA, {hmma} HMMA)")
 
 
 def check_block_kernel(torch, rng):
@@ -871,14 +887,15 @@ def cublas_trio(torch, bf16_split):
 
 def check_mm_high(torch):
     """The mxu engine's "high" mm step (csrc/mm_high.cu) at n=24 on a
-    normalized state, shuffled for a D = 512 (row bits 0, 1) and a D = 256
-    (row bit 0) block: against its plain version (<= CHAIN_TOL; the plain
-    version without the xh.m1_lo correction must miss that bar), timed
-    beside its bound, the plain version and the cuBLAS GEMMs it replaced
-    (no single PyTorch call computes the 3-pass product).  The record is
-    D = 512's, the main path's shape.  Its draws have seeds of their own,
-    so the phases after it draw as they did without it."""
-    from gpu_quantum_simulator_tpu_torch.engine.wide import row_shuffles
+    normalized (R, 128) state, read and written through the row map of a
+    D = 512 (row bits 0, 1) and a D = 256 (row bit 0) block: against its
+    plain version (<= CHAIN_TOL; the plain version without the xh.m1_lo
+    correction must miss that bar), timed beside its bound, the plain
+    version and the cuBLAS GEMMs it replaced, with and without the row
+    shuffles around them (no single PyTorch call computes the 3-pass
+    product).  The record is D = 512's, the main path's shape.  Its draws
+    have seeds of their own, so the phases after it draw as they did
+    without it."""
     from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
     from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
 
@@ -892,17 +909,22 @@ def check_mm_high(torch):
     for row_bits in MM_ROW_BITS:
         D = 128 << len(row_bits)
         M = (1 << n) // D
-        fwd, _ = row_shuffles(row_bits, R)
-        xr, xi = fwd(re), fwd(im)
+        fwd, bwd = KW.row_shuffles(row_bits, R)
         m32 = mm_unitary_tables(torch, rng, D, 1)[0]
         w16 = KW.split_mm_tables(m32)
-        got = KW.mm_step_high(xr, xi, w16)
-        want = KW.mm_step_high_plain(xr, xi, w16)
+        got = KW.mm_step_high(re, im, w16, row_bits)
+        want = KW.mm_step_high_plain(re, im, w16, row_bits)
         tabs = KW.mm_tables_f32(w16)
         tabs[1] = torch.zeros_like(tabs[1])
-        dropped = KW.karatsuba_high(xr, xi, tabs)
+        dropped = tuple(bwd(x) for x in KW.karatsuba_high(fwd(re), fwd(im),
+                                                          tabs))
         hi, lo = (p.to(torch.bfloat16) for p in bf16_split(m32))
-        old = trio(xr, xi, hi, lo)
+
+        def old_step():          # shuffles around the cuBLAS GEMMs
+            t1, t2 = trio(fwd(re), fwd(im), hi, lo)
+            return bwd(t1), bwd(t2)
+
+        old = old_step()
         torch.cuda.synchronize()
         e, e_drop, e_old = (max_diff(got, x) for x in (want, dropped, old))
         if not e <= CHAIN_TOL:
@@ -912,24 +934,31 @@ def check_mm_high(torch):
                                  f"passes ({e_drop})")
         err = max(err, e)
         del want, dropped, tabs, old
-        out = (torch.empty_like(xr), torch.empty_like(xi))
-        ms = device_ms(torch, lambda: KW.mm_step_high(xr, xi, w16, out=out),
-                       reps=10)
+        out = (torch.empty_like(re), torch.empty_like(im))
+        ms = device_ms(torch, lambda: KW.mm_step_high(re, im, w16, row_bits,
+                                                      out=out), reps=10)
         plain_ms = device_ms(torch, lambda: KW.mm_step_high_plain(
-            xr, xi, w16), reps=3)
+            re, im, w16, row_bits), reps=3)
+        xr, xi = fwd(re), fwd(im)
         trio_ms = device_ms(torch, lambda: trio(xr, xi, hi, lo), reps=10)
+        del xr, xi
+        old_ms = device_ms(torch, old_step, reps=10)
         flop = 9 * 2.0 * M * D * D      # three real products, 3 passes each
         bnd = bound(flop, 16.0 * M * D + 6 * D * D * 2, BF16_FLOPS)
+        before = BEFORE_MS.get(f"mm step n={n} D={D}")
         print(f"mm step high n={n} D={D} row bits {row_bits}: max|diff| vs "
               f"plain {e:.3e}, without xh.m1_lo {e_drop:.3e}, vs the cuBLAS "
               f"bf16 GEMMs {e_old:.3e}; kernel {ms:.4f} ms "
-              f"({flop / ms / 1e9:.1f} bf16 TFLOP/s), plain {plain_ms:.4f} "
-              f"ms, cuBLAS bf16 GEMMs (9 torch.mm + elementwise) "
-              f"{trio_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f"({flop / ms / 1e9:.1f} bf16 TFLOP/s of useful work"
+              + (f"; previous design {before} ms + the row shuffles"
+                 if before else "") + f"), plain {plain_ms:.4f} ms, cuBLAS "
+              f"bf16 GEMMs (9 torch.mm + elementwise) {trio_ms:.4f} ms, with "
+              f"the row shuffles {old_ms:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]})")
         if rec is None:
             rec = record("mm_step_high", MM_SRC, MM_TPU, e, ms, plain_ms,
                          bnd, None)
-        del got, out, xr, xi, hi, lo, w16, m32
+        del got, out, hi, lo, w16, m32
     rec["max_abs_err"] = err
     del re, im
     torch.cuda.empty_cache()
@@ -938,13 +967,13 @@ def check_mm_high(torch):
 
 def mxu_high_drift(torch):
     """The mxu engine's "high" mm step, the drift measurement with its
-    bars: ``engine/wide.py`` ``_mm_step`` (the kernel csrc/mm_high.cu) at
-    n=24 on a D = 512 block (row bits 0, 1) and a D = 256 block (row bit
-    0), DRIFT_STEPS steps over DRIFT_SLOTS random unitaries taken in turn,
-    for every seed of DRIFT_SEEDS; beside it the plain version
-    (``karatsuba_high``, every bf16 product summed in IEEE fp32) and the
-    "highest" step (fp32 GEMMs).  Held to DRIFT_RATIO and DRIFT_EXCESS at
-    each D."""
+    bars: ``engine/wide.py`` ``_mm_step`` (the kernel csrc/mm_high.cu,
+    through the row map into a spare pair) at n=24 on a D = 512 block
+    (row bits 0, 1) and a D = 256 block (row bit 0), DRIFT_STEPS steps
+    over DRIFT_SLOTS random unitaries taken in turn, for every seed of
+    DRIFT_SEEDS; beside it the plain version (``karatsuba_high``, every
+    bf16 product summed in IEEE fp32) and the "highest" step (fp32 GEMMs).
+    Held to DRIFT_RATIO and DRIFT_EXCESS at each D."""
     from gpu_quantum_simulator_tpu_torch.engine import wide as TW
     from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
 
@@ -952,7 +981,7 @@ def mxu_high_drift(torch):
     R = 1 << (n - 7)
     for row_bits in MM_ROW_BITS:
         D = 128 << len(row_bits)
-        fwd, bwd = TW.row_shuffles(row_bits, R)
+        fwd, bwd = KW.row_shuffles(row_bits, R)
         last = {}
         for seed in DRIFT_SEEDS:
             rng = np.random.default_rng(seed)
@@ -964,14 +993,17 @@ def mxu_high_drift(torch):
             start = random_state(torch, gen, (R, 128))
             n0 = norm2(start)
             chains = {k: list(start) for k in ("kernel", "plain", "fp32")}
+            spare: list = []
             drift = {k: [] for k in chains}
             for step in range(DRIFT_STEPS):
                 j = step % DRIFT_SLOTS
-                TW._mm_step(chains["kernel"], w16[j], row_bits, R, "high")
+                TW._mm_step(chains["kernel"], spare, w16[j], row_bits, R,
+                            "high")
                 out = KW.karatsuba_high(*(fwd(x) for x in chains["plain"]),
                                         tabs[j])
                 chains["plain"] = [bwd(x) for x in out]
-                TW._mm_step(chains["fp32"], m32[j], row_bits, R, "highest")
+                TW._mm_step(chains["fp32"], [], m32[j], row_bits, R,
+                            "highest")
                 for k, v in chains.items():
                     drift[k].append(norm2(v) / n0 - 1.0)
             print(f"mxu high drift n={n} D={D} seed {seed}: fp32 step "
@@ -979,7 +1011,7 @@ def mxu_high_drift(torch):
                   f"{drift.pop('fp32')[-1]:.4e}")
             last[seed] = drift_seed(f"mxu high drift n={n} D={D}", seed,
                                     drift, n0, f"steps 1..{DRIFT_STEPS}")
-            del chains, start, m32, w16, tabs, out
+            del chains, spare, start, m32, w16, tabs, out
             torch.cuda.empty_cache()
         drift_verdict(f"mxu high drift n={n} D={D}, {DRIFT_STEPS} steps",
                       last)
@@ -1822,6 +1854,64 @@ def check_split_block(torch, rng):
     return block, recs["highest"], recs["high"]
 
 
+def check_two_streams(torch):
+    """Two in-place "high" mat steps in flight at once: each of two
+    streams of the card chains TWO_STREAM_STEPS cooperative launches of
+    kernel 5's "high" step (whose CTAs count their reads on device-memory
+    ints, kernels/split.py ``_high_sync``) on a state and table of its own,
+    the launches alternating between the streams; each result must equal
+    the same chain on one stream bit for bit, and every stream's counters
+    must be zero after it.  Its draws have seeds of their own."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels import split as KS
+    from gpu_quantum_simulator_tpu_torch.kernels.block import split_tables
+
+    n = SPLIT_WIDTH
+    rng = np.random.default_rng(n + 1)
+    gen = torch.Generator(device="cuda").manual_seed(n + 1)
+    logt = int(np.log2(PF.tile_rows(n)))
+    blocks = [PF._Block(kinds=[0], midx=[0], mats=[
+        (random_unitary(rng, 128), tuple(range(7)), None)]) for _ in "ab"]
+    scal, a_tab, b_tab, mono_src = split_tables_for(torch, PF, blocks,
+                                                    PF.CAP_MATS)
+    high = split_tables(a_tab, b_tab)
+    R2 = 1 << (n - 8)
+    starts = [tuple(torch.randn(R2, 128, device="cuda", generator=gen) / 16
+                    for _ in range(4)) for _ in blocks]
+
+    def step(i, halves):
+        return KS.run_split_block(
+            scal[i], halves, a_tab[i], b_tab[i], mono_src[i], logt,
+            PF.CAP_STEPS, precision="high", high_tables=high[i])
+
+    want = [clone4(h) for h in starts]
+    for i, h in enumerate(want):
+        for _ in range(TWO_STREAM_STEPS):
+            step(i, h)
+    got = [clone4(h) for h in starts]
+    streams = [torch.cuda.Stream() for _ in blocks]
+    torch.cuda.synchronize()
+    for _ in range(TWO_STREAM_STEPS):
+        for i, h in enumerate(got):
+            with torch.cuda.stream(streams[i]):
+                step(i, h)
+    torch.cuda.synchronize()
+    dev = starts[0][0].device
+    counters = [KS._high_sync(dev, s.cuda_stream) for s in streams]
+    same = [equal4(torch, g, w) for g, w in zip(got, want)]
+    print(f"two streams n={n}: {TWO_STREAM_STEPS} in-place 'high' mat steps "
+          f"on each, alternating; equal to one stream bit for bit {same}; "
+          f"counter buffers distinct "
+          f"{counters[0].data_ptr() != counters[1].data_ptr()}, zero after "
+          f"{[not bool(c.any()) for c in counters]}")
+    if not all(same) or any(bool(c.any()) for c in counters) \
+            or counters[0].data_ptr() == counters[1].data_ptr():
+        raise AssertionError("two streams: the in-place 'high' steps "
+                             "disagree with one stream or share counters")
+    del got, want, starts, high
+    torch.cuda.empty_cache()
+
+
 def check_xswap(torch):
     """Kernel 5(b) at n=24: the pair swap on the lowest and the highest
     tile bit, bit-exact, beside a permute-copy of the stacked halves."""
@@ -2429,6 +2519,7 @@ def run_full_width(torch, T, add):
 def run_inplace_phase(torch, T, refs, add, rng):
     """Phase 5: the kernel checks, the path, sampling, and full width."""
     block, mat, high = check_split_block(torch, rng)
+    check_two_streams(torch)
     xswap = check_xswap(torch)
     pair = check_pair_mode(torch, rng)
     relayout = check_inplace_relayout(torch)
@@ -2612,7 +2703,8 @@ def main() -> int:
           + ("" if built else " (already built)"))
     if built:
         for line in built["log"].splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or "wgmma" in line):
                 print("  ptxas:", line.strip())
     check_high_sass()
     native_fuse.get_lib()

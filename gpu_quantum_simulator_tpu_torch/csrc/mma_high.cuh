@@ -1,11 +1,10 @@
-// The "high" rung's arithmetic on Hopper tensor cores (mma.sync), shared
-// by the lane-layout chain's "high" arm (wide_chain.cu, whose tables are
-// 128 wide: the table width D is a template parameter of chunk) and the
-// mxu engine's mm step (mm_high.cu, Karatsuba: three real products,
-// real_product).  The prefetch engine's mat steps (mat_high.cu,
-// split_block.cu) run on wgmma (wgmma_high.cuh), with the same
-// rule for where the sums are kept (hi.hi partials from zero, summed in
-// fp32 on the CUDA cores).
+// The "high" rung's arithmetic on Hopper tensor cores (mma.sync) for the
+// lane-layout chain's "high" arm (wide_chain.cu, whose tables are 128
+// wide: the table width D is a template parameter of chunk), its only
+// user.  The prefetch engine's mat steps (mat_high.cu, split_block.cu, on
+// wgmma_high.cuh) and the mxu engine's mm step (mm_high.cu) run on wgmma,
+// with the same rule for where the sums are kept (hi.hi partials from
+// zero, summed in fp32 on the CUDA cores).
 //
 // Each real product x.m is XLA's 3-pass bf16 decomposition
 // xh.mh + xl.mh + xh.ml (h = x rounded to bf16, l = the bf16 of the
@@ -109,21 +108,6 @@ __device__ __forceinline__ void mma_rn(float* sum, const uint32_t* a,
   mma_k4(t, bf_hi(a[2]), bf_hi(a[3]), bf_hi(b1));
 #pragma unroll
   for (int e = 0; e < 4; ++e) sum[e] += t[e];
-}
-
-// sum += x.m over one k-chunk of 16 for one m16n8 fragment, the real form
-// (mm_high.cu's Karatsuba products): the hi.hi product by mma_rn, the two
-// corrections xl.mh + xh.ml from a zeroed fragment of their own, added to
-// the same fp32 sum.  b = {mh b0, mh b1, ml b0, ml b1}.
-__device__ __forceinline__ void real_product(float* sum, const uint32_t* xh,
-                                             const uint32_t* xl,
-                                             const uint32_t* b) {
-  mma_rn(sum, xh, b[0], b[1]);
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(c, xl, b[0], b[1]);
-  mma(c, xh, b[2], b[3]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) sum[e] += c[e];
 }
 
 // A warp's MT x NT tile of m16n8 fragments, both output components' sums.

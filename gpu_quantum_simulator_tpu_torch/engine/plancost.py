@@ -11,9 +11,9 @@ whichever plan this model prices cheapest, so other constants would pick
 other plans.  They are not figures of the CUDA card, and the seconds
 ``estimate_plan`` returns are not a prediction of the port's run time; only
 the ranking of candidate plans is used.  A card calibration is queued in
-ROADMAP (queue A, item 2).  The sharded estimators wait for ``parallel/``;
-the JAX package's measured tswap anchors and its streamed in-place chains
-(environment-selected there) have no counterpart here.
+ROADMAP (queue A, "Card policies").  The sharded estimators wait for
+``parallel/``; the JAX package's measured tswap anchors and its streamed
+in-place chains (environment-selected there) have no counterpart here.
 """
 
 from __future__ import annotations

@@ -1134,7 +1134,8 @@ class DeviceChain:
                         f"scal mode {mode} in a flat chain: 2 (the pair "
                         "swap) belongs to in-place plans (SplitChain); 4 "
                         "(mesh gswap) is not in the port's slice yet "
-                        "(ROADMAP queue A, item 8, parallel/)")
+                        "(ROADMAP queue A, \"parallel/ on "
+                        "torch.distributed\")")
                 if out[0] is not cur[0]:
                     spare, cur = cur, out
         return cur[0].reshape(-1), cur[1].reshape(-1)
@@ -1206,7 +1207,7 @@ class SplitChain:
                         f"scal mode {mode} in an in-place chain: 5 (the "
                         "folded relayout) never occurs in place; 4 (mesh "
                         "gswap) is not in the port's slice yet (ROADMAP "
-                        "queue A, item 8, parallel/)")
+                        "queue A, \"parallel/ on torch.distributed\")")
             del a_tab, b_tab, mono_src, high
         return halves
 
@@ -1352,8 +1353,8 @@ def check_slice(n: int, precision: str) -> None:
     if precision not in ("highest", "high"):
         raise NotImplementedError(
             f"precision {precision!r}: the port runs the 'highest' (IEEE "
-            "fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, item 5, "
-            "the 'default' rung)")
+            "fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, \"The "
+            "'default' rung and complex128\")")
 
 
 class PrefetchProgram:
@@ -1550,7 +1551,7 @@ def run_prefetch(circuit, config, device, initial_parts=None,
         perm = None
     # in place from n = 30 unless the config says otherwise, as in the JAX
     # package (whose trigger is its 16 GB of device memory; a trigger from
-    # this card's memory is ROADMAP queue A, item 8)
+    # this card's memory is ROADMAP queue A, "Card policies")
     inplace = getattr(config, "prefetch_inplace", None)
     if inplace is None:
         inplace = n >= MAX_QUBITS

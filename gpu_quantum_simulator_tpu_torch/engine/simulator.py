@@ -324,7 +324,8 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
         # fail BEFORE allocating, as the JAX package does
         raise ValueError(
             f"n = {n} exceeds the single-chip ceiling (n = 30); the sharded "
-            "engines are not yet ported (ROADMAP queue A, item 8, parallel/)")
+            "engines are not yet ported (ROADMAP queue A, \"parallel/ on "
+            "torch.distributed\")")
     if cfg.strategy == "prefetch":
         return
     if cfg.strategy not in ("mxu", "pallas", "vmem", "megakernel"):
@@ -335,7 +336,7 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
     if cfg.dtype != "complex64":
         raise NotImplementedError(
             "dtype complex128: the port runs complex64 (split float32) only "
-            "(ROADMAP queue A, item 8)")
+            "(ROADMAP queue A, \"The 'default' rung and complex128\")")
     if cfg.strategy == "vmem" and n > VMEM_MAX_QUBITS:
         raise ValueError(
             f"vmem strategy holds the state in VMEM: n <= {VMEM_MAX_QUBITS} "
@@ -348,7 +349,7 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
         raise NotImplementedError(
             f"precision {cfg.precision!r}: the port runs the 'highest' "
             "(IEEE fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, "
-            "item 5, the 'default' rung)")
+            "\"The 'default' rung and complex128\")")
 
 
 # mxu plan cache: (circuit fingerprint, n, precision, fusion knobs, device)

@@ -9,7 +9,8 @@ D x D matrix, D = 2^(7+kh) <= 512, and applied as
 
     row shuffle  ->  (R', D) @ (D, D)^T  ->  inverse row shuffle.
 
-The host half — ``_op_spec``, ``row_shuffles``, the step list of
+The host half — ``_op_spec``, ``row_shuffles`` (kept in kernels/wide.py,
+beside the kernel that reads the same map), the step list of
 ``WideProgram`` per 128-op segment, the power-of-two padding of kh = 0 runs
 and ``num_kh0_runs`` — is the JAX package's, step for step.  The device
 half differs:
@@ -20,15 +21,18 @@ half differs:
   "highest" and schoolbook 3-pass bf16 products at "high", without the
   identity pads (P records the padded length);
 * every other block (``("mm", D, idx, row_bits)``) is the JAX package's
-  Karatsuba product between row shuffles (``permute`` copies).  At
-  "highest" the three real products are ``torch.matmul`` in IEEE fp32
-  (whatever the process-wide TF32 setting), as the JAX package leaves
-  them to XLA.  At "high" the step is one launch of the hand-written
-  kernel csrc/mm_high.cu (kernels/wide.py ``mm_step_high``; its plain
-  version on the CPU), which keeps every fp32 sum out of the tensor
-  core's truncating adds, as the mat steps do (csrc/mma_high.cuh).  The
-  shuffled temporaries are dropped as soon as each step no longer needs
-  them (the JAX package donates its state pair instead).
+  Karatsuba product.  At "highest" it runs between row shuffles
+  (``permute`` copies), the three real products ``torch.matmul`` in IEEE
+  fp32 (whatever the process-wide TF32 setting), as the JAX package
+  leaves them to XLA; the shuffled temporaries are dropped as soon as the
+  step no longer needs them (the JAX package donates its state pair
+  instead).  At "high" the step is one launch of the hand-written kernel
+  csrc/mm_high.cu (kernels/wide.py ``mm_step_high``; its plain version on
+  the CPU), which reads and writes the state through the row map (no
+  shuffle copy) and keeps the hi.hi sums out of the tensor core's
+  truncating adds; it writes into a second pair, one per run, which then
+  swaps with the state (a kh = 0 chain runs in place on whichever pair is
+  current).
 
 Tables go to the device once per program (``build_wide_program`` caches
 programs by their ops); at "high" they are split to bf16 once as well
@@ -46,7 +50,7 @@ import torch
 from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
 from ..kernels.block import RUNGS
 from ..kernels.wide import (ieee_fp32, kh0_chain, mm_step_high,
-                            split_mm_tables, split_wide_tables)
+                            row_shuffles, split_mm_tables, split_wide_tables)
 from ..ops.apply import resolve_device
 
 LANE_QUBITS = 7
@@ -74,70 +78,37 @@ def _op_spec(op: Op, n: int):
     return kh, row_bits, D, big.real, big.imag
 
 
-def row_shuffles(row_bits, R):
-    """(fwd, bwd) moving the given row bits adjacent to the lane dim.
-
-    Rank <= 6 views.  fwd flattens to (-1, D); bwd restores (R, LANES).
-    D-index bit 7+j <-> row_bits[j] (ascending), matching _op_spec's
-    superset ordering.
-    """
-    kh = len(row_bits)
-    if kh == 0:
-        return (lambda x: x.reshape(-1, LANES)), (lambda t: t.reshape(R, LANES))
-    if kh == 1:
-        b1 = row_bits[0]
-        g, st = R >> (b1 + 1), 1 << b1
-
-        def fwd(x):
-            t = x.reshape(g, 2, st, LANES).transpose(1, 2)
-            return t.reshape(-1, 2 * LANES)
-
-        def bwd(t):
-            t = t.reshape(g, st, 2, LANES).transpose(1, 2)
-            return t.reshape(R, LANES)
-
-        return fwd, bwd
-    b1, b2 = row_bits
-    g = R >> (b2 + 1)
-    m = 1 << (b2 - b1 - 1)
-    st = 1 << b1
-
-    def fwd2(x):
-        t = x.reshape(g, 2, m, 2, st, LANES).permute(0, 2, 4, 1, 3, 5)
-        return t.reshape(-1, 4 * LANES)
-
-    def bwd2(t):
-        t = t.reshape(g, m, st, 2, 2, LANES).permute(0, 3, 1, 4, 2, 5)
-        return t.reshape(R, LANES)
-
-    return fwd2, bwd2
-
-
-def _mm_step(state: list, m, row_bits, R: int, precision: str) -> None:
+def _mm_step(state: list, spare: list, m, row_bits, R: int,
+             precision: str) -> None:
     """One kh >= 1 block (or kh = 0 without the chain kernel) on
-    ``state = [re, im]``, replaced in place by the result.
+    ``state = [re, im]`` (R, 128), replaced in place by the result.
 
     ``m``: at "highest" the (3, D, D) float32 Karatsuba combinations
     m1 = M_re^T, m2 = (M_im - M_re)^T, m3 = (M_re + M_im)^T, and out_re =
     t1 - t3, out_im = t1 + t2 with t1 = (x_re + x_im) @ m1, t2 = x_re @ m2,
-    t3 = x_im @ m3 in IEEE fp32; at "high" their (6, D, D) bfloat16
-    ``split_mm_tables``, the same product as one ``mm_step_high`` (the
-    kernel csrc/mm_high.cu on a card, its plain version on the CPU)."""
+    t3 = x_im @ m3 in IEEE fp32 between ``row_shuffles`` copies; at "high"
+    their ``split_mm_tables`` image, the same product as one
+    ``mm_step_high`` (the kernel csrc/mm_high.cu on a card, which reads and
+    writes the state through the row map, its plain version on the CPU)
+    into ``spare``, a pair of the state's shape (empty before the first
+    such step), after which the two pairs swap."""
+    if precision == "high":
+        out = mm_step_high(state[0], state[1], m, row_bits,
+                           out=tuple(spare) if spare else None)
+        spare[:] = state
+        state[:] = out
+        return
     fwd, bwd = row_shuffles(row_bits, R)
     xr, xi = fwd(state[0]), fwd(state[1])
     state.clear()
-    if precision == "high":
-        t1, t2 = mm_step_high(xr, xi, m)
-        del xr, xi
-    else:
-        t1 = (xr + xi) @ m[0]
-        t2 = xr @ m[1]
-        del xr
-        t3 = xi @ m[2]
-        del xi
-        t2 += t1
-        t1 -= t3
-        del t3
+    t1 = (xr + xi) @ m[0]
+    t2 = xr @ m[1]
+    del xr
+    t3 = xi @ m[2]
+    del xi
+    t2 += t1
+    t1 -= t3
+    del t3
     state.append(bwd(t1))
     del t1
     state.append(bwd(t2))
@@ -217,7 +188,8 @@ class WideProgram:
         if precision not in RUNGS:
             raise NotImplementedError(
                 f"precision {precision!r}: the wide engine runs the rungs "
-                f"{RUNGS} (ROADMAP queue A, item 5, for 'default')")
+                f"{RUNGS} (ROADMAP queue A, \"The 'default' rung and "
+                "complex128\")")
         self.num_qubits = n
         self.precision = precision
         self.device = resolve_device(device)
@@ -252,6 +224,7 @@ class WideProgram:
     def __call__(self, re: torch.Tensor, im: torch.Tensor):
         R = self._R
         state = [re.reshape(R, LANES), im.reshape(R, LANES)]
+        spare: list = []        # the "high" mm steps' other pair
         del re, im
         with ieee_fp32():
             for seg in self.segments:
@@ -262,8 +235,8 @@ class WideProgram:
                                   out=tuple(state), w16=seg.runs_w16[r])
                     else:
                         _, D, idx, row_bits = st
-                        _mm_step(state, seg.mm[D][idx], row_bits, R,
-                                 self.precision)
+                        _mm_step(state, spare, seg.mm[D][idx], row_bits,
+                                 R, self.precision)
         return state[0].reshape(-1), state[1].reshape(-1)
 
 

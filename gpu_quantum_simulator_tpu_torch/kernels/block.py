@@ -64,7 +64,8 @@ def _check_rung(precision: str) -> None:
     if precision not in RUNGS:
         raise NotImplementedError(
             f"precision {precision!r}: the block kernel runs the rungs "
-            f"{RUNGS} (ROADMAP queue A, item 5, for 'default')")
+            f"{RUNGS} (ROADMAP queue A, \"The 'default' rung and "
+            "complex128\")")
 
 
 def swap_bits(x: torch.Tensor, a: int, b: int) -> torch.Tensor:

@@ -125,7 +125,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_wide_chain_high.restype = I
     lib.qsim_wide_chain_high.argtypes = [P, P, P, P, P, I, L, P]
     lib.qsim_mm_step_high.restype = I
-    lib.qsim_mm_step_high.argtypes = [P, P, P, P, P, L, I, P]
+    lib.qsim_mm_step_high.argtypes = [P, P, P, P, P, L, I, I, I, P]
     lib.qsim_butterfly_high.restype = I
     lib.qsim_butterfly_high.argtypes = [P, P, P, P, L, I, P, P]
     for fn in (lib.qsim_copy_stream, lib.qsim_copy_direct):

@@ -104,13 +104,17 @@ def _cuda_halves(halves: Halves, what: str) -> int:
 _SYNC: dict = {}
 
 
-def _high_sync(dev: torch.device) -> torch.Tensor:
-    """The "high" in-place step's counters on ``dev`` (two int32 a CTA
-    group), zero between launches: the kernel leaves them zero."""
-    if dev not in _SYNC:
-        _SYNC[dev] = torch.zeros(2 * HIGH_SYNC_GROUPS, dtype=torch.int32,
+def _high_sync(dev: torch.device, stream: int) -> torch.Tensor:
+    """The "high" in-place step's counters for launches on ``stream`` (a
+    CUDA stream handle) of ``dev``: two int32 a CTA group, zero between
+    launches (the kernel leaves them zero).  One buffer per stream, so that
+    steps in flight on two streams, or a captured graph replayed beside a
+    live run, never count on the same ints."""
+    key = (dev, stream)
+    if key not in _SYNC:
+        _SYNC[key] = torch.zeros(2 * HIGH_SYNC_GROUPS, dtype=torch.int32,
                                  device=dev)
-    return _SYNC[dev]
+    return _SYNC[key]
 
 
 def run_xswap(halves: Halves, row_bit: int) -> Halves:
@@ -218,8 +222,8 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
             what = "mat_high"
             rc = lib.qsim_split_mat_step_high(
                 *ptrs, high_tables.data_ptr() + idx * HIGH_SLOT_WORDS * 4,
-                rows, pair, _high_sync(dev).data_ptr(), HIGH_SYNC_GROUPS,
-                stream)
+                rows, pair, _high_sync(dev, stream).data_ptr(),
+                HIGH_SYNC_GROUPS, stream)
         elif kind == 0:
             what = "mat"
             rc = lib.qsim_split_mat_step(*ptrs, a0 + idx * slot,

@@ -21,9 +21,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..engine.wide import row_shuffles
 from . import build
-from .wide import LANES, ieee_fp32
+from .wide import LANES, ieee_fp32, row_shuffles
 
 LANE_QUBITS = 7
 TILE_ROWS, TILE_COLS = 32, 64   # a CTA's output tile (csrc/vmem_chunk.cu)

@@ -23,14 +23,19 @@ stages them.  At "high" it is schoolbook (four real products, each the
 tables split once per program (``split_wide_tables``).
 
 A second kernel (``csrc/mm_high.cu``) is the mxu engine's mm step at the
-"high" rung, ``mm_step_high``: on the already-shuffled (M, D) state, D =
-128 << kh, the JAX package's Karatsuba product (``engine/wide.py``
-``_apply_wide_karatsuba``, three XLA dots at ``Precision.HIGH``), each
-real product the 3-pass bf16 split with every sum kept as
-``csrc/mma_high.cuh`` keeps it, the tables split once per program
-(``split_mm_tables``).  The JAX package computes it outside any Pallas
-kernel; it is hand-written here because cuBLAS's bf16 GEMMs keep their
-fp32 sums in the tensor core, whose truncating adds shrink the norm.
+"high" rung, ``mm_step_high``: the JAX package's Karatsuba product
+(``engine/wide.py`` ``_apply_wide_karatsuba``, three XLA dots at
+``Precision.HIGH`` between row shuffles) of a block on the lane qubits
+and kh <= 2 row bits, D = 128 << kh, on the unshuffled (R, 128) pair: the
+kernel reads and writes the state through the block's row map (the map
+``row_shuffles`` copies out; no copy is made) into a second pair.  Each
+real product is the 3-pass bf16 split on Hopper ``wgmma``, its hi.hi
+partials of four terms summed in fp32 on the CUDA cores; the tables are
+split once per program into the kernel's shared-memory image
+(``split_mm_tables``; ``mm_tables_f32`` reads them back).  The JAX package
+computes it outside any Pallas kernel; it is hand-written here because
+cuBLAS's bf16 GEMMs keep their fp32 sums in the tensor core, whose
+truncating adds shrink the norm.
 
 For a CUDA state the wrappers launch the kernel; for a CPU state they run
 the plain torch version; any other device raises.  ``kh0_chain.launches``
@@ -41,7 +46,7 @@ counts launches by rung, ``apply_block128.launches`` and
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -50,6 +55,7 @@ from .block import RUNGS, bf16_split, mat_high_plain
 
 LANES = 128
 MM_WIDTHS = (128, 256, 512)     # the mm step's D = 128 << kh, kh <= 2
+MM_BN = 32                      # output columns a CTA of csrc/mm_high.cu
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -72,7 +78,8 @@ def _check_rung(precision: str) -> None:
     if precision not in RUNGS:
         raise NotImplementedError(
             f"precision {precision!r}: the chain kernel runs the rungs "
-            f"{RUNGS} (ROADMAP queue A, item 5, for 'default')")
+            f"{RUNGS} (ROADMAP queue A, \"The 'default' rung and "
+            "complex128\")")
 
 
 def split_wide_tables(tables: torch.Tensor) -> torch.Tensor:
@@ -221,18 +228,42 @@ def apply_block128(re: torch.Tensor, im: torch.Tensor, m_re: torch.Tensor,
 
 def split_mm_tables(m: torch.Tensor) -> torch.Tensor:
     """(..., 3, D, D) float32 Karatsuba tables [m1, m2, m3], each [k][n]
-    (the step is ``x @ m``) -> (..., 6, D, D) bfloat16 [m1_hi, m1_lo,
-    m2_hi, m2_lo, m3_hi, m3_lo], each transposed to [n][k]: the operands
-    of ``mm_step_high`` (the col-major B fragment of ``mma.m16n8k16``)."""
-    hi, lo = bf16_split(m.transpose(-1, -2))
-    parts = torch.stack([hi, lo], dim=-3).to(torch.bfloat16)
-    return parts.reshape(*m.shape[:-3], 6, *m.shape[-2:]).contiguous()
+    (the step is ``x @ m``) -> (..., 6 D^2) bfloat16: the six parts [m1_hi,
+    m1_lo, m2_hi, m2_lo, m3_hi, m3_lo] (hi = the table rounded to bf16, lo
+    = the bf16 of the residual) in the shared-memory image of
+    ``csrc/mm_high.cu``.  Per 32-column block and k-chunk of 16, the six
+    parts, each 16-byte core matrices [kc 2][n 32][8] (the K-major
+    unswizzled wgmma B operand), position 8 kc + 2 a + b of the chunk
+    holding k 4 a + 2 kc + b.  Done once per program."""
+    lead, D = m.shape[:-3], m.shape[-1]
+    L = len(lead)
+    hi, lo = bf16_split(m)
+    # k = 16 c + 4 a + 2 kc + b, n = 32 cb + nn
+    t = torch.stack([hi, lo], dim=-3).reshape(
+        *lead, 3, 2, D // 16, 4, 2, 2, D // MM_BN, MM_BN)
+    # (P, HL, c, a, kc, b, cb, nn) -> (cb, c, P, HL, kc, nn, a, b)
+    t = t.permute(*range(L), *(L + d for d in (6, 2, 0, 1, 4, 7, 3, 5)))
+    return t.to(torch.bfloat16).reshape(*lead, 6 * D * D)
+
+
+def _mm_width(w16: torch.Tensor) -> int:
+    D = int(round((w16.shape[-1] / 6) ** 0.5)) if w16.dim() else 0
+    if D not in MM_WIDTHS or w16.shape[-1] != 6 * D * D:
+        raise ValueError(f"mm step: tables must be (..., 6 D^2) with D in "
+                         f"{MM_WIDTHS}, got {tuple(w16.shape)}")
+    return D
 
 
 def mm_tables_f32(w16: torch.Tensor) -> list:
-    """The six float32 [k][n] tables of a step's ``split_mm_tables``:
+    """The six float32 [k][n] tables of a ``split_mm_tables`` image:
     [m1_hi, m1_lo, m2_hi, m2_lo, m3_hi, m3_lo], bf16-exact values."""
-    return [w16[j].float().T.contiguous() for j in range(6)]
+    lead, D = w16.shape[:-1], _mm_width(w16)
+    L = len(lead)
+    t = w16.float().reshape(*lead, D // MM_BN, D // 16, 3, 2, 2, MM_BN, 4, 2)
+    # (cb, c, P, HL, kc, nn, a, b) -> (P, HL, c, a, kc, b, cb, nn)
+    t = t.permute(*range(L), *(L + d for d in (2, 3, 1, 6, 4, 7, 0, 5)))
+    t = t.reshape(*lead, 6, D, D)
+    return [t[..., j, :, :].contiguous() for j in range(6)]
 
 
 def karatsuba_high(xr: torch.Tensor, xi: torch.Tensor, tabs) -> Pair:
@@ -250,46 +281,109 @@ def karatsuba_high(xr: torch.Tensor, xi: torch.Tensor, tabs) -> Pair:
         return t1 - t3, t1 + t2
 
 
-def mm_step_high_plain(xr: torch.Tensor, xi: torch.Tensor,
-                       w16: torch.Tensor) -> Pair:
-    """The "high" mm step in plain torch, on any device: ``karatsuba_high``
-    on the step's ``split_mm_tables`` ``w16``."""
-    return karatsuba_high(xr, xi, mm_tables_f32(w16))
+def row_shuffles(row_bits, R):
+    """(fwd, bwd) moving the given row bits adjacent to the lane dim.
+
+    Rank <= 6 views.  fwd flattens to (-1, D); bwd restores (R, LANES).
+    D-index bit 7+j <-> row_bits[j] (ascending), matching _op_spec's
+    superset ordering.  (The JAX package's, engine/wide.py; the mm kernel
+    reads the same map without copying.)
+    """
+    kh = len(row_bits)
+    if kh == 0:
+        return (lambda x: x.reshape(-1, LANES)), (lambda t: t.reshape(R, LANES))
+    if kh == 1:
+        b1 = row_bits[0]
+        g, st = R >> (b1 + 1), 1 << b1
+
+        def fwd(x):
+            t = x.reshape(g, 2, st, LANES).transpose(1, 2)
+            return t.reshape(-1, 2 * LANES)
+
+        def bwd(t):
+            t = t.reshape(g, st, 2, LANES).transpose(1, 2)
+            return t.reshape(R, LANES)
+
+        return fwd, bwd
+    b1, b2 = row_bits
+    g = R >> (b2 + 1)
+    m = 1 << (b2 - b1 - 1)
+    st = 1 << b1
+
+    def fwd2(x):
+        t = x.reshape(g, 2, m, 2, st, LANES).permute(0, 2, 4, 1, 3, 5)
+        return t.reshape(-1, 4 * LANES)
+
+    def bwd2(t):
+        t = t.reshape(g, m, st, 2, 2, LANES).permute(0, 3, 1, 4, 2, 5)
+        return t.reshape(R, LANES)
+
+    return fwd2, bwd2
 
 
-def mm_step_high(xr: torch.Tensor, xi: torch.Tensor, w16: torch.Tensor,
-                 out: Optional[Pair] = None) -> Pair:
-    """The mxu engine's "high" mm step on the shuffled (M, D) pair: one
-    launch of ``csrc/mm_high.cu`` for CUDA tensors, ``mm_step_high_plain``
-    for CPU tensors.  ``w16``: (6, D, D) bfloat16, ``split_mm_tables`` of
-    the step's tables; the result lands in ``out`` (allocated when None;
-    it must not be the input pair)."""
-    D = xr.shape[-1] if xr.dim() == 2 else -1
-    if D not in MM_WIDTHS or xi.shape != xr.shape:
-        raise ValueError(f"mm step: state must be (M, D) with D in "
-                         f"{MM_WIDTHS}, got {tuple(xr.shape)} and "
-                         f"{tuple(xi.shape)}")
-    if w16.shape != (6, D, D) or w16.dtype != torch.bfloat16:
-        raise ValueError(f"mm step: tables must be (6, {D}, {D}) bfloat16, "
-                         f"got {tuple(w16.shape)} {w16.dtype}")
-    if xr.dtype != torch.float32 or xi.dtype != torch.float32:
-        raise ValueError(f"mm step: state must be float32, got {xr.dtype} "
-                         f"and {xi.dtype}")
-    if xr.device.type == "cpu":
-        return _to_out(mm_step_high_plain(xr, xi, w16), out)
-    if not xr.is_cuda:
-        raise ValueError(f"mm step: unsupported device {xr.device}")
+def mm_step_high_plain(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
+                       row_bits: Sequence[int]) -> Pair:
+    """The "high" mm step in plain torch, on any device: the (R, 128) pair
+    shuffled by ``row_shuffles`` (fwd), ``karatsuba_high`` on the tables
+    read back from the ``split_mm_tables`` image ``w16``, shuffled back."""
+    fwd, bwd = row_shuffles(tuple(row_bits), re.shape[0])
+    t1, t2 = karatsuba_high(fwd(re), fwd(im), mm_tables_f32(w16))
+    return bwd(t1), bwd(t2)
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
+
+
+def mm_step_high(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
+                 row_bits: Sequence[int], out: Optional[Pair] = None) -> Pair:
+    """The mxu engine's "high" mm step on the unshuffled (R, 128) pair: the
+    block on the lane qubits and the row bits ``row_bits`` (ascending, at
+    most two; D = 128 << len(row_bits)), one launch of ``csrc/mm_high.cu``
+    for CUDA tensors, which reads and writes the state through the row map,
+    and ``mm_step_high_plain`` for CPU tensors.  ``w16``: (6 D^2,) bfloat16,
+    ``split_mm_tables`` of the step's tables.  The result lands in ``out``
+    (allocated when None), a pair that must not overlap the input."""
+    row_bits = tuple(int(b) for b in row_bits)
+    R = re.shape[0] if re.dim() == 2 else -1
+    if R < 1 or re.shape != (R, LANES) or im.shape != re.shape:
+        raise ValueError(f"mm step: state must be (R, {LANES}), got "
+                         f"{tuple(re.shape)} and {tuple(im.shape)}")
+    D = LANES << len(row_bits)
+    if len(row_bits) > 2 or list(row_bits) != sorted(set(row_bits)) \
+            or any(b < 0 or (2 << b) > R for b in row_bits) or R & (R - 1):
+        raise ValueError(f"mm step: row_bits must be at most two ascending "
+                         f"bits of the {R} rows (a power of two), got "
+                         f"{row_bits}")
+    if w16.shape != (6 * D * D,) or w16.dtype != torch.bfloat16:
+        raise ValueError(f"mm step: tables must be ({6 * D * D},) bfloat16 "
+                         f"for D = {D}, got {tuple(w16.shape)} {w16.dtype}")
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise ValueError(f"mm step: state must be float32, got {re.dtype} "
+                         f"and {im.dtype}")
+    if out is not None:
+        if out[0].shape != re.shape or out[1].shape != re.shape:
+            raise ValueError("mm step: out must match the state's shape")
+        if any(_overlaps(o, x) for o in out for x in (re, im)) \
+                or _overlaps(*out):
+            raise ValueError("mm step: out must not alias the input pair "
+                             "or itself (the kernel is not in place)")
+    if re.device.type == "cpu":
+        return _to_out(mm_step_high_plain(re, im, w16, row_bits), out)
+    if not re.is_cuda:
+        raise ValueError(f"mm step: unsupported device {re.device}")
     if out is None:
-        out = (torch.empty_like(xr), torch.empty_like(xi))
-    if out[0].shape != xr.shape or out[1].shape != xr.shape:
-        raise ValueError("mm step: out must match the state's shape")
-    _check_cuda([xr, xi, *out, w16], [torch.float32] * 4 + [torch.bfloat16],
+        out = (torch.empty_like(re), torch.empty_like(im))
+    _check_cuda([re, im, *out, w16], [torch.float32] * 4 + [torch.bfloat16],
                 "mm step")
+    bits = row_bits + (-1,) * (2 - len(row_bits))
     lib = build.load()
     rc = lib.qsim_mm_step_high(
-        xr.data_ptr(), xi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-        w16.data_ptr(), xr.shape[0], D,
-        torch.cuda.current_stream(xr.device).cuda_stream)
+        re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        w16.data_ptr(), R, D, *bits,
+        torch.cuda.current_stream(re.device).cuda_stream)
     build.check(lib, rc, f"mm step (high, D = {D})")
     mm_step_high.launches += 1
     return out

@@ -8,7 +8,8 @@ a cold local qubit (``SwapItem``).  The ``pallas`` engine runs it with
 d = n - 7, so every fused block lands on the 128 lane qubits
 (engine/pallas_engine.py).  The JAX planner's other options (device-local
 swaps, layout restore, the "first" victim policy) serve its mesh-sharded
-engines, ROADMAP queue A, item 8, and come with them.
+engines, ROADMAP queue A, "parallel/ on torch.distributed", and come
+with them.
 
 Victim choice: the position whose logical qubit has the fewest remaining
 uses (exact remaining-use counts — the correct version of the

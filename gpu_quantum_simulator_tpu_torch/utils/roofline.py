@@ -8,7 +8,7 @@ are because the native fuser (csrc/qsim_fuse.cpp) uses them to choose
 which open block absorbs a gate, and both packages must fuse a circuit
 into the same ops.  Only their ratios enter the fuser; no figure here is a
 time of the port.  The roofline accounting with the card's own rates
-(``wide_program_cost``) is ROADMAP queue A, item 8.
+(``wide_program_cost``) is ROADMAP queue A, "Card policies".
 """
 
 from __future__ import annotations

@@ -322,6 +322,18 @@ def test_split_wrappers_refuse_other_modes_and_devices(case):
         KS.run_xswap(halves, 3)
 
 
+def test_high_sync_counters_are_one_buffer_per_stream(monkeypatch):
+    """The in-place "high" step's device-memory counters: one zeroed
+    buffer per (device, stream handle), so that two streams of one card
+    never count on the same ints; the same stream gets the same buffer."""
+    monkeypatch.setattr(KS, "_SYNC", {})
+    cpu = torch.device("cpu")
+    a, b = KS._high_sync(cpu, 11), KS._high_sync(cpu, 12)
+    assert a.data_ptr() != b.data_ptr() and KS._high_sync(cpu, 11) is a
+    assert a.dtype == torch.int32 and a.shape == (2 * KS.HIGH_SYNC_GROUPS,)
+    assert not a.any() and not b.any() and len(KS._SYNC) == 2
+
+
 # ------------------------------------------------- one set of tables, two chains
 @pytest.mark.parametrize("fold", [False, True], ids=["hoisted", "fold_xswap"])
 def test_jax_entries_through_both_chains(tiles, monkeypatch, fold):

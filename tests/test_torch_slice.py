@@ -161,6 +161,22 @@ def test_outside_the_slice_raises(kind):
     assert not TPF._RUN_CACHE            # nothing was planned or built
 
 
+def test_no_port_message_cites_a_roadmap_item_by_number():
+    """The port's messages and docstrings name a ROADMAP item by its queue
+    and title, never by a number ("queue A, item 5"): the numbers move
+    when the queues are re-ordered, the titles do not."""
+    import os
+    import re
+
+    port = os.path.dirname(T.__file__)
+    cited = re.compile(r"ROADMAP[^.]{0,80}?\bitems? \d", re.S)
+    files = [os.path.join(root, f) for root, _, names in os.walk(port)
+             for f in names if f.endswith((".py", ".cu", ".cuh"))]
+    bad = [os.path.relpath(f, port) for f in files
+           if cited.search(open(f).read())]
+    assert len(files) > 40 and not bad, bad
+
+
 def test_cuda_request_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -328,8 +328,61 @@ def _mm_inputs(D, seed):
 # different buffers of the same right operand (readings up to 7.5e-9 on
 # one 8 x 512 @ 512 x 512 product, amplitudes ~0.02), so two runs of the
 # same arithmetic on separately made tables agree to a few ulps; on the
-# same table buffers they agree bit for bit.
+# same table buffers, or on tables made alike (``mm_tables_f32`` of one
+# image), they agree bit for bit.
 MKL_TOL = 3e-8
+
+# Row-bit patterns of the R = 32 state (5 row bits) for each D.
+MM_ROW_BITS = [(128, ()), (256, (0,)), (256, (2,)), (256, (4,)),
+               (512, (0, 1)), (512, (0, 4)), (512, (1, 3)), (512, (3, 4))]
+
+
+def _decode_mm_image(w16, D):
+    """``split_mm_tables``' image read back as csrc/mm_high.cu reads it:
+    per 32-column block cb and k-chunk c, six parts of 16-byte core
+    matrices [kc 2][n 32][8], position p = 8 kc + i of the chunk holding
+    k 4 ((p % 8) // 2) + 2 (p // 8) + p % 2.  Returns (6, D, D) float32,
+    each part [n][k]."""
+    u = w16.view(torch.int16).numpy().view(np.uint16)
+    v = (u.astype(np.uint32) << 16).view(np.float32)
+    v = v.reshape(D // 32, D // 16, 6, 2, 32, 8)
+    out = np.zeros((6, D, D), np.float32)
+    for cb in range(D // 32):
+        n = cb * 32 + np.arange(32)
+        for c in range(D // 16):
+            for kc in range(2):
+                for i in range(8):
+                    p = 8 * kc + i
+                    k = 16 * c + 4 * ((p % 8) // 2) + 2 * (p // 8) + p % 2
+                    out[:, n, k] = v[cb, c, :, kc, :, i]
+    return out
+
+
+@pytest.mark.parametrize("D", sorted(MM_CASES))
+def test_split_mm_tables_image(D):
+    """The kernel's table image, read back, is bit for bit the [n][k]
+    (hi, lo) bf16 tables the mm step multiplied before the image (the
+    split of each Karatsuba table, transposed: the JAX package's mh, ml);
+    ``mm_tables_f32`` reads it back as the [k][n] tables, and a leading
+    dimension of steps is kept."""
+    from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
+
+    _, m32 = _mm_inputs(D, D + 1)
+    m = torch.from_numpy(m32)
+    w16 = KW.split_mm_tables(m)
+    assert w16.shape == (6 * D * D,) and w16.dtype == torch.bfloat16
+    dense = _decode_mm_image(w16, D)
+    hi, lo = bf16_split(m.transpose(-1, -2))
+    tabs = KW.mm_tables_f32(w16)
+    for c in range(3):
+        for j, want in ((2 * c, hi[c]), (2 * c + 1, lo[c])):
+            assert np.array_equal(dense[j], want.numpy())
+            assert torch.equal(tabs[j].view(torch.int32),
+                               want.T.contiguous().view(torch.int32))
+    both = KW.split_mm_tables(torch.stack([m, m.flip(-1)]))
+    assert both.shape == (2, 6 * D * D) and torch.equal(both[0], w16)
+    assert torch.equal(KW.mm_tables_f32(both)[3][1],
+                       KW.mm_tables_f32(KW.split_mm_tables(m.flip(-1)))[3])
 
 
 @pytest.mark.parametrize("D", sorted(MM_CASES))
@@ -341,7 +394,8 @@ def test_mm_step_high_plain(D):
     matmuls of bf16-exact parts, then ``t2 += t1; t1 -= t3``) bit for bit;
     within HIGH_TOL of the JAX package's ``_apply_wide_karatsuba`` at
     precision "high" on the CPU; the wrapper takes the plain version for
-    CPU tensors and counts no launch."""
+    CPU tensors and counts no launch, and the engine's step swaps the
+    state with its spare pair."""
     from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
 
     row_bits = MM_CASES[D]
@@ -350,7 +404,7 @@ def test_mm_step_high_plain(D):
     fwd, bwd = TW.row_shuffles(row_bits, R)
     xr, xi = fwd(torch.from_numpy(v[0])), fwd(torch.from_numpy(v[1]))
     w16 = KW.split_mm_tables(torch.from_numpy(m32))
-    assert w16.shape == (6, D, D) and w16.dtype == torch.bfloat16
+    assert w16.shape == (6 * D * D,) and w16.dtype == torch.bfloat16
     tabs = KW.mm_tables_f32(w16)
     hi, lo = bf16_split(torch.from_numpy(m32))
     for c in range(3):
@@ -369,43 +423,113 @@ def test_mm_step_high_plain(D):
     t1 -= t3
     assert torch.equal(got[0], t1) and torch.equal(got[1], t2)
 
-    plain = KW.mm_step_high_plain(xr, xi, w16)
-    state = [torch.from_numpy(v[0]), torch.from_numpy(v[1])]
+    start = [torch.from_numpy(v[0]), torch.from_numpy(v[1])]
+    plain = KW.mm_step_high_plain(*start, w16, row_bits)
+    state, spare = list(start), []
     KW.reset_launches()
-    TW._mm_step(state, w16, row_bits, R, "high")
+    TW._mm_step(state, spare, w16, row_bits, R, "high")
     assert KW.mm_step_high.launches == 0
+    assert spare[0] is start[0] and spare[1] is start[1]
     for g, p, w in zip(state, plain, (t1, t2)):
-        assert float((p - w).abs().max()) <= MKL_TOL
-        assert float((g - bwd(w)).abs().max()) <= MKL_TOL
+        assert g.shape == (R, 128) and torch.equal(g, p)
+        assert float((p - bwd(w)).abs().max()) <= MKL_TOL
     want = JW._apply_wide_karatsuba(
         jnp.asarray(v[0]), jnp.asarray(v[1]),
         *(jnp.asarray(m32[c]) for c in range(3)), row_bits, D, R, "high")
     for g, w in zip(state, want):
         assert np.max(np.abs(g.numpy() - np.asarray(w))) <= HIGH_TOL
+    # a second step writes into the spare pair and swaps back
+    first = list(state)
+    TW._mm_step(state, spare, w16, row_bits, R, "high")
+    assert spare[0] is first[0] and state[0] is start[0]
+
+
+@pytest.mark.parametrize("D,row_bits", MM_ROW_BITS)
+def test_mm_step_high_plain_row_map(D, row_bits):
+    """The row-mapped ``mm_step_high_plain`` on the unshuffled (R, 128)
+    pair equals the shuffle-based arithmetic (``row_shuffles`` fwd, the
+    three split products, ``t2 += t1; t1 -= t3``, bwd) bit for bit, for
+    every D and row-bit pattern of an R = 32 state; the wrapper on CPU
+    tensors writes the same values into ``out``; and the step is within
+    HIGH_TOL of the JAX package's ``_apply_wide_karatsuba(..., "high")``
+    on the same row bits."""
+    from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
+
+    v, m32 = _mm_inputs(D, 7 + len(row_bits) + sum(row_bits))
+    R = 32
+    re, im = torch.from_numpy(v[0]), torch.from_numpy(v[1])
+    w16 = KW.split_mm_tables(torch.from_numpy(m32))
+    tabs = KW.mm_tables_f32(w16)
+    got = KW.mm_step_high_plain(re, im, w16, row_bits)
+    fwd, bwd = TW.row_shuffles(row_bits, R)
+    xr, xi = fwd(re), fwd(im)
+
+    def dot(x, c):
+        xh, xl = bf16_split(x)
+        return xh @ tabs[2 * c] + xl @ tabs[2 * c] + xh @ tabs[2 * c + 1]
+
+    t1, t2, t3 = dot(xr + xi, 0), dot(xr, 1), dot(xi, 2)
+    t2 += t1
+    t1 -= t3
+    assert torch.equal(got[0], bwd(t1)) and torch.equal(got[1], bwd(t2))
+    out = (torch.empty_like(re), torch.empty_like(im))
+    res = KW.mm_step_high(re, im, w16, row_bits, out=out)
+    assert res is out and torch.equal(out[0], got[0]) \
+        and torch.equal(out[1], got[1])
+    want = JW._apply_wide_karatsuba(
+        jnp.asarray(v[0]), jnp.asarray(v[1]),
+        *(jnp.asarray(m32[c]) for c in range(3)), row_bits, D, R, "high")
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= HIGH_TOL
 
 
 def test_mm_step_high_refuses():
-    """The wrapper refuses other devices, dtypes and shapes; the wide
-    program, which owns the mm step, refuses the "default" rung."""
+    """The wrapper refuses other devices, dtypes, shapes and row bits; the
+    wide program, which owns the mm step, refuses the "default" rung."""
     v, m32 = _mm_inputs(256, 1)
-    x = torch.from_numpy(v[0]).reshape(-1, 256)
+    x = torch.from_numpy(v[0])
     w16 = KW.split_mm_tables(torch.from_numpy(m32))
-    meta = torch.zeros(16, 256, device="meta")
+    meta = torch.zeros(32, 128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        KW.mm_step_high(meta, meta, w16.to("meta"))
+        KW.mm_step_high(meta, meta, w16.to("meta"), (1,))
     with pytest.raises(ValueError, match="float32"):
-        KW.mm_step_high(x.double(), x.double(), w16)
+        KW.mm_step_high(x.double(), x.double(), w16, (1,))
     with pytest.raises(ValueError, match="bfloat16"):
-        KW.mm_step_high(x, x, w16.float())
+        KW.mm_step_high(x, x, w16.float(), (1,))
     with pytest.raises(ValueError, match="bfloat16"):
-        KW.mm_step_high(x, x, w16[:3])
-    with pytest.raises(ValueError, match="D in"):
-        KW.mm_step_high(x[:, :64], x[:, :64], w16)
-    with pytest.raises(ValueError, match="D in"):
-        KW.mm_step_high(x, x[:8], w16)
+        KW.mm_step_high(x, x, w16[:3], (1,))
+    with pytest.raises(ValueError, match="bfloat16"):
+        KW.mm_step_high(x, x, w16, (0, 1))
+    with pytest.raises(ValueError, match=r"\(R, 128\)"):
+        KW.mm_step_high(x[:, :64], x[:, :64], w16, (1,))
+    with pytest.raises(ValueError, match=r"\(R, 128\)"):
+        KW.mm_step_high(x, x[:8], w16, (1,))
+    for bits in ((5,), (1, 1), (2, 1), (0, 1, 2), (-1,)):
+        with pytest.raises(ValueError, match="row_bits"):
+            KW.mm_step_high(x, x, w16, bits)
     ops = TS._fuse_pipeline(mixed(T.Circuit, 10), 7, max_high=2, window=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TW.WideProgram(ops, 10, precision="default", device="cpu")
+
+
+def test_mm_step_high_refuses_aliased_out():
+    """The kernel is not in place: an ``out`` pair that is, or overlaps,
+    the input pair (or itself) is refused on every device, before any
+    work; a distinct pair is taken."""
+    v, m32 = _mm_inputs(512, 2)
+    re, im = torch.from_numpy(v[0]).clone(), torch.from_numpy(v[1]).clone()
+    w16 = KW.split_mm_tables(torch.from_numpy(m32))
+    buf = torch.empty(3, 32, 128)
+    for out in ((re, torch.empty_like(im)), (torch.empty_like(re), im),
+                (im, re), (buf[0], buf[0]),
+                (torch.empty_like(re), im.view(-1)[:4096].view(32, 128))):
+        with pytest.raises(ValueError, match="alias"):
+            KW.mm_step_high(re, im, w16, (0, 3), out=out)
+    assert torch.equal(re, torch.from_numpy(v[0]))
+    out = (buf[1], buf[2])
+    got = KW.mm_step_high(re, im, w16, (0, 3), out=out)
+    assert got is out and torch.equal(
+        out[1], KW.mm_step_high_plain(re, im, w16, (0, 3))[1])
 
 
 def test_kh0_chain_writes_into_out_and_rejects_default():
