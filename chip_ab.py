@@ -2,7 +2,8 @@
 """Compare checkouts of the port on one CUDA card, in turns.
 
     python3 chip_ab.py --trees ab/parent . . ab/parent \\
-        [--phases sass mat high highdrift split vmem mm drift mxupeak] \\
+        [--phases sass mat high highdrift split chain chaindrift vmem mm \\
+                  drift mxupeak] \\
         [--profile "--strategy mxu --widths 24"] \\
         [--out chiprun_out/ab]
 
@@ -22,6 +23,9 @@ Phases (chip_smoke function, where the tree has it):
   highdrift  check_high_drift: the "high" mat step's norm drift, n=24
   split  check_split_block: the in-place mat steps beside the flat ones, n=24
   folded check_folded_block: the folded-relayout input (mat first), n=24
+  chain  check_wide_chain: kernel 7's chain (P = 1 and 8, both rungs) and
+         kernel 9, n=24
+  chaindrift  check_chain_drift: the "high" chain's norm drift, n=24
   vmem   check_vmem_kernel: kernel 8's chunk and one D=512 op, n=18
   mm     check_mm_high: the mxu "high" mm step, n=24, D = 512 and 256
   drift  mxu_high_drift: the mxu "high" mm step's norm drift, n=24
@@ -45,6 +49,8 @@ PHASES = {
     "highdrift": "C.check_high_drift(torch)",
     "split": "C.check_split_block(torch, rng)",
     "folded": "C.check_folded_block(torch, rng)",
+    "chain": "C.check_wide_chain(torch, rng)",
+    "chaindrift": "C.check_chain_drift(torch)",
     "vmem": "C.check_vmem_kernel(torch, T)",
     "mm": "C.check_mm_high(torch)",
     "drift": "C.mxu_high_drift(torch)",
@@ -55,13 +61,14 @@ PHASES = {
 FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "highdrift": "check_high_drift", "split": "check_split_block",
          "folded": "check_folded_block",
+         "chain": "check_wide_chain", "chaindrift": "check_chain_drift",
          "vmem": "check_vmem_kernel", "mm": "check_mm_high",
          "drift": "mxu_high_drift", "streams": "check_two_streams",
          "sass": "check_high_sass", "mxupeak": None}
 ECHO = ("mat step n=", "split mat step n=", "at the end kernel", "vmem one op",
         "vmem chunk kernel", "mm step high", "over seeds", "run_detailed",
         "busy", "NVIDIA", "kernels built", "mxu peak", "sass ",
-        "two streams", "ptxas")
+        "two streams", "ptxas", "chain kernel n=", "apply_block128 n=")
 
 PHASE_RUN = """
 import sys, numpy as np, torch

@@ -10,8 +10,9 @@ failure raises and the script exits non-zero:
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from the repository's sources (build/), and
    check in the library's SASS that both "high" mat-step kernels (flat and
-   in place) run on wgmma (HGMMA, and no tf32 mma.sync k4), and so does
-   the mxu mm step at every D (HGMMA, and no mma.sync HMMA at all);
+   in place) run on wgmma (HGMMA, and no tf32 mma.sync k4), and so do
+   the mxu mm step at every D and the chain kernel's "high" arm (HGMMA,
+   and no mma.sync HMMA at all);
 3. hold each kernel against its plain torch version on the card at the
    main path's shapes — the block kernel at n=18 on synthetic blocks
    covering mat, mono, perm v=0..6 and tswap k=1..9 in plain and steered
@@ -22,7 +23,8 @@ failure raises and the script exits non-zero:
    mat-first <= 1e-5, both rungs), the "high" rung's mat step (bf16 tensor
    cores) at n=24 and n=28 (<= 1e-5), and the lane-layout chain kernel at
    n=24 on a normalized state: chains of P = 1 and 8 products at both
-   rungs (<= 1e-7; in place bit-exact) and one product as
+   rungs (<= 1e-7; in place bit-exact; at "high" a chain of one product
+   equal to the D = 128 mm step bit for bit) and one product as
    ``apply_block128`` (<= 1e-7), the mxu engine's "high" mm step
    (csrc/mm_high.cu) at n=24 on a normalized (R, 128) state read and
    written through the row map of D=512 and D=256 blocks (<= 1e-7; the
@@ -115,8 +117,9 @@ failure raises and the script exits non-zero:
 
 Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
 steps at n=24 on a normalised random state over eight random unitary
-tables, and 25 launches of the chain kernel's "high" arm with P = 8
-random 128 x 128 unitaries (200 products) at n=24, each for six seeds, the
+tables, and 25 launches of the chain kernel's "high" arm (the mm step's
+Karatsuba arithmetic on wgmma) with P = 8 random 128 x 128 unitaries
+(200 products) at n=24, each for six seeds, the
 drift printed after every step (launch) for the kernel and its plain
 version; after 200 products the kernel's largest |1 - norm| over the seeds
 may be at most 3 times the plain version's largest, and on every seed the
@@ -246,7 +249,9 @@ BEFORE_MS = {"fp32 mat step n=22": "0.1941-0.1951",
              "high mat step n=24 (in place)": "0.6671",
              "high mat step n=30 (in place)": "41.26-41.27",
              "mm step n=24 D=512": "1.4342",
-             "mm step n=24 D=256": "0.7629-0.7694"}
+             "mm step n=24 D=256": "0.7629-0.7694",
+             "chain n=24 P=8 high": "2.2199-2.2200",
+             "chain n=24 P=1 high": "0.3543-0.3560"}
 
 
 def norm2(pair):
@@ -376,36 +381,78 @@ def synthetic_blocks(PF, rng, logt):
     return blocks
 
 
+def sass_kloop(part):
+    """(instructions, HGMMA, F2FP, FADD, LDS) of the innermost loop of one
+    function's SASS that holds an HGMMA: its k-loop, one k-chunk an
+    iteration (F2FP: the bf16 packs of the hi/lo splits)."""
+    import re
+
+    code = []
+    for a, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;/]*);", part):
+        words = text.split()
+        op = words[1] if words and words[0].startswith("@") else (
+            words[0] if words else "")
+        code.append((int(a, 16), op, text))
+    wgmma = [a for a, op, _ in code if op.startswith("HGMMA")]
+    best = None
+    for b, op, text in code:
+        m = re.search(r"\bBRA\b[^0-9]*?(0x[0-9a-f]+)", text)
+        if not (op.startswith("BRA") and m):
+            continue
+        t = int(m.group(1), 16)
+        if t < b and any(t <= a <= b for a in wgmma) and (
+                best is None or b - t < best[1] - best[0]):
+            best = (t, b)
+    if best is None:
+        return None
+    body = [op for a, op, _ in code if best[0] <= a <= best[1]]
+    return (len(body),) + tuple(sum(op.startswith(k) for op in body)
+                                for k in ("HGMMA", "F2FP", "FADD", "LDS"))
+
+
 def check_high_sass():
     """The "high" kernels that run on wgmma: the two mat-step kernels
     (flat and in place) hold HGMMA and none of their previous design's
     tf32 mma.sync k4 (HMMA.1684.F32.TF32); every instantiation of the mxu
-    mm step (mm_high_kernel, one per D) holds HGMMA and no mma.sync HMMA
-    at all (its previous design's bf16 m16n8k16 and tf32 k4 passes)."""
+    mm step (mm_high_kernel, one per D) and the chain kernel's "high" arm
+    (chain_high_kernel) hold HGMMA and no mma.sync HMMA at all (their
+    previous designs' bf16 m16n8k16 and tf32 k4 passes).  For the chain
+    and the D = 128 mm step, which share their k-chunk body, it prints
+    the k-loop's instruction mix: the chain splits its rows once per
+    product, outside the loop."""
     import re
 
     from gpu_quantum_simulator_tpu_torch.kernels import build
 
-    counts = {}
+    counts, loops = {}, {}
     for part in build.dump_sass().split("Function : ")[1:]:
         name = part.split("\n", 1)[0]
         m = re.search(r"\d(mat_high_kernel|mat_high_halves_kernel|"
-                      r"mm_high_kernel)([EI]\w*?Li(\d+)E)?", name)
+                      r"mm_high_kernel|chain_high_kernel)"
+                      r"([EI]\w*?Li(\d+)E)?", name)
         if m:
             key = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
             counts[key] = (part.count("HGMMA"),
                            part.count("HMMA.1684.F32.TF32"),
                            len(re.findall(r"\bHMMA\.", part)))
-    want = ["mat_high_kernel", "mat_high_halves_kernel"] + [
+            loops[key] = sass_kloop(part)
+    want = ["mat_high_kernel", "mat_high_halves_kernel",
+            "chain_high_kernel"] + [
         f"mm_high_kernel<{d}>" for d in (128, 256, 512)]
     for kernel in want:
         hgmma, tf32, hmma = counts.get(kernel, (0, 0, 0))
         print(f"sass {kernel}: {hgmma} HGMMA, {tf32} HMMA.1684.F32.TF32, "
               f"{hmma} HMMA in all")
-        old = hmma if kernel.startswith("mm_") else tf32
+        old = hmma if kernel.startswith(("mm_", "chain_")) else tf32
         if kernel not in counts or hgmma == 0 or old != 0:
             raise AssertionError(f"{kernel}: not the wgmma kernel "
                                  f"({hgmma} HGMMA, {hmma} HMMA)")
+    for kernel in ("chain_high_kernel", "mm_high_kernel<128>"):
+        if loops.get(kernel):
+            n, hg, f2fp, fadd, lds = loops[kernel]
+            print(f"sass {kernel} k-loop: {n} instructions a k-chunk and "
+                  f"thread, {hg} HGMMA, {f2fp} F2FP (bf16 splits), {fadd} "
+                  f"FADD, {lds} LDS")
 
 
 def check_block_kernel(torch, rng):
@@ -766,7 +813,7 @@ def check_high_drift(torch):
     plain version each on its own chain, for every seed of DRIFT_SEEDS (a
     state and tables each).  A unitary keeps the norm; what remains is the
     rung's rounding, and in the kernel the tensor core's truncating adds
-    (mma_high.cuh).  Its draws have seeds of their own, so the phases after
+    (csrc/wgmma_high.cuh).  Its draws have seeds of their own, so the phases after
     it draw as they did without it."""
     from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
     from gpu_quantum_simulator_tpu_torch.kernels.block import (
@@ -818,8 +865,11 @@ def check_chain_drift(torch):
     """Kernel 7's "high" chain, the same measurement: at n=24 a normalised
     random (R, 128) state through CHAIN_DRIFT_LAUNCHES launches of
     ``kh0_chain(..., "high")`` with P = KH0_BATCH random 128 x 128
-    unitaries (200 products), kernel and plain version each on its own
-    chain, for every seed of DRIFT_SEEDS; held to the same bars."""
+    unitaries (200 products; their Karatsuba tables ``kh0_high_tables``,
+    the kernel's 8-term hi.hi partials), kernel and plain version
+    (``karatsuba_high``, every bf16 product summed in IEEE fp32) each on
+    its own chain, for every seed of DRIFT_SEEDS; held to the same
+    bars."""
     from gpu_quantum_simulator_tpu_torch.engine.wide import KH0_BATCH
     from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
 
@@ -833,7 +883,7 @@ def check_chain_drift(torch):
         us = [random_unitary(rng, 128) for _ in range(KH0_BATCH)]
         tabs = torch.tensor(np.stack([np.stack([u.real, u.imag]) for u in us]),
                             dtype=torch.float32, device="cuda")
-        w16 = KW.split_wide_tables(tabs)
+        w16 = KW.kh0_high_tables(tabs)
         start = random_state(torch, gen, (R, 128))
         n0 = norm2(start)
         kern = (start[0].clone(), start[1].clone())
@@ -841,7 +891,7 @@ def check_chain_drift(torch):
         drift = {"kernel": [], "plain": []}
         for _ in range(CHAIN_DRIFT_LAUNCHES):
             KW.kh0_chain(*kern, tabs, "high", out=kern, w16=w16)
-            plain = KW.kh0_chain_plain(*plain, tabs, "high")
+            plain = KW.kh0_chain_plain(*plain, tabs, "high", w16=w16)
             drift["kernel"].append(norm2(kern) / n0 - 1.0)
             drift["plain"].append(norm2(plain) / n0 - 1.0)
         last[seed] = drift_seed(
@@ -1019,8 +1069,10 @@ def mxu_high_drift(torch):
 
 def check_wide_chain(torch, rng):
     """The lane-layout chain kernel at n=24 on a normalized state: P = 1
-    and 8 products at both rungs (kernel 7) and one product as
-    ``apply_block128`` (kernel 9).  Library call: P complex64
+    and 8 products at both rungs (kernel 7), in place and out of place,
+    and one product as ``apply_block128`` (kernel 9).  At "high" a chain
+    of one product is the D = 128 mm step (csrc/mm_high.cu, the same
+    k-chunk body and tables) bit for bit.  Library call: P complex64
     torch.matmul (none for the 3-pass bf16 rung)."""
     from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
 
@@ -1048,9 +1100,9 @@ def check_wide_chain(torch, rng):
         lib = library()
         library_ms = device_ms(torch, library, reps=10)
         for prec in ("highest", "high"):
-            w16 = KW.split_wide_tables(tabs) if prec == "high" else None
+            w16 = KW.kh0_high_tables(tabs) if prec == "high" else None
             got = KW.kh0_chain(re, im, tabs, prec, w16=w16)
-            want = KW.kh0_chain_plain(re, im, tabs, prec)
+            want = KW.kh0_chain_plain(re, im, tabs, prec, w16=w16)
             inplace = (re.clone(), im.clone())
             KW.kh0_chain(*inplace, tabs, prec, out=inplace, w16=w16)
             torch.cuda.synchronize()
@@ -1061,22 +1113,36 @@ def check_wide_chain(torch, rng):
             if not (torch.equal(inplace[0], got[0])
                     and torch.equal(inplace[1], got[1])):
                 raise AssertionError(f"chain P={P} {prec}: in place differs")
+            mm = ""
+            if prec == "high" and P == 1:
+                step = KW.mm_step_high(re, im, w16[0], ())
+                same = bool(torch.equal(step[0], got[0])
+                            and torch.equal(step[1], got[1]))
+                mm = (f"; vs the D = 128 mm step max|diff| "
+                      f"{max_diff(got, step):.3e} (bit for bit: {same})")
+                if not same:
+                    raise AssertionError("chain P=1 high: not the D = 128 "
+                                         "mm step bit for bit")
+                del step
             out = (torch.empty_like(re), torch.empty_like(im))
             ms = device_ms(torch, lambda: KW.kh0_chain(
                 re, im, tabs, prec, out=out, w16=w16), reps=10)
             plain_ms = device_ms(torch, lambda: KW.kh0_chain_plain(
-                re, im, tabs, prec), reps=5)
+                re, im, tabs, prec, w16=w16), reps=5)
             flop = 6.0 * R * 128 * 128 * P      # three real products each
             nbytes = 16.0 * R * 128
-            if prec == "high":
-                bnd = bound(3 * flop, nbytes + P * 4 * 128 * 128 * 2,
+            if prec == "high":          # six bf16 tables a product
+                bnd = bound(3 * flop, nbytes + P * 6 * 128 * 128 * 2,
                             BF16_FLOPS)
             else:
                 bnd = bound(flop, nbytes + P * 2 * 128 * 128 * 4)
+            before = BEFORE_MS.get(f"chain n={n} P={P} {prec}")
             print(f"chain kernel n={n} P={P} {prec}: max|diff| vs plain "
-                  f"{e:.3e}, vs complex64 matmul {e_lib:.3e}; in place "
+                  f"{e:.3e}, vs complex64 matmul {e_lib:.3e}{mm}; in place "
                   f"bit-exact; kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
-                  f"TFLOP/s, Karatsuba count), plain {plain_ms:.4f} ms, "
+                  f"TFLOP/s, Karatsuba count"
+                  + (f"; previous design {before} ms" if before else "")
+                  + f"), plain {plain_ms:.4f} ms, "
                   f"complex64 torch.matmul x{P} {library_ms:.4f} ms "
                   f"({flop / library_ms / 1e9:.1f}), bound {bnd[0]:.4f} ms "
                   f"({bnd[1]})")

@@ -1,7 +1,7 @@
 // Asynchronous copies into shared memory on Hopper (sm_90a), shared by the
 // kernels that stage operands ahead of their arithmetic: the fp32 chain
-// (wide_chain.cu), the in-place fp32 mat step (split_block.cu) and the copy
-// probes (copy_probe.cu).
+// (wide_chain.cu), the in-place fp32 mat step (split_block.cu), the "high"
+// kernels on wgmma and the copy probes (copy_probe.cu).
 //
 // Two mechanisms, which complete independently of each other:
 //   cp.async (16 bytes a thread, per-thread commit groups): table and row
@@ -41,8 +41,19 @@ __device__ __forceinline__ void wait_groups() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+// a barrier whose phase completes after `count` arrivals (and the bytes
+// its arrivals expect)
+__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// one arrival (release: this thread's earlier accesses happen before the
+// phase completes)
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(smem_u32(bar))
                : "memory");
 }
 

@@ -26,34 +26,10 @@
 // the step is not in place (a CTA's rows are read by every column-block
 // CTA of the row block before any of them writes).
 //
-// Where the sums are kept, in this order.  A tensor core's fp32 adds
-// truncate, so a sum that stays in its accumulator across many passes
-// shrinks the norm a little every step.  For each output (m, n) and real
-// product P (t1, t2, t3):
-//   * hi.hi: for every k-chunk c of 16 in order and half h = 0, 1 of it, a
-//     bf16 wgmma from zero (scale-d = 0) with the other half of its A
-//     fragment zero, so eight of the chunk's k (wgmma positions 8 h ..
-//     8 h + 7): the exact products summed by the tensor core into an
-//     8-term partial H(c, h), added in fp32 on the CUDA cores, which round
-//     to nearest:  T_P = (T_P + H(c, 0)) + H(c, 1);
-//   * corrections: xl.mh and then xh.ml of every chunk in order, bf16
-//     wgmmas accumulating over all k in the tensor core (C_P); they are
-//     2^-8 the size of the hi.hi terms, so their truncation is too;
-//   * t_P = T_P + C_P; out_re = t1 - t3, out_im = t1 + t2, IEEE fp32.
-// chip_smoke.py's drift phase holds these sums to the plain version's
-// drift over 200 steps and six seeds at D = 512 and 256.  4-term partials
-// (quarter-masked passes, twice the passes and adds) drift a third as
-// much and ran 28% slower a step; both forms pass the bars (PERF.md
-// section 6).
-//
-// The tables are split once per program (kernels/wide.py split_mm_tables)
-// into the image the kernel copies into shared memory: per 32-column block
-// cb and k-chunk c, six parts [m1_hi, m1_lo, m2_hi, m2_lo, m3_hi, m3_lo],
-// each the wgmma B operand K-major and unswizzled: 16-byte core matrices
-// [kc 2][n 32][8], stride 512 bytes along k and 128 along n.  k is
-// permuted inside every 16 (position p holds k 4 ((p % 8) / 2) + 2 (p / 8)
-// + p % 2, as csrc/wgmma_high.cuh's tables), so that one float4 of a state
-// row (k 4t .. 4t + 3) is lane t's A-fragment values.
+// The arithmetic, where its sums are kept and the table image are
+// karatsuba_high.cuh's, whose k-chunk body this kernel and kernel 7's
+// "high" chain (wide_chain.cu) share.  The tables are split once per
+// program (kernels/wide.py split_mm_tables).
 //
 // Shapes.  A CTA is two warpgroups: a tile of 128 rows (64 each, wgmma's
 // M) by 32 output columns (m64n32k16), per thread three fp32 sums T_P,
@@ -69,9 +45,7 @@
 // its own that runs on across tiles (two stages at D = 512, which is what
 // the tables leave of the 227 KB; four below); a lane copies exactly the
 // 64 bytes it reads back as its A fragment, which it splits to bf16 (hi,
-// lo) in registers.  A chunk is three groups of wgmmas, one a product:
-// two hi.hi passes into a pair of partials and two corrections; a group's
-// partials are added while the next group runs on the tensor core.
+// lo) in registers.
 //
 // What bounds it on the card: at n = 24, D = 512 a real product is 2 x
 // 32768 x 512^2 = 17.2 GFLOP.  A step issues 6 hi.hi passes and 6
@@ -91,20 +65,18 @@
 #include <algorithm>
 
 #include "async_copy.cuh"
+#include "karatsuba_high.cuh"
 
 namespace {
 
 constexpr int LANES = 128;                  // a state row
-constexpr int BN = 32;                      // output columns per CTA
+constexpr int BN = kh::BN;                  // output columns per CTA
 constexpr int WGS = 2;                      // warpgroups
 constexpr int BM = 64 * WGS;                // rows per tile
 constexpr int THREADS = 128 * WGS;
 constexpr int WARPS = THREADS / 32;
 constexpr int XROWS = 16;                   // rows a warp stages
-constexpr int PART = 2 * BN * 16;           // bytes: one table's k-chunk
-constexpr int CHUNK_BYTES = 6 * PART;       // the six tables' k-chunk
-constexpr int CORE_K = BN * 16;             // core-matrix stride along k
-constexpr int CORE_N = 128;                 // and along n
+constexpr int CHUNK_BYTES = kh::CHUNK_BYTES;   // the six tables' k-chunk
 constexpr int XSTAGE_F = 2 * XROWS * 16;    // floats: re, im of 16 rows
 constexpr int XSTAGE_BYTES = WARPS * XSTAGE_F * 4;
 constexpr int SMEM_MAX = 232448;            // a CTA's shared memory
@@ -141,86 +113,6 @@ struct RowMap {
            (b1 >= 0 ? ((j >> 1) & 1) << b1 : 0);
   }
 };
-
-// (x0, x1) -> bf16x2 hi and bf16x2 lo (x0 in the low 16 bits)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// rows g (r0) and g + 8 (r1), k 4t .. 4t + 3: the A fragment, hi and lo
-__device__ __forceinline__ void split_frag(float4 r0, float4 r1,
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-  split2(r0.x, r0.y, hi[0], lo[0]);
-  split2(r1.x, r1.y, hi[1], lo[1]);
-  split2(r0.z, r0.w, hi[2], lo[2]);
-  split2(r1.z, r1.w, hi[3], lo[3]);
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// half h of a fragment, the other half zero: registers 2 h and 2 h + 1,
-// wgmma positions 8 h .. 8 h + 7 of the chunk
-__device__ __forceinline__ void half(uint32_t (&o)[4], const uint32_t (&a)[4],
-                                     int h) {
-  o[0] = h ? 0u : a[0];
-  o[1] = h ? 0u : a[1];
-  o[2] = h ? a[2] : 0u;
-  o[3] = h ? a[3] : 0u;
-}
-
-// K-major, unswizzled shared-memory matrix descriptor at byte address a
-__device__ __forceinline__ uint64_t desc(uint32_t a) {
-  return (uint64_t)((a & 0x3ffff) >> 4) | ((uint64_t)(CORE_K >> 4) << 16) |
-         ((uint64_t)(CORE_N >> 4) << 32);
-}
-
-__device__ __forceinline__ void fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving reads of an accumulator above a wait
-__device__ __forceinline__ void pin(float (&d)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d = a.b + (acc ? d : 0) over k = 16: bf16, m64n32, a from registers (the
-// m16n8k16 A fragment of the warp's 16 rows), b a descriptor
-__device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4],
-                                    uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
-}
-
-// sum += x, element by element, after the wait that ends the pass
-// writing x
-__device__ __forceinline__ void add1(float (&sum)[16], float (&x)[16]) {
-  pin(x);
-#pragma unroll
-  for (int e = 0; e < 16; ++e) sum[e] += x[e];
-}
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -287,7 +179,7 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 #pragma unroll
   for (int G = 0; G < S::XSTAGES - 1; ++G) stage_x(G);
 
-  const uint64_t tab0 = desc(async::smem_u32(smem));
+  const uint64_t tab0 = kh::desc(async::smem_u32(smem));
   // the CTA's output columns lie in one segment of the row map
   const int seg_out = cb * BN / LANES, col0 = cb * BN % LANES;
   float T[3][16], C[3][16], X[4][16];
@@ -314,44 +206,14 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       const float4 r1 = ld4(xq + (g + 8) * 16 + 4 * t);
       const float4 i0 = ld4(xq + (XROWS + g) * 16 + 4 * t);
       const float4 i1 = ld4(xq + (XROWS + g + 8) * 16 + 4 * t);
-      // [product: s, xr, xi][hi, lo][fragment register]
       uint32_t a[3][2][4];
-      split_frag(add4(r0, i0), add4(r1, i1), a[0][0], a[0][1]);
-      split_frag(r0, r1, a[1][0], a[1][1]);
-      split_frag(i0, i1, a[2][0], a[2][1]);
+      kh::split_rows(r0, r1, i0, i1, a);
       // the chunk's six parts: descriptors differ only in the address
-      const uint64_t d = tab0 + (uint64_t)(c * (CHUNK_BYTES >> 4));
-      // three groups, one a product P: its two hi.hi passes (halves 0 and
-      // 1) into the partial pair X[2 (P % 2)], X[2 (P % 2) + 1], then its
-      // corrections xl.mh and xh.ml into C[P]; a group's partials are
-      // added once the next group is queued
-#pragma unroll
-      for (int P = 0; P < 3; ++P) {
-        const int b = P % 2;
-        uint32_t x0[4], x1[4];
-        half(x0, a[P][0], 0);
-        half(x1, a[P][0], 1);
-        const uint64_t mh = d + (2 * P * PART >> 4);
-        const uint64_t ml = d + ((2 * P + 1) * PART >> 4);
-        fence();
-        mma(X[2 * b], x0, mh, 0);
-        mma(X[2 * b + 1], x1, mh, 0);
-        mma(C[P], a[P][1], mh, 1);
-        mma(C[P], a[P][0], ml, 1);
-        commit();
-        if (P > 0) {
-          wait<1>();
-          add1(T[P - 1], X[2 * (1 - b)]);
-          add1(T[P - 1], X[2 * (1 - b) + 1]);
-        }
-      }
-      wait<0>();                 // the chunk's passes read its fragments
-      add1(T[2], X[0]);
-      add1(T[2], X[1]);
+      kh::chunk(T, C, X, a, tab0 + (uint64_t)(c * (CHUNK_BYTES >> 4)));
     }
-    pin(C[0]);
-    pin(C[1]);
-    pin(C[2]);
+    kh::pin(C[0]);
+    kh::pin(C[1]);
+    kh::pin(C[2]);
 
     // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of the
     // tile, column 8 jn + 2 t + e of the column block
@@ -362,20 +224,12 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       const int o = (map.base(m) + map.seg(seg_out)) * LANES + col0 + 2 * t;
 #pragma unroll
       for (int jn = 0; jn < BN / 8; ++jn) {
-        float re[2], im[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int x = 4 * jn + 2 * hh + e;
-          const float t1 = T[0][x] + C[0][x];
-          const float t2 = T[1][x] + C[1][x];
-          const float t3 = T[2][x] + C[2][x];
-          re[e] = t1 - t3;
-          im[e] = t1 + t2;
-        }
+        const int x = 4 * jn + 2 * hh;
+        const float2 v0 = kh::result(T, C, x), v1 = kh::result(T, C, x + 1);
         *reinterpret_cast<float2*>(out_re + o + 8 * jn) =
-            make_float2(re[0], re[1]);
+            make_float2(v0.x, v1.x);
         *reinterpret_cast<float2*>(out_im + o + 8 * jn) =
-            make_float2(im[0], im[1]);
+            make_float2(v0.y, v1.y);
       }
     }
   }

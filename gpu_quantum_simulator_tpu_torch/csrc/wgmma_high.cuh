@@ -12,7 +12,7 @@
 //
 // Where the sums are kept.  A tensor core's fp32 adds truncate, so a sum
 // that stays in its accumulator across many passes shrinks the norm a
-// little every step (mma_high.cuh has the measurements).  Here:
+// little every step (PERF.md section 6 has the measurements).  Here:
 //   * every hi.hi product is a bf16 wgmma of k = 16 started from zero
 //     (scale-d = 0) with half of its A fragment zero: an 8-term partial,
 //     added to an fp32 sum in registers on the CUDA cores, which round to

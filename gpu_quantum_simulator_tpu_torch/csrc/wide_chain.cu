@@ -16,10 +16,11 @@
 // and the tile crosses device memory once per chain instead of once per
 // product.  The identity pads that make a run's length a power of two in
 // the JAX package's step list are not passed in: nmats is the run's true
-// length.  Tables are M itself, [n][k] with k contiguous: float32 [M_re,
-// M_im] at "highest"; at "high" the four bf16 tables [Mre_hi, Mre_lo,
-// Mim_hi, Mim_lo], split once per program (kernels/wide.py
-// split_wide_tables), the col-major B fragment of mma.m16n8k16.
+// length.  Tables at "highest": M itself, [n][k] with k contiguous, float32
+// [M_re, M_im]; at "high": the Karatsuba combinations m1 = Mr^T, m2 = (Mi -
+// Mr)^T, m3 = (Mr + Mi)^T, formed on the host in float64 and split once
+// per program into split_mm_tables' D = 128 image (kernels/wide.py
+// kh0_high_tables), the one the mm step (mm_high.cu) reads.
 //
 // On the TPU both kernels compute Karatsuba: t1 = (r + i).m1, t2 = r.m2,
 // t3 = i.m3 with m1 = Mr^T, m2 = (Mi - Mr)^T, m3 = (Mr + Mi)^T, and
@@ -67,23 +68,64 @@
 // no CTA touches another's rows.  Ragged and tiny R (R = 2 at n = 8) work:
 // rows past R are zeros in shared memory and are not stored.
 //
-// "high" (chain_high_kernel): the 3-pass bf16 product xh.mh + xl.mh +
-// xh.ml on the tensor cores (mma.sync), schoolbook, the state split to
-// bf16 hi/lo in registers as it is read; one CTA per 64-row tile, the tile
-// double-buffered in shared memory between products.  Its sums are
-// mma_high.cuh's: hi.hi products as 4-term tf32 passes from a zeroed
-// fragment, every partial added in fp32 on the CUDA cores.  (One tensor-
-// core accumulator for all passes, the first form, shrank |psi|^2 by
-// 3.0e-4 over 200 products at n = 24: PERF.md section 6.)  At n = 24 one
-// product is 51.5 GFLOP of bf16 MMA (0.05 ms at 989 TFLOP/s): one product
-// is bound by memory, a chain of 8 by the tensor cores.
+// "high" design (chain_high_kernel): Karatsuba, as the TPU kernel, each
+// real product the 3-pass bf16 split xh.mh + xl.mh + xh.ml on bf16 wgmma
+// (m64n32k16), with the mm step's k-chunk body and sums
+// (karatsuba_high.cuh: 8-term hi.hi partials from zero added in fp32 on
+// the CUDA cores, corrections accumulating in the tensor core), so a
+// one-product chain is the D = 128 mm step bit for bit.  At n = 24 a
+// product issues 12 bf16 products' worth of passes, 51.5 GFLOP (0.052 ms
+// at 989 TFLOP/s; the useful 9, 0.039 ms), and the partials' fp32 adds,
+// 6 a k-chunk and output, have to keep up with them on the CUDA cores.
+// The mm step spends a quarter of its CUDA-core issue splitting its rows
+// to bf16, each row again in every one of its column-block CTAs.  Here:
+//   * A persistent CTA, one an SM, walks over 64-row tiles with two
+//     consumer warpgroups and a producer warpgroup.  Both consumers hold
+//     the same 64 rows, and each takes two of the four 32-column blocks in
+//     turn (T, C and the partials fill ~200 registers a thread: a block of
+//     64 columns does not fit).  setmaxnreg gives the consumers 240
+//     registers a thread and the producer 24.
+//   * The row tile stays on chip for the whole chain, as its A fragments:
+//     every row split to bf16 (hi, lo) once per product, for s, x_re and
+//     x_im, into shared memory in fragment order (96 KB), so the k-loop
+//     loads each fragment with one 16-byte load and splits nothing.  A
+//     product's results go to an fp32 staging tile (68 KB, rows padded
+//     to 136 floats); after a CTA barrier they become the next product's
+//     fragments.  The last product writes device memory instead, and the
+//     staging tile meanwhile takes the next tile's rows (cp.async), so a
+//     tile's load overlaps a product and the state crosses device memory
+//     once per chain.
+//   * The tables stream from L2 through a ring per consumer, five stages
+//     of one column block's k-chunk (6 KB, one bulk copy on an mbarrier).
+//     One thread of the producer warpgroup fills both rings, each stage
+//     once the consumer's four warps have released its last use (an
+//     mbarrier of four arrivals).  A consumer that issued its own copies
+//     stalled its warpgroup's wgmmas on that one thread: the producer
+//     warpgroup took 17% off a P = 8 launch (PERF.md section 6).  A 64-row
+//     tile reads a product's 192 KB of tables once: 1.5 MB a tile at
+//     P = 8.
+//   * Each consumer's k-loop is compiled once per warpgroup, so its ring,
+//     barriers and table descriptors are warp-uniform (uniform registers,
+//     no per-wgmma moves).
+//   * What holds it back: the k-chunk is a chain of three dependent wgmma
+//     groups with the partials' adds between them, and two consumer
+//     warpgroups an SM do not hide it.  Running the groups on across
+//     chunks (the next chunk's first group queued before the last one's
+//     adds) needs more registers than a thread has: ptxas then
+//     serializes every wgmma.
+// The output may be the input pair: a tile is read whole before the
+// product that writes it, and no CTA touches another's rows.  Ragged and
+// small R (R = 8 at n = 10, the smallest width that chains) work: rows
+// past R are zeros on chip and are not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "async_copy.cuh"
-#include "mma_high.cuh"
+#include "karatsuba_high.cuh"
 
 namespace {
 
@@ -313,99 +355,225 @@ chain_f32_kernel(const float* in_re, const float* in_im, float* out_re,
 }
 
 // ---------------------------------------------------------------- "high"
-constexpr int LD = LANES + 8;                // shared row stride (floats)
-constexpr int BUF = TILE * LD;               // floats per component buffer
-constexpr size_t STATE_SMEM = 4 * BUF * sizeof(float);
-constexpr int WARPS_N = 4, WM = 32, WN = 32; // warp grid and tile
-constexpr int MT = WM / 16, NT = WN / 8;
+constexpr int HWGS = 2;                       // consumers, the same rows
+constexpr int HBLOCKS = LANES / kh::BN;       // 32-column blocks
+constexpr int ROUNDS = HBLOCKS / HWGS;        // blocks a warpgroup takes
+constexpr int KCHUNKS = LANES / 16;           // k-chunks of a product
+constexpr int RING = 5;                       // table stages a warpgroup
+constexpr int LDX = LANES + 8;                // staged row stride (floats)
+constexpr int XSTAGE = TILE * LDX;            // floats a staged component
+constexpr int MAT_BYTES = HBLOCKS * KCHUNKS * kh::CHUNK_BYTES;
+// the tile's A fragments: [k-chunk][product s, xr, xi][hi, lo][warp][lane],
+// 16 bytes each
+constexpr int FRAG_BYTES = KCHUNKS * 3 * 2 * 4 * 32 * 16;
+constexpr int RING_OFF = FRAG_BYTES;
+constexpr int X_OFF = RING_OFF + HWGS * RING * kh::CHUNK_BYTES;
+constexpr int HBAR_OFF = X_OFF + 2 * XSTAGE * (int)sizeof(float);
+constexpr size_t HIGH_SMEM = HBAR_OFF + 2 * HWGS * RING * sizeof(uint64_t);
+static_assert(HWGS * 128 == THREADS, "two consumer warpgroups");
+constexpr int HTHREADS = THREADS + 128;       // and a producer warpgroup
+static_assert(HIGH_SMEM <= 232448, "a CTA's shared memory");
 
-// The CTA's rows [row0, row0 + TILE) into shared memory; zeros past rows.
-__device__ void load_tile(const float* in_re, const float* in_im, float* s_re,
-                          float* s_im, long long row0, long long rows) {
-  for (int i = threadIdx.x; i < TILE * (LANES / 4); i += THREADS) {
-    const int r = i / (LANES / 4), c = (i % (LANES / 4)) * 4;
-    float4 vr = make_float4(0.f, 0.f, 0.f, 0.f), vi = vr;
-    if (row0 + r < rows) {
-      const long long o = (row0 + r) * LANES + c;
-      vr = ld4(in_re + o);
-      vi = ld4(in_im + o);
-    }
-    st4(s_re + r * LD + c, vr);
-    st4(s_im + r * LD + c, vi);
-  }
-}
-
-// o = x . M^T at "high" for the CTA's tile x (shared, stride LD); w: the
-// product's four bf16 tables as 32-bit words.  The sums are mma_high.cuh's.
-__device__ void product_high(const float* x_re, const float* x_im,
-                             const uint32_t* __restrict__ w, float* o_re,
-                             float* o_im, int ldo, long long valid) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma group / thread in group
-  const int row0 = (warp / WARPS_N) * WM, col0 = (warp % WARPS_N) * WN;
-  high::Acc<MT, NT> acc;
-  acc.zero();
-
-#pragma unroll 2
-  for (int kk = 0; kk < LANES; kk += 16) {
-    // A fragments (row-major 16 x 16): reg q holds row g + 8 (q & 1),
-    // columns 2t, 2t + 1 (+ 8 for q >= 2)
-    uint32_t xrh[MT][4], xrl[MT][4], xih[MT][4], xil[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int o = (row0 + mt * 16 + g + 8 * (q & 1)) * LD + kk + 2 * t +
-                      (q >> 1) * 8;
-        const float2 vr = *reinterpret_cast<const float2*>(x_re + o);
-        const float2 vi = *reinterpret_cast<const float2*>(x_im + o);
-        high::split2(vr.x, vr.y, xrh[mt][q], xrl[mt][q]);
-        high::split2(vi.x, vi.y, xih[mt][q], xil[mt][q]);
-      }
-    high::chunk<MT, NT, LANES>(acc, xrh, xrl, xih, xil, w, col0 + g,
-                               kk / 2 + t);
-  }
-
-  // C fragments: e = 0, 1 row g, columns 2t, 2t + 1; e = 2, 3 row g + 8
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + mt * 16 + g + 8 * h;
-      if (r >= valid) continue;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const long long o = (long long)r * ldo + col0 + nt * 8 + 2 * t;
-        *reinterpret_cast<float2*>(o_re + o) =
-            make_float2(acc.r[mt][nt][2 * h], acc.r[mt][nt][2 * h + 1]);
-        *reinterpret_cast<float2*>(o_im + o) =
-            make_float2(acc.i[mt][nt][2 * h], acc.i[mt][nt][2 * h + 1]);
-      }
-    }
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
+// The "high" chain, persistent: CTA b takes the 64-row tiles b, b + grid,
+// ...; warpgroups 0 and 1 compute, warpgroup 2 feeds them the tables.
+// w: nmats products' tables, each split_mm_tables' D = 128 image
+// (MAT_BYTES).  in/out are not __restrict__: the engine passes one pair.
+__global__ void __launch_bounds__(HTHREADS, 1)
 chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
-                  float* out_im, const uint32_t* __restrict__ w, int nmats,
+                  float* out_im, const uint8_t* __restrict__ w, int nmats,
                   long long rows) {
-  extern __shared__ __align__(128) float smem[];
-  const long long row0 = (long long)blockIdx.x * TILE;
-  const long long valid = rows - row0 < TILE ? rows - row0 : TILE;
-  load_tile(in_re, in_im, smem, smem + BUF, row0, rows);
-  int cur = 0;
-  for (int j = 0; j < nmats; ++j) {
-    __syncthreads();          // the tile (or the last product) is written
-    const float* x = smem + 2 * BUF * cur;
-    const uint32_t* wj = w + (long long)j * 2 * LANES * LANES;
-    if (j == nmats - 1) {
-      product_high(x, x + BUF, wj, out_re + row0 * LANES,
-                   out_im + row0 * LANES, LANES, valid);
-    } else {
-      float* y = smem + 2 * BUF * (cur ^ 1);
-      product_high(x, x + BUF, wj, y, y + BUF, LD, TILE);
-      cur ^= 1;
+  // the dynamic shared memory, under a name of its own (chain_f32_kernel
+  // declares it as floats)
+  extern __shared__ __align__(1024) uint8_t hsmem[];
+  uint8_t* smem = hsmem;
+  uint4* frags = reinterpret_cast<uint4*>(smem);
+  float* xs = reinterpret_cast<float*>(smem + X_OFF);   // re, then im
+  // [consumer][stage]: the stage's table chunk has landed; its four warps
+  // have released it
+  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + HBAR_OFF);
+  uint64_t* freed = landed + HWGS * RING;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long long tiles = (rows + TILE - 1) / TILE;
+  const int mine = (int)((tiles - 1 - blockIdx.x) / gridDim.x + 1);
+  const int per_tile = nmats * ROUNDS * KCHUNKS;   // a warpgroup's chunks
+  const int total = mine * per_tile;
+
+  // tile it's rows into the staging buffer, every consumer thread 16
+  // pieces of 16 bytes (cp.async); rows past R are zeros
+  auto stage_tile = [&](int it) {
+    const long long row0 = (blockIdx.x + (long long)it * gridDim.x) * TILE;
+#pragma unroll 1
+    for (int u = 0; u < 2 * TILE * LANES / 4 / THREADS; ++u) {
+      const int q = tid + u * THREADS;
+      const int comp = q / (TILE * LANES / 4);
+      const int r = q / (LANES / 4) % TILE, col = q % (LANES / 4) * 4;
+      const bool ok = row0 + r < rows;
+      const float* src = comp ? in_im : in_re;
+      async::cp16(xs + comp * XSTAGE + r * LDX + col,
+                  src + (ok ? (row0 + r) * LANES + col : 0), ok);
     }
+    async::commit();
+  };
+  // staged rows -> the next product's A fragments, split once: thread
+  // (wg, warp, lane) forms k-chunks 4 wg .. 4 wg + 3 of its warp's rows
+  auto take_tile = [&]() {
+#pragma unroll
+    for (int u = 0; u < KCHUNKS / HWGS; ++u) {
+      const int c = wg * (KCHUNKS / HWGS) + u;
+      const float* x = xs + (16 * warp + g) * LDX + 16 * c + 4 * t;
+      uint32_t a[3][2][4];
+      kh::split_rows(ld4(x), ld4(x + 8 * LDX), ld4(x + XSTAGE),
+                     ld4(x + XSTAGE + 8 * LDX), a);
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          frags[((c * 3 + p) * 2 + h) * 128 + warp * 32 + lane] =
+              make_uint4(a[p][h][0], a[p][h][1], a[p][h][2], a[p][h][3]);
+    }
+  };
+  // the consumer warpgroups' barrier
+  auto sync = [] { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
+
+  if (tid == 0) {
+    for (int s = 0; s < HWGS * RING; ++s) {
+      async::bar_init(&landed[s]);
+      async::bar_init(&freed[s], 4);
+    }
+    async::bar_init_fence();
   }
+  __syncthreads();
+  if (wg == HWGS) {
+    // The producer warpgroup: one thread feeds both rings, chunk n of
+    // each warpgroup (per tile and product j, its column blocks' 16
+    // k-chunks, one after the other in the image) into stage n % RING
+    // once the warpgroup's four warps have released its last use.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == HWGS * 128) {
+      for (int n = 0; n < total; ++n) {
+        const int s = n % RING, q = n % (ROUNDS * KCHUNKS);
+        const int j = n / (ROUNDS * KCHUNKS) % nmats;
+        for (int W = 0; W < HWGS; ++W) {
+          if (n >= RING)
+            async::bar_wait(&freed[W * RING + s], (n / RING + 1) & 1);
+          async::bulk_load(
+              smem + RING_OFF + (W * RING + s) * kh::CHUNK_BYTES,
+              w + (long long)j * MAT_BYTES +
+                  (W * ROUNDS * KCHUNKS + q) * kh::CHUNK_BYTES,
+              kh::CHUNK_BYTES, &landed[W * RING + s]);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  stage_tile(0);
+  async::wait_groups<0>();
+  sync();
+  take_tile();
+  sync();
+
+  // A consumer's k-loop, compiled once for each warpgroup W: its ring,
+  // barriers and table descriptors are then warp-uniform, so ptxas keeps
+  // them in uniform registers and issues no per-wgmma moves (12% off a
+  // P = 8 launch on an H100, PERF.md section 6).
+  auto run = [&](auto wgc) {
+    constexpr int W = decltype(wgc)::value;
+    uint64_t* my_landed = landed + W * RING;
+    uint64_t* my_freed = freed + W * RING;
+    const uint64_t ring0 = kh::desc(
+        async::smem_u32(smem + RING_OFF + W * RING * kh::CHUNK_BYTES));
+    float T[3][16], C[3][16], X[4][16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) X[0][e] = X[1][e] = X[2][e] = X[3][e] = 0.f;
+    int cs = 0;                       // the stage of the warpgroup's chunk
+    uint32_t cphase = 0;              // and the phase it lands in
+    // this warp's fragments [hi, lo] of product P, k-chunk c
+    auto load = [&](uint32_t (&a)[2][4], int c, int P) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 v = frags[((c * 3 + P) * 2 + h) * 128 + warp * 32 + lane];
+        a[h][0] = v.x;
+        a[h][1] = v.y;
+        a[h][2] = v.z;
+        a[h][3] = v.w;
+      }
+    };
+#pragma unroll 1
+    for (int it = 0; it < mine; ++it) {
+      const long long row0 = (blockIdx.x + (long long)it * gridDim.x) * TILE;
+#pragma unroll 1
+      for (int j = 0; j < nmats; ++j) {
+        const bool last = j + 1 == nmats, more = it + 1 < mine;
+        // the last product writes device memory: the staging buffer takes
+        // the next tile meanwhile
+        if (last && more) stage_tile(it + 1);
+#pragma unroll 1
+        for (int r = 0; r < ROUNDS; ++r) {
+          const int cb = W * ROUNDS + r;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            T[0][e] = T[1][e] = T[2][e] = 0.f;
+            C[0][e] = C[1][e] = C[2][e] = 0.f;
+          }
+#pragma unroll 1
+          for (int c = 0; c < KCHUNKS; ++c) {
+            async::bar_wait(&my_landed[cs], cphase);
+            uint32_t a[3][2][4];
+            load(a[0], c, 0);
+            load(a[1], c, 1);
+            load(a[2], c, 2);
+            kh::chunk(T, C, X, a,
+                      ring0 + (uint64_t)(cs * (kh::CHUNK_BYTES >> 4)));
+            if (lane == 0) async::bar_arrive(&my_freed[cs]);
+            if (++cs == RING) {
+              cs = 0;
+              cphase ^= 1;
+            }
+          }
+          kh::pin(C[0]);
+          kh::pin(C[1]);
+          kh::pin(C[2]);
+          // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of
+          // the tile, column 8 jn + 2 t + e of the column block
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = 16 * warp + g + 8 * hh;
+            if (last && row0 + row >= rows) continue;
+#pragma unroll
+            for (int jn = 0; jn < kh::BN / 8; ++jn) {
+              const int x = 4 * jn + 2 * hh;
+              const int col = cb * kh::BN + 8 * jn + 2 * t;
+              const float2 v0 = kh::result(T, C, x);
+              const float2 v1 = kh::result(T, C, x + 1);
+              const float2 vr = make_float2(v0.x, v1.x);
+              const float2 vi = make_float2(v0.y, v1.y);
+              if (last) {
+                const long long o = (row0 + row) * LANES + col;
+                *reinterpret_cast<float2*>(out_re + o) = vr;
+                *reinterpret_cast<float2*>(out_im + o) = vi;
+              } else {
+                *reinterpret_cast<float2*>(xs + row * LDX + col) = vr;
+                *reinterpret_cast<float2*>(xs + XSTAGE + row * LDX + col) = vi;
+              }
+            }
+          }
+        }
+        if (last && more) async::wait_groups<0>();   // the next tile landed
+        sync();                   // every fragment read, every result staged
+        if (!last || more) {
+          take_tile();
+          sync();
+        }
+      }
+    }
+  };
+  if (wg == 0)
+    run(std::integral_constant<int, 0>());
+  else
+    run(std::integral_constant<int, 1>());
 }
 
 }  // namespace
@@ -438,20 +606,27 @@ int qsim_wide_chain(const float* in_re, const float* in_im, float* out_re,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The "high" chain: w16 holds nmats x [Mre_hi, Mre_lo, Mim_hi, Mim_lo]
-// bf16 tables, each (128, 128) as [n][k].  out may be in.
+// The "high" chain: w16 holds nmats products' tables, each the
+// split_mm_tables image of their Karatsuba combinations at D = 128.  out
+// may be in.  Every pointer 16-byte aligned.  The grid is persistent, as
+// qsim_wide_chain's.
 int qsim_wide_chain_high(const float* in_re, const float* in_im,
                          float* out_re, float* out_im, const void* w16,
                          int nmats, long long rows, void* stream) {
   static bool attr = false;
+  static int slots = 0;
   if (nmats < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e =
-      async::allow_smem(chain_high_kernel, STATE_SMEM, &attr);
+  cudaError_t e = async::allow_smem(chain_high_kernel, HIGH_SMEM, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned grid = (unsigned)((rows + TILE - 1) / TILE);
-  chain_high_kernel<<<grid, THREADS, STATE_SMEM,
+  if (slots == 0 &&
+      (e = async::persistent_slots(chain_high_kernel, HTHREADS, HIGH_SMEM,
+                                   &slots)) != cudaSuccess)
+    return static_cast<int>(e);
+  const long long tiles = (rows + TILE - 1) / TILE;
+  const unsigned grid = (unsigned)(tiles < slots ? tiles : slots);
+  chain_high_kernel<<<grid, HTHREADS, HIGH_SMEM,
                       static_cast<cudaStream_t>(stream)>>>(
-      in_re, in_im, out_re, out_im, static_cast<const uint32_t*>(w16), nmats,
+      in_re, in_im, out_re, out_im, static_cast<const uint8_t*>(w16), nmats,
       rows);
   return static_cast<int>(cudaGetLastError());
 }

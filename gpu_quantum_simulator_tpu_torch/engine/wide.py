@@ -17,9 +17,10 @@ half differs:
 
 * a run of up to ``KH0_BATCH`` consecutive kh = 0 blocks (``("kh0", run,
   P)``) is one launch of the chain kernel (kernels/wide.py ``kh0_chain``,
-  csrc/wide_chain.cu; TPU kernel 7), in place, Karatsuba products at
-  "highest" and schoolbook 3-pass bf16 products at "high", without the
-  identity pads (P records the padded length);
+  csrc/wide_chain.cu; TPU kernel 7), in place, Karatsuba products at both
+  rungs (IEEE fp32 at "highest", the mm step's 3-pass bf16 products on
+  the row tile held on chip at "high"), without the identity pads (P
+  records the padded length);
 * every other block (``("mm", D, idx, row_bits)``) is the JAX package's
   Karatsuba product.  At "highest" it runs between row shuffles
   (``permute`` copies), the three real products ``torch.matmul`` in IEEE
@@ -35,8 +36,9 @@ half differs:
   current).
 
 Tables go to the device once per program (``build_wide_program`` caches
-programs by their ops); at "high" they are split to bf16 once as well
-(``split_mm_tables``, ``split_wide_tables``).
+programs by their ops); at "high" the Karatsuba combinations of every mm
+step and kh = 0 run are formed in float64 and split to bf16 once as well,
+into the mm step's table image (``split_mm_tables``).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import torch
 from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
 from ..kernels.block import RUNGS
 from ..kernels.wide import (ieee_fp32, kh0_chain, mm_step_high,
-                            row_shuffles, split_mm_tables, split_wide_tables)
+                            row_shuffles, split_mm_tables)
 from ..ops.apply import resolve_device
 
 LANE_QUBITS = 7
@@ -76,6 +78,13 @@ def _op_spec(op: Op, n: int):
     row_bits = tuple(q - LANE_QUBITS for q in high)  # ascending
     D = (1 << kh) * LANES
     return kh, row_bits, D, big.real, big.imag
+
+
+def _karatsuba(bre: np.ndarray, bim: np.ndarray) -> np.ndarray:
+    """(3, D, D) float64: a block's Karatsuba tables m1 = M_re^T, m2 =
+    (M_im - M_re)^T, m3 = (M_re + M_im)^T, as the JAX package forms
+    them."""
+    return np.stack([bre.T, (bim - bre).T, (bre + bim).T])
 
 
 def _mm_step(state: list, spare: list, m, row_bits, R: int,
@@ -170,7 +179,8 @@ class _Segment:
                                     # "high" (count, 6, D, D) bfloat16
                                     # (split_mm_tables)
     runs: List[torch.Tensor]        # (L, 2, 128, 128) float32 [M_re, M_im]
-    runs_w16: list                  # split_wide_tables per run (card, "high")
+    runs_w16: list                  # at "high" (L, 6 * 128^2) bfloat16 per
+                                    # run (split_mm_tables), else None
 
 
 class WideProgram:
@@ -195,7 +205,6 @@ class WideProgram:
         self.device = resolve_device(device)
         self._R = 1 << (n - LANE_QUBITS)
         high = precision == "high"
-        card = self.device.type == "cuda"
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(
@@ -206,18 +215,15 @@ class WideProgram:
         for steps, buckets, runs in plan_segments(ops, n):
             mm = {}
             for D, idxs in buckets.items():
-                combos = []
-                for i in idxs:
-                    _, _, _, bre, bim = _op_spec(ops[i], n)
-                    combos.append(np.stack([bre.T, (bim - bre).T,
-                                            (bre + bim).T]))
-                mm[D] = dev(np.stack(combos))
+                mm[D] = dev(np.stack([_karatsuba(*_op_spec(ops[i], n)[3:])
+                                      for i in idxs]))
                 if high:
                     mm[D] = split_mm_tables(mm[D])
-            run_tabs = [dev(np.stack([np.stack(_op_spec(ops[i], n)[3:])
-                                      for i in run])) for run in runs]
-            w16 = ([split_wide_tables(t) for t in run_tabs]
-                   if high and card else [None] * len(run_tabs))
+            specs = [[_op_spec(ops[i], n)[3:] for i in run] for run in runs]
+            run_tabs = [dev(np.stack([np.stack(m) for m in ms]))
+                        for ms in specs]
+            w16 = [split_mm_tables(dev(np.stack([_karatsuba(*m) for m in ms])))
+                   if high else None for ms in specs]
             self.segments.append(_Segment(steps, mm, run_tabs, w16))
             self.num_kh0_runs += len(runs)
 

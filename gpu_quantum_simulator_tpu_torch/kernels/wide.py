@@ -13,14 +13,17 @@ JAX package:
 The state is the (R, 128) float32 pair with the low 7 qubits on the
 columns; each product is ``x <- x @ M^T`` (complex).  A chain's tables are
 (L, 2, 128, 128) float32 ``[M_re, M_im]``, each stored as M itself ([n][k],
-the output index first).  At "highest" the complex form is the JAX
-package's Karatsuba, in the kernel and in the plain versions alike: three
-IEEE fp32 products ``t1 = (x_re + x_im) @ M_re^T``, ``t2 = x_re @ (M_im -
-M_re)^T``, ``t3 = x_im @ (M_re + M_im)^T``, then ``re = t1 - t3``,
-``im = t1 + t2``; the kernel forms the combinations from the tables as it
-stages them.  At "high" it is schoolbook (four real products, each the
-3-pass bf16 split ``xh.mh + xl.mh + xh.ml``, kernels/block.py), with the
-tables split once per program (``split_wide_tables``).
+the output index first).  The complex form is the JAX package's
+Karatsuba at both rungs, in the kernel and in the plain versions alike:
+``t1 = (x_re + x_im) @ m1``, ``t2 = x_re @ m2``, ``t3 = x_im @ m3`` with
+``m1 = M_re^T``, ``m2 = (M_im - M_re)^T``, ``m3 = (M_re + M_im)^T``, then
+``re = t1 - t3``, ``im = t1 + t2``.  At "highest" the three products are
+IEEE fp32 and the kernel forms the combinations from the tables as it
+stages them.  At "high" each real product is the 3-pass bf16 split
+``xh.mh + xl.mh + xh.ml``, the mm step's arithmetic (``karatsuba_high``),
+on the combinations formed in float64 and split once per program into the
+mm step's D = 128 table image (``kh0_high_tables``), so that a chain of
+one product is the D = 128 mm step.
 
 A second kernel (``csrc/mm_high.cu``) is the mxu engine's mm step at the
 "high" rung, ``mm_step_high``: the JAX package's Karatsuba product
@@ -30,7 +33,7 @@ and kh <= 2 row bits, D = 128 << kh, on the unshuffled (R, 128) pair: the
 kernel reads and writes the state through the block's row map (the map
 ``row_shuffles`` copies out; no copy is made) into a second pair.  Each
 real product is the 3-pass bf16 split on Hopper ``wgmma``, its hi.hi
-partials of four terms summed in fp32 on the CUDA cores; the tables are
+partials of eight terms summed in fp32 on the CUDA cores; the tables are
 split once per program into the kernel's shared-memory image
 (``split_mm_tables``; ``mm_tables_f32`` reads them back).  The JAX package
 computes it outside any Pallas kernel; it is hand-written here because
@@ -51,7 +54,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .block import RUNGS, bf16_split, mat_high_plain
+from .block import RUNGS, bf16_split
 
 LANES = 128
 MM_WIDTHS = (128, 256, 512)     # the mm step's D = 128 << kh, kh <= 2
@@ -82,20 +85,20 @@ def _check_rung(precision: str) -> None:
             "complex128\")")
 
 
-def split_wide_tables(tables: torch.Tensor) -> torch.Tensor:
-    """(L, 2, 128, 128) float32 [M_re, M_im] -> (L, 4, 128, 128) bfloat16
-    [Mre_hi, Mre_lo, Mim_hi, Mim_lo]: the "high" kernel's operands, [n][k]
-    as the tables are (the col-major B fragment of ``mma.m16n8k16``)."""
-    parts = []
-    for c in (0, 1):
-        hi, lo = bf16_split(tables[:, c])
-        parts += [hi.to(torch.bfloat16), lo.to(torch.bfloat16)]
-    return torch.stack(parts, dim=1).contiguous()
+def kh0_high_tables(tables: torch.Tensor) -> torch.Tensor:
+    """(L, 2, 128, 128) float32 [M_re, M_im] -> (L, 6 * 128^2) bfloat16: the
+    "high" chain's operands, the Karatsuba combinations m1 = M_re^T, m2 =
+    (M_im - M_re)^T, m3 = (M_re + M_im)^T formed in float64, rounded to
+    float32 and split into the mm step's table image (``split_mm_tables``
+    at D = 128).  The wide engine forms them from the blocks' float64
+    matrices instead (``engine/wide.py`` ``_karatsuba``)."""
+    t = tables.double()
+    mr, mi = t[:, 0], t[:, 1]
+    combos = torch.stack([mr, mi - mr, mr + mi], dim=1).transpose(-1, -2)
+    return split_mm_tables(combos.float().contiguous())
 
 
-def _product_plain(re, im, m_re, m_im, precision):
-    if precision == "high":
-        return mat_high_plain(re, im, m_re.T, m_im.T)
+def _karatsuba_f32(re, im, m_re, m_im):
     with ieee_fp32():
         t1 = (re + im) @ m_re.T
         t2 = re @ (m_im - m_re).T
@@ -104,20 +107,29 @@ def _product_plain(re, im, m_re, m_im, precision):
 
 
 def kh0_chain_plain(re: torch.Tensor, im: torch.Tensor,
-                    tables: torch.Tensor, precision: str = "highest") -> Pair:
+                    tables: torch.Tensor, precision: str = "highest",
+                    w16: Optional[torch.Tensor] = None) -> Pair:
     """The chain in plain torch, on any device: ``x <- x @ M_j^T`` for each
-    table j in order, in the kernel's arithmetic (Karatsuba in IEEE fp32 at
-    "highest", the schoolbook 3-pass bf16 split at "high")."""
+    table j in order, in the kernel's arithmetic, Karatsuba at both rungs:
+    three IEEE fp32 products at "highest"; at "high" ``karatsuba_high`` on
+    the tables read back from ``w16`` (``kh0_high_tables(tables)`` when
+    None), each product the D = 128 ``mm_step_high_plain``."""
     _check_rung(precision)
+    if precision == "high":
+        if w16 is None:
+            w16 = kh0_high_tables(tables)
+        for j in range(w16.shape[0]):
+            re, im = karatsuba_high(re, im, mm_tables_f32(w16[j]))
+        return re, im
     for j in range(tables.shape[0]):
-        re, im = _product_plain(re, im, tables[j, 0], tables[j, 1], precision)
+        re, im = _karatsuba_f32(re, im, tables[j, 0], tables[j, 1])
     return re, im
 
 
 def apply_block128_plain(re: torch.Tensor, im: torch.Tensor,
                          m_re: torch.Tensor, m_im: torch.Tensor) -> Pair:
     """One product ``x @ M^T``: Karatsuba in IEEE fp32, on any device."""
-    return _product_plain(re, im, m_re, m_im, "highest")
+    return _karatsuba_f32(re, im, m_re, m_im)
 
 
 def _to_out(res: Pair, out: Optional[Pair]) -> Pair:
@@ -161,12 +173,12 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
 
     The result lands in ``out`` (allocated when None; it may be the input
     pair itself: each row tile is read whole before it is written).
-    ``w16``: the tables' ``split_wide_tables`` for the "high" rung
-    (computed here when None).
+    ``w16``: the "high" rung's operands, (L, 6 * 128^2) bfloat16
+    (``kh0_high_tables(tables)`` when None).
     """
     _check_rung(precision)
     if re.device.type == "cpu":
-        return _to_out(kh0_chain_plain(re, im, tables, precision), out)
+        return _to_out(kh0_chain_plain(re, im, tables, precision, w16), out)
     if not re.is_cuda:
         raise ValueError(f"chain kernel: unsupported device {re.device}")
     out = _state_out(re, im, out, "chain kernel")
@@ -180,9 +192,10 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
     stream = torch.cuda.current_stream(re.device).cuda_stream
     if precision == "high":
         if w16 is None:
-            w16 = split_wide_tables(tables)
-        if w16.shape != (nmats, 4, LANES, LANES):
-            raise ValueError("chain kernel: w16 must be (L, 4, 128, 128)")
+            w16 = kh0_high_tables(tables)
+        if w16.shape != (nmats, 6 * LANES * LANES):
+            raise ValueError(f"chain kernel: w16 must be ({nmats}, "
+                             f"{6 * LANES * LANES}), got {tuple(w16.shape)}")
         _check_cuda([re, im, *out, w16], [f32] * 4 + [torch.bfloat16],
                     "chain kernel")
         rc = lib.qsim_wide_chain_high(

@@ -206,6 +206,51 @@ def test_wide_program_steps_match_jax(case):
         assert np.array_equal(t[1].numpy(), s[4].astype(np.float32))
 
 
+@pytest.mark.parametrize("case", ["mixed", "low_only_k3"])
+def test_wide_program_high_run_tables(case):
+    """At "high" the port's WideProgram holds, for every kh = 0 run, the
+    ``split_mm_tables`` image of the run's Karatsuba combinations formed in
+    float64: ``mm_tables_f32`` reads each product's image back to the JAX
+    package's float32 combinations of that run (its kernel 7 tables,
+    without the identity pads) rounded to bf16 (hi, lo), bit for bit; at
+    "highest" no run has an image."""
+    from gpu_quantum_simulator_tpu_torch.kernels.block import bf16_split
+
+    n = 10
+    if case == "mixed":
+        tc, jc, k, cost = mixed(T.Circuit, n), mixed(JCircuit, n), 7, False
+    else:
+        tc, jc, k, cost = (low_only(T.Circuit, n, 600),
+                           low_only(JCircuit, n, 600), 3, True)
+    ops = TS._fuse_pipeline(tc, k, max_high=2, window=8, cost_model=cost)
+    jops = JS._fuse_pipeline(jc, k, max_high=2, window=8, cost_model=cost)
+    prog = TW.WideProgram(ops, n, precision="high", device="cpu")
+    jprog = JW.WideProgram(jops, n, jnp.float32, kh0_pallas=True)
+    checked = 0
+    for seg, (jsteps, jmats) in zip(prog.segments, _jax_segments(jprog)):
+        first = 3 * len(seg.mm)         # the JAX runs follow the mm tables
+        assert len(seg.runs_w16) == len(seg.runs)
+        for r, (tabs, w16) in enumerate(zip(seg.runs, seg.runs_w16)):
+            L = tabs.shape[0]
+            assert w16.shape == (L, 6 * 128 * 128)
+            assert w16.dtype == torch.bfloat16
+            for j in range(L):
+                back = KW.mm_tables_f32(w16[j])
+                for c in range(3):
+                    m = torch.from_numpy(np.array(
+                        jmats[first + 3 * r + c][j]))
+                    hi, lo = bf16_split(m)
+                    assert torch.equal(back[2 * c].view(torch.int32),
+                                       hi.view(torch.int32))
+                    assert torch.equal(back[2 * c + 1].view(torch.int32),
+                                       lo.view(torch.int32))
+                checked += 1
+    assert checked == sum(t.shape[0] for seg in prog.segments
+                          for t in seg.runs) > 0
+    low = TW.WideProgram(ops, n, precision="highest", device="cpu")
+    assert all(w is None for seg in low.segments for w in seg.runs_w16)
+
+
 @pytest.mark.parametrize("precision", ["highest", "high"])
 def test_carried_ops_through_both_programs(precision):
     """The JAX package's fused ops, rebuilt as the port's ``Op`` from their
@@ -239,13 +284,36 @@ def _unitaries(rng, count):
     return out
 
 
+# At "high" kh0_chain_plain and the JAX kernel take the same Karatsuba
+# combinations and the same bf16 split, so one product differs only in the
+# order of its fp32 sums: readings <= 1.12e-8 (3 fp32 ulps at the states'
+# peak |amp| ~0.044) on the CPU these tests were written on; the bar allows
+# 8.  A chain of them does not keep that bar: the split is discontinuous,
+# so an ulp of difference in a product's input can move a value's bf16
+# (hi, lo) split and with it the term the 3-pass product drops (xl.ml,
+# ~2^-16 of the product); the two chains part by up to 5.6e-7 after 8
+# products, so the whole chain is held to the rung's 4e-6.
+HIGH_ORDER_TOL = 3e-8
+
+
+def _karatsuba_combos(us):
+    """(P, 3, 128, 128) float32: m1 = M_re^T, m2 = (M_im - M_re)^T, m3 =
+    (M_re + M_im)^T of each unitary, formed in float64 as the JAX engine
+    forms them."""
+    return np.stack([np.stack([u.real.T, (u.imag - u.real).T,
+                               (u.real + u.imag).T])
+                     for u in us]).astype(np.float32)
+
+
 @pytest.mark.parametrize("precision,tol", [("highest", 1e-6), ("high", 4e-6)])
 @pytest.mark.parametrize("P", [1, 8])
 def test_kh0_chain_plain_matches_jax_kernel(P, precision, tol):
-    """kh0_chain_plain (Karatsuba at "highest", schoolbook at "high")
-    against get_kh0_kernel in interpret mode (Karatsuba, its combinations
-    formed in f64 as the JAX engine forms them) on a normalized n = 12
-    state; and the wrapper takes the plain version for CPU tensors."""
+    """kh0_chain_plain (Karatsuba at both rungs) against get_kh0_kernel in
+    interpret mode (Karatsuba, its combinations formed in f64 as the JAX
+    engine forms them; at "high" the plain chain takes the same
+    combinations, split by ``split_mm_tables``) on a normalized n = 12
+    state: one "high" product within HIGH_ORDER_TOL, a chain within the
+    rung's bar; and the wrapper takes the plain version for CPU tensors."""
     rng = np.random.default_rng(P)
     R = 32
     v = rng.standard_normal((2, R, 128))
@@ -253,20 +321,77 @@ def test_kh0_chain_plain_matches_jax_kernel(P, precision, tol):
     us = _unitaries(rng, P)
     tables = torch.from_numpy(np.stack([np.stack([u.real, u.imag])
                                         for u in us]).astype(np.float32))
+    combos = _karatsuba_combos(us)
+    w16 = (KW.split_mm_tables(torch.from_numpy(combos))
+           if precision == "high" else None)
     re, im = torch.from_numpy(v[0]), torch.from_numpy(v[1])
-    got = KW.kh0_chain_plain(re, im, tables, precision)
-    combos = [np.stack([u.real.T, (u.imag - u.real).T, (u.real + u.imag).T])
-              for u in us]
-    m = [jnp.asarray(np.stack([c[j] for c in combos]).astype(np.float32))
-         for j in range(3)]
+    got = KW.kh0_chain_plain(re, im, tables, precision, w16=w16)
+    m = [jnp.asarray(np.ascontiguousarray(combos[:, j])) for j in range(3)]
     call = JW.get_kh0_kernel(R, P, np.float32, precision, True)
     want = call(jnp.asarray(v[0]), jnp.asarray(v[1]), *m)
+    bar = HIGH_ORDER_TOL if precision == "high" and P == 1 else tol
     for g, w in zip(got, want):
-        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= tol
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= bar
     KW.reset_launches()
-    wrapped = KW.kh0_chain(re, im, tables, precision)
+    wrapped = KW.kh0_chain(re, im, tables, precision, w16=w16)
     assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
     assert KW.kh0_chain.launches == {"highest": 0, "high": 0}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kh0_chain_plain_high_step_by_step(seed):
+    """Each product of the "high" plain chain (P = 8, n = 12) against
+    get_kh0_kernel(..., "high") with one matrix in interpret mode on the
+    same input, both on the same combinations: within HIGH_ORDER_TOL; the
+    schoolbook 3-pass product (four real products) misses that bar."""
+    from gpu_quantum_simulator_tpu_torch.kernels.block import mat_high_plain
+
+    rng = np.random.default_rng(200 + seed)
+    R, P = 32, 8
+    v = rng.standard_normal((2, R, 128))
+    v = (v / np.linalg.norm(v)).astype(np.float32)
+    us = _unitaries(rng, P)
+    tables = torch.from_numpy(np.stack([np.stack([u.real, u.imag])
+                                        for u in us]).astype(np.float32))
+    combos = _karatsuba_combos(us)
+    w16 = KW.split_mm_tables(torch.from_numpy(combos))
+    call = JW.get_kh0_kernel(R, 1, np.float32, "high", True)
+    re, im = torch.from_numpy(v[0]), torch.from_numpy(v[1])
+    worst = 0.0
+    for j in range(P):
+        want = call(jnp.asarray(re.numpy()), jnp.asarray(im.numpy()),
+                    *(jnp.asarray(combos[j:j + 1, c]) for c in range(3)))
+        school = mat_high_plain(re, im, tables[j, 0].T, tables[j, 1].T)
+        re, im = KW.kh0_chain_plain(re, im, tables[j:j + 1], "high",
+                                    w16=w16[j:j + 1])
+        worst = max(worst, *(np.max(np.abs(g.numpy() - np.asarray(w)))
+                             for g, w in zip((re, im), want)))
+        assert max(np.max(np.abs(g.numpy() - np.asarray(w)))
+                   for g, w in zip(school, want)) > HIGH_ORDER_TOL
+    assert worst <= HIGH_ORDER_TOL
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kh0_chain_plain_high_is_the_mm_step(seed):
+    """kh0_chain_plain at "high" with one product is ``mm_step_high_plain``
+    at D = 128 (no row bits) on the same table image, bit for bit: the
+    chain's arithmetic is the mm step's, as the kernels share their k-chunk
+    body (csrc/karatsuba_high.cuh)."""
+    rng = np.random.default_rng(300 + seed)
+    v = rng.standard_normal((2, 32, 128))
+    v = (v / np.linalg.norm(v)).astype(np.float32)
+    us = _unitaries(rng, 1)
+    tables = torch.from_numpy(np.stack([np.stack([u.real, u.imag])
+                                        for u in us]).astype(np.float32))
+    w16 = KW.kh0_high_tables(tables)
+    assert w16.shape == (1, 6 * 128 * 128) and w16.dtype == torch.bfloat16
+    re, im = torch.from_numpy(v[0]), torch.from_numpy(v[1])
+    got = KW.kh0_chain_plain(re, im, tables, "high")
+    want = KW.mm_step_high_plain(re, im, w16[0], ())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the wrapper's tables default to the same image
+    again = KW.kh0_chain(re, im, tables, "high", w16=w16)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
 
 
 # kh0_chain_plain at "highest" computes the JAX kernel's three fp32 products
