@@ -114,6 +114,24 @@ failure raises and the script exits non-zero:
    ``ops/apply.py`` ``apply_1q``.  Kernel 11, the copy probe harness
    (``dma_probe.py``) at n = 24, 28 and 30: every route (grid, stream,
    direct TMA) and tile shape copies bit for bit; GB/s beside ``copy_``'s.
+7. the facade's program entry points, the launch counts set to 0 before
+   each and read after.  ``run_device_iterated`` on Grover at n=24
+   (``grover_parts(13, 5301)``, 71 repetitions) on mxu and flat prefetch
+   at "auto" ("high") and "highest": the graph replays bit for bit the
+   eager loop of the same body program, "high" against the unrolled
+   circuit's ``run_device`` and "highest" against the exact f64 state
+   (the rung's bar scaled with the peak amplitude and with the run's
+   fused ops over the benchmark's), the peak at the marked state; host
+   and device ms per repetition, graph against eager loop, the graph's
+   pool and end copy.  Trotter TFIM at n=28 on mxu (norm, the entropy at
+   the middle cut > 0), <H> of ``tfim_terms(28)`` by the "state" and
+   "basis" methods at "highest" (1e-5 relative).  ``run_device_parts``
+   at n=24: two halves equal the whole (the "high" bar), the caller's
+   tensors unchanged.  ``run_many`` at n=24 over eight QAOA candidates:
+   its dispatch under torch's sync debug mode "error", terms against
+   ``expectation_pauli_sum`` (<= 1e-5), wall time against waiting per
+   circuit.  Phase 5's n=30 state also runs the halves routes of
+   ``observables.py`` against the flat ones (<= 1e-5).
 
 Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
 steps at n=24 on a normalised random state over eight random unitary
@@ -237,6 +255,32 @@ FULL_PEAK_SLACK = 2 << 30   # peak device memory allowed above the state
 FULL_NORM_TOL = 1e-5        # n=30 norm_halves after its 692 "high" steps
 SAMPLES = 200_000
 SAMPLE_BINS = 4096
+HALVES_TOL = 1e-5           # n=30 halves routes vs the flat routes
+HALVES_QUBITS = ([0], [7], [-1], [3, 7, 20], [-2, 7, 1, 15])  # -k: n - k
+# phase 7, the facade's program entry points
+GROVER_DATA = 13            # grover_parts(13): 13 data + 11 ancillas, n=24
+GROVER_MARKED = 5301        # the marked data state (< 2^13)
+ENTRY_STRATEGIES = ("mxu", "prefetch")
+ENTRY_RUNGS = ("auto", "highest")   # "auto" is "high" at n=24
+GROVER_DEPTHS = (18, 36)    # repetitions besides the natural 71: the
+                            # rungs' error against depth
+TROTTER = (28, 0.05, 20)    # trotter_tfim_parts(n, dt, steps=...) on mxu
+TROTTER_TOL = 1e-4          # <H> on the iterated state (mxu) vs the
+                            # "basis" method (prefetch), "highest": two
+                            # engines' states, each ~1e-6 off norm after
+                            # 600 ops, times |<H>| = 27 (the float64 sums
+                            # part from the fp32 ones by 1.5e-5 only)
+GRAPH_MEMORY = (28, 4, 3)   # (n, distinct qaoa bodies, repetitions each)
+GRAPH_MEMORY_SLACK = 2 << 30  # one n=28 state pair: a second live graph
+                              # would add two (its static and spare pairs)
+PARTS_WIDTH = 24            # run_device_parts: two halves of a circuit
+PARTS_GATES = 800
+GRAPH_TIMED = 10            # graph replays timed per (strategy, rung)
+BENCH_OPS = 600             # fused ops of grover_like(24, 2445, 318), the
+                            # depth PERF.md section 2's bars were set at
+                            # (582-626 by strategy)
+MANY = (24, 8)              # run_many: 8 qaoa_maxcut candidates at n=24
+MANY_TOL = 1e-5             # run_many(terms=) vs expectation_pauli_sum
 # the redesigned kernels' previous designs, each read twice in one call of
 # chip_ab.py beside the current ones (H100 80GB HBM3 at 700 W; PERF.md
 # section 6): printed beside this run's times
@@ -2472,6 +2516,7 @@ def run_sampling(torch, T, refs):
 def clear_caches(torch):
     """Drop every engine's cached programs, and with them their device
     tables, so that a peak-memory reading starts from an empty card."""
+    from gpu_quantum_simulator_tpu_torch.engine import graphs as G
     from gpu_quantum_simulator_tpu_torch.engine import pallas_engine as PE
     from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
     from gpu_quantum_simulator_tpu_torch.engine import simulator as S
@@ -2481,6 +2526,7 @@ def clear_caches(torch):
     for cache in (PF._PROGRAM_CACHE, PF._RUN_CACHE, S._MXU_PLAN_CACHE,
                   W._CACHE, PE._CACHE, V._CACHE):
         cache.clear()
+    G.release()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2529,6 +2575,7 @@ def run_full_width(torch, T, add):
         0, 1 << n, 4096)])
     amps = SP.amplitudes_halves(*parts, idx)
     samples = SP.sample_halves(*parts, n, 10000, seed=7)
+    check_halves_routes(torch, parts, n)
     del parts
     torch.cuda.empty_cache()
     reset_counts()
@@ -2580,6 +2627,40 @@ def run_full_width(torch, T, add):
     if not err <= tol:
         raise AssertionError(f"n={n}: in place vs flat {err} > {tol}")
     clear_caches(torch)
+
+
+def check_halves_routes(torch, parts, n):
+    """Phase 7 on phase 5's n=30 state: ``marginal_probabilities_halves``
+    and ``entanglement_entropy_halves`` on the four halves against the flat
+    routes on the joined state (<= 1e-5), timed."""
+    from gpu_quantum_simulator_tpu_torch import observables as O
+    from gpu_quantum_simulator_tpu_torch.engine.prefetch import join_halves
+
+    qsets = [[q % n for q in qs] for qs in HALVES_QUBITS]
+    t0 = time.perf_counter()
+    halves_p = [O.marginal_probabilities_halves(*parts, qs, n)
+                for qs in qsets]
+    halves_s = [O.entanglement_entropy_halves(*parts, cut, n)
+                for cut in range(1, 8)]
+    t_halves = time.perf_counter() - t0
+    re, im = join_halves(*parts)
+    t0 = time.perf_counter()
+    flat_p = [O.marginal_probabilities(re, im, qs, n) for qs in qsets]
+    flat_s = [O.entanglement_entropy(re, im, cut, n) for cut in range(1, 8)]
+    t_flat = time.perf_counter() - t0
+    del re, im
+    torch.cuda.empty_cache()
+    e_p = max(float(np.max(np.abs(a - b))) for a, b in zip(halves_p, flat_p))
+    e_s = max(abs(a - b) for a, b in zip(halves_s, flat_s))
+    print(f"entry points n={n} halves routes: marginals over "
+          f"{len(HALVES_QUBITS)} qubit sets max|diff| vs flat {e_p:.3e}, "
+          f"entropies cut 1..7 {[round(x, 6) for x in halves_s]} max|diff| "
+          f"vs flat {e_s:.3e} (bar {HALVES_TOL:g}); {t_halves:.2f} s on "
+          f"the halves, {t_flat:.2f} s flat")
+    if not (e_p <= HALVES_TOL and e_s <= HALVES_TOL
+            and all(abs(p.sum() - 1) <= HALVES_TOL for p in halves_p)):
+        raise AssertionError(f"n={n} halves routes: marginals {e_p}, "
+                             f"entropies {e_s}")
 
 
 def run_inplace_phase(torch, T, refs, add, rng):
@@ -2707,6 +2788,458 @@ def check_copy_probes(torch, add):
     return recs
 
 
+# ------------------------------------------- phase 7: the program entry points
+def grover_exact(nd, marked, iterations):
+    """Grover's data register after ``iterations`` in float64, by the exact
+    algebra the circuit implements: |s> = H^nd |0>, then per iteration the
+    oracle I - 2|m><m| and the diffusion I - 2|s><s| (the ancillas return
+    to |0>, so the full state is this vector at indices < 2^nd)."""
+    size = 1 << nd
+    s = np.full(size, size ** -0.5)
+    v = s.copy()
+    for _ in range(iterations):
+        v[marked] = -v[marked]
+        v = v - 2.0 * np.dot(s, v) * s
+    return v
+
+
+def per_repetition(torch, fn, reps):
+    """(host ms, device ms) per repetition: ``fn`` queues ``reps``
+    repetitions; the host clock times the queueing, CUDA events the
+    device's work from first to last."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    end.synchronize()
+    return host, start.elapsed_time(end) / reps, out
+
+
+def graph_pool_bytes(torch, graph):
+    """Bytes of the segments in ``graph``'s private memory pool, or None
+    where the allocator's snapshot does not name a segment's pool."""
+    pool = tuple(graph.graph.pool())
+    total = 0
+    for seg in torch.cuda.memory_snapshot():
+        if "segment_pool_id" not in seg:
+            return None
+        if tuple(seg["segment_pool_id"]) == pool:
+            total += seg["total_size"]
+    return total
+
+
+def check_grover_iterated(torch, T, add, smi):
+    """run_device_iterated on Grover at n=24, mxu and flat prefetch, at
+    "auto" ("high") and "highest", at GROVER_DEPTHS and the natural 71
+    repetitions (one capture, then replays).  Held: at GROVER_DEPTHS[0]
+    the graph's result equals the eager loop of the same body program
+    from the prefix's state bit for bit; at every depth the launch counts
+    equal the prefix's plus the body's once a repetition (and once more
+    for the warm-up of the first call), and the result is within the
+    rung's bar of the reference: at "high" the unrolled circuit's
+    run_device at that depth (prefetch, "auto"), at "highest" the exact
+    f64 state.  The bar (HIGH_TOL "high", AMP_TOL "highest") scales with
+    the peak amplitude (PERF.md section 2) and with the run's fused ops
+    over BENCH_OPS: every repetition applies the same rounded tables, so
+    the rounding adds up with depth; the three depths measure that
+    growth.  At 71 the peak is at the marked state.  Host and device ms a
+    repetition, graph replays against the eager loop; the graph's pool and
+    its end copy.  Every reading is printed before any bar is applied."""
+    from gpu_quantum_simulator_tpu_torch.engine import graphs as G
+    from gpu_quantum_simulator_tpu_torch.ops.apply import (
+        initial_state_parts, unpermute_device)
+
+    nd, marked = GROVER_DATA, GROVER_MARKED
+    prefix, body, iters = T.models.grover_parts(nd, marked)
+    depths = (*GROVER_DEPTHS, iters)
+    n = prefix.num_qubits
+    exact, unrolled, scale = {}, {}, {}
+    ref_sim = T.Simulator(T.SimulatorConfig(strategy="prefetch"),
+                          device="cuda")
+    for reps in depths:
+        e = torch.zeros(1 << n, dtype=torch.float64)
+        e[:1 << nd] = torch.from_numpy(grover_exact(nd, marked, reps))
+        exact[reps] = e.cuda()
+        scale[reps] = max(1.0, float(e.abs().max()) / HIGH_BAR_PEAK)
+        c = T.models.grover(nd, marked, iterations=reps)
+        t0 = time.perf_counter()
+        unrolled[reps] = ref_sim.run_device(c)
+        amp = torch.complex(unrolled[reps][0].double(),
+                            unrolled[reps][1].double())
+        print(f"entry points grover n={n} x{reps}: unrolled circuit of "
+              f"{len(c.gates)} gates, prefetch \"auto\" run_device "
+              f"{unrolled[reps][2]} ops in "
+              f"{time.perf_counter() - t0:.2f} s (fusion, plan and tables "
+              f"included); vs exact f64 "
+              f"{float((amp - exact[reps]).abs().max()):.3e}")
+        del amp
+    del ref_sim
+    clear_caches(torch)
+    failed = []
+    for strategy in ENTRY_STRATEGIES:
+        for rung in ENTRY_RUNGS:
+            sim = T.Simulator(T.SimulatorConfig(strategy=strategy,
+                                                precision=rung),
+                              device="cuda")
+            high = sim.config.effective_precision(n) == "high"
+            got, counts, nops = {}, {}, {}
+            for reps in (iters, *GROVER_DEPTHS):
+                reset_counts()
+                t0 = time.perf_counter()
+                re, im, nops[reps] = sim.run_device_iterated(
+                    body, reps, prefix=prefix)
+                torch.cuda.synchronize()
+                if reps == iters:
+                    first = time.perf_counter() - t0
+                counts[reps] = launch_counts()
+                got[reps] = (re, im)
+                del re, im
+            add(counts[iters])
+            perm, programs = sim._iterated_programs(body, iters, prefix)
+            (pre, _, _), (prog, body_ops, _) = programs
+            graph = G._LIVE[torch.device("cuda", 0)]
+            same_prog = graph.prog is prog
+            pool = graph_pool_bytes(torch, graph)
+            # one call of each program, counted, from a fresh prefix state
+            reset_counts()
+            x0 = pre(*initial_state_parts(n, device="cuda"))
+            pre_counts = launch_counts()
+            reset_counts()
+            xin = (x0[0].clone(), x0[1].clone())
+            one = prog(*xin)
+            body_counts = launch_counts()
+            copies = one[0].data_ptr() != xin[0].data_ptr()
+            del one, xin
+            counted = all(
+                counts[r] == {k: pre_counts[k] + body_counts[k]
+                              * (r + (r == iters)) for k in pre_counts}
+                for r in depths)
+            R = GROVER_DEPTHS[0]
+
+            def eager():
+                e = (x0[0].clone(), x0[1].clone())
+                for _ in range(R):
+                    e = prog(*e)
+                return e
+
+            eh, ed, want = per_repetition(torch, eager, R)
+            if perm is not None:
+                want = unpermute_device(*want, [int(p) for p in perm])
+            bit = (torch.equal(want[0], got[R][0])
+                   and torch.equal(want[1], got[R][1]))
+            del want, x0
+
+            def replays():
+                for _ in range(GRAPH_TIMED):
+                    graph.graph.replay()
+
+            gh, gd, _ = per_repetition(torch, replays, GRAPH_TIMED)
+            copy_ms = (device_ms(torch, lambda: (graph.re.copy_(got[R][0]),
+                                                 graph.im.copy_(got[R][1])),
+                                 reps=5, rounds=3) if copies else None)
+            del graph
+            rows = []
+            for reps in depths:
+                amp = torch.complex(got[reps][0].double(),
+                                    got[reps][1].double())
+                e_exact = float((amp - exact[reps]).abs().max())
+                peak_at = int(torch.argmax(amp.abs()))
+                del amp
+                err = (max_diff(got[reps], unrolled[reps][:2]) if high
+                       else e_exact)
+                bar = ((HIGH_TOL if high else AMP_TOL) * scale[reps]
+                       * max(1.0, nops[reps] / BENCH_OPS))
+                rows.append((reps, nops[reps], err, bar, e_exact, peak_at))
+            del got
+            pool_txt = ("not measured" if pool is None
+                        else f"{pool / 2**20:.1f} MiB")
+            copy_txt = "none" if copy_ms is None else f"{copy_ms:.4f} ms"
+            print(f"entry points grover n={n} {strategy} {rung} "
+                  f"({'high' if high else 'highest'}): a {body_ops}-op body;"
+                  f" first call ({iters} repetitions) {first:.3f} s (build, "
+                  f"warm-up and capture included); per repetition graph "
+                  f"replay host {gh:.4f} ms device {gd:.4f} ms, eager loop "
+                  f"({R} repetitions) host {eh:.4f} ms device {ed:.4f} ms; "
+                  f"run_device_iterated (graph) "
+                  f"{'equals' if bit else 'DIFFERS FROM'} the eager loop bit "
+                  f"for bit at {R}; the live graph "
+                  f"{'holds' if same_prog else 'DOES NOT HOLD'} the cached "
+                  f"body program; graph pool {pool_txt}; end copy "
+                  f"{copy_txt}; launches "
+                  f"{'equal' if counted else 'DIFFER FROM'} prefix + body x "
+                  f"repetitions (+1 warm-up), at {iters}: {counts[iters]}; "
+                  f"{smi}")
+            for reps, ops, err, bar, e_exact, peak_at in rows:
+                print(f"  x{reps} ({ops} ops): vs "
+                      f"{'unrolled' if high else 'exact f64'} {err:.3e} "
+                      f"(bar {bar:.3e}), vs exact f64 {e_exact:.3e}; peak "
+                      f"at {peak_at}")
+            if not (bit and counted and same_prog and rows[-1][5] == marked
+                    and all(r[2] <= r[3] for r in rows)):
+                failed.append((strategy, rung, bit, counted, same_prog,
+                               rows))
+            clear_caches(torch)
+    del unrolled, exact
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"grover iterated: (strategy, rung, bit for "
+                             f"bit, launches counted, same program, "
+                             f"[(repetitions, ops, error, bar, vs exact, "
+                             f"peak at)]) {failed}")
+
+
+def check_trotter(torch, T, add, smi):
+    """Trotter TFIM at n=28 on mxu through run_device_iterated at
+    "highest": the state against the unrolled circuit's run_device at the
+    same rung (prefetch: its tables build ~30x faster than mxu's) within
+    the rung's bar; <H> by the "state" method's sum (``_pauli_sum_parts``)
+    on the iterated state against expectation_pauli_sum(method="basis")
+    on the unrolled circuit (prefetch, "highest") within TROTTER_TOL, the
+    same sum in float64 printed beside it; the norm, and the entanglement
+    entropy at the middle cut > 0."""
+    from gpu_quantum_simulator_tpu_torch import observables as O
+
+    n, dt, steps = TROTTER
+    prefix, body, steps = T.models.trotter_tfim_parts(n, dt, steps=steps)
+    unrolled = T.models.trotter_tfim(n, dt, steps=steps)
+    terms = T.models.tfim_terms(n)
+    parsed, const = O._parse_terms(terms, n)
+    sim = T.Simulator(T.SimulatorConfig(strategy="mxu",
+                                        precision="highest"), device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    re, im, nops = sim.run_device_iterated(body, steps, prefix=prefix)
+    torch.cuda.synchronize()
+    t_iter = time.perf_counter() - t0
+    add(launch_counts())
+    clear_caches(torch)
+    cut = n // 2
+    t0 = time.perf_counter()
+    entropy = O.entanglement_entropy(re, im, cut, n)
+    t_entropy = time.perf_counter() - t0
+    norm = float(torch.dot(re, re) + torch.dot(im, im))
+    t0 = time.perf_counter()
+    e_state = const + float(O._pauli_sum_parts(re, im, parsed, n))
+    t_state = time.perf_counter() - t0
+    e_f64 = const + float(O._pauli_sum_parts(re.double(), im.double(),
+                                             parsed, n))
+    cfg = T.SimulatorConfig(strategy="prefetch", precision="highest")
+    t0 = time.perf_counter()
+    ref = T.Simulator(cfg, device="cuda").run_device(unrolled)
+    t_unrolled = time.perf_counter() - t0
+    err = max_diff((re, im), ref[:2])
+    peak = float(torch.maximum(ref[0].abs(), ref[1].abs()).max())
+    bar = (AMP_TOL * max(1.0, peak / HIGH_BAR_PEAK)
+           * max(1.0, nops / BENCH_OPS))
+    del re, im, ref
+    clear_caches(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    e_basis = O.expectation_pauli_sum(unrolled, terms, cfg, method="basis")
+    t_basis = time.perf_counter() - t0
+    add(launch_counts())
+    clear_caches(torch)
+    print(f"entry points trotter tfim n={n}: {steps} steps ({nops} ops) "
+          f"iterated on mxu at \"highest\" in {t_iter:.3f} s (build, "
+          f"warm-up and capture included), norm {norm:.7f}, vs the unrolled "
+          f"circuit (prefetch \"highest\", {t_unrolled:.2f} s) {err:.3e} "
+          f"(bar {bar:.3e}), entropy at cut {cut} {entropy:.6f} bits "
+          f"({t_entropy:.2f} s); <H> on the iterated state {e_state:.7f} "
+          f"({t_state:.2f} s; float64 sums {e_f64:.7f}) vs basis "
+          f"{e_basis:.7f} ({t_basis:.2f} s), |diff| "
+          f"{abs(e_state - e_basis):.3e} (bar {TROTTER_TOL:g}), float64 "
+          f"sums {abs(e_f64 - e_basis):.3e}; {smi}")
+    if not (abs(e_state - e_basis) <= TROTTER_TOL and err <= bar
+            and entropy > 0 and abs(norm - 1) <= NORM_TOL):
+        raise AssertionError(f"trotter n={n}: state {e_state}, basis "
+                             f"{e_basis}, vs unrolled {err} (bar {bar}), "
+                             f"entropy {entropy}, norm {norm}")
+
+
+def check_graph_memory(torch, T, add, smi):
+    """A sweep of distinct QAOA bodies at n=28 through run_device_iterated
+    on the default config (mxu, "high" there), as an angle scan runs it:
+    the card keeps one live graph, so the peak and the held device memory
+    after the last body stay within GRAPH_MEMORY_SLACK of the first
+    body's (each graph kept besides would hold its static pair and pool,
+    about two states).  The results' norms are printed, not held: the
+    "high" rung rounds these phase tables alike in every entry, so the
+    norm moves ~1e-6 a fused op (the plain version's arithmetic does the
+    same on the CPU), and Grover and Trotter hold the entry points'
+    amplitudes."""
+    from gpu_quantum_simulator_tpu_torch.engine import graphs as G
+
+    n, count, reps = GRAPH_MEMORY
+    clear_caches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    sim = T.Simulator(device="cuda")
+    rng = np.random.default_rng(n)
+    peaks, held, norms = [], [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    for gamma, beta in rng.uniform(0.1, 1.2, size=(count, 2)):
+        prefix, body, _ = T.models.qaoa_maxcut_parts(
+            n, gamma=float(gamma), beta=float(beta))
+        re, im, _ = sim.run_device_iterated(body, reps, prefix=prefix)
+        norms.append(float(torch.dot(re, re) + torch.dot(im, im)))
+        del re, im
+        if not peaks:
+            pool = graph_pool_bytes(torch, G._LIVE[torch.device("cuda", 0)])
+        peaks.append(torch.cuda.max_memory_reserved())
+        held.append(torch.cuda.memory_reserved())
+    t = time.perf_counter() - t0
+    add(launch_counts())
+    clear_caches(torch)
+    gib = float(1 << 30)
+    pool_txt = "not measured" if pool is None else f"{pool / gib:.3f} GiB"
+    print(f"entry points graph memory n={n}: {count} distinct qaoa bodies "
+          f"x{reps} on the default config in {t:.2f} s; the first graph's "
+          f"pool {pool_txt}; peak reserved after "
+          f"each {[round(p / gib, 3) for p in peaks]} GiB, held "
+          f"{[round(h / gib, 3) for h in held]} GiB (slack "
+          f"{GRAPH_MEMORY_SLACK / gib:g} GiB); norms "
+          f"{[round(x, 7) for x in norms]}; {smi}")
+    if not (peaks[-1] - peaks[0] <= GRAPH_MEMORY_SLACK
+            and max(held) - held[0] <= GRAPH_MEMORY_SLACK
+            and all(np.isfinite(norms))):
+        raise AssertionError(f"graph memory n={n}: peaks {peaks}, held "
+                             f"{held}, norms {norms}")
+
+
+def check_device_parts(torch, T, add):
+    """run_device_parts at n=24 on the default config ("auto", "high"
+    there): the two halves of grover_like(24, PARTS_GATES, 318) run in turn
+    equal the whole within the rung's bar, and the caller's tensors are
+    unchanged."""
+    n = PARTS_WIDTH
+    c = T.models.grover_like(n, PARTS_GATES, 318)
+    half = len(c.gates) // 2
+    first = T.Circuit(n, list(c.gates[:half]))
+    second = T.Circuit(n, list(c.gates[half:]))
+    sim = T.Simulator(device="cuda")
+    reset_counts()
+    re0 = torch.zeros(1 << n, device="cuda")
+    re0[0] = 1.0
+    im0 = torch.zeros_like(re0)
+    keep = (re0.clone(), im0.clone())
+    mid = sim.run_device_parts(first, (re0, im0))
+    kept_mid = (mid[0].clone(), mid[1].clone())
+    out = sim.run_device_parts(second, mid[:2])
+    whole = sim.run_device_parts(c, (re0, im0))
+    torch.cuda.synchronize()
+    add(launch_counts())
+    unchanged = all(torch.equal(a, b) for a, b in
+                    ((re0, keep[0]), (im0, keep[1]), (mid[0], kept_mid[0]),
+                     (mid[1], kept_mid[1])))
+    err = max_diff(out[:2], whole[:2])
+    print(f"entry points run_device_parts n={n} auto: halves of {mid[2]} + "
+          f"{out[2]} ops vs the whole ({whole[2]} ops) max|diff| {err:.3e} "
+          f"(bar {HIGH_TOL:g}); the caller's tensors "
+          f"{'unchanged' if unchanged else 'CHANGED'}")
+    if not (unchanged and err <= HIGH_TOL):
+        raise AssertionError(f"run_device_parts: {err}, unchanged "
+                             f"{unchanged}")
+    del mid, out, whole
+    torch.cuda.empty_cache()
+
+
+def check_run_many(torch, T, add, smi):
+    """run_many at n=24 (the default config): eight qaoa_maxcut candidates
+    in terms mode with maxcut_cost_terms against each circuit's
+    expectation_pauli_sum (<= 1e-5), states mode against run.  Its
+    dispatch path (``_run_device`` and the terms' sum, new circuits: fusion,
+    plan, table upload and launches) runs under torch's sync debug mode
+    set to "error": any wait for the device there raises.  Wall time
+    against the same work waiting for each circuit (run_device, then the
+    terms' sum fetched): on new circuits (set A for run_many, set B for the
+    waiting loop), then on set B again, its programs cached (the plan
+    cache holds eight), beside the loop of expectation_pauli_sum."""
+    from gpu_quantum_simulator_tpu_torch import observables as O
+
+    n, count = MANY
+    rng = np.random.default_rng(2445)
+    sets = [[T.models.qaoa_maxcut(n, gammas=tuple(a[0]), betas=tuple(a[1]))
+             for a in rng.uniform(0.1, 1.2, size=(count, 2, 2))]
+            for _ in range(2)]
+    cs = sets[1]
+    terms = T.models.maxcut_cost_terms(n)
+    parsed, const = O._parse_terms(terms, n)
+    sim = T.Simulator(device="cuda")
+    sim.run_device(T.models.qaoa_maxcut(n))     # the card and cuBLAS warm
+
+    def waiting(circuits):
+        out = []
+        for c in circuits:
+            re, im, _ = sim.run_device(c)
+            out.append(const + float(O._pauli_sum_parts(re, im, parsed, n)))
+        return np.asarray(out)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    fresh = [T.models.qaoa_maxcut(n, gammas=(0.3, 0.5), betas=(0.2, 0.7)),
+             T.models.qaoa_maxcut(n, gammas=(0.9, 0.1), betas=(0.6, 0.4))]
+    queued = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in fresh:
+            re, im, _ = sim._run_device(c)
+            queued.append(O._pauli_sum_parts(re, im, parsed, n))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    no_wait = [const + float(q) for q in queued]
+    reset_counts()
+    t_many, _ = timed(lambda: sim.run_many(sets[0], terms=terms))
+    add(launch_counts())
+    t_seq, first = timed(lambda: waiting(cs))
+    t_many_warm, got = timed(lambda: sim.run_many(cs, terms=terms))
+    t_seq_warm, seq = timed(lambda: waiting(cs))
+    t_loop, want = timed(lambda: np.asarray(
+        [O.expectation_pauli_sum(c, terms) for c in cs]))
+    states = sim.run_many(cs[:2])
+    same = all(np.array_equal(s, sim.run(c)) for s, c in zip(states, cs))
+    err = float(np.max(np.abs(got - want)))
+    repeat = (np.array_equal(got, first) and np.array_equal(got, seq)
+              and np.array_equal(no_wait, waiting(fresh)))
+    print(f"entry points run_many n={n}: {count} qaoa candidates, <C> "
+          f"{np.round(got, 5).tolist()}; dispatch of {len(fresh)} new "
+          f"circuits under sync debug mode \"error\": no wait; new "
+          f"circuits: run_many(terms=) {t_many:.3f} s, waiting per circuit "
+          f"{t_seq:.3f} s; programs cached: run_many {t_many_warm:.3f} s, "
+          f"waiting {t_seq_warm:.3f} s, the loop of expectation_pauli_sum "
+          f"{t_loop:.3f} s; max|diff| vs expectation_pauli_sum {err:.3e} "
+          f"(bar {MANY_TOL:g}); run_many "
+          f"{'equals' if repeat else 'DIFFERS FROM'} the waiting loop bit "
+          f"for bit; states mode {'equals' if same else 'DIFFERS FROM'} "
+          f"run; {smi}")
+    if not (err <= MANY_TOL and same and repeat):
+        raise AssertionError(f"run_many n={n}: {err}, states equal {same}, "
+                             f"repeat equal {repeat}")
+    torch.cuda.empty_cache()
+
+
+def run_entry_points(torch, T, add, smi):
+    """Phase 7: the facade's program entry points at full width (the
+    halves routes ran on phase 5's n=30 state)."""
+    t0 = time.perf_counter()
+    check_grover_iterated(torch, T, add, smi)
+    check_graph_memory(torch, T, add, smi)
+    check_trotter(torch, T, add, smi)
+    check_device_parts(torch, T, add)
+    check_run_many(torch, T, add, smi)
+    clear_caches(torch)
+    print(f"entry points: phase 7 in {time.perf_counter() - t0:.1f} s")
+
+
 def run_main_path(torch, T, refs, add):
     highest24 = run_prefetch_path(torch, T, refs, add)
     run_mxu_path(torch, T, refs, highest24, add)
@@ -2804,6 +3337,8 @@ def main() -> int:
     # phase 6: the public op (kernel 10) and the copy probes (kernel 11)
     butterfly = check_butterfly(torch, rng, add)
     copies = check_copy_probes(torch, add)
+    # phase 7: the facade's program entry points
+    run_entry_points(torch, T, add, smi.splitlines()[0])
     kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
              (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
              (chain_high, "kh0_high"), (block128, "block128"),

@@ -11,7 +11,11 @@ So far it runs the ``mxu`` (the default config), ``pallas``,
 ``Simulator(device="cuda")``, up to 30 qubits at the "highest" (IEEE fp32)
 and "high" (3-pass bf16) precision rungs, through the kernels in
 ``kernels/`` (CUDA sources in ``csrc/``), with every strategy's smallest
-widths on the megakernel arm.  Every entry point runs on the card unless
+widths on the megakernel arm.  The facade's program entry points
+(``run_device_parts``, ``run_device_iterated`` — a CUDA graph replayed per
+repetition on a card — and ``run_many``), the observables, the sampling
+helpers, the circuit families and unitary synthesis (``ir/decompose.py``)
+are the JAX package's.  Every entry point runs on the card unless
 it is passed ``device="cpu"``, where the same paths run each kernel's
 plain torch version.  Anything else raises NotImplementedError naming its
 ROADMAP item.
@@ -21,18 +25,37 @@ basis index (little-endian).
 """
 
 from .ir.circuit import Gate, Circuit
+from .ir.oplist import circuit_unitary
 from .ir import gates
 from .engine.simulator import RunResult, Simulator, simulate
 from .config import SimulatorConfig
 from . import models
+from .observables import (expectation_pauli, expectation_pauli_sum,
+                          overlap, pauli_decompose, state_fidelity)
+from .sampling import (
+    expectation_z,
+    norm_device,
+    sample_state_device,
+    top_amplitudes_device,
+)
 
 __all__ = [
     "Gate",
     "Circuit",
     "gates",
     "models",
+    "circuit_unitary",
     "RunResult",
     "Simulator",
     "simulate",
     "SimulatorConfig",
+    "sample_state_device",
+    "top_amplitudes_device",
+    "expectation_z",
+    "norm_device",
+    "expectation_pauli",
+    "expectation_pauli_sum",
+    "pauli_decompose",
+    "overlap",
+    "state_fidelity",
 ]

@@ -54,7 +54,8 @@ from ..kernels.block import run_block, split_tables, swap_bits
 from ..kernels.relayout import run_relayout, run_relayout_inplace
 from ..kernels.split import (join_component, run_split_block, run_xswap,
                              split_halves)
-from ..ops.apply import bit_transpositions, resolve_device, unpermute_device
+from ..ops.apply import (bit_transpositions, resolve_device,
+                         unpermute_device, upload)
 
 LANE_QUBITS = 7
 LANES = 1 << LANE_QUBITS
@@ -1099,8 +1100,7 @@ class DeviceChain:
             off = 0
             for c in sizes:
                 def dev(x):
-                    return torch.from_numpy(
-                        np.ascontiguousarray(x[off : off + c])).to(self.device)
+                    return upload(x[off : off + c], self.device)
 
                 a_tab, b_tab, mono_src = expand_tables(
                     dev(u_re), dev(u_im), dev(mvec), dev(hvec), dev(mvec_o),
@@ -1233,7 +1233,7 @@ def initial_halves(n: int, device="cuda"):
     R2 = 1 << (n - LOCAL_QUBITS)
     halves = tuple(torch.zeros((R2, LANES), dtype=torch.float32,
                                device=device) for _ in range(4))
-    halves[0][0, 0] = 1.0
+    halves[0][:1, :1].fill_(1.0)
     return halves
 
 
@@ -1453,6 +1453,18 @@ def hoist_prologues(blocks: Sequence[_Block]) -> List[_Block]:
             out.append(_Block(prologue=blk.prologue))
         out.append(_Block(kinds=blk.kinds, midx=blk.midx, mats=blk.mats))
     return out
+
+
+def iterate_program(prog: PrefetchProgram, repetitions: int):
+    """(re, im) -> program^repetitions for a flat, layout-closed program
+    (``final_layout`` = identity maps the original basis to itself, so
+    repetitions compose): engine/graphs.py ``iterate``, a CUDA graph
+    replayed per repetition on a card.  The in-place program is refused
+    here, as in the JAX package."""
+    from .graphs import iterate, refuse_inplace
+
+    refuse_inplace(prog)
+    return lambda re, im: iterate(prog, re, im, repetitions)
 
 
 _PROGRAM_CACHE: dict = {}

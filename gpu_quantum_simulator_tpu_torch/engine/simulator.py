@@ -15,6 +15,12 @@ package.  Nothing runs on another device than the one asked for.
 ``prefetch`` runs in place on four column halves from n = 30 (or with
 ``prefetch_inplace=True``); ``run_device_halves`` returns those halves and
 ``sample`` reads them, through sampling.py, without a flat 2^n tensor.
+
+The program entry points are the JAX package's: ``run_device_parts`` runs
+a layout-closed program (``_build_program``) on a device-resident pair,
+``run_device_iterated`` repeats one body (a CUDA graph replayed per
+repetition on a card, engine/graphs.py), and ``run_many`` queues a batch
+of circuits before it fetches any result.
 """
 
 from __future__ import annotations
@@ -147,14 +153,25 @@ class Simulator:
 
     def run_device(self, circuit: Circuit, initial=None):
         """Run and return (re, im, num_ops): flat float32 tensors on the
-        simulator's device, in the original basis.
+        simulator's device, in the original basis, once the device has run
+        them.
 
         ``initial``: optional complex state vector (original basis) to
         resume from instead of |0...0>.
         """
         sim = self._resolved(circuit.num_qubits)
+        re, im, num_ops = sim._run_device(circuit, initial)
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize(sim.device)
+        return re, im, num_ops
+
+    def _run_device(self, circuit: Circuit, initial=None):
+        """``run_device`` without the wait: the run is queued on the
+        device's stream and the tensors are returned at once (``run_many``
+        dispatches through it)."""
+        sim = self._resolved(circuit.num_qubits)
         if sim is not self:
-            return sim.run_device(circuit, initial=initial)
+            return sim._run_device(circuit, initial)
         if self.config.strategy == "reference":
             raise ValueError(
                 "strategy='reference' runs on the host (ref/cpu.py) and "
@@ -163,9 +180,216 @@ class Simulator:
         work, perm, initial = self._relabel(circuit, initial)
         re, im, num_ops, residual = self._execute(work, initial)
         re, im = self._restore(re, im, perm, residual)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
         return re, im, num_ops
+
+    def run_device_parts(self, circuit: Circuit, parts):
+        """Run ``circuit`` on a device-resident flat (re, im) pair and return
+        ``(re, im, num_ops)`` on the simulator's device.
+
+        The layout-closed program path: no qubit relabeling, input and
+        output both in the original basis, nothing of size 2^n crosses to
+        the host (the building block of dynamic-circuit trajectories).
+        ``parts`` (tensors or numpy arrays, original basis) are copied once
+        on the device and never changed: the programs write into the pair
+        they are handed.  Programs come from the same caches as the plain
+        runs, so a repeat re-plans nothing.
+        """
+        sim = self._resolved(circuit.num_qubits)
+        if sim is not self:
+            return sim.run_device_parts(circuit, parts)
+        from .prefetch import _component
+
+        if len(parts) != 2:
+            raise ValueError(f"parts: a flat (re, im) pair, got {len(parts)} "
+                             "arrays")
+        n = circuit.num_qubits
+        fn, nops = self._build_program(circuit)
+        re, im = (_component(p, (1 << n,), self.device) for p in parts)
+        re, im = fn(re, im)
+        return re, im, nops
+
+    def run_device_iterated(self, body: Circuit, repetitions: int,
+                            prefix: Optional[Circuit] = None,
+                            suffix: Optional[Circuit] = None):
+        """Run ``prefix; body^repetitions; suffix`` building each part's
+        program ONCE; returns ``(re, im, num_ops)`` on the simulator's
+        device, in the original basis.
+
+        Structured deep circuits (Grover iterations, Trotter steps, QAOA
+        layers) repeat one block many times.  All parts share one qubit
+        relabeling, so no basis shuffling happens between repetitions.
+        Strategies: mxu, vmem, megakernel and prefetch (its flat program,
+        planned layout-closed: ``final_layout`` = identity); sharded is not
+        yet ported.  On a card the mxu and prefetch bodies are captured once
+        as a CUDA graph and replayed ``repetitions`` times (engine/graphs.py;
+        the JAX package's ``lax.scan`` arms); vmem and the megakernel arm
+        loop over the program, as in the JAX package.  On the CPU every
+        strategy loops.
+        """
+        sim = self._resolved(body.num_qubits)
+        if sim is not self:
+            return sim.run_device_iterated(
+                body, repetitions, prefix=prefix, suffix=suffix)
+        from .graphs import iterate
+        from .prefetch import PrefetchProgram
+        from .wide import WideProgram
+
+        perm, programs = self._iterated_programs(body, repetitions, prefix,
+                                                 suffix)
+        re, im = A.initial_state_parts(body.num_qubits, device=self.device)
+        total_ops = 0
+        for fn, nops, reps in programs:
+            total_ops += nops * reps
+            if reps > 1 and isinstance(fn, (WideProgram, PrefetchProgram)):
+                re, im = iterate(fn, re, im, reps)
+            else:
+                for _ in range(reps):
+                    re, im = fn(re, im)
+        if perm is not None:
+            re, im = A.unpermute_device(re, im, [int(p) for p in perm])
+        return re, im, total_ops
+
+    def _iterated_programs(self, body: Circuit, repetitions: int,
+                           prefix: Optional[Circuit] = None,
+                           suffix: Optional[Circuit] = None):
+        """(perm or None, [(program, num_ops, repetitions)]) for
+        ``run_device_iterated``: every part relabeled by one permutation
+        planned over all of them (usage summed), in the order prefix, body,
+        suffix, parts that do not run left out."""
+        cfg = self.config
+        if cfg.strategy not in ("mxu", "vmem", "megakernel", "sharded",
+                                "prefetch"):
+            raise ValueError(
+                f"run_device_iterated supports mxu/vmem/megakernel/sharded/"
+                f"prefetch, not {cfg.strategy!r}")
+        n = body.num_qubits
+        for part in (prefix, suffix):
+            if part is not None and part.num_qubits != n:
+                raise ValueError("all parts must have the same qubit count")
+        perm = None
+        if cfg.permute or cfg.strategy in ("mxu", "vmem", "sharded",
+                                           "prefetch"):
+            merged = Circuit(n)
+            for part in (prefix, body, suffix):
+                if part is not None:
+                    merged.gates.extend(part.gates)
+            perm = plan_permutation(merged)
+            if np.array_equal(perm, np.arange(n)):
+                perm = None
+        programs = []
+        for part, reps in ((prefix, 1), (body, repetitions), (suffix, 1)):
+            if part is None or reps == 0:
+                continue
+            if perm is not None:
+                part = part.relabeled(perm)
+            programs.append((*self._build_program(part), reps))
+        return perm, programs
+
+    def _build_program(self, circuit: Circuit):
+        """(program, num_ops): a layout-closed (re, im) -> (re, im) program
+        on the simulator's device for the program strategies, original
+        basis in and out (the JAX package's ``_build_program``).  mxu and
+        vmem share the plain runs' plan cache; prefetch is flat, never in
+        place, its plan routed back to the identity layout
+        (``final_layout``), from ``build_prefetch_program``'s cache."""
+        cfg = self.config
+        n = circuit.num_qubits
+        if cfg.strategy == "sharded":
+            raise NotImplementedError(
+                "strategy 'sharded' is not yet ported (ROADMAP queue A, "
+                "\"parallel/ on torch.distributed\")")
+        _check_run(cfg, n)
+        if cfg.strategy == "megakernel" or n <= LANE_QUBITS:
+            from ..passes.fuse4x4 import fuse_4x4
+            from .megakernel import build_megakernel
+
+            ops = fuse_4x4(circuit) if cfg.strategy == "megakernel" else (
+                _fuse_pipeline(circuit, min(cfg.max_fused_qubits, n),
+                               max_high=None))
+            return build_megakernel(ops, n, self.device), len(ops)
+        if cfg.strategy == "vmem":
+            ops, prog = self._vmem_program(circuit)
+            return prog, len(ops)
+        if cfg.strategy == "prefetch":
+            from .prefetch import (LANE_QUBITS as PF_LANES, MIN_QUBITS,
+                                   _circuit_fingerprint,
+                                   build_prefetch_program,
+                                   resolve_prefetch_knobs)
+
+            if n < MIN_QUBITS:
+                from ..passes.fuse4x4 import fuse_4x4
+                from ..passes.fuse_k import fuse_k
+                from .megakernel import build_megakernel
+
+                ops = fuse_k(fuse_4x4(circuit),
+                             max_qubits=min(cfg.max_fused_qubits, n))
+                return build_megakernel(ops, n, self.device), len(ops)
+            max_high, cap_mats, window = resolve_prefetch_knobs(cfg, n, False)
+            reorder = (cfg.prefetch_reorder
+                       if cfg.prefetch_reorder is not None else True)
+            precision = cfg.effective_precision(n)
+            key = ("prefetch", _circuit_fingerprint(circuit), n, precision,
+                   cfg.max_fused_qubits, max_high, cap_mats, window,
+                   bool(reorder), str(self.device))
+
+            def plan():
+                ops = _fuse_pipeline(
+                    circuit, min(cfg.max_fused_qubits, PF_LANES),
+                    max_high=max_high, window=window)
+                # layout-closed: the plan routes the state back to the
+                # identity layout, so repetitions compose in the original
+                # basis
+                return None, build_prefetch_program(
+                    ops, n, precision=precision, cap_mats=cap_mats,
+                    final_layout=np.arange(n), reorder=bool(reorder),
+                    device=self.device)
+
+            _, prog = _cached_plan(key, plan)
+            return prog, prog.num_ops
+        ops, prog = self._mxu_program(circuit)
+        return prog, len(ops)
+
+    def run_many(self, circuits, terms=None, throttle: int = 8):
+        """Pipelined batch execution: every circuit is dispatched before any
+        result is fetched, so host planning and enqueueing overlap the
+        device's work.
+
+        ``terms=None``: a list of host state vectors.
+        ``terms=[(coeff, pauli), ...]``: an np.ndarray of <H> per circuit;
+        only the scalars reach the host (the same observable screened over
+        many candidate circuits).
+        ``throttle``: wait for the device every k dispatches, so that the
+        queue does not hold every circuit's tables and states at once.
+        """
+        circuits = list(circuits)
+        if not circuits:
+            return [] if terms is None else np.zeros(0)
+        evaluate = None
+        if terms is not None:
+            widths = {c.num_qubits for c in circuits}
+            if len(widths) != 1:
+                raise ValueError(
+                    f"terms mode needs equal widths, got {sorted(widths)}")
+            n = widths.pop()
+            from ..observables import _parse_terms, _pauli_sum_parts
+
+            parsed, const = _parse_terms(terms, n)
+
+            def evaluate(re, im):
+                return _pauli_sum_parts(re, im, parsed, n)
+
+        pending = []
+        for i, c in enumerate(circuits):
+            re, im, _ = self._run_device(c)
+            pending.append(evaluate(re, im) if evaluate is not None
+                           else (re, im))
+            del re, im
+            if throttle and (i + 1) % throttle == 0 \
+                    and self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        if evaluate is not None:
+            return torch.stack(pending).double().cpu().numpy() + const
+        return [A.join_state(re, im) for re, im in pending]
 
     def _relabel(self, circuit: Circuit, initial=None):
         """(work circuit, perm or None, initial in the work basis): hot
@@ -263,6 +487,13 @@ class Simulator:
     def _run_vmem(self, circuit: Circuit, initial=None):
         """The vmem engine (8 <= n <= 19): plain fusion to blocks of <= 7
         low plus 2 high qubits, then one kernel-8 launch per chunk."""
+        ops, prog = self._vmem_program(circuit)
+        re, im = self._start(circuit.num_qubits, initial)
+        re, im = prog(re, im)
+        return re, im, len(ops), None
+
+    def _vmem_program(self, circuit: Circuit):
+        """(fused ops, VmemProgram), from the plan cache."""
         from .prefetch import _circuit_fingerprint
         from .vmem import build_vmem_program_cached
 
@@ -276,10 +507,7 @@ class Simulator:
                                  max_high=2)
             return ops, build_vmem_program_cached(ops, n, device=self.device)
 
-        ops, prog = _cached_plan(key, plan)
-        re, im = self._start(n, initial)
-        re, im = prog(re, im)
-        return re, im, len(ops), None
+        return _cached_plan(key, plan)
 
     def _start(self, n: int, initial=None):
         if initial is None:
@@ -288,6 +516,13 @@ class Simulator:
 
     def _run_mxu(self, circuit: Circuit, initial=None):
         """The wide engine: cost-model fusion, then the WideProgram."""
+        ops, prog = self._mxu_program(circuit)
+        re, im = self._start(circuit.num_qubits, initial)
+        re, im = prog(re, im)
+        return re, im, len(ops), None
+
+    def _mxu_program(self, circuit: Circuit):
+        """(fused ops, WideProgram), from the plan cache."""
         from .prefetch import _circuit_fingerprint
         from .wide import build_wide_program
 
@@ -310,10 +545,7 @@ class Simulator:
             return ops, build_wide_program(ops, n, precision=precision,
                                            device=self.device)
 
-        ops, prog = _cached_plan(key, plan)
-        re, im = self._start(n, initial)
-        re, im = prog(re, im)
-        return re, im, len(ops), None
+        return _cached_plan(key, plan)
 
 
 def _check_run(cfg: SimulatorConfig, n: int) -> None:
@@ -355,7 +587,9 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
 # mxu plan cache: (circuit fingerprint, n, precision, fusion knobs, device)
 # -> (fused ops, WideProgram), and the vmem engine's ("vmem", fingerprint,
 # n, max_fused_qubits, device) -> (fused ops, VmemProgram), as in the JAX
-# package.  Entries hold device tables, so the limit stays small.
+# package; also ("prefetch", fingerprint, ...) -> (None, the layout-closed
+# PrefetchProgram of ``_build_program``).  Entries hold device tables, so
+# the limit stays small.
 _MXU_PLAN_CACHE: dict = {}
 _MXU_PLAN_CACHE_LIMIT = 8
 
@@ -369,6 +603,7 @@ def _cached_plan(key, plan):
             _MXU_PLAN_CACHE.pop(next(iter(_MXU_PLAN_CACHE)))
         _MXU_PLAN_CACHE[key] = cached
     return cached
+
 
 _NATIVE_FUSE = None  # tri-state: None unknown, False unavailable, module
 

@@ -53,7 +53,7 @@ from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
 from ..kernels.block import RUNGS
 from ..kernels.wide import (ieee_fp32, kh0_chain, mm_step_high,
                             row_shuffles, split_mm_tables)
-from ..ops.apply import resolve_device
+from ..ops.apply import resolve_device, upload
 
 LANE_QUBITS = 7
 LANES = 1 << LANE_QUBITS
@@ -207,8 +207,7 @@ class WideProgram:
         high = precision == "high"
 
         def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(
-                a, dtype=np.float32)).to(self.device)
+            return upload(np.asarray(a, dtype=np.float32), self.device)
 
         self.segments: List[_Segment] = []
         self.num_kh0_runs = 0

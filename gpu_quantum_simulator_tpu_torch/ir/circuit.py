@@ -131,25 +131,70 @@ class Circuit:
         return self.append("cx", control, target)
 
     def initialize(self, vec, *qubits: int):
-        """State preparation needs ``ir/decompose.py``, not yet ported
-        (ROADMAP queue A, workloads on the state)."""
-        raise NotImplementedError(
-            "Circuit.initialize needs ir/decompose.py, not yet ported "
-            "(ROADMAP queue A)")
+        """Append gates preparing the given amplitude vector from |0...0>
+        on ``qubits`` (default: the whole register) — the Mottonen
+        uniformly-controlled-rotation cascade, exact including global
+        phase (ir.decompose.emit_state_prep).  Unlike the engines'
+        ``initial=`` fast path this is a real circuit: portable,
+        invertible, exportable to QASM."""
+        from .decompose import emit_state_prep
+
+        emit_state_prep(self, vec, qubits or tuple(range(self.num_qubits)))
+        return self
 
     def pauli_rot(self, theta: float, pauli: str):
-        """Pauli rotations need ``observables.py``, not yet ported
-        (ROADMAP queue A, workloads on the state)."""
-        raise NotImplementedError(
-            "Circuit.pauli_rot needs observables.py, not yet ported "
-            "(ROADMAP queue A)")
+        """Append exp(-i theta/2 P) for an arbitrary Pauli string P (exact,
+        global phase included) — the Hamiltonian-simulation primitive.
+
+        ``pauli``: dense ("IXZY", qubit 0 leftmost) or sparse ("X0 Z3 Y5")
+        — the observables module's format.  Lowering: X factors conjugate
+        with h, Y with rx(pi/2) (both map Z into place), a cx parity
+        ladder folds the string onto its last qubit, rz(theta) rotates,
+        and the p-x-p-x pair supplies the e^{-i theta/2} this library's
+        rz = diag(1, e^{i theta}) convention leaves over.  An all-identity
+        string is the pure global phase e^{-i theta/2}."""
+        import math
+
+        from ..observables import _parse_pauli
+
+        ops = _parse_pauli(pauli, self.num_qubits)
+        qs = sorted(ops)
+        # the rz below contributes e^{+i theta/2} relative to the exact
+        # exponential; cancel it here (on qubit 0 for the identity string)
+        anchor = qs[-1] if qs else 0
+        self.p(-theta / 2, anchor)
+        self.x(anchor)
+        self.p(-theta / 2, anchor)
+        self.x(anchor)
+        if not qs:
+            return self
+        for q in qs:
+            if ops[q] == "X":
+                self.h(q)
+            elif ops[q] == "Y":
+                self.rx(math.pi / 2, q)
+        for a, b in zip(qs, qs[1:]):
+            self.cx(a, b)
+        self.rz(theta, qs[-1])
+        for a, b in reversed(list(zip(qs, qs[1:]))):
+            self.cx(a, b)
+        for q in qs:
+            if ops[q] == "X":
+                self.h(q)
+            elif ops[q] == "Y":
+                self.rx(-math.pi / 2, q)
+        return self
 
     def unitary(self, u, *qubits: int):
-        """Unitary synthesis needs ``ir/decompose.py``, not yet ported
-        (ROADMAP queue A, workloads on the state)."""
-        raise NotImplementedError(
-            "Circuit.unitary needs ir/decompose.py, not yet ported "
-            "(ROADMAP queue A)")
+        """Append an arbitrary unitary matrix on 1-6 qubits as native
+        gates (exact, global phase included): 2q via the KAK
+        decomposition, 3q+ via the quantum Shannon decomposition
+        (ir.decompose.emit_unitary / emit_unitary_k).  Matrix basis:
+        index bit i = qubits[i] — little-endian over the operand order."""
+        from .decompose import emit_unitary
+
+        emit_unitary(self, u, qubits)
+        return self
 
     # -- queries ---------------------------------------------------------------
     def __len__(self) -> int:

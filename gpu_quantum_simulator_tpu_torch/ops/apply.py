@@ -37,13 +37,25 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  To a card it goes through
+    page-locked memory without waiting for the device's queue (torch keeps
+    the pinned buffer until the copy has run), so a program built between
+    two queued runs does not stall the pipeline."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def initial_state_parts(num_qubits: int, dtype=torch.float32,
                         device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """|0...0> as (re, im) tensors on ``device``."""
     device = resolve_device(device)
     size = 1 << num_qubits
     re = torch.zeros(size, dtype=dtype, device=device)
-    re[0] = 1.0
+    # a fill kernel: ``re[0] = 1.0`` would copy from the host and wait
+    re[:1].fill_(1.0)
     im = torch.zeros(size, dtype=dtype, device=device)
     return re, im
 
