@@ -3,7 +3,7 @@
 
     python3 chip_ab.py --trees ab/parent . . ab/parent \\
         [--phases sass mat high highdrift split chain chaindrift vmem mm \\
-                  drift mxupeak] \\
+                  drift mxupeak pergate] \\
         [--profile "--strategy mxu --widths 24"] \\
         [--out chiprun_out/ab]
 
@@ -34,6 +34,9 @@ Phases (chip_smoke function, where the tree has it):
   mxupeak  (this script's own) peak device memory of the default config
          (mxu, "auto") on grover_like at n = 24 and 28: one warm-up run,
          then one run_detailed after reset_peak_memory_stats
+  pergate  time_ablation: the reference's ablation rows at n=18 through
+         the CLI (naive, fused2x2, fused3in1, fused4x4, scan, megakernel,
+         mxu, prefetch; the CLI's seconds, median of 3 after a warm-up)
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ PHASES = {
     "streams": "C.check_two_streams(torch)",
     "sass": "C.check_high_sass()",
     "mxupeak": "mxu_peak((24, 28))",
+    "pergate": "C.time_ablation(torch, T)",
 }
 FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "highdrift": "check_high_drift", "split": "check_split_block",
@@ -64,11 +68,13 @@ FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "chain": "check_wide_chain", "chaindrift": "check_chain_drift",
          "vmem": "check_vmem_kernel", "mm": "check_mm_high",
          "drift": "mxu_high_drift", "streams": "check_two_streams",
-         "sass": "check_high_sass", "mxupeak": None}
+         "sass": "check_high_sass", "mxupeak": None,
+         "pergate": "time_ablation"}
 ECHO = ("mat step n=", "split mat step n=", "at the end kernel", "vmem one op",
         "vmem chunk kernel", "mm step high", "over seeds", "run_detailed",
         "busy", "NVIDIA", "kernels built", "mxu peak", "sass ",
-        "two streams", "ptxas", "chain kernel n=", "apply_block128 n=")
+        "two streams", "ptxas", "chain kernel n=", "apply_block128 n=",
+        "ablation n=")
 
 PHASE_RUN = """
 import sys, numpy as np, torch

@@ -132,6 +132,23 @@ failure raises and the script exits non-zero:
    ``expectation_pauli_sum`` (<= 1e-5), wall time against waiting per
    circuit.  Phase 5's n=30 state also runs the halves routes of
    ``observables.py`` against the flat ones (<= 1e-5).
+8. the CLI and the per-gate strategies: ``__main__.main([...])`` in this
+   process (its launches count) on circuits written with ``to_qasm()``
+   into a temporary directory.  The default config at n=24 (mxu, "high")
+   with --json --save-state: the checkpoint equals ``Simulator().run`` of
+   the same circuit bit for bit, and the parsed circuit hits the plan
+   cache that run filled.  --strategy prefetch --precision highest at
+   n=22 against the f64 reference (<= 1e-6).  --inplace at n=24: the
+   first 1200 gates saved as halves, the rest resumed from that file,
+   against the flat prefetch run of the whole circuit (twice the "high"
+   bar).  One ``python -m gpu_quantum_simulator_tpu_torch`` process with
+   no --device flag (exit 0, one float first).  The reference's ablation
+   rows at n=18 on ``grover_like(18, 2445, 318)``: naive, fused2x2,
+   fused3in1, fused4x4, scan, megakernel, mxu and prefetch, each the
+   CLI's seconds over three runs after a warm-up, against the f64
+   reference (per-gate bar 5e-6, mxu and prefetch 1e-6); naive and scan
+   dispatched once more under torch's sync debug mode "error", equal to
+   their CLI runs bit for bit, with their peak device memory.
 
 Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
 steps at n=24 on a normalised random state over eight random unitary
@@ -281,6 +298,18 @@ BENCH_OPS = 600             # fused ops of grover_like(24, 2445, 318), the
                             # (582-626 by strategy)
 MANY = (24, 8)              # run_many: 8 qaoa_maxcut candidates at n=24
 MANY_TOL = 1e-5             # run_many(terms=) vs expectation_pauli_sum
+# phase 8, the CLI and the per-gate strategies
+CLI_WIDTH = 24              # the default config through the CLI ("high")
+CLI_FLAT = 22               # --strategy prefetch --precision highest
+CLI_INPLACE = (24, 1200)    # --inplace at n=24, resumed after this gate
+ABLATION_WIDTH = 18         # the reference's ablation rows (BASELINE.md)
+ABLATION_STRATEGIES = ("naive", "fused2x2", "fused3in1", "fused4x4", "scan",
+                       "megakernel", "mxu", "prefetch")
+PER_GATE_TOL = 5e-6         # the per-gate engines' bar against f64 (f32
+                            # rounding after every one of 2445 gates;
+                            # tests/test_engines.py), mxu and prefetch 1e-6
+ABLATION_RUNS = 3           # timed CLI runs after one warm-up
+SYNC_CHECKED = ("naive", "scan")   # dispatched under sync debug "error"
 # the redesigned kernels' previous designs, each read twice in one call of
 # chip_ab.py beside the current ones (H100 80GB HBM3 at 700 W; PERF.md
 # section 6): printed beside this run's times
@@ -3240,6 +3269,287 @@ def run_entry_points(torch, T, add, smi):
     print(f"entry points: phase 7 in {time.perf_counter() - t0:.1f} s")
 
 
+def cli(*args):
+    """``python -m gpu_quantum_simulator_tpu_torch *args`` in this process
+    (its launches count): (wall seconds, stdout lines); a non-zero exit
+    raises with its stderr."""
+    import contextlib
+    import io
+
+    from gpu_quantum_simulator_tpu_torch.__main__ import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main([str(a) for a in args])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"CLI {args}: exit {rc}: {err.getvalue()}")
+    return wall, out.getvalue().splitlines()
+
+
+def qasm_file(tmp, name, c):
+    import os
+
+    path = os.path.join(tmp, f"{name}.qasm")
+    with open(path, "w") as f:
+        f.write(c.to_qasm())
+    return path
+
+
+def loaded_state(path):
+    """(complex host state, meta) of a flat checkpoint."""
+    from gpu_quantum_simulator_tpu_torch.ops.apply import join_state
+    from gpu_quantum_simulator_tpu_torch.utils.checkpoint import load_state
+
+    re, im, meta = load_state(path)
+    return join_state(re, im), meta
+
+
+def check_cli_default(torch, T, tmp, add):
+    """The CLI's default config at n=24 (mxu, "auto" -> "high"), --json
+    --save-state: the checkpoint equals Simulator().run of the same circuit
+    bit for bit, and the parsed circuit hits the plan cache that run
+    filled (to_qasm writes repr floats, which parse back exactly)."""
+    import os
+
+    from gpu_quantum_simulator_tpu_torch.engine import simulator as S
+
+    n = CLI_WIDTH
+    c = T.models.grover_like(n, 2445, 318)
+    path = qasm_file(tmp, f"grover_like_{n}", c)
+    parsed = T.parse_qasm_file(path)
+    same_gates = [(g.name, g.qubits, g.params) for g in parsed.gates] == \
+        [(g.name, g.qubits, g.params) for g in c.gates]
+    t0 = time.perf_counter()
+    want = T.Simulator(device="cuda").run(c)
+    t_direct = time.perf_counter() - t0
+    keys = set(S._MXU_PLAN_CACHE)
+    ck = os.path.join(tmp, "default.npz")
+    reset_counts()
+    wall, out = cli(path, "--json", "--save-state", ck)
+    counts = launch_counts()
+    add(counts)
+    hit = set(S._MXU_PLAN_CACHE) == keys
+    rec = json.loads(out[0])
+    got, meta = loaded_state(ck)
+    equal = np.array_equal(got, want)
+    print(f"CLI n={n} default config: {rec['strategy']}, "
+          f"{rec['num_fused_ops']} ops, CLI seconds {rec['seconds']:.4f}, "
+          f"main() wall {wall:.4f} s (Simulator().run first, tables built: "
+          f"{t_direct:.4f} s); parsed circuit "
+          f"{'equals' if same_gates else 'DIFFERS FROM'} the generated one; "
+          f"plan cache {'HIT' if hit else 'MISSED'}; checkpoint "
+          f"{'equals' if equal else 'DIFFERS FROM'} Simulator().run bit for "
+          f"bit; mm_high launches {counts['mm_high']}")
+    if not (equal and hit and same_gates and rec["strategy"] == "mxu"
+            and counts["mm_high"] > 0 and meta["num_qubits"] == n):
+        raise AssertionError(f"CLI default n={n}: equal {equal}, cache hit "
+                             f"{hit}, gates {same_gates}, {rec}, {counts}")
+
+
+def check_cli_prefetch(torch, T, tmp, refs, add):
+    """--strategy prefetch --precision highest at n=22 through the CLI,
+    held to the f64 reference phase 4 holds (1e-6)."""
+    import os
+
+    n = CLI_FLAT
+    path = qasm_file(tmp, f"grover_like_{n}", T.models.grover_like(
+        n, 2445, 318))
+    ck = os.path.join(tmp, "prefetch.npz")
+    reset_counts()
+    wall, out = cli(path, "--strategy", "prefetch", "--precision", "highest",
+                    "--save-state", ck)
+    counts = launch_counts()
+    add(counts)
+    got, _ = loaded_state(ck)
+    err = float(np.max(np.abs(got - refs[n])))
+    print(f"CLI n={n} prefetch 'highest': CLI seconds {float(out[0]):.4f}, "
+          f"main() wall {wall:.4f} s; max|amp - f64| {err:.3e} (bar "
+          f"{AMP_TOL:g}); launches {counts}")
+    if not (err <= AMP_TOL and counts["mat"] > 0):
+        raise AssertionError(f"CLI prefetch n={n}: {err}, {counts}")
+
+
+def check_cli_inplace(torch, T, tmp, add):
+    """--inplace --strategy prefetch at n=24 ("high"): the first gates of
+    the circuit, their halves saved; the rest resumed from that file and
+    saved again, held to the flat prefetch run of the whole circuit (two
+    "high" runs, each within HIGH_TOL of "highest")."""
+    import os
+
+    from gpu_quantum_simulator_tpu_torch.engine.prefetch import join_halves
+    from gpu_quantum_simulator_tpu_torch.ops.apply import join_state
+    from gpu_quantum_simulator_tpu_torch.utils.checkpoint import (
+        load_state_halves)
+
+    n, cut = CLI_INPLACE
+    c = T.models.grover_like(n, 2445, 318)
+    first = qasm_file(tmp, "first", T.Circuit(n, list(c.gates[:cut])))
+    second = qasm_file(tmp, "second", T.Circuit(n, list(c.gates[cut:])))
+    mid, end = os.path.join(tmp, "mid.npz"), os.path.join(tmp, "end.npz")
+    reset_counts()
+    w1, out1 = cli(first, "--inplace", "--strategy", "prefetch", "--json",
+                   "--save-state", mid)
+    w2, out2 = cli(second, "--inplace", "--strategy", "prefetch", "--json",
+                   "--load-state", mid, "--save-state", end)
+    counts = launch_counts()
+    add(counts)
+    parts, meta = load_state_halves(end)
+    got = join_state(*join_halves(*(torch.from_numpy(p) for p in parts)))
+    want = T.Simulator(T.SimulatorConfig(strategy="prefetch"),
+                       device="cuda").run(c)
+    err = float(np.max(np.abs(got - want)))
+    peak = float(np.max(np.abs(want)))
+    tol = 2 * HIGH_TOL * max(1.0, peak / HIGH_BAR_PEAK)
+    recs = [json.loads(o[0]) for o in (out1, out2)]
+    print(f"CLI n={n} --inplace: {cut} gates then {len(c.gates) - cut} "
+          f"resumed from the halves checkpoint, CLI seconds "
+          f"{recs[0]['seconds']:.4f} + {recs[1]['seconds']:.4f}, norms "
+          f"{recs[0]['norm']:.8f}, {recs[1]['norm']:.8f}; vs the flat run "
+          f"of the whole circuit max|diff| {err:.3e} (bar {tol:.3e}); "
+          f"launches {counts}")
+    in_place = sum(v for k, v in counts.items() if k.startswith("split_"))
+    if not (err <= tol and all(r["split_state"] for r in recs)
+            and in_place > 0 and meta["layout"] == "halves"):
+        raise AssertionError(f"CLI --inplace n={n}: {err}, {counts}")
+
+
+def check_cli_subprocess(tmp, T):
+    """One ``python -m gpu_quantum_simulator_tpu_torch`` process with no
+    --device flag: it runs on the card, exits 0 and prints one float
+    first."""
+    import os
+
+    path = qasm_file(tmp, "ghz_18", T.models.ghz(18))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gpu_quantum_simulator_tpu_torch", path,
+         "--amplitudes", "2"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    print(f"CLI process (no --device): exit {proc.returncode} in "
+          f"{wall:.2f} s, stdout {lines}")
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI process: {proc.stderr}")
+    float(lines[0])
+    if not (len(lines) == 3 and "p=0.500000" in lines[1]):
+        raise AssertionError(f"CLI process output: {lines}")
+
+
+def time_ablation(torch, T, tmp=None, strategies=ABLATION_STRATEGIES):
+    """The reference's ablation rows at n=18 through the CLI on
+    grover_like(18, 2445, 318): per strategy one warm-up and
+    ABLATION_RUNS timed runs (the CLI's seconds, and main()'s wall time,
+    which adds the parse and the checkpoint write); the last run saves its
+    state.  Returns {strategy: (CLI seconds, walls, state, json record)}."""
+    import os
+    import tempfile
+
+    own = tmp is None
+    if own:
+        holder = tempfile.TemporaryDirectory()
+        tmp = holder.name
+    n = ABLATION_WIDTH
+    path = qasm_file(tmp, f"grover_like_{n}", T.models.grover_like(
+        n, 2445, 318))
+    rows = {}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    for strategy in strategies:
+        ck = os.path.join(tmp, f"{strategy}.npz")
+        cli(path, "--strategy", strategy)
+        secs, walls = [], []
+        for i in range(ABLATION_RUNS):
+            extra = ("--json", "--save-state", ck) \
+                if i == ABLATION_RUNS - 1 else ("--json",)
+            wall, out = cli(path, "--strategy", strategy, *extra)
+            rec = json.loads(out[0])
+            secs.append(rec["seconds"])
+            walls.append(wall)
+        state, _ = loaded_state(ck)
+        rows[strategy] = (secs, walls, state, rec)
+        print(f"ablation n={n} {strategy}: CLI seconds median "
+              f"{np.median(secs):.4f} (runs {[round(x, 4) for x in secs]}), "
+              f"main() wall median {np.median(walls):.4f} s, "
+              f"{rec['num_fused_ops']} ops; {smi}")
+    if own:
+        holder.cleanup()
+    return rows
+
+
+def check_ablation(torch, T, tmp, refs, add):
+    """The ablation rows held to the f64 reference (per-gate engines
+    PER_GATE_TOL, mxu and prefetch AMP_TOL); naive and scan dispatched
+    once more under torch's sync debug mode "error" (no wait for the
+    device between gates or table rows), equal to their CLI runs bit for
+    bit, with their peak device memory above the state."""
+    from gpu_quantum_simulator_tpu_torch.ops.apply import join_state
+
+    n = ABLATION_WIDTH
+    reset_counts()
+    rows = time_ablation(torch, T, tmp)
+    add(launch_counts())
+    bad = []
+    for strategy, (_, _, state, _) in rows.items():
+        tol = AMP_TOL if strategy in ("mxu", "prefetch") else PER_GATE_TOL
+        err = float(np.max(np.abs(state - refs[n])))
+        print(f"ablation n={n} {strategy}: max|amp - f64| {err:.3e} (bar "
+              f"{tol:g})")
+        if not err <= tol:
+            bad.append((strategy, err))
+    c = T.models.grover_like(n, 2445, 318)
+    for strategy in SYNC_CHECKED:
+        sim = T.Simulator(T.SimulatorConfig(strategy=strategy),
+                          device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            re, im, _ = sim._run_device(c)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        t_dispatch = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_done = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        same = np.array_equal(join_state(re, im), rows[strategy][2])
+        print(f"ablation n={n} {strategy} under sync debug mode \"error\": "
+              f"no wait; dispatch {t_dispatch:.4f} s, done {t_done:.4f} s; "
+              f"peak device memory {peak / 2 ** 20:.2f} MiB above the "
+              f"{(2 ** (n + 3)) / 2 ** 20:.0f} MiB state pair; "
+              f"{'equals' if same else 'DIFFERS FROM'} its CLI run bit for "
+              f"bit")
+        if not same:
+            bad.append((strategy, "sync-checked run differs"))
+        del re, im
+    if bad:
+        raise AssertionError(f"ablation rows: {bad}")
+
+
+def run_cli_phase(torch, T, refs, add):
+    """Phase 8: the CLI and the per-gate strategies."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_cli_default(torch, T, tmp, add)
+        clear_caches(torch)
+        check_cli_prefetch(torch, T, tmp, refs, add)
+        check_cli_inplace(torch, T, tmp, add)
+        clear_caches(torch)
+        check_cli_subprocess(tmp, T)
+        check_ablation(torch, T, tmp, refs, add)
+    clear_caches(torch)
+    print(f"CLI: phase 8 in {time.perf_counter() - t0:.1f} s")
+
+
 def run_main_path(torch, T, refs, add):
     highest24 = run_prefetch_path(torch, T, refs, add)
     run_mxu_path(torch, T, refs, highest24, add)
@@ -3339,6 +3649,8 @@ def main() -> int:
     copies = check_copy_probes(torch, add)
     # phase 7: the facade's program entry points
     run_entry_points(torch, T, add, smi.splitlines()[0])
+    # phase 8: the CLI and the per-gate strategies
+    run_cli_phase(torch, T, refs, add)
     kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
              (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
              (chain_high, "kh0_high"), (block128, "block128"),

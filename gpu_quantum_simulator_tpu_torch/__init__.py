@@ -11,7 +11,11 @@ So far it runs the ``mxu`` (the default config), ``pallas``,
 ``Simulator(device="cuda")``, up to 30 qubits at the "highest" (IEEE fp32)
 and "high" (3-pass bf16) precision rungs, through the kernels in
 ``kernels/`` (CUDA sources in ``csrc/``), with every strategy's smallest
-widths on the megakernel arm.  The facade's program entry points
+widths on the megakernel arm, and the reference's per-gate ablation rows
+(``naive``, ``fused2x2``, ``fused3in1``, ``fused4x4``, ``scan``) as torch
+ops.  The QASM front-end (``qasm/``), checkpoints (``utils/checkpoint.py``)
+and the CLI (``python -m gpu_quantum_simulator_tpu_torch circuit.qasm``)
+are the JAX package's.  The facade's program entry points
 (``run_device_parts``, ``run_device_iterated`` — a CUDA graph replayed per
 repetition on a card — and ``run_many``), the observables, the sampling
 helpers, the circuit families and unitary synthesis (``ir/decompose.py``)
@@ -25,6 +29,7 @@ basis index (little-endian).
 """
 
 from .ir.circuit import Gate, Circuit
+from .qasm.parser import QasmError, parse_qasm, parse_qasm_file
 from .ir.oplist import circuit_unitary
 from .ir import gates
 from .engine.simulator import RunResult, Simulator, simulate
@@ -42,6 +47,9 @@ from .sampling import (
 __all__ = [
     "Gate",
     "Circuit",
+    "QasmError",
+    "parse_qasm",
+    "parse_qasm_file",
     "gates",
     "models",
     "circuit_unitary",

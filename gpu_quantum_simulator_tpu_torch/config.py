@@ -30,20 +30,22 @@ def resolve_precision(precision: str, num_qubits: int) -> str:
             else "highest")
 
 
-# Every strategy of the JAX package.  The port runs "mxu", "pallas",
-# "prefetch", "vmem", "megakernel", "reference" and "auto"; the others
-# raise NotImplementedError (ROADMAP A).
+# Every strategy of the JAX package.  The port runs all of them but
+# "sharded", which raises NotImplementedError (ROADMAP queue A, "parallel/
+# on torch.distributed").
 STRATEGIES = (
     "auto",        # width-based dispatch; in the port always prefetch
                    # (engine.simulator._auto_strategy)
     "reference",   # NumPy complex128 ground truth (quantum_simulator.c semantics)
-    "naive",       # one jitted device call per gate (ref: naive launch-per-gate)
+    "naive",       # one dispatch of torch ops per gate (engine/naive.py;
+                   # ref: naive launch-per-gate)
     "fused2x2",    # host-side per-qubit 2x2 accumulation (ref: preproces)
     "fused3in1",   # flush+flush+CNOT in one dispatch (ref: preproces_3in1, debugged)
     "fused4x4",    # pair state machine -> 4x4 blocks (ref: 4x4, its fastest)
     "megakernel",  # the whole fused op list as torch ops, one callable
                    # (engine/megakernel.py; ref: constant/texture)
-    "scan",        # recompile-free lax.scan over dense gate tables
+    "scan",        # padded controlled-1q gate tables, uploaded once a run,
+                   # each row as XOR-gather torch ops (engine/scan.py)
     "mxu",         # the default: cost-model fusion to blocks of <= 7 low + 2
                    # high qubits, each one D <= 512 matrix product on the
                    # (R, 128) state; kh=0 runs chained in one CUDA kernel
@@ -74,6 +76,11 @@ class SimulatorConfig:
     # 3-pass bf16 product on the tensor cores), "default" (not ported; it
     # raises) or "auto" (resolve_precision above).
     precision: str = "auto"
+    # scan strategy pads op tables to the next multiple of this bucket size
+    # (engine/scan.py ``bucket_size``); the padding rows run too, as in the
+    # JAX package, where the bucket let circuits of similar depth share one
+    # compiled executable.
+    scan_bucket: int = 256
     # commutation-window size for the fusion emitter (None = the prefetch
     # default, resolve_prefetch_knobs).  Wider windows pack more gates per
     # fused block by absorbing ops into older blocks past disjoint newer ones.

@@ -1,16 +1,18 @@
-"""Simulator facade on torch, for the strategies the port runs so far.
+"""Simulator facade on torch.
 
 Mirrors ``gpu_quantum_simulator_tpu/engine/simulator.py`` on an explicit
 ``device`` for ``strategy="mxu"`` (the default, engine/wide.py),
 ``"pallas"`` (engine/pallas_engine.py), ``"prefetch"`` (engine/
 prefetch.py; ``"auto"`` resolves to it), ``"vmem"`` (engine/vmem.py),
 ``"megakernel"`` (engine/megakernel.py, also every strategy's arm at the
-smallest widths) and ``"reference"`` (ref/cpu.py: numpy complex128 on the
-host, whatever the device; ``run`` and ``run_detailed`` only, as in the JAX
-package).  Every other strategy, and every width or precision rung
-outside the port's slice, raises NotImplementedError naming its ROADMAP
-item; n > 30, and vmem above n = 19, raise ValueError, as in the JAX
-package.  Nothing runs on another device than the one asked for.
+smallest widths), the reference's ablation rows ``"naive"``,
+``"fused2x2"``, ``"fused3in1"``, ``"fused4x4"`` (engine/naive.py) and
+``"scan"`` (engine/scan.py), and ``"reference"`` (ref/cpu.py: numpy
+complex128 on the host, whatever the device; ``run`` and ``run_detailed``
+only, as in the JAX package).  ``"sharded"``, complex128 and the
+"default" rung raise NotImplementedError naming their ROADMAP item; n > 30,
+and vmem above n = 19, raise ValueError, as in the JAX package.  Nothing
+runs on another device than the one asked for.
 
 ``prefetch`` runs in place on four column halves from n = 30 (or with
 ``prefetch_inplace=True``); ``run_device_halves`` returns those halves and
@@ -456,6 +458,8 @@ class Simulator:
     def _execute(self, circuit: Circuit, initial=None):
         cfg = self.config
         n = circuit.num_qubits
+        if cfg.strategy in PER_GATE_STRATEGIES:
+            return self._run_per_gate(circuit, initial)
         if cfg.strategy == "prefetch":
             from .prefetch import run_prefetch
 
@@ -483,6 +487,40 @@ class Simulator:
         if cfg.strategy == "vmem":
             return self._run_vmem(circuit, initial)
         return self._run_mxu(circuit, initial)
+
+    def _run_per_gate(self, circuit: Circuit, initial=None):
+        """The reference's ablation rows (the JAX package's order and op
+        counts): ``naive`` and ``fused3in1`` on the raw gates, ``fused2x2``
+        and ``scan`` on ``fuse_2x2``'s ops, ``fused4x4`` on ``fuse_4x4``'s,
+        each one dispatch of torch ops per gate, op or table row, at every
+        width."""
+        from . import naive
+
+        cfg = self.config
+        n = circuit.num_qubits
+        re, im = self._start(n, initial)
+        if cfg.strategy == "naive":
+            re, im = naive.run_naive(circuit, re, im)
+            return re, im, len(circuit), None
+        if cfg.strategy == "fused3in1":
+            re, im = naive.run_3in1(circuit, re, im)
+            return re, im, len(circuit), None
+        if cfg.strategy == "fused4x4":
+            from ..passes.fuse4x4 import fuse_4x4
+
+            ops = fuse_4x4(circuit)
+            re, im = naive.run_oplist(ops, n, re, im)
+            return re, im, len(ops), None
+        from ..passes.fuse2x2 import fuse_2x2
+
+        ops = fuse_2x2(circuit)
+        if cfg.strategy == "fused2x2":
+            re, im = naive.run_oplist(ops, n, re, im)
+        else:
+            from .scan import run_scan
+
+            re, im = run_scan(ops, n, re, im, bucket=cfg.scan_bucket)
+        return re, im, len(ops), None
 
     def _run_vmem(self, circuit: Circuit, initial=None):
         """The vmem engine (8 <= n <= 19): plain fusion to blocks of <= 7
@@ -548,10 +586,15 @@ class Simulator:
         return _cached_plan(key, plan)
 
 
+# The reference's ablation rows: torch ops per gate, op or table row
+# (engine/naive.py, engine/scan.py), at every width, always IEEE fp32.
+PER_GATE_STRATEGIES = ("naive", "fused2x2", "fused3in1", "fused4x4", "scan")
+
+
 def _check_run(cfg: SimulatorConfig, n: int) -> None:
-    """Raise for what the port's mxu, pallas, vmem and megakernel engines do
-    not run (the prefetch engine fences its own slice, engine/prefetch.py
-    ``run_prefetch``)."""
+    """Raise for what the port's mxu, pallas, vmem, megakernel and per-gate
+    engines do not run (the prefetch engine fences its own slice,
+    engine/prefetch.py ``run_prefetch``)."""
     if n > 30:
         # fail BEFORE allocating, as the JAX package does
         raise ValueError(
@@ -560,11 +603,10 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
             "torch.distributed\")")
     if cfg.strategy == "prefetch":
         return
-    if cfg.strategy not in ("mxu", "pallas", "vmem", "megakernel"):
+    if cfg.strategy == "sharded":
         raise NotImplementedError(
-            f"strategy {cfg.strategy!r} is not yet ported; the port runs "
-            "'mxu', 'pallas', 'prefetch', 'vmem', 'megakernel', 'reference' "
-            "and 'auto' (ROADMAP queue A)")
+            "strategy 'sharded' is not yet ported (ROADMAP queue A, "
+            "\"parallel/ on torch.distributed\")")
     if cfg.dtype != "complex64":
         raise NotImplementedError(
             "dtype complex128: the port runs complex64 (split float32) only "
@@ -573,9 +615,9 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
         raise ValueError(
             f"vmem strategy holds the state in VMEM: n <= {VMEM_MAX_QUBITS} "
             f"(got {n}); use mxu")
-    # the megakernel arm (n <= 7, and the megakernel strategy), the pallas
-    # and vmem engines ignore the rung (always IEEE fp32), as in the JAX
-    # package
+    # the megakernel arm (n <= 7, and the megakernel strategy), the pallas,
+    # vmem and per-gate engines ignore the rung (always IEEE fp32), as in
+    # the JAX package
     if cfg.strategy == "mxu" and n > LANE_QUBITS \
             and cfg.effective_precision(n) not in RUNGS:
         raise NotImplementedError(

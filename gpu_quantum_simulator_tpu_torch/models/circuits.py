@@ -15,6 +15,7 @@ held to the original gate for gate by tests/test_torch_models.py, except
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -730,12 +731,22 @@ def trotter_tfim(
     return c
 
 
+# The reference's circuit files (entanglement.qasm, grover_3_18.qasm, ...)
+# are read from a ``reference/`` directory at the repository's root when a
+# checkout of the reference is placed there; none is committed here.
+_REFERENCE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "reference")
+
+
 def load_reference_circuit(name: str) -> Circuit:
-    """Load a committed reference workload (entanglement / grover_3_18):
-    it parses QASM, and the port has no QASM front-end yet."""
-    raise NotImplementedError(
-        f"load_reference_circuit({name!r}) parses QASM: not yet ported "
-        "(ROADMAP queue A, \"The QASM front-end, checkpoints and the CLI\")")
+    """Load a reference workload (entanglement / grover_3_18) through the
+    port's QASM parser; a missing file raises OSError."""
+    from ..qasm.parser import parse_qasm_file
+
+    path = os.path.join(_REFERENCE_DIR,
+                        name if name.endswith(".qasm") else name + ".qasm")
+    return parse_qasm_file(path)
 
 
 def quantum_volume(num_qubits: int, depth: Optional[int] = None,

@@ -1,10 +1,12 @@
-"""ctypes binding to the native f64 reference simulator (csrc/qsim_ref.cpp).
+"""ctypes binding to the native f64 reference (csrc/qsim_ref.cpp).
 
-The same C++ source as the JAX package's ``ref/native.py``, reduced to
-``simulate_native``: an independent double-precision ground truth that runs
-wherever a C++ compiler does, so the port can be held to it on the card's
-host with no JAX installed.  Builds ``libqsimref.so`` under ``build/host/``
-on first use (``build_host_lib``).
+The same C++ source and the same functions as the JAX package's
+``ref/native.py`` (parse, simulate, sample): an independent
+double-precision ground truth and a fast parser for large circuit files
+that run wherever a C++ compiler does, so the port can be held to them on
+the card's host with no JAX installed.  Builds ``libqsimref.so`` under
+``build/host/`` on first use (``build_host_lib``), without OpenMP; the
+sampler is serial in both builds, so its samples are the JAX package's.
 """
 
 from __future__ import annotations
@@ -86,33 +88,133 @@ def get_lib() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build_host_lib("qsim_ref.cpp", "libqsimref.so"))
         lib.qsr_error.restype = ctypes.c_char_p
+        lib.qsr_parse_file.restype = ctypes.c_void_p
+        lib.qsr_parse_file.argtypes = [ctypes.c_char_p]
         lib.qsr_parse_string.restype = ctypes.c_void_p
         lib.qsr_parse_string.argtypes = [ctypes.c_char_p]
         lib.qsr_num_qubits.argtypes = [ctypes.c_void_p]
+        lib.qsr_num_gates.restype = ctypes.c_int64
+        lib.qsr_num_gates.argtypes = [ctypes.c_void_p]
+        lib.qsr_gates.argtypes = [ctypes.c_void_p] + [
+            np.ctypeslib.ndpointer(dtype=np.float64),
+            np.ctypeslib.ndpointer(dtype=np.float64),
+            np.ctypeslib.ndpointer(dtype=np.int32),
+            np.ctypeslib.ndpointer(dtype=np.int32),
+            np.ctypeslib.ndpointer(dtype=np.int32),
+            np.ctypeslib.ndpointer(dtype=np.float64),
+        ]
         lib.qsr_free.argtypes = [ctypes.c_void_p]
         lib.qsr_simulate.argtypes = [
             ctypes.c_void_p,
             np.ctypeslib.ndpointer(dtype=np.float64),
             np.ctypeslib.ndpointer(dtype=np.float64),
         ]
+        lib.qsr_sample.argtypes = [
+            np.ctypeslib.ndpointer(dtype=np.float64),
+            np.ctypeslib.ndpointer(dtype=np.float64),
+            ctypes.c_int,
+            ctypes.c_uint64,
+            np.ctypeslib.ndpointer(dtype=np.int64),
+            ctypes.c_int64,
+        ]
         _lib = lib
         return lib
 
 
-def simulate_native(circuit) -> np.ndarray:
-    """Run the native f64 simulator on a Circuit (serialized through QASM)."""
-    lib = get_lib()
-    ptr = lib.qsr_parse_string(circuit.to_qasm().encode())
+def available() -> bool:
+    try:
+        get_lib()
+        return True
+    except NativeUnavailable:
+        return False
+
+
+class _Handle:
+    def __init__(self, lib, ptr):
+        self._lib, self._ptr = lib, ptr
+
+    def __del__(self):
+        if getattr(self, "_ptr", None):
+            self._lib.qsr_free(self._ptr)
+            self._ptr = None
+
+
+def _parse(lib, path: Optional[str] = None,
+           text: Optional[str] = None) -> _Handle:
+    if path is not None:
+        ptr = lib.qsr_parse_file(path.encode())
+    else:
+        ptr = lib.qsr_parse_string(text.encode())
     if not ptr:
         raise ValueError(lib.qsr_error().decode())
-    try:
-        n = lib.qsr_num_qubits(ptr)
-        size = 1 << n
-        out_re = np.empty(size, dtype=np.float64)
-        out_im = np.empty(size, dtype=np.float64)
-        rc = lib.qsr_simulate(ptr, out_re, out_im)
-        if rc != 0:
-            raise RuntimeError(lib.qsr_error().decode())
-    finally:
-        lib.qsr_free(ptr)
+    return _Handle(lib, ptr)
+
+
+def parse_qasm_native(source: str, *, is_path: bool = False):
+    """Parse QASM with the native parser; returns the same Circuit IR."""
+    from ..ir.circuit import Circuit
+
+    lib = get_lib()
+    h = _parse(lib, path=source if is_path else None,
+               text=None if is_path else source)
+    n = lib.qsr_num_qubits(h._ptr)
+    m = int(lib.qsr_num_gates(h._ptr))
+    u_re = np.empty((m, 4), dtype=np.float64)
+    u_im = np.empty((m, 4), dtype=np.float64)
+    target = np.empty(m, dtype=np.int32)
+    control = np.empty(m, dtype=np.int32)
+    opcode = np.empty(m, dtype=np.int32)
+    param = np.empty(m, dtype=np.float64)
+    lib.qsr_gates(h._ptr, u_re, u_im, target, control, opcode, param)
+
+    circ = Circuit(n)
+    for g in range(m):
+        name = _OPCODES[opcode[g]]
+        if name == "cx":
+            circ.append("cx", int(control[g]), int(target[g]))
+        elif name == "rz":
+            circ.append("rz", int(target[g]), params=(float(param[g]),))
+        else:
+            circ.append(name, int(target[g]))
+    return circ
+
+
+# Must match enum Opcode in csrc/qsim_ref.cpp.
+_OPCODES = ("cx", "id", "x", "sx", "z", "s", "sdg", "t", "tdg", "rz", "h")
+
+
+def simulate_native(circuit_or_path,
+                    num_qubits: Optional[int] = None) -> np.ndarray:
+    """Run the native f64 simulator; accepts a Circuit (serialized through
+    QASM) or a .qasm path."""
+    lib = get_lib()
+    if isinstance(circuit_or_path, str):
+        h = _parse(lib, path=circuit_or_path)
+    else:
+        h = _parse(lib, text=circuit_or_path.to_qasm())
+    n = lib.qsr_num_qubits(h._ptr)
+    size = 1 << n
+    out_re = np.empty(size, dtype=np.float64)
+    out_im = np.empty(size, dtype=np.float64)
+    rc = lib.qsr_simulate(h._ptr, out_re, out_im)
+    if rc != 0:
+        raise RuntimeError(lib.qsr_error().decode())
     return out_re + 1j * out_im
+
+
+def sample_native(state: np.ndarray, num_samples: int,
+                  seed: int = 0) -> np.ndarray:
+    """``num_samples`` basis indices drawn from |state|^2 by the native
+    sampler (std::mt19937_64 seeded with ``seed``)."""
+    lib = get_lib()
+    n = int(np.log2(len(state)))
+    out = np.empty(num_samples, dtype=np.int64)
+    lib.qsr_sample(
+        np.ascontiguousarray(state.real, dtype=np.float64),
+        np.ascontiguousarray(state.imag, dtype=np.float64),
+        n,
+        seed,
+        out,
+        num_samples,
+    )
+    return out

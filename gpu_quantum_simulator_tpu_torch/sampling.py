@@ -217,7 +217,11 @@ def top_amplitudes_halves(re0, re1, im0, im1, k: int = 8,
         cand_i = torch.cat([idx, bi + start * DVIEW])
         vals, pick = torch.topk(cand_v, k)
         idx = cand_i[pick]
-    return _host_indices(idx), vals.cpu().numpy()
+    # equal probabilities in the JAX package's order (lax.top_k keeps the
+    # lower index first; torch.topk leaves ties in no set order)
+    order = torch.argsort(idx)
+    order = order[torch.sort(vals[order], descending=True, stable=True)[1]]
+    return _host_indices(idx[order]), vals[order].cpu().numpy()
 
 
 def amplitudes_halves(re0, re1, im0, im1, indices) -> np.ndarray:

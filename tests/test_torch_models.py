@@ -2,8 +2,8 @@
 circuit family, for fixed arguments, emits the same gate list (names and
 qubits equal, params within 1e-12: both are float64 host arithmetic), and
 the term builders and classical post-processing helpers return the same
-values.  ``load_reference_circuit`` needs the QASM front-end, which the
-port has not yet, and says so by its ROADMAP title."""
+values.  ``load_reference_circuit`` parses through the port's QASM
+front-end."""
 
 import math
 
@@ -109,7 +109,19 @@ def test_models_run_like_the_jax_package():
     assert int(np.argmax(np.abs(got[:32]) ** 2)) == 19
 
 
-def test_load_reference_circuit_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError,
-                       match="The QASM front-end, checkpoints and the CLI"):
+def test_load_reference_circuit_parses_through_the_port(tmp_path,
+                                                        monkeypatch):
+    """load_reference_circuit reads ``<name>.qasm`` from the reference
+    directory through the port's parser; a missing file is an OSError."""
+    from gpu_quantum_simulator_tpu_torch.models import circuits as TC
+
+    c = TM.grover_like(6, 120, 3)
+    (tmp_path / "grover_like.qasm").write_text(c.to_qasm())
+    monkeypatch.setattr(TC, "_REFERENCE_DIR", str(tmp_path))
+    for name in ("grover_like", "grover_like.qasm"):
+        got = TM.load_reference_circuit(name)
+        assert got.num_qubits == 6
+        assert [(g.name, g.qubits, g.params) for g in got.gates] == \
+            [(g.name, g.qubits, g.params) for g in c.gates]
+    with pytest.raises(OSError):
         TM.load_reference_circuit("grover_3_18")

@@ -53,6 +53,22 @@ assert e.shape == (2,) and abs(e[0] - T.expectation_pauli_sum(
     T.models.qaoa_maxcut(8), terms, device="cpu")) < 1e-5
 u = T.circuit_unitary(T.Circuit(2).h(0).cx(0, 1))
 assert np.allclose(T.circuit_unitary(T.Circuit(2).unitary(u, 0, 1)), u)
+for strategy in ("naive", "fused2x2", "fused3in1", "fused4x4", "scan"):
+    s = T.Simulator(T.SimulatorConfig(strategy=strategy), device="cpu").run(c)
+    assert s.shape == (1 << 10,) and abs(np.linalg.norm(s) - 1) < 1e-5
+import contextlib, io, os, tempfile
+from gpu_quantum_simulator_tpu_torch.__main__ import main
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "c.qasm")
+    with open(path, "w") as f:
+        f.write(c.to_qasm())
+    assert T.parse_qasm_file(path).num_qubits == 10
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main([path, "--device", "cpu", "--strategy", "scan",
+                     "--amplitudes", "2", "--save-state",
+                     os.path.join(d, "s.npz")]) == 0
+    assert float(out.getvalue().splitlines()[0]) >= 0
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "gpu_quantum_simulator_tpu"))]
 print("LOADED", loaded)
@@ -89,5 +105,7 @@ def test_no_source_imports_jax_or_the_jax_package():
             "sampling.py", "ref/cpu.py", "ops/pallas_kernels.py",
             "kernels/copy.py", "dma_probe.py", "observables.py",
             "ir/decompose.py", "engine/graphs.py",
-            "models/circuits.py"} <= rel, rel
+            "models/circuits.py", "qasm/parser.py", "utils/checkpoint.py",
+            "passes/fuse2x2.py", "engine/naive.py", "engine/scan.py",
+            "__main__.py"} <= rel, rel
     assert len(files) > 15 and not bad, bad
