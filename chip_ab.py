@@ -3,7 +3,7 @@
 
     python3 chip_ab.py --trees ab/parent . . ab/parent \\
         [--phases sass mat high highdrift split chain chaindrift vmem mm \\
-                  drift mxupeak pergate] \\
+                  drift mxupeak pergate workloads] \\
         [--profile "--strategy mxu --widths 24"] \\
         [--out chiprun_out/ab]
 
@@ -37,6 +37,11 @@ Phases (chip_smoke function, where the tree has it):
   pergate  time_ablation: the reference's ablation rows at n=18 through
          the CLI (naive, fused2x2, fused3in1, fused4x4, scan, megakernel,
          mxu, prefetch; the CLI's seconds, median of 3 after a warm-up)
+  workloads  time_workloads: the workloads on the state — adjoint_gradient
+         on the default config at n=24 (seconds, peak reserved), run_vqe's
+         40 steps at n=20 (ms a step), the n + s = 28 trajectory ensemble
+         (GHZ-20, 256 shots) and a per-gate noisy one with the segments'
+         pair handed over and copied (the copies' share)
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ PHASES = {
     "sass": "C.check_high_sass()",
     "mxupeak": "mxu_peak((24, 28))",
     "pergate": "C.time_ablation(torch, T)",
+    "workloads": "C.time_workloads(torch, T)",
 }
 FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "highdrift": "check_high_drift", "split": "check_split_block",
@@ -69,12 +75,12 @@ FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "vmem": "check_vmem_kernel", "mm": "check_mm_high",
          "drift": "mxu_high_drift", "streams": "check_two_streams",
          "sass": "check_high_sass", "mxupeak": None,
-         "pergate": "time_ablation"}
+         "pergate": "time_ablation", "workloads": "time_workloads"}
 ECHO = ("mat step n=", "split mat step n=", "at the end kernel", "vmem one op",
         "vmem chunk kernel", "mm step high", "over seeds", "run_detailed",
         "busy", "NVIDIA", "kernels built", "mxu peak", "sass ",
         "two streams", "ptxas", "chain kernel n=", "apply_block128 n=",
-        "ablation n=")
+        "ablation n=", "workloads ")
 
 PHASE_RUN = """
 import sys, numpy as np, torch

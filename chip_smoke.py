@@ -43,8 +43,9 @@ failure raises and the script exits non-zero:
    ``grover_like(n, 2445, 318)``, each width's launch counts set to 0 just
    before it runs and read just after, checked against its plan.
    prefetch ("prefetch"|"auto"): n=18, 22 and 23 (one warm-up, five timed
-   runs) against the native f64 reference (computed once per width and
-   shared by every strategy; max |diff| <= 1e-6, norm within 1e-4 of 1);
+   runs) against the native f64 reference (computed once per width, on
+   host threads while the card runs phase 3, and shared by every
+   strategy; max |diff| <= 1e-6, norm within 1e-4 of 1);
    n=24 at the "high" rung "auto" resolves to against the port's own
    "highest" run (<= 4e-6); n=28 (one warm-up, three timed runs; norm) and
    its mirror circuit ``c.compose(c.inverse())`` at "highest", whose
@@ -149,6 +150,37 @@ failure raises and the script exits non-zero:
    reference (per-gate bar 5e-6, mxu and prefetch 1e-6); naive and scan
    dispatched once more under torch's sync debug mode "error", equal to
    their CLI runs bit for bit, with their peak device memory.
+9. the workloads on the state, through the ported entry points (their
+   launches add to the totals; each step prints its seconds, most their
+   peak reserved memory).  Gradients: ``adjoint_gradient`` against
+   ``parameter_shift`` (``expectation_pauli_sum`` as the objective) on six
+   tied gates of ``qaoa_maxcut_tied(20)`` on prefetch "highest" (<= 1e-4);
+   the adjoint on the default config at n=24, timed, its forward and
+   sweep queued again under sync debug "error" (equal to the timed call);
+   ``make_adjoint_value_and_grad(tie=)`` at n=24 against the adjoint's
+   per-gate gradients under the tie's chain rule (1e-4 of max|grad|);
+   ``run_vqe``'s 40 steps at n=20 under sync debug "error" (energies[0]
+   = fn(theta0), the cut rises), ``energy_landscape``'s chunks on a
+   12 x 12 grid at n=16 under sync debug "error" (three points against
+   ``fn``, 1e-5) and ``restarts=4`` at n=16 as one batched sweep (restart
+   0 = the single run within 1e-4).  Dynamic circuits: a
+   parsed QASM GHZ-20 with a mid-circuit measure, reset and conditional X
+   as a 256-shot ensemble (n + s = 28, default config) under sync debug
+   "error": every shot's 21 bits equal, every shot block's norm within
+   1e-5 of 1; the public ``run_dynamic_batched`` (ones within 4 sigma of
+   Binomial(256, 1/2)), the program caches' sizes; a per-gate noisy
+   ensemble with the segments' pair handed over and copied (the copies'
+   share); ``run_dynamic`` at n=12 equal to the CPU run's bits.  Noise:
+   ``expectation_noisy`` at p = 0 against ``expectation_pauli_sum`` at
+   n=20 (1e-5), at n=10 with 4096 shots against the density matrix of the
+   same model (4 sigma, <Z0 Z1> and <X0 X1>), the noisy CLI route at n=20
+   (-m 1024, readout flips, --json) and one ``zne_expectation`` at n=16.
+   Density: n=12 (2n=24, prefetch "high") with depolarizing and damping
+   channels (trace within 1e-5) and without (the diagonal against |psi|^2
+   within the "high" bar), then GHZ-15 with dephasing on every qubit in
+   place at 2n=30 (P(0..0), P(1..1) within 1e-5 of 1/2, trace within
+   1e-5).  Shadows: 4000 snapshots of GHZ-20, <Z0 Z1> within 5 standard
+   errors of 1.
 
 Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
 steps at n=24 on a normalised random state over eight random unitary
@@ -3550,6 +3582,505 @@ def run_cli_phase(torch, T, refs, add):
     print(f"CLI: phase 8 in {time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------ phase 9: workloads on the state
+GRAD_WIDTH = 20             # adjoint vs parameter shift, prefetch "highest"
+GRAD_TOL = 1e-4
+GRAD_GATES = 6
+WIDE_GRAD_WIDTH = 24        # adjoint on the default config (mxu, "high")
+TIE_TOL = 1e-4              # value_and_grad vs adjoint, relative to max|g|
+VQE_WIDTH, VQE_STEPS = 20, 40
+RESTART_WIDTH, RESTARTS, RESTART_STEPS = 16, 4, 20
+LANDSCAPE_SIDE = 12         # a 12 x 12 (gamma, beta) grid at n=16
+ENSEMBLE_N, ENSEMBLE_SHOTS = 20, 256    # n + s = 28 on the default config
+ENSEMBLE_NORM_TOL = 1e-5
+PER_SHOT_N = 12
+NOISE_N, NOISE_SHOTS = 10, 4096
+NOISELESS_TOL = 1e-5
+ZNE_N = 16
+DENSITY_N, DENSITY_INPLACE_N = 12, 15
+TRACE_TOL = 1e-5
+SHADOW_N, SHADOW_SNAPSHOTS = 20, 4000
+QAOA_ANGLES = dict(gammas=(0.7, 0.3), betas=(0.4, 0.2))
+
+
+class no_wait:
+    """torch's sync debug mode "error" for the block: any host wait for
+    the card inside it raises."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        self.torch.cuda.synchronize()
+        self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
+def fresh_peak(torch):
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib(torch):
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_reserved() / 2 ** 30
+
+
+def ghz_dynamic_qasm(n):
+    """GHZ-n, a mid-circuit measure of qubit 0, a reset, a conditional X
+    that restores it, then every qubit measured: all n + 1 bits equal."""
+    lines = ["OPENQASM 3.0;", 'include "stdgates.inc";', f"qubit[{n}] q;",
+             f"bit[{n + 1}] c;", "h q[0];"]
+    lines += [f"cx q[{i - 1}], q[{i}];" for i in range(1, n)]
+    lines += ["c[0] = measure q[0];", "reset q[0];",
+              "if (c[0] == 1) x q[0];"]
+    lines += [f"c[{i + 1}] = measure q[{i}];" for i in range(n)]
+    return "\n".join(lines) + "\n"
+
+
+def time_workloads(torch, T):
+    """The timed workloads (chip_ab.py phase ``workloads``): the adjoint
+    gradient on the default config at n=24, run_vqe's steps at n=20 and
+    the n + s = 28 trajectory ensemble, each run as queued work under
+    sync debug "error" and timed by the wall clock around it with a wait
+    at each end.  Returns what phase 9 checks."""
+    from gpu_quantum_simulator_tpu_torch import dynamic as Y
+    from gpu_quantum_simulator_tpu_torch import gradients as G
+
+    out = {}
+    # the adjoint gradient, n = 24, default config
+    n = WIDE_GRAD_WIDTH
+    c, tie, terms = T.models.qaoa_maxcut_tied(n, **QAOA_ANGLES)
+    sim = T.Simulator(device="cuda")
+    G.adjoint_gradient(c, terms=terms)            # plan, tables, warm-up
+    fresh_peak(torch)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    grads, idxs = G.adjoint_gradient(c, terms=terms)
+    t_adj = time.perf_counter() - t0
+    peak = peak_gib(torch)
+    t0 = time.perf_counter()
+    with no_wait(torch):
+        re, im, _ = sim._run_device(c)
+        queued = G._adjoint_sweep(c, terms, re, im, idxs)
+    t_queue = time.perf_counter() - t0
+    del re, im
+    again = queued.double().cpu().numpy()
+    print(f"workloads adjoint_gradient n={n} default config ({len(c)} "
+          f"gates, {len(idxs)} parameters): {t_adj:.4f} s, peak reserved "
+          f"{peak:.3f} GiB ({base / 2 ** 30:.3f} GiB allocated before); "
+          f"forward + sweep queued under sync debug \"error\" in "
+          f"{t_queue:.4f} s, max|diff| to the timed call "
+          f"{float(np.max(np.abs(again - grads))):.3e}")
+    out["adjoint"] = (c, tie, terms, grads, idxs, again)
+
+    # run_vqe's loop, n = 20
+    n = VQE_WIDTH
+    c, tie, terms = T.models.qaoa_maxcut_tied(n, **QAOA_ANGLES)
+    fn, _, th0 = G.make_adjoint_value_and_grad(c, terms, tie=tie)
+    e0 = float(fn(th0)[0])
+    G._vqe_device(c, terms, 1, 0.05, None, tie, True, None, 0, 0.5, 0,
+                  "cuda")                         # warm-up
+    fresh_peak(torch)
+    t0 = time.perf_counter()
+    with no_wait(torch):
+        _, theta, es = G._vqe_device(c, terms, VQE_STEPS, 0.05, None, tie,
+                                     True, None, 0, 0.5, 0, "cuda")
+    t_queue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_vqe = time.perf_counter() - t0
+    es = es.cpu().numpy()
+    print(f"workloads run_vqe n={n} ({len(c)} gates, {len(th0)} slots): "
+          f"{VQE_STEPS} steps queued under sync debug \"error\" in "
+          f"{t_queue:.4f} s, done in {t_vqe:.4f} s = "
+          f"{1e3 * t_vqe / VQE_STEPS:.2f} ms a step; peak reserved "
+          f"{peak_gib(torch):.3f} GiB; <C> {es[0]:.6f} -> {es[-1]:.6f}")
+    out["vqe"] = (e0, es)
+
+    # the trajectory ensemble, n + s = 28, default config
+    dc = T.parse_qasm_dynamic(ghz_dynamic_qasm(ENSEMBLE_N))
+    s = (ENSEMBLE_SHOTS - 1).bit_length()
+    sim = T.Simulator(device="cuda")
+    Y._run_ensemble(dc, sim, s, 1)                # plans, warm-up
+    fresh_peak(torch)
+    t0 = time.perf_counter()
+    with no_wait(torch):
+        re, im, clbits, S = Y._run_ensemble(dc, sim, s, 2)
+    t_queue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_ens = time.perf_counter() - t0
+    peak = peak_gib(torch)
+    norms = (re * re + im * im).view(S, -1).sum(1).double().cpu().numpy()
+    bits = torch.stack(clbits).cpu().numpy()
+    del re, im
+    print(f"workloads ensemble n={ENSEMBLE_N} + s={s} (GHZ, mid-circuit "
+          f"measure, reset, condition, {ENSEMBLE_N} measures): queued under "
+          f"sync debug \"error\" in {t_queue:.4f} s, done in {t_ens:.4f} s; "
+          f"peak reserved {peak:.3f} GiB")
+    out["ensemble"] = (norms, bits)
+
+    # the share of the segment copies: a per-gate noisy ensemble (one
+    # segment a gate) with the pair handed over, and copied as
+    # run_device_parts does
+    noisy = Y.with_noise(T.models.ghz(ENSEMBLE_N), p1=0.01, p2=0.02)
+    times, peaks = {}, {}
+    for copy in (False, True, False, True):
+        fresh_peak(torch)
+        t0 = time.perf_counter()
+        r = Y._run_ensemble(noisy, sim, s, 3, copy_segments=copy)
+        torch.cuda.synchronize()
+        times.setdefault(copy, []).append(time.perf_counter() - t0)
+        peaks[copy] = (peak_gib(torch),
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
+        del r
+    hand, copy = min(times[False]), min(times[True])
+    print(f"workloads noisy ensemble n={ENSEMBLE_N} + s={s} "
+          f"({len(noisy.items)} items, {ENSEMBLE_N} one-gate segments): "
+          f"pair handed over {hand:.4f} s (peak reserved / allocated "
+          f"{peaks[False][0]:.3f} / {peaks[False][1]:.3f} GiB), copied per "
+          f"segment {copy:.4f} s ({peaks[True][0]:.3f} / "
+          f"{peaks[True][1]:.3f} GiB; best of 2 each): copies "
+          f"{100 * (copy - hand) / copy:.1f}% of the copying run")
+    return out
+
+
+def check_gradients(torch, T, add, timed):
+    """Adjoint against parameter shift at n=20 on prefetch "highest"; the
+    n=24 readings of time_workloads; value_and_grad against the adjoint
+    under the same tie arithmetic; run_vqe's loop; restarts batched."""
+    from gpu_quantum_simulator_tpu_torch import gradients as G
+
+    n = GRAD_WIDTH
+    c, tie, terms = T.models.qaoa_maxcut_tied(n, **QAOA_ANGLES)
+    cfg = T.SimulatorConfig(strategy="prefetch", precision="highest")
+    tied = sorted(tie)
+    idxs = tied[::max(1, len(tied) // GRAD_GATES)][:GRAD_GATES]
+    reset_counts()
+    t0 = time.perf_counter()
+    adj, _ = G.adjoint_gradient(c, terms=terms, config=cfg,
+                                gate_indices=idxs)
+    t_adj = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shift, _ = G.parameter_shift(
+        c, config=cfg, gate_indices=idxs,
+        expectation_fn=lambda cc: T.expectation_pauli_sum(cc, terms, cfg))
+    t_shift = time.perf_counter() - t0
+    add(launch_counts())
+    err = float(np.max(np.abs(adj - shift)))
+    print(f"workloads gradients n={n} prefetch highest: adjoint "
+          f"{t_adj:.3f} s vs parameter shift {t_shift:.3f} s on gates "
+          f"{idxs}: max|diff| {err:.3e} (bar {GRAD_TOL:g}); "
+          f"|grad| up to {float(np.max(np.abs(shift))):.4f}")
+    if not err <= GRAD_TOL:
+        raise AssertionError(f"adjoint vs parameter shift: {err}")
+
+    c, tie, terms, grads, idxs, again = timed["adjoint"]
+    if not float(np.max(np.abs(again - grads))) <= 1e-6:
+        raise AssertionError("the queued adjoint differs from the timed one")
+    fn, tidx, th0 = G.make_adjoint_value_and_grad(c, terms, tie=tie)
+    t0 = time.perf_counter()
+    e, g = fn(th0)
+    g = g.double().cpu().numpy()
+    t_fn = time.perf_counter() - t0
+    per_gate, _ = G.adjoint_gradient(c, terms=terms, gate_indices=tidx)
+    want = np.zeros(len(th0))
+    for k, gk in zip(tidx, per_gate):
+        slot, scale = tie[k]
+        want[slot] += scale * gk
+    rel = float(np.max(np.abs(g - want)) / np.max(np.abs(want)))
+    print(f"workloads value_and_grad n={c.num_qubits} tie ({len(tidx)} "
+          f"gates, {len(th0)} slots): {t_fn:.4f} s, <C> {float(e):.6f}; "
+          f"vs the adjoint on the default config (\"high\" forward, torch "
+          f"ops at \"highest\" here) max|diff| / max|grad| {rel:.3e} (bar "
+          f"{TIE_TOL:g})")
+    if not rel <= TIE_TOL:
+        raise AssertionError(f"value_and_grad vs adjoint: {rel}")
+
+    e0, es = timed["vqe"]
+    d0 = abs(float(es[0]) - e0)
+    print(f"workloads run_vqe: energies[0] - fn(theta0) {d0:.3e}; final "
+          f"cut {es[-1]:.6f} vs first {es[0]:.6f}")
+    if not (d0 <= 1e-6 and es[-1] > es[0] and np.all(np.isfinite(es))):
+        raise AssertionError(f"run_vqe: {d0}, {es[0]} -> {es[-1]}")
+
+    n = RESTART_WIDTH
+    c, tie, terms = T.models.qaoa_maxcut_tied(n, gammas=(0.2,),
+                                              betas=(0.2,))
+    g, b = np.meshgrid(np.linspace(0.1, 1.2, LANDSCAPE_SIDE),
+                       np.linspace(0.1, 0.7, LANDSCAPE_SIDE), indexing="ij")
+    grid = np.stack([g, b], -1).reshape(-1, 2)
+    fn, _, _ = G.make_adjoint_value_and_grad(c, terms, tie=tie)
+    G._landscape_device(c, terms, grid[:2], tie, None, 24, "cuda")
+    t0 = time.perf_counter()
+    with no_wait(torch):
+        land = G._landscape_device(c, terms, grid, tie, None, 24, "cuda")
+    t_queue = time.perf_counter() - t0
+    land = land.double().cpu().numpy()
+    t_land = time.perf_counter() - t0
+    picks = (0, len(grid) // 2, len(grid) - 1)
+    err = max(abs(land[k] - float(fn(grid[k])[0])) for k in picks)
+    best = np.unravel_index(np.argmax(land), g.shape)
+    print(f"workloads energy_landscape n={n}: {len(grid)} points in chunks "
+          f"of {1 << (24 - n)}, queued under sync debug \"error\" in "
+          f"{t_queue:.4f} s, done in {t_land:.4f} s; against fn at three "
+          f"points max|diff| {err:.3e}; argmax (gamma, beta) = "
+          f"({g[best]:.3f}, {b[best]:.3f})")
+    if not err <= 1e-5:
+        raise AssertionError(f"energy_landscape: {err}")
+    reset_counts()
+    t0 = time.perf_counter()
+    _, theta, es = G._vqe_device(c, terms, RESTART_STEPS, 0.05, None, tie,
+                                 True, None, RESTARTS, 0.5, 1, "cuda")
+    es = es.cpu().numpy()
+    t_batch = time.perf_counter() - t0
+    _, single = G.run_vqe(c, terms, steps=RESTART_STEPS, tie=tie,
+                          maximize=True)
+    best_theta, best = G.run_vqe(c, terms, steps=RESTART_STEPS, tie=tie,
+                                 maximize=True, restarts=RESTARTS, seed=1)
+    add(launch_counts())
+    d = float(np.max(np.abs(es[0] - single)))
+    print(f"workloads run_vqe restarts={RESTARTS} n={n}: one batched "
+          f"sweep of {RESTART_STEPS} steps {t_batch:.3f} s, final <C> per "
+          f"restart {np.round(es[:, -1], 4).tolist()}, restart 0 vs the "
+          f"single run max|diff| {d:.3e}; best kept {best[-1]:.6f}")
+    if not (d <= 1e-4 and es.shape == (RESTARTS, RESTART_STEPS)
+            and abs(best[-1] - es[:, -1]).min() <= 1e-4):
+        raise AssertionError(f"restarts: {d}, {es.shape}")
+
+
+def check_dynamic(torch, T, add, timed):
+    """The n + s = 28 ensemble's bits and norms (time_workloads), the
+    public batched run, the program caches, and run_dynamic on the card
+    against the CPU with one seed."""
+    from gpu_quantum_simulator_tpu_torch import dynamic as Y
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.engine import simulator as S
+    from gpu_quantum_simulator_tpu_torch.engine import wide as W
+
+    norms, bits = timed["ensemble"]
+    shots = ENSEMBLE_SHOTS
+    dev = float(np.max(np.abs(norms - 1.0)))
+    same = bool(np.all(bits == bits[:1]))
+    print(f"workloads ensemble (queued): {bits.shape[1]} shots x "
+          f"{bits.shape[0]} bits, every shot's bits equal: {same}; "
+          f"max|norm - 1| over shot blocks {dev:.3e} (bar "
+          f"{ENSEMBLE_NORM_TOL:g})")
+    if not (same and dev <= ENSEMBLE_NORM_TOL):
+        raise AssertionError(f"ensemble: bits equal {same}, norm {dev}")
+    dc = T.parse_qasm_dynamic(ghz_dynamic_qasm(ENSEMBLE_N))
+    fresh_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = T.run_dynamic_batched(dc, shots=shots, seed=5)
+    secs = time.perf_counter() - t0
+    add(launch_counts())
+    ones = sum(r.clbits[0] for r in res)
+    same = all(len(set(r.clbits)) == 1 for r in res)
+    sigma = (shots * 0.25) ** 0.5
+    caches = {"mxu plans": len(S._MXU_PLAN_CACHE), "wide": len(W._CACHE),
+              "prefetch": len(PF._PROGRAM_CACHE)}
+    print(f"workloads run_dynamic_batched n={ENSEMBLE_N} shots={shots}: "
+          f"{secs:.3f} s, {ones} ones (Binomial({shots}, 1/2) 4 sigma "
+          f"{4 * sigma:.1f}), every shot's bits equal: {same}; program "
+          f"caches {caches}; peak reserved {peak_gib(torch):.3f} GiB")
+    if not (same and abs(ones - shots / 2) <= 4 * sigma):
+        raise AssertionError(f"run_dynamic_batched: {ones}, {same}")
+
+    dc = T.parse_qasm_dynamic(ghz_dynamic_qasm(PER_SHOT_N))
+    reset_counts()
+    t0 = time.perf_counter()
+    card = T.run_dynamic(dc, shots=4, seed=11)
+    secs = time.perf_counter() - t0
+    add(launch_counts())
+    host = T.run_dynamic(dc, shots=4, seed=11, device="cpu")
+    cb, hb = [r.clbits for r in card], [r.clbits for r in host]
+    print(f"workloads run_dynamic n={PER_SHOT_N} shots=4: {secs:.3f} s on "
+          f"the card; bits {[b[0] for b in cb]} equal the CPU run's: "
+          f"{cb == hb}")
+    if cb != hb:
+        raise AssertionError(f"run_dynamic card {cb} vs cpu {hb}")
+
+
+def check_noise(torch, T, add):
+    """expectation_noisy at p = 0 and against the density matrix; the
+    noisy CLI route at n=20; one ZNE ladder at n=16."""
+    import tempfile
+
+    from gpu_quantum_simulator_tpu_torch import dynamic as Y
+
+    c = T.models.qaoa_maxcut(GRAD_WIDTH)
+    terms = [(1.0, "Z0 Z1"), (0.5, "X3"), (-0.7, "Y5 Z9")]
+    reset_counts()
+    got = Y.expectation_noisy(c, terms, shots=8, seed=0)
+    add(launch_counts())
+    want = T.expectation_pauli_sum(c, terms)
+    err = abs(got - want)
+    print(f"workloads expectation_noisy p=0 n={GRAD_WIDTH}: {got:.7f} vs "
+          f"expectation_pauli_sum {want:.7f}: |diff| {err:.3e} (bar "
+          f"{NOISELESS_TOL:g})")
+    if not err <= NOISELESS_TOL:
+        raise AssertionError(f"noiseless expectation_noisy: {err}")
+
+    n, shots, p1, p2 = NOISE_N, NOISE_SHOTS, 0.02, 0.05
+    c = T.models.qaoa_maxcut(n)
+    nc = T.NoisyCircuit(n)
+    for item in Y.with_noise(c, p1=p1, p2=p2).items:
+        if isinstance(item, Y.Noise):
+            nc.channel("depolarizing", item.qubit, p=item.p)
+        else:
+            nc.items.append(item)
+    rho = T.DensitySimulator().run(nc)
+    m = rho.matrix()
+    idx = np.arange(1 << n)
+    exact = {"Z0 Z1": rho.expectation_z([0, 1]),
+             "X0 X1": float(np.real(np.sum(m[idx ^ 3, idx])))}
+    for pauli, want in exact.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        got = Y.expectation_noisy(c, [(1.0, pauli)], shots=shots, p1=p1,
+                                  p2=p2, seed=7)
+        secs = time.perf_counter() - t0
+        add(launch_counts())
+        sigma = ((1 - want ** 2) / shots) ** 0.5
+        print(f"workloads expectation_noisy n={n} {shots} shots <{pauli}>: "
+              f"{got:.5f} in {secs:.3f} s vs the density matrix {want:.5f} "
+              f"({(got - want) / sigma:+.2f} sigma)")
+        if not abs(got - want) <= 4 * sigma:
+            raise AssertionError(f"expectation_noisy {pauli}: {got} {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = qasm_file(tmp, "ghz20", T.models.ghz(GRAD_WIDTH))
+        reset_counts()
+        wall, lines = cli(path, "-m", 1024, "--noise-p1", 0.01,
+                          "--noise-p2", 0.02, "--noise-readout", 0.01,
+                          "--json")
+        add(launch_counts())
+    rec = json.loads(lines[0])
+    meas = [l for l in lines[1:] if l.startswith("MEASUREMENT:")]
+    print(f"workloads CLI noisy sampling n={GRAD_WIDTH} -m 1024: exit 0, "
+          f"{len(meas)} outcomes, CLI seconds {rec['seconds']:.3f}, main() "
+          f"{wall:.3f} s")
+    if len(meas) != 1024:
+        raise AssertionError(f"noisy CLI: {len(meas)} outcomes")
+
+    c = T.models.ghz(ZNE_N)
+    reset_counts()
+    t0 = time.perf_counter()
+    value, scales, raw = T.zne_expectation(
+        c, [(1.0, f"Z0 Z{ZNE_N - 1}")], shots=1024, p1=0.01, p2=0.01,
+        seed=3, return_fits=True)
+    secs = time.perf_counter() - t0
+    add(launch_counts())
+    print(f"workloads zne_expectation n={ZNE_N} <Z0 Z{ZNE_N - 1}>: raw "
+          f"{[round(v, 4) for v in raw]} at scales {scales} -> {value:.4f} "
+          f"(exact 1) in {secs:.3f} s")
+    if not (np.isfinite(value) and raw[0] > raw[-1]):
+        raise AssertionError(f"zne: {value} {raw}")
+
+
+def check_density(torch, T, add):
+    """2n = 24 on prefetch at "high" (channels: trace; none: the diagonal
+    against |psi|^2), and once in place at 2n = 30."""
+    n = DENSITY_N
+    c = T.models.random_circuit(n, 120, seed=5)
+    pure = T.NoisyCircuit(n, items=list(c.gates))
+    noisy = T.NoisyCircuit(n, items=list(c.gates[:60]))
+    noisy.channel("depolarizing", 3, p=0.2)
+    noisy.channel("amplitude_damping", 7, gamma=0.3)
+    noisy.items.extend(c.gates[60:])
+    noisy.channel("depolarizing", 11, p=0.1)
+    sim = T.DensitySimulator()
+    clear_caches(torch)
+    fresh_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    p = sim.run(noisy).probabilities()
+    secs = time.perf_counter() - t0
+    q = sim.run(pure).probabilities()
+    add(launch_counts())
+    psi = np.abs(T.Simulator().run(c)) ** 2
+    trace = float(np.sum(p.astype(np.float64)))
+    bar = HIGH_TOL * max(1.0, float(psi.max()) / HIGH_BAR_PEAK)
+    err = float(np.max(np.abs(q - psi)))
+    print(f"workloads density n={n} (2n={2 * n}, prefetch "
+          f"{T.SimulatorConfig().effective_precision(2 * n)}): {secs:.3f} s "
+          f"with channels, trace {trace:.8f} (bar {TRACE_TOL:g}); without, "
+          f"max|diag - |psi|^2| {err:.3e} (bar {bar:.3e}); peak reserved "
+          f"{peak_gib(torch):.3f} GiB")
+    if not (abs(trace - 1) <= TRACE_TOL and err <= bar):
+        raise AssertionError(f"density n={n}: trace {trace}, diag {err}")
+
+    n = DENSITY_INPLACE_N
+    nc = T.NoisyCircuit(n, items=list(T.models.ghz(n).gates))
+    for qb in range(n):
+        nc.channel("dephasing", qb, p=0.3)
+    clear_caches(torch)
+    fresh_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sim.run(nc)
+    secs = time.perf_counter() - t0
+    add(launch_counts())
+    p = res.probabilities()
+    trace = float(np.sum(p.astype(np.float64)))
+    print(f"workloads density n={n} in place (2n={2 * n}, halves "
+          f"{res.halves is not None}): {secs:.3f} s, P(0..0) {p[0]:.7f}, "
+          f"P(1..1) {p[-1]:.7f}, trace {trace:.7f} (bars {TRACE_TOL:g}); "
+          f"peak reserved {peak_gib(torch):.3f} GiB")
+    if not (res.halves is not None and abs(p[0] - 0.5) <= TRACE_TOL
+            and abs(p[-1] - 0.5) <= TRACE_TOL
+            and abs(trace - 1) <= TRACE_TOL):
+        raise AssertionError(f"density n={n}: {p[0]} {p[-1]} {trace}")
+    del res
+    clear_caches(torch)
+
+
+def check_shadows(torch, T, add):
+    """Z0 Z1 of GHZ-20 from 4000 snapshots, within 5 standard errors of 1
+    (the error from the snapshots' own spread)."""
+    n, S = SHADOW_N, SHADOW_SNAPSHOTS
+    c = T.models.ghz(n)
+    reset_counts()
+    t0 = time.perf_counter()
+    bases, outcomes = T.shadow_snapshots(c, S, seed=4)
+    secs = time.perf_counter() - t0
+    add(launch_counts())
+    est = T.shadows_expectation(c, [(1.0, "Z0 Z1")],
+                                _snapshot_data=(bases, outcomes))
+    single = np.where((bases[:, 0] == 2) & (bases[:, 1] == 2),
+                      9.0 * (1 - 2 * (((outcomes >> 0) ^ (outcomes >> 1))
+                                      & 1)), 0.0)
+    se = float(single.std() / np.sqrt(S))
+    print(f"workloads shadows n={n}: {S} snapshots in {secs:.3f} s; "
+          f"<Z0 Z1> {est:.4f} (mean of the snapshots {single.mean():.4f}, "
+          f"standard error {se:.4f}, bar 5 se about 1)")
+    if not abs(est - 1.0) <= 5 * se:
+        raise AssertionError(f"shadows: {est} +- {se}")
+
+
+def run_workloads(torch, T, add):
+    """Phase 9: the workloads on the state, through the ported entry
+    points on the card; their launches add to the totals."""
+    t0 = time.perf_counter()
+    clear_caches(torch)
+    reset_counts()
+    timed = time_workloads(torch, T)
+    add(launch_counts())
+    check_gradients(torch, T, add, timed)
+    check_dynamic(torch, T, add, timed)
+    del timed
+    clear_caches(torch)
+    check_noise(torch, T, add)
+    check_density(torch, T, add)
+    check_shadows(torch, T, add)
+    clear_caches(torch)
+    print(f"workloads: phase 9 in {time.perf_counter() - t0:.1f} s")
+
+
 def run_main_path(torch, T, refs, add):
     highest24 = run_prefetch_path(torch, T, refs, add)
     run_mxu_path(torch, T, refs, highest24, add)
@@ -3558,16 +4089,32 @@ def run_main_path(torch, T, refs, add):
     run_small_widths(torch, T, refs, add)
 
 
-def references(T, widths):
-    """The f64 reference, once per width, shared by every strategy."""
+def start_references(T, widths):
+    """Start the f64 reference of each width (shared by every strategy),
+    one thread a width, so that the host computes them while the card
+    runs phase 3 (the native simulator runs without the interpreter
+    lock).  Returns a callable that waits for them: ``{n: state}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from gpu_quantum_simulator_tpu_torch.ref.native import simulate_native
 
     t0 = time.perf_counter()
-    refs = {n: simulate_native(T.models.grover_like(n, 2445, 318))
-            for n in sorted(widths)}
-    print(f"f64 references n={sorted(refs)} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    return refs
+    pool = ThreadPoolExecutor(max_workers=len(widths))
+    futures = {n: pool.submit(simulate_native,
+                              T.models.grover_like(n, 2445, 318))
+               for n in sorted(widths)}
+
+    def wait():
+        try:
+            refs = {n: f.result() for n, f in futures.items()}
+        finally:
+            pool.shutdown()
+        print(f"f64 references n={sorted(refs)} ready "
+              f"{time.perf_counter() - t0:.1f} s after their start (beside "
+              f"phase 3)")
+        return refs
+
+    return wait
 
 
 def main() -> int:
@@ -3626,6 +4173,7 @@ def main() -> int:
             totals[k] = totals.get(k, 0) + v
 
     rng = np.random.default_rng(2445)
+    pending_refs = start_references(T, set(REF_WIDTHS) | set(VMEM_WIDTHS))
     # phase 3: each kernel against its plain version
     block, mat = check_block_kernel(torch, rng)
     relayout = check_relayout_kernel(torch, rng)
@@ -3641,7 +4189,7 @@ def main() -> int:
 
     # phase 4: the main paths, counting launches; phase 5: the in-place
     # engine, its kernels first
-    refs = references(T, set(REF_WIDTHS) | set(VMEM_WIDTHS))
+    refs = pending_refs()
     run_main_path(torch, T, refs, add)
     inplace = run_inplace_phase(torch, T, refs, add, rng)
     # phase 6: the public op (kernel 10) and the copy probes (kernel 11)
@@ -3651,6 +4199,8 @@ def main() -> int:
     run_entry_points(torch, T, add, smi.splitlines()[0])
     # phase 8: the CLI and the per-gate strategies
     run_cli_phase(torch, T, refs, add)
+    # phase 9: the workloads on the state
+    run_workloads(torch, T, add)
     kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
              (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
              (chain_high, "kh0_high"), (block128, "block128"),

@@ -19,24 +19,41 @@ are the JAX package's.  The facade's program entry points
 (``run_device_parts``, ``run_device_iterated`` — a CUDA graph replayed per
 repetition on a card — and ``run_many``), the observables, the sampling
 helpers, the circuit families and unitary synthesis (``ir/decompose.py``)
-are the JAX package's.  Every entry point runs on the card unless
-it is passed ``device="cpu"``, where the same paths run each kernel's
-plain torch version.  Anything else raises NotImplementedError naming its
-ROADMAP item.
+are the JAX package's.  So are the workloads on the state: gradients and
+VQE (``gradients.py``, ``optimizer=`` a torch optimizer factory in place
+of an optax transform), dynamic circuits and noisy trajectories
+(``dynamic.py``, ensemble uniforms from a seeded ``torch.Generator`` in
+place of ``jax.random``), density matrices (``density.py``), mitigation,
+classical shadows, the MPS and stabilizer simulators and the Qiskit
+import.  Every entry point runs on the card unless it is passed
+``device="cpu"``, where the same paths run each kernel's plain torch
+version.  Anything else raises NotImplementedError naming its ROADMAP
+item.
 
 Qubit convention matches the JAX package: qubit ``k`` is bit ``k`` of the
 basis index (little-endian).
 """
 
 from .ir.circuit import Gate, Circuit
-from .qasm.parser import QasmError, parse_qasm, parse_qasm_file
+from .qasm.parser import (QasmError, parse_qasm, parse_qasm_dynamic,
+                          parse_qasm_dynamic_file, parse_qasm_file)
 from .ir.oplist import circuit_unitary
 from .ir import gates
 from .engine.simulator import RunResult, Simulator, simulate
 from .config import SimulatorConfig
 from . import models
+from .dynamic import DynamicCircuit, run_dynamic, run_dynamic_batched
+from .density import DensitySimulator, NoisyCircuit
+from .gradients import (adjoint_gradient, make_adjoint_value_and_grad,
+                        parameter_shift, run_vqe)
 from .observables import (expectation_pauli, expectation_pauli_sum,
                           overlap, pauli_decompose, state_fidelity)
+from .interop import from_qiskit
+from .mps import MPS, run_mps
+from .mitigation import (folded, mitigate_readout,
+                         mitigate_readout_expectation_z,
+                         zne_expectation)
+from .shadows import shadow_snapshots, shadows_expectation
 from .sampling import (
     expectation_z,
     norm_device,
@@ -47,12 +64,14 @@ from .sampling import (
 __all__ = [
     "Gate",
     "Circuit",
-    "QasmError",
-    "parse_qasm",
-    "parse_qasm_file",
     "gates",
     "models",
     "circuit_unitary",
+    "QasmError",
+    "parse_qasm",
+    "parse_qasm_dynamic",
+    "parse_qasm_dynamic_file",
+    "parse_qasm_file",
     "RunResult",
     "Simulator",
     "simulate",
@@ -61,9 +80,27 @@ __all__ = [
     "top_amplitudes_device",
     "expectation_z",
     "norm_device",
+    "DynamicCircuit",
+    "run_dynamic",
+    "run_dynamic_batched",
+    "DensitySimulator",
+    "NoisyCircuit",
+    "adjoint_gradient",
+    "make_adjoint_value_and_grad",
+    "parameter_shift",
+    "run_vqe",
     "expectation_pauli",
     "expectation_pauli_sum",
     "pauli_decompose",
     "overlap",
     "state_fidelity",
+    "from_qiskit",
+    "folded",
+    "zne_expectation",
+    "mitigate_readout",
+    "MPS",
+    "run_mps",
+    "mitigate_readout_expectation_z",
+    "shadow_snapshots",
+    "shadows_expectation",
 ]

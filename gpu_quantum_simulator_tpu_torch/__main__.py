@@ -16,8 +16,8 @@ It runs on the CUDA card (``--device cuda``, the default) unless
 ``--device cpu`` is given; with no card and no ``--device cpu`` it exits
 non-zero with the Simulator's error, and nothing falls back to the CPU.
 ``--trace DIR`` writes a torch.profiler trace (Chrome JSON) into DIR.
-Noisy trajectory sampling (``--noise-*``) keeps its argument checks but
-needs ``dynamic.py``, which the port does not have yet.
+Noisy trajectory sampling (``--noise-*``) runs one batched ensemble
+(``dynamic.sample_noisy``) on the same device.
 """
 
 from __future__ import annotations
@@ -266,10 +266,42 @@ def main(argv=None) -> int:
                 print(f"ERROR: {flag} is not available with --noise-*",
                       file=sys.stderr)
                 return 1
-        print("ERROR: noisy trajectory sampling (--noise-*) needs "
-              "dynamic.py, not yet ported (ROADMAP queue A, \"Workloads on "
-              "the state\")", file=sys.stderr)
-        return 1
+        from .dynamic import sample_noisy
+        from .ops.apply import resolve_device
+
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as exc:
+            print(f"ERROR: {exc}", file=sys.stderr)
+            return 1
+        t0 = time.perf_counter()
+        try:
+            outcomes = sample_noisy(
+                circuit, args.measurements, kind=args.noise_kind,
+                p1=args.noise_p1, p2=args.noise_p2, seed=args.seed,
+                config=cfg, correlated=args.noise_correlated,
+                readout_error=args.noise_readout, device=device)
+        except NotImplementedError as exc:
+            print(f"ERROR: {exc}", file=sys.stderr)
+            return 1
+        seconds = time.perf_counter() - t0
+        if args.json:
+            print(json.dumps({
+                "circuit": args.circuit,
+                "num_qubits": circuit.num_qubits,
+                "num_gates": len(circuit.gates),
+                "strategy": cfg.strategy,
+                "noise": {"kind": args.noise_kind, "p1": args.noise_p1,
+                          "p2": args.noise_p2,
+                          "correlated": args.noise_correlated,
+                          "readout": args.noise_readout},
+                "seconds": seconds,
+            }))
+        else:
+            print(f"{seconds:.6f}")
+        for o in outcomes:
+            print(f"MEASUREMENT: {_putb(int(o), circuit.num_qubits)} ({int(o)})")
+        return 0
 
     from .engine.simulator import Simulator
 

@@ -31,11 +31,13 @@ from ..ops import apply as A
 
 def _upload_tables(mats: List[np.ndarray], ref: torch.Tensor):
     """(re, im) views of every matrix in ``mats``, uploaded in ONE pinned
-    copy per part: a flat float32 table of the matrices back to back."""
+    copy: a flat table of the matrices back to back, in ``ref``'s float
+    dtype (float32, or float64 for a float64 state)."""
     if not mats:
         return []
     flat = np.concatenate([np.asarray(m).reshape(-1) for m in mats])
-    table = A.upload(np.stack([flat.real, flat.imag]).astype(np.float32),
+    dtype = np.float64 if ref.dtype == torch.float64 else np.float32
+    table = A.upload(np.stack([flat.real, flat.imag]).astype(dtype),
                      ref.device)
     views, off = [], 0
     for m in mats:

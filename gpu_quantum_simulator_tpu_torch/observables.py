@@ -97,13 +97,16 @@ def _with_rotations(circuit: Circuit, basis) -> Circuit:
     return c
 
 
-def apply_pauli_parts(re, im, ops: Dict[int, str], num_qubits: int):
+def apply_pauli_parts(re, im, ops: Dict[int, str], num_qubits: int,
+                      rows: int = 1):
     """P|psi> for one Pauli string on a split (re, im) state, on its device
     (X = pair flip, Y = flip with the i factor rotated into the parts, Z =
-    sign flip).  Returns new flat tensors; the input is not changed."""
+    sign flip).  Returns new flat tensors; the input is not changed.
+    ``rows`` > 1: the flat tensors hold that many n-qubit states back to
+    back, and each gets the string."""
     n = num_qubits
     for q, ax in ops.items():
-        hi, lo = 1 << (n - 1 - q), 1 << q
+        hi, lo = rows << (n - 1 - q), 1 << q
         r = re.reshape(hi, 2, lo)
         i = im.reshape(hi, 2, lo)
         if ax == "X":

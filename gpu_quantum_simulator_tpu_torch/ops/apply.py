@@ -223,13 +223,15 @@ def apply_2q(re, im, ur, ui, qa: int, qb: int, num_qubits: int):
     return nre.reshape(-1), nim.reshape(-1)
 
 
-def apply_cnot(re, im, control: int, target: int, num_qubits: int):
+def apply_cnot(re, im, control: int, target: int, num_qubits: int,
+               rows: int = 1):
     """Structural CNOT: the target axis flipped on the control = 1 half (an
-    exact copy, no arithmetic)."""
+    exact copy, no arithmetic).  ``rows`` > 1: the flat tensors hold that
+    many n-qubit states back to back, and each gets the gate."""
     n = num_qubits
     c, t = control, target
     a, b = (c, t) if c < t else (t, c)
-    shape = (1 << (n - b - 1), 2, 1 << (b - a - 1), 2, 1 << a)
+    shape = (rows << (n - b - 1), 2, 1 << (b - a - 1), 2, 1 << a)
     c_axis, t_axis = (3, 1) if c < t else (1, 3)
     # after dropping c_axis, the target axis shifts down if it was above
     flip_axis = t_axis if t_axis < c_axis else t_axis - 1

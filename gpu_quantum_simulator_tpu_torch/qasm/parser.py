@@ -1,11 +1,10 @@
 """OpenQASM 2/3 subset front-end.
 
 A JAX-free copy of the JAX package's ``qasm/parser.py`` (host code only),
-building the port's own ``ir.circuit.Circuit``: the same grammar, the same
-gates and the same ``QasmError`` messages, held to the original by
-``tests/test_torch_qasm.py``.  The dynamic-circuit subset
-(``parse_qasm_dynamic``) builds a ``DynamicCircuit``, which the port does
-not have yet: those two functions raise NotImplementedError.
+building the port's own ``ir.circuit.Circuit`` and, for the dynamic
+subset (``parse_qasm_dynamic``), its ``dynamic.DynamicCircuit``: the same
+grammar, the same gates and the same ``QasmError`` messages, held to the
+original by ``tests/test_torch_qasm.py``.
 
 Accepts the dialect the reference consumes (quantum_simulator.c:115-254):
 
@@ -684,17 +683,162 @@ def parse_qasm_file(path: str, inputs=None) -> Circuit:
 
 # --- dynamic-circuit subset (measure / reset / if) ---------------------
 
-_DYNAMIC = ("dynamic circuits (measure / reset / if) build a DynamicCircuit, "
-            "not yet ported (ROADMAP queue A, \"Workloads on the state\", "
-            "dynamic.py)")
+_CDECL = re.compile(
+    r"^(?:creg|bit)\s*(?:\[\s*(\d+)\s*\])?\s*([A-Za-z_]\w*)\s*(?:\[\s*(\d+)\s*\])?$"
+)
+# measure q[i] -> c[j]      (QASM2)
+_MEASURE2 = re.compile(
+    r"^measure\s+([A-Za-z_]\w*)\s*\[\s*(\d+)\s*\]\s*->\s*([A-Za-z_]\w*)\s*\[\s*(\d+)\s*\]$"
+)
+# c[j] = measure q[i]       (QASM3)
+_MEASURE3 = re.compile(
+    r"^([A-Za-z_]\w*)\s*\[\s*(\d+)\s*\]\s*=\s*measure\s+([A-Za-z_]\w*)\s*\[\s*(\d+)\s*\]$"
+)
+_RESET = re.compile(r"^reset\s+([A-Za-z_]\w*)\s*\[\s*(\d+)\s*\]$")
+# whole-register broadcast forms: measure q -> c; | c = measure q; | reset q;
+_MEASURE2_ALL = re.compile(
+    r"^measure\s+([A-Za-z_]\w*)\s*->\s*([A-Za-z_]\w*)$")
+_MEASURE3_ALL = re.compile(
+    r"^([A-Za-z_]\w*)\s*=\s*measure\s+([A-Za-z_]\w*)$")
+_RESET_ALL = re.compile(r"^reset\s+([A-Za-z_]\w*)$")
+# if (c[j] == v) stmt | if (c[j]) stmt | if (c == v) stmt (1-bit register)
+_IF = re.compile(
+    r"^if\s*\(\s*([A-Za-z_]\w*)\s*(?:\[\s*(\d+)\s*\])?\s*(?:==\s*(\d+)\s*)?\)\s*(.*)$",
+    re.S,
+)
 
 
 def parse_qasm_dynamic(text: str, inputs=None):
-    """The JAX package's dynamic-circuit parse; raises until ``dynamic.py``
-    is ported."""
-    raise NotImplementedError(_DYNAMIC)
+    """Parse the dynamic-circuit OpenQASM subset into a DynamicCircuit.
+
+    On top of the static grammar: classical registers (``creg c[n];`` /
+    ``bit[n] c;``), measurement in both dialects (``measure q[i] -> c[j];``
+    / ``c[j] = measure q[i];``), ``reset q[i];`` and classically
+    conditioned gates (``if (c[j] == 1) x q[0];``; bare ``if (c[j])``
+    means ``== 1``; a whole 1-bit register may be named without an index).
+    The compile-time classical subset (``input``/``const``/``for``, see
+    ``parse_qasm``) expands here too.
+    The reference parses-and-ignores measurement (its sampling loop is
+    disabled, quantum_simulator.c:68-73) — here it drives trajectories.
+    """
+    from ..dynamic import DynamicCircuit
+
+    text = _COMMENT.sub("", text)
+    text = _expand_classical(text, inputs)
+    text, defs = _extract_gate_defs(text)
+    text = _normalize_indices(_expand_for_loops(text))
+    dc: Optional[DynamicCircuit] = None
+    reg_name: Optional[str] = None
+    creg_name: Optional[str] = None
+    creg_size = 0
+
+    def _gate_into(target_items, stmt, cond=None):
+        tmp = Circuit(dc.num_qubits)
+        _emit_gate_stmt(tmp, stmt, reg_name, defs)
+        if cond is not None:
+            from ..dynamic import CondGate
+
+            clbit, value = cond
+            for g in tmp.gates:
+                target_items.append(CondGate(g, clbit, value))
+        else:
+            target_items.extend(tmp.gates)
+
+    for raw in _TOKEN_SPLIT.split(text):
+        stmt = raw.strip()
+        if not stmt:
+            continue
+        if stmt.startswith(("OPENQASM", "include", "barrier")):
+            continue
+
+        m = _CDECL.match(stmt)
+        if m:
+            n = m.group(1) or m.group(3)
+            if n is None:
+                raise QasmError(f"classical declaration without a size: {stmt!r}")
+            if creg_name is not None:
+                raise QasmError("multiple classical registers are not supported")
+            creg_name = m.group(2)
+            creg_size = int(n)
+            if dc is not None:
+                dc.num_clbits = creg_size
+            continue
+
+        m = _DECL.match(stmt)
+        if m and not stmt.startswith(("measure", "reset", "if")):
+            n = m.group(1) or m.group(3)
+            if n is None:
+                raise QasmError(f"register declaration without a size: {stmt!r}")
+            if dc is not None:
+                raise QasmError("multiple quantum registers are not supported")
+            dc = DynamicCircuit(int(n), num_clbits=creg_size)
+            reg_name = m.group(2)
+            continue
+
+        if dc is None:
+            raise QasmError(f"statement before qubit register declaration: {stmt!r}")
+
+        m = _MEASURE2.match(stmt) or _MEASURE3.match(stmt)
+        if m:
+            g = m.groups()
+            if stmt.startswith("measure"):
+                qreg, q, creg, c = g
+            else:
+                creg, c, qreg, q = g
+            if qreg != reg_name or (creg_name and creg != creg_name):
+                raise QasmError(f"unknown register in {stmt!r}")
+            dc.measure(int(q), int(c))
+            continue
+
+        m = _RESET.match(stmt)
+        if m:
+            if m.group(1) != reg_name:
+                raise QasmError(f"unknown register in {stmt!r}")
+            dc.reset(int(m.group(2)))
+            continue
+
+        m = _MEASURE2_ALL.match(stmt) or _MEASURE3_ALL.match(stmt)
+        if m:
+            g = m.groups()
+            qreg, creg = g if stmt.startswith("measure") else (g[1], g[0])
+            if qreg != reg_name or (creg_name and creg != creg_name):
+                raise QasmError(f"unknown register in {stmt!r}")
+            if creg_size < dc.num_qubits:
+                raise QasmError(
+                    f"classical register too small for broadcast: {stmt!r}")
+            for q in range(dc.num_qubits):
+                dc.measure(q, q)
+            continue
+
+        m = _RESET_ALL.match(stmt)
+        if m:
+            if m.group(1) != reg_name:
+                raise QasmError(f"unknown register in {stmt!r}")
+            for q in range(dc.num_qubits):
+                dc.reset(q)
+            continue
+
+        m = _IF.match(stmt)
+        if m:
+            cname, cidx, val, body = m.groups()
+            if creg_name and cname != creg_name:
+                raise QasmError(f"unknown classical register in {stmt!r}")
+            if cidx is None:
+                if creg_size != 1:
+                    raise QasmError(
+                        f"whole-register condition needs a 1-bit register: {stmt!r}")
+                cidx = 0
+            _gate_into(dc.items, body.strip(),
+                       cond=(int(cidx), int(val) if val is not None else 1))
+            continue
+
+        _gate_into(dc.items, stmt)
+
+    if dc is None:
+        raise QasmError("no qubit register declaration found")
+    return dc
 
 
 def parse_qasm_dynamic_file(path: str, inputs=None):
-    """The file form of ``parse_qasm_dynamic``; raises likewise."""
-    raise NotImplementedError(_DYNAMIC)
+    with open(path, "r", encoding="utf-8") as f:
+        return parse_qasm_dynamic(f.read(), inputs=inputs)

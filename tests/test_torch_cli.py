@@ -179,13 +179,22 @@ def test_inplace_route_with_halves_checkpoints(files, tmp_path):
 
 @pytest.mark.parametrize("case", [
     "parse_error", "noise_without_m", "noise_with_amplitudes",
+    "noise_with_expectation", "noise_with_save_state",
+    "noise_with_load_state", "readout_noise_without_m",
     "bad_pauli", "marginal_out_of_range", "entropy_cut_out_of_range"])
 def test_error_paths_match_jax(files, case):
     f = files["ghz"]
+    noisy = [f, "-m", "5", "--noise-p2", "0.1"]
     args = {"parse_error": [os.path.join(files["dir"], "missing.qasm")],
             "noise_without_m": [f, "--noise-p1", "0.1"],
             "noise_with_amplitudes": [f, "-m", "5", "--noise-p1", "0.1",
                                       "--amplitudes", "2"],
+            "noise_with_expectation": [*noisy, "--expectation", "Z0"],
+            "noise_with_save_state": [*noisy, "--save-state",
+                                      os.path.join(files["dir"], "s.npz")],
+            "noise_with_load_state": [*noisy, "--load-state",
+                                      os.path.join(files["dir"], "s.npz")],
+            "readout_noise_without_m": [f, "--noise-readout", "0.1"],
             "bad_pauli": [f, "--expectation", "QQ"],
             "marginal_out_of_range": [f, "--marginal", "7"],
             "entropy_cut_out_of_range": [f, "--entropy-cut", "6"]}[case]
@@ -195,13 +204,15 @@ def test_error_paths_match_jax(files, case):
 
 
 def test_port_only_errors(files, monkeypatch):
-    """What the port refuses that the JAX package runs: noise (dynamic.py),
-    complex128 and the "default" rung, each an ERROR line and exit 1; and
-    the card asked for on a host without one."""
+    """What the port refuses that the JAX package runs: complex128 (the
+    noise route included) and the "default" rung, each an ERROR line and
+    exit 1; and the card asked for on a host without one, by either
+    route."""
     import torch
 
     for args, what in (
-            (["-m", "5", "--noise-p1", "0.1"], "Workloads on the state"),
+            (["-m", "5", "--noise-p1", "0.1", "--dtype", "complex128"],
+             "complex128"),
             (["--dtype", "complex128"], "complex128"),
             (["--precision", "default"], "'default'")):
         # n = 10: the megakernel arm of n <= 7 ignores the rung
@@ -212,6 +223,75 @@ def test_port_only_errors(files, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, out, err = _call(port_main, [files["ghz"], "--device", "cuda"])
     assert rc == 1 and out == "" and "cuda" in err
+    rc, out, err = _call(port_main, [files["ghz"], "--device", "cuda",
+                                     "-m", "5", "--noise-p1", "0.1"])
+    assert rc == 1 and out == "" and err.startswith("ERROR: ") \
+        and "cuda" in err
+
+
+NOISE_SHOTS = 2048
+
+
+def _noise_counts(lines, n):
+    meas = [l for l in lines if l.startswith("MEASUREMENT:")]
+    for m in meas:
+        bits, idx = m.split()[1], int(m.split()[2].strip("()"))
+        assert len(bits) == n and int(bits, 2) == idx
+    return np.bincount([int(m.split()[2].strip("()")) for m in meas],
+                       minlength=1 << n) / max(len(meas), 1)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--noise-p1", "0.05", "--noise-p2", "0.1"),
+    ("--noise-p1", "0.05", "--noise-p2", "0.1", "--json"),
+    ("--noise-p2", "0.2", "--noise-correlated", "--json"),
+    ("--noise-kind", "dephasing", "--noise-p1", "0.3", "--seed", "4"),
+    ("--noise-p1", "0.02", "--noise-readout", "0.05", "--json"),
+], ids=lambda f: "_".join(x.strip("-") for x in f))
+def test_noise_route_matches_jax(files, flags):
+    """Every line but the seconds and the counts equal; the counts held to
+    the JAX package's within 6 standard errors of the difference (the two
+    packages draw different trajectories from one seed)."""
+    args = [files["ghz"], "-m", str(NOISE_SHOTS), *flags, "--device", "cpu"]
+    port, jax = _call(port_main, args), _call(jax_main, args)
+    assert port[0] == jax[0] == 0 and port[2] == jax[2] == ""
+    p_lines, j_lines = port[1].splitlines(), jax[1].splitlines()
+    assert len(p_lines) == len(j_lines) == NOISE_SHOTS + 1
+    if "--json" in flags:
+        p_rec, j_rec = json.loads(p_lines[0]), json.loads(j_lines[0])
+        assert p_rec.pop("seconds") >= 0
+        j_rec.pop("seconds")
+        assert p_rec == j_rec
+    else:
+        assert float(p_lines[0]) >= 0 and float(j_lines[0]) >= 0
+    got, want = _noise_counts(p_lines, 6), _noise_counts(j_lines, 6)
+    sigma = np.sqrt(np.maximum(want * (1 - want), 1.0 / NOISE_SHOTS)
+                    / NOISE_SHOTS)
+    assert np.all(np.abs(got - want) < 6 * np.sqrt(2) * sigma)
+
+
+def test_noise_route_counts_match_density(files):
+    """The noisy counts against the exact distribution: the density
+    matrix of the same per-gate depolarizing model, within 4 standard
+    errors."""
+    from gpu_quantum_simulator_tpu_torch import density as TD
+    from gpu_quantum_simulator_tpu_torch import dynamic as TY
+
+    rc, out, _ = _call(port_main, [files["ghz"], "-m", str(NOISE_SHOTS),
+                                   "--noise-p1", "0.05", "--noise-p2", "0.1",
+                                   "--seed", "2", "--device", "cpu"])
+    assert rc == 0
+    got = _noise_counts(out.splitlines(), 6)
+    nc = TD.NoisyCircuit(6)
+    for item in TY.with_noise(TM.ghz(6), p1=0.05, p2=0.1).items:
+        if isinstance(item, TY.Noise):
+            nc.channel("depolarizing", item.qubit, p=item.p)
+        else:
+            nc.items.append(item)
+    exact = TD.DensitySimulator(device="cpu").run(nc).probabilities()
+    sigma = np.sqrt(np.maximum(exact * (1 - exact), 1.0 / NOISE_SHOTS)
+                    / NOISE_SHOTS)
+    assert np.all(np.abs(got - exact) < 4 * sigma)
 
 
 def test_trace_writes_a_chrome_trace(files, tmp_path):

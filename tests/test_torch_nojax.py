@@ -69,6 +69,26 @@ with tempfile.TemporaryDirectory() as d:
                      "--amplitudes", "2", "--save-state",
                      os.path.join(d, "s.npz")]) == 0
     assert float(out.getvalue().splitlines()[0]) >= 0
+g, _ = T.adjoint_gradient(T.models.random_circuit(5, 30, seed=2),
+                          z_qubits=[0, 1], device="cpu")
+assert g.shape[0] > 0 and np.all(np.isfinite(g))
+dc = T.DynamicCircuit(3, num_clbits=1).h(0).cx(0, 1).measure(1, 0)
+res = T.run_dynamic_batched(dc, shots=16, seed=1, device="cpu")
+assert len(res) == 16 and {r.clbits for r in res} <= {(0,), (1,)}
+nc = T.NoisyCircuit(5).h(0).cx(0, 1).channel("dephasing", 1, p=0.5)
+rho = T.DensitySimulator(device="cpu").run(nc)
+assert abs(rho.probabilities().sum() - 1) < 1e-5
+bases, outs = T.shadow_snapshots(T.models.ghz(4), 64, seed=1, device="cpu")
+assert bases.shape == (64, 4) and outs.shape == (64,)
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "g.qasm")
+    with open(path, "w") as f:
+        f.write(T.models.ghz(4).to_qasm())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main([path, "--device", "cpu", "-m", "8", "--noise-p1",
+                     "0.05", "--noise-readout", "0.01"]) == 0
+    assert len(out.getvalue().splitlines()) == 9
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "gpu_quantum_simulator_tpu"))]
 print("LOADED", loaded)
@@ -107,5 +127,7 @@ def test_no_source_imports_jax_or_the_jax_package():
             "ir/decompose.py", "engine/graphs.py",
             "models/circuits.py", "qasm/parser.py", "utils/checkpoint.py",
             "passes/fuse2x2.py", "engine/naive.py", "engine/scan.py",
-            "__main__.py"} <= rel, rel
+            "__main__.py", "gradients.py", "dynamic.py", "density.py",
+            "mitigation.py", "shadows.py", "mps.py", "ref/stabilizer.py",
+            "interop.py"} <= rel, rel
     assert len(files) > 15 and not bad, bad

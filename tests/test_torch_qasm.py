@@ -183,9 +183,80 @@ def test_sample_native_equals_the_jax_build(seed):
     assert got.dtype == np.int64 and got.min() >= 0 and got.max() < 256
 
 
+def _dyn_items(dc):
+    out = []
+    for i in dc.items:
+        kind = type(i).__name__
+        if kind == "Gate":
+            out.append((kind, i.name, i.qubits, tuple(i.params)))
+        elif kind == "CondGate":
+            out.append((kind, i.gate.name, i.gate.qubits,
+                        tuple(i.gate.params), i.clbit, i.value))
+        else:
+            out.append((kind,) + tuple(vars(i).values()))
+    return dc.num_qubits, dc.num_clbits, out
+
+
+DYNAMIC_CORPUS = {
+    "qasm3": ("OPENQASM 3.0; qubit[1] q; bit[1] c; "
+              "c[0] = measure q[0];"),
+    "teleport": (
+        'OPENQASM 3.0;\ninclude "stdgates.inc";\nqubit[3] q;\nbit[2] c;\n'
+        "rz(1.234) q[0]; sx q[0]; h q[1]; cx q[1], q[2]; cx q[0], q[1];\n"
+        "h q[0]; c[0] = measure q[0]; c[1] = measure q[1];\n"
+        "if (c[1] == 1) x q[2];\nif (c[0]) z q[2];\nreset q[0];\n"),
+    "qasm2": ("OPENQASM 2.0;\nqreg q[2];\ncreg c[2];\nh q[0];\n"
+              "measure q[0] -> c[0];\nif (c[0] == 0) rx(pi/3) q[1];\n"
+              "measure q -> c;\nreset q;\n"),
+    "one_bit_register": ("OPENQASM 3.0; qubit[2] q; bit[1] c; h q[0];\n"
+                         "c[0] = measure q[0]; if (c == 1) cz q[0], q[1];\n"
+                         "c[0] = measure q[1];"),
+    "gate_def_and_loop": (
+        "OPENQASM 3.0; qubit[3] q; bit[3] c;\n"
+        "gate bell a, b { h a; cx a, b; }\n"
+        "for int i in [0:1] { bell q[i], q[i+1]; }\n"
+        "c = measure q;"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DYNAMIC_CORPUS))
+def test_dynamic_parse_matches_jax(name):
+    text = DYNAMIC_CORPUS[name]
+    got = TP.parse_qasm_dynamic(text)
+    assert type(got).__module__ == "gpu_quantum_simulator_tpu_torch.dynamic"
+    assert _dyn_items(got) == _dyn_items(JP.parse_qasm_dynamic(text))
+
+
+@pytest.mark.parametrize("text", [
+    "OPENQASM 3.0; bit[1] c; h q[0];",
+    "OPENQASM 3.0; qubit[1] q; bit c; h q[0];",
+    "OPENQASM 3.0; qubit[1] q; bit[1] c; bit[1] d;",
+    "OPENQASM 3.0; qubit[2] q; bit[1] c; c = measure q;",
+    "OPENQASM 3.0; qubit[1] q; bit[2] c; if (c == 1) x q[0];",
+    "OPENQASM 3.0; qubit[1] q; bit[1] c; if (d[0] == 1) x q[0];",
+    "OPENQASM 3.0; qubit[1] q; bit[1] c; c[0] = measure r[0];",
+    "OPENQASM 3.0; qubit[1] q; bit[1] c; reset r[0];",
+    "OPENQASM 3.0; qubit[1] q; qubit[1] r;",
+    "OPENQASM 3.0; bit[1] c;",
+])
+def test_dynamic_parse_errors_match_jax(text):
+    with pytest.raises(TP.QasmError) as got:
+        TP.parse_qasm_dynamic(text)
+    with pytest.raises(JP.QasmError) as want:
+        JP.parse_qasm_dynamic(text)
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("fn", ["parse_qasm_dynamic", "parse_qasm_dynamic_file"])
-def test_dynamic_parse_names_its_roadmap_item(fn):
-    with pytest.raises(NotImplementedError,
-                       match="Workloads on the state.*dynamic.py"):
-        getattr(TP, fn)("OPENQASM 3.0; qubit[1] q; bit[1] c; "
-                        "c[0] = measure q[0];")
+def test_dynamic_parse_names_its_roadmap_item(fn, tmp_path):
+    """Both dynamic entry points are ported: no NotImplementedError names
+    a ROADMAP item any more, and each returns the JAX package's items."""
+    text = ("OPENQASM 3.0; qubit[1] q; bit[1] c; "
+            "c[0] = measure q[0];")
+    arg = text
+    if fn == "parse_qasm_dynamic_file":
+        arg = str(tmp_path / "m.qasm")
+        with open(arg, "w") as f:
+            f.write(text)
+    got = getattr(TP, fn)(arg)
+    assert _dyn_items(got) == _dyn_items(getattr(JP, fn)(arg))
