@@ -181,6 +181,26 @@ failure raises and the script exits non-zero:
    place at 2n=30 (P(0..0), P(1..1) within 1e-5 of 1/2, trace within
    1e-5).  Shadows: 4000 snapshots of GHZ-20, <Z0 Z1> within 5 standard
    errors of 1.
+10. the "default" rung (one bf16 pass) and complex128.  The four
+   "default" kernels, each the second instantiation of its "high" body
+   (SASS checked in phase 2): the mat step flat at n=24 and 28 and in
+   place at n=24 (bit for bit the flat step) against its plain version
+   (<= 1e-6 of the output's largest |value|), timed in place at n=30 too;
+   the chain at n=24, P = 1 against its plain version and bit for bit the
+   D = 128 mm step, P = 8 bit for bit eight P = 1 launches; the mm step
+   at n=24, D = 512 and 256; each "default" arm bit for bit its "high"
+   arm on bf16-exact state and tables, each timed beside the "high" arm,
+   the plain version, one bf16 ``torch.mm`` of the real form and its
+   bound.  The mat step's drift over 200 steps at n=24, six seeds, under
+   phase 3's bars (the excess summed step by step: the two chains part at
+   one pass).  Through the Simulator at "default", launches against the
+   plans: prefetch flat n=18 against the f64 reference (in (1e-6, 1e-3]),
+   n=24 against phase 4's "highest" state, in place at n=30 (norm, peak
+   memory); mxu at n=24 (mm steps) and the low-only circuit (chains of
+   8), within the Karatsuba bar scaled with the peak.  complex128 on mxu
+   and the megakernel at n=20 (within 1e-9 of the f64 reference) and 24
+   (within 1e-9 of each other), timed, with peak memory and no kernel
+   launch.
 
 Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
 steps at n=24 on a normalised random state over eight random unitary
@@ -516,15 +536,16 @@ def sass_kloop(part):
 
 
 def check_high_sass():
-    """The "high" kernels that run on wgmma: the two mat-step kernels
-    (flat and in place) hold HGMMA and none of their previous design's
-    tf32 mma.sync k4 (HMMA.1684.F32.TF32); every instantiation of the mxu
-    mm step (mm_high_kernel, one per D) and the chain kernel's "high" arm
-    (chain_high_kernel) hold HGMMA and no mma.sync HMMA at all (their
+    """The bf16 kernels that run on wgmma, each at both of its rungs (the
+    "high" and "default" instantiations of one body): the two mat-step
+    kernels (flat and in place) hold HGMMA and none of their previous
+    design's tf32 mma.sync k4 (HMMA.1684.F32.TF32); every instantiation of
+    the mxu mm step (mm_high_kernel, one per D) and the chain kernel's bf16
+    arm (chain_high_kernel) hold HGMMA and no mma.sync HMMA at all (their
     previous designs' bf16 m16n8k16 and tf32 k4 passes).  For the chain
     and the D = 128 mm step, which share their k-chunk body, it prints
-    the k-loop's instruction mix: the chain splits its rows once per
-    product, outside the loop."""
+    the k-loop's instruction mix at each rung: the chain splits its rows
+    once per product, outside the loop."""
     import re
 
     from gpu_quantum_simulator_tpu_torch.kernels import build
@@ -534,16 +555,19 @@ def check_high_sass():
         name = part.split("\n", 1)[0]
         m = re.search(r"\d(mat_high_kernel|mat_high_halves_kernel|"
                       r"mm_high_kernel|chain_high_kernel)"
-                      r"([EI]\w*?Li(\d+)E)?", name)
+                      r"I(?:Li(\d+)E)?Lb([01])E", name)
         if m:
-            key = m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "")
+            rung = "high" if m.group(3) == "1" else "default"
+            key = (m.group(1) + "<" + (f"{m.group(2)}, " if m.group(2)
+                                       else "") + rung + ">")
             counts[key] = (part.count("HGMMA"),
                            part.count("HMMA.1684.F32.TF32"),
                            len(re.findall(r"\bHMMA\.", part)))
             loops[key] = sass_kloop(part)
-    want = ["mat_high_kernel", "mat_high_halves_kernel",
-            "chain_high_kernel"] + [
-        f"mm_high_kernel<{d}>" for d in (128, 256, 512)]
+    want = [k for rung in ("high", "default") for k in (
+        [f"mat_high_kernel<{rung}>", f"mat_high_halves_kernel<{rung}>",
+         f"chain_high_kernel<{rung}>"]
+        + [f"mm_high_kernel<{d}, {rung}>" for d in (128, 256, 512)])]
     for kernel in want:
         hgmma, tf32, hmma = counts.get(kernel, (0, 0, 0))
         print(f"sass {kernel}: {hgmma} HGMMA, {tf32} HMMA.1684.F32.TF32, "
@@ -552,7 +576,9 @@ def check_high_sass():
         if kernel not in counts or hgmma == 0 or old != 0:
             raise AssertionError(f"{kernel}: not the wgmma kernel "
                                  f"({hgmma} HGMMA, {hmma} HMMA)")
-    for kernel in ("chain_high_kernel", "mm_high_kernel<128>"):
+    for kernel in ("chain_high_kernel<high>", "mm_high_kernel<128, high>",
+                   "chain_high_kernel<default>",
+                   "mm_high_kernel<128, default>"):
         if loops.get(kernel):
             n, hg, f2fp, fadd, lds = loops[kernel]
             print(f"sass {kernel} k-loop: {n} instructions a k-chunk and "
@@ -890,17 +916,21 @@ def drift_seed(what, seed, drift, n0, steps):
     return k, p
 
 
-def drift_verdict(what, last, barred=True):
+def drift_verdict(what, last, barred=True, own=None):
     """Over the seeds: the largest kernel |1 - norm| against DRIFT_RATIO x
     the largest plain one, and every seed's kernel drift within
-    DRIFT_EXCESS of the plain one's; raises when ``barred`` and either
-    fails."""
+    DRIFT_EXCESS of the plain one's (``own``: per seed, the kernel's drift
+    beyond the plain version's summed step by step on the kernel's chain,
+    in place of the two chains' difference); raises when ``barred`` and
+    either fails."""
     worst_k = max(abs(k) for k, _ in last.values())
     worst_p = max(abs(p) for _, p in last.values())
-    excess = max(abs(k - p) for k, p in last.values())
+    excess = max(abs(x) for x in (own.values() if own else
+                                  (k - p for k, p in last.values())))
     print(f"{what} over seeds {list(last)}: largest |1 - norm| kernel "
           f"{worst_k:.4e}, plain {worst_p:.4e} (ratio {worst_k / worst_p:.3f}"
-          f", bar {DRIFT_RATIO}); largest |kernel - plain| {excess:.4e} (bar "
+          f", bar {DRIFT_RATIO}); largest |kernel - plain| "
+          f"{'step by step ' if own else ''}{excess:.4e} (bar "
           f"{DRIFT_EXCESS}){'' if barred else ' -- not barred'}; per-seed "
           f"ratios " + json.dumps(
               {s: round(abs(k / p), 3) for s, (k, p) in last.items()}))
@@ -911,15 +941,24 @@ def drift_verdict(what, last, barred=True):
                              f"plain {excess} against {DRIFT_EXCESS}")
 
 
-def check_high_drift(torch):
-    """200 chained "high" mat steps at n=24 on a normalised random state,
+def check_high_drift(torch, precision="high"):
+    """200 chained "high" (or ``precision``) mat steps at n=24 on a
+    normalised random state,
     the tables eight random 256 x 256 unitaries taken in turn (a block
     entry's eight slots): the norm's drift after every step, kernel and
     plain version each on its own chain, for every seed of DRIFT_SEEDS (a
     state and tables each).  A unitary keeps the norm; what remains is the
     rung's rounding, and in the kernel the tensor core's truncating adds
     (csrc/wgmma_high.cuh).  Its draws have seeds of their own, so the phases after
-    it draw as they did without it."""
+    it draw as they did without it.
+
+    At "default" the two chains part: one bf16 pass is discontinuous, an
+    ulp of difference in a step's input moves a value's rounding by 2^-9,
+    and after a few steps the chains' norms drift apart by tens of 1e-6
+    (3.4e-5 on an H100) while each drifts ~1.6e-3.  So there the kernel's
+    drift beyond the plain version is summed step by step, each kernel
+    step against the plain step on the same input (the kernel's chain);
+    the ratio bar still compares the two chains."""
     from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
     from gpu_quantum_simulator_tpu_torch.kernels.block import (
         run_block, run_block_plain, split_tables)
@@ -932,7 +971,8 @@ def check_high_drift(torch):
     def row(j):           # one mat step on slot j
         return [1, 0, 0, 0] + [0] * cap + [j] + [0] * (cap - 1)
 
-    last = {}
+    last, own = {}, {}
+    stepwise = precision == "default"
     for seed in DRIFT_SEEDS:
         rng = np.random.default_rng(seed)
         gen = torch.Generator(device="cuda")
@@ -949,21 +989,33 @@ def check_high_drift(torch):
         spare = (torch.empty_like(kern[0]), torch.empty_like(kern[1]))
         plain = start
         drift = {"kernel": [], "plain": []}
+        own[seed] = 0.0
         for step in range(DRIFT_STEPS):
             j = step % DRIFT_SLOTS
+            if stepwise:
+                same_in = norm2(run_block_plain(
+                    row(j), *kern, a_tab, b_tab, mono, logt, cap,
+                    precision=precision))
             out = run_block(row(j), *kern, a_tab, b_tab, mono, logt, cap,
-                            scratch=spare, precision="high",
+                            scratch=spare, precision=precision,
                             high_tables=high)
             spare, kern = kern, out
+            if stepwise:
+                own[seed] += (norm2(kern) - same_in) / n0
             plain = run_block_plain(row(j), *plain, a_tab, b_tab, mono, logt,
-                                    cap, precision="high")
+                                    cap, precision=precision)
             drift["kernel"].append(norm2(kern) / n0 - 1.0)
             drift["plain"].append(norm2(plain) / n0 - 1.0)
-        last[seed] = drift_seed(f"high drift n={n}", seed, drift, n0,
+        last[seed] = drift_seed(f"{precision} drift n={n}", seed, drift, n0,
                                 f"steps 1..{DRIFT_STEPS}")
+        if stepwise:
+            print(f"{precision} drift n={n} seed {seed}: the kernel's beyond "
+                  f"the plain's, step by step on the kernel's chain "
+                  f"{own[seed]:.4e}")
         del kern, spare, plain, start, out, a_tab, b_tab, high
         torch.cuda.empty_cache()
-    drift_verdict(f"high drift n={n}, {DRIFT_STEPS} steps", last)
+    drift_verdict(f"{precision} drift n={n}, {DRIFT_STEPS} steps", last,
+                  own=own if stepwise else None)
 
 
 def check_chain_drift(torch):
@@ -1414,8 +1466,10 @@ def launch_counts():
             "relayout": relayout.run_relayout.launches,
             "kh0": wide.kh0_chain.launches["highest"],
             "kh0_high": wide.kh0_chain.launches["high"],
+            "kh0_default": wide.kh0_chain.launches["default"],
             "block128": wide.apply_block128.launches,
             "mm_high": wide.mm_step_high.launches,
+            "mm_default": wide.mm_step_default.launches,
             "vmem": vmem.vmem_chunk.launches,
             **{f"split_{k}": v
                for k, v in split.run_split_block.launches.items()},
@@ -1464,12 +1518,13 @@ def report(n, res, secs, counts, extra):
         raise AssertionError(f"n={n}: state is not finite of shape 2^n")
 
 
-def check_counts(n, counts, modes, runs, high):
+def check_counts(n, counts, modes, runs, high, default=False):
     """Launch counts of ``runs`` runs of one program against its plan;
-    ``high``: the run was at the "high" rung."""
+    ``high`` / ``default``: the run was at the "high" / "default" rung."""
     from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
 
-    block = counts["mat"] + counts["mat_high"] + counts["gather"] + counts["folded"]
+    block = (counts["mat"] + counts["mat_high"] + counts["mat_default"]
+             + counts["gather"] + counts["folded"])
     fold = PF.resolve_stream_relayout(n)
     if block <= 0:
         raise AssertionError(f"n={n}: the block kernel never launched")
@@ -1485,6 +1540,9 @@ def check_counts(n, counts, modes, runs, high):
     if high != (counts["mat_high"] > 0):
         raise AssertionError(f"n={n}: 'high' mat launches "
                              f"{counts['mat_high']} at high={high}")
+    if default != (counts["mat_default"] > 0):
+        raise AssertionError(f"n={n}: 'default' mat launches "
+                             f"{counts['mat_default']} at default={default}")
 
 
 def run_prefetch_path(torch, T, refs, add):
@@ -2282,13 +2340,15 @@ def check_inplace_relayout(torch):
     return rec
 
 
-FLAT_KINDS = ("mat", "mat_high", "gather", "folded", "relayout", "kh0",
-              "kh0_high", "block128", "vmem", "mm_high")
+FLAT_KINDS = ("mat", "mat_high", "mat_default", "gather", "folded",
+              "relayout", "kh0", "kh0_high", "kh0_default", "block128",
+              "vmem", "mm_high", "mm_default")
 
 
-def check_inplace_counts(n, counts, modes, runs, high):
+def check_inplace_counts(n, counts, modes, runs, high, default=False):
     """Launches of ``runs`` in-place runs by kind against the plan's scal
-    rows by mode; no flat kernel launched."""
+    rows by mode; no flat kernel launched; the mat launches of the run's
+    rung only ("high" or "default" when set, else "highest")."""
     flat = {k: counts[k] for k in FLAT_KINDS if counts[k]}
     if flat:
         raise AssertionError(f"n={n} in place: flat kernels launched {flat}")
@@ -2300,10 +2360,13 @@ def check_inplace_counts(n, counts, modes, runs, high):
                 f"{modes.get(mode, 0)} mode-{mode} rows x {runs} runs")
     # a pair-mode first launch may be the block's only mat step, so the
     # rung shows in the plain mat launches of either kind
-    if counts["split_mat_high" if not high else "split_mat"]:
+    rung = "split_mat_default" if default else (
+        "split_mat_high" if high else "split_mat")
+    if any(counts[k] for k in ("split_mat", "split_mat_high",
+                               "split_mat_default") if k != rung):
         raise AssertionError(f"n={n} in place: mat launches {counts} at "
-                             f"high={high}")
-    if not counts["split_mat_high" if high else "split_mat"] > 0:
+                             f"high={high}, default={default}")
+    if not counts[rung] > 0:
         raise AssertionError(f"n={n} in place: no mat launch ({counts})")
 
 
@@ -4081,12 +4144,515 @@ def run_workloads(torch, T, add):
     print(f"workloads: phase 9 in {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------- phase 10: the "default" rung and complex128
+DEFAULT_TOL = 1e-6          # a "default" kernel against its plain version,
+                            # of the output's largest |value|: the same exact
+                            # one-pass products, fp32 sums in another order
+DEFAULT_MAT_WIDTHS = ((24, 20), (28, 3))    # (n, timing reps), kernel 3'
+DEFAULT_SPLIT_WIDTHS = ((24, 10), (30, 3))  # (n, timing reps), kernel 5
+DEFAULT_REF_WIDTH = 18      # grover_like(18, 2445, 318) at "default" vs f64
+DEFAULT_BAR = 1e-3          # its error bar against f64 (the JAX package
+                            # measured 2.7e-4 there on a TPU,
+                            # docs/PERFORMANCE.md), and RUNG_FLOOR below it
+RUNG_FLOOR = 1e-6           # shows that the rounding ran
+KARATSUBA_BAR = 2e-3        # mxu's one Karatsuba pass, per unit of peak
+                            # |amplitude| / HIGH_BAR_PEAK
+                            # (tests/test_torch_default.py)
+DEFAULT_FLAT = 24           # "default" through prefetch flat (and mxu)
+C128_WIDTHS = (20, 24)      # complex128 mxu and megakernel, timed; n=20
+                            # held to the f64 reference
+C128_TOL = 1e-9             # tests/test_engines.py:69-74
+MAT_DEFAULT_SRC = HIGH_SRC + " (mat_high_kernel<false>)"
+SPLIT_DEFAULT_SRC = SPLIT_SRC + " (mat_high_halves_kernel<false>)"
+CHAIN_DEFAULT_SRC = WIDE_SRC + " (chain_high_kernel<false>)"
+MM_DEFAULT_SRC = MM_SRC + " (mm_high_kernel<D, false>)"
+
+
+def exact_values(torch, gen, shape, top, scale):
+    """bf16-exact float32 values on the card: integers in [-top, top]
+    times ``scale`` (a sum of two states' values, top <= 64, stays
+    bf16-exact)."""
+    return torch.randint(-top, top + 1, shape, generator=gen,
+                         device="cuda").float() * scale
+
+
+def rel_diff(got, want):
+    return max_diff(got, want) / max(float(w.abs().max()) for w in want)
+
+
+def same(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def one_pass_library(torch, xr, xi, mr, mi):
+    """One PyTorch call computing a "default" complex product, the
+    yardstick of its kernel: ``torch.mm`` of bf16 [xr | xi] and the bf16
+    real form [[mr, mi], [-mi, mr]] of the matrix, fp32 sums and output
+    (operands built here, outside the timed call).  Returns the timed
+    callable and its (re, im) result."""
+    x = torch.cat([xr, xi], 1).to(torch.bfloat16)
+    w = torch.cat([torch.cat([mr, mi], 1), torch.cat([-mi, mr], 1)],
+                  0).to(torch.bfloat16)
+    cols = mr.shape[1]
+
+    def call():
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    out = call()
+    return call, (out[:, :cols], out[:, cols:])
+
+
+def check_default_mat(torch):
+    """Kernels 3' and 5 at "default" (the "high" body's second
+    instantiation): against the plain version at n=24 and 28 flat, 24 in
+    place (and bit for bit the flat step there), bit for bit the "high"
+    arm on bf16-exact state and tables, each timed beside the "high" arm,
+    the plain version, one bf16 torch.mm and the bound; in place also at
+    n=30.  Draws come from seeds of their own."""
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels.block import (
+        run_block, run_block_plain, split_tables)
+    from gpu_quantum_simulator_tpu_torch.kernels.split import (
+        run_split_block, run_split_block_plain, split_halves)
+
+    rng = np.random.default_rng(1010)
+    gen = torch.Generator(device="cuda").manual_seed(1010)
+    blk = PF._Block(kinds=[0], midx=[0],
+                    mats=[(random_unitary(rng, 128), tuple(range(7)), None)])
+    scal, a_tab, b_tab, mono_src = device_tables(torch, PF, [blk], 2)
+    w = split_tables(a_tab, b_tab)
+    ea, eb = (exact_values(torch, gen, a_tab[0].shape, 16, 2.0 ** -6)
+              for _ in range(2))
+    ew = split_tables(ea, eb)
+    recs = {}
+
+    def args(n, exact=False):
+        logt = int(np.log2(PF.tile_rows(n)))
+        return ((ea, eb) if exact else (a_tab[0], b_tab[0])) + (
+            mono_src[0], logt, PF.CAP_STEPS)
+
+    for n, reps in DEFAULT_MAT_WIDTHS:
+        R2 = 1 << (n - PF.LOCAL_QUBITS)
+        re, im = (torch.randn(R2, 256, device="cuda", generator=gen) / 16
+                  for _ in range(2))
+        scratch = (torch.empty_like(re), torch.empty_like(im))
+        got = run_block(scal[0], re.clone(), im.clone(), *args(n),
+                        scratch=scratch, precision="default",
+                        high_tables=w[0])
+        want = run_block_plain(scal[0], re, im, *args(n), precision="default")
+        lib_call, lib = one_pass_library(torch, re, im, a_tab[0, 0],
+                                         b_tab[0, 0])
+        torch.cuda.synchronize()
+        e, e_lib = rel_diff(got, want), rel_diff(lib, want)
+        if not e <= DEFAULT_TOL:
+            raise AssertionError(f"default mat step n={n}: {e} > "
+                                 f"{DEFAULT_TOL}")
+        del got, want, lib
+        timed = {rung: device_ms(torch, lambda rung=rung: run_block(
+            scal[0], re, im, *args(n), scratch=scratch, precision=rung,
+            high_tables=w[0]), reps=reps) for rung in ("default", "high")}
+        plain_ms = device_ms(torch, lambda: run_block_plain(
+            scal[0], re, im, *args(n), precision="default"), reps=3)
+        library_ms = device_ms(torch, lib_call, reps=reps)
+        flop = 6.0 * R2 * 256 * 256      # three real products, one pass
+        bnd = bound(flop, 16.0 * R2 * 256 + 2 * 256 * 256 * 2, BF16_FLOPS)
+        exact = ""
+        if n == DEFAULT_MAT_WIDTHS[0][0]:
+            xe = [exact_values(torch, gen, (R2, 256), 64, 2.0 ** -7)
+                  for _ in range(2)]
+            d, h = (run_block(scal[0], xe[0].clone(), xe[1].clone(),
+                              *args(n, True), precision=rung,
+                              high_tables=ew)
+                    for rung in ("default", "high"))
+            if not same(torch, d, h):
+                raise AssertionError("default mat step: not the 'high' arm "
+                                     "bit for bit on bf16-exact operands")
+            exact = "; bit for bit the 'high' arm on bf16-exact operands"
+            recs["flat"] = record("mat_step_default", MAT_DEFAULT_SRC,
+                                  STREAM_TPU, e, timed["default"], plain_ms,
+                                  bnd, library_ms)
+            del xe, d, h
+        print(f"default mat step n={n}: max|diff| vs plain {e:.3e} of the "
+              f"largest |value| (one bf16 torch.mm {e_lib:.3e}){exact}; "
+              f"kernel {timed['default']:.4f} ms, 'high' arm "
+              f"{timed['high']:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"(bf16 torch.mm, fp32 out) {library_ms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
+        del re, im, scratch
+        torch.cuda.empty_cache()
+
+    for n, reps in DEFAULT_SPLIT_WIDTHS:
+        R2 = 1 << (n - PF.LOCAL_QUBITS)
+        h4 = tuple(torch.randn(R2, 128, device="cuda", generator=gen) / 16
+                   for _ in range(4))
+        checked = ""
+        if n == DEFAULT_SPLIT_WIDTHS[0][0]:
+            got = run_split_block(scal[0], clone4(h4), *args(n),
+                                  precision="default", high_tables=w[0])
+            want = run_split_block_plain(scal[0], clone4(h4), *args(n),
+                                         precision="default")
+            flat = run_block(scal[0], *joined(torch, h4), *args(n),
+                             precision="default", high_tables=w[0])
+            lib_call, lib = one_pass_library(
+                torch, *joined(torch, h4), a_tab[0, 0], b_tab[0, 0])
+            torch.cuda.synchronize()
+            jw = joined(torch, want)
+            e = rel_diff(joined(torch, got), jw)
+            e_flat = max_diff(joined(torch, got), flat)
+            e_lib = rel_diff(lib, jw)
+            if not (e <= DEFAULT_TOL and e_flat == 0.0):
+                raise AssertionError(f"default split mat step n={n}: {e}, "
+                                     f"vs flat {e_flat}")
+            xe = [exact_values(torch, gen, (R2, 256), 64, 2.0 ** -7)
+                  for _ in range(2)]
+            he = (*split_halves(xe[0]), *split_halves(xe[1]))
+            d, h = (run_split_block(scal[0], clone4(he), *args(n, True),
+                                    precision=rung, high_tables=ew)
+                    for rung in ("default", "high"))
+            if not same(torch, d, h):
+                raise AssertionError("default split mat step: not the "
+                                     "'high' arm bit for bit on bf16-exact "
+                                     "operands")
+            plain_ms = device_ms(torch, lambda: run_split_block_plain(
+                scal[0], h4, *args(n), precision="default"), reps=3)
+            library_ms = device_ms(torch, lib_call, reps=reps)
+            checked = (f"max|diff| vs plain {e:.3e} of the largest |value| "
+                       f"(one bf16 torch.mm {e_lib:.3e}), vs the flat step "
+                       f"{e_flat:.1e}; bit for bit the 'high' arm on "
+                       f"bf16-exact operands; plain {plain_ms:.4f} ms, "
+                       f"library {library_ms:.4f} ms; ")
+            del got, want, flat, lib, jw, xe, he, d, h
+        timed = {rung: device_ms(torch, lambda rung=rung: run_split_block(
+            scal[0], h4, *args(n), precision=rung, high_tables=w[0]),
+            reps=reps, rounds=3 if n == 30 else 5)
+            for rung in ("default", "high")}
+        bnd = bound(6.0 * R2 * 256 * 256,
+                    16.0 * R2 * 256 + 2 * 256 * 256 * 2, BF16_FLOPS)
+        print(f"default split mat step n={n} in place: {checked}kernel "
+              f"{timed['default']:.4f} ms, 'high' arm {timed['high']:.4f} "
+              f"ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if n == DEFAULT_SPLIT_WIDTHS[0][0]:
+            recs["split"] = record("split_mat_step_default",
+                                   SPLIT_DEFAULT_SRC, SPLIT_TPU, e,
+                                   timed["default"], plain_ms, bnd,
+                                   library_ms)
+        del h4
+        torch.cuda.empty_cache()
+    return recs["flat"], recs["split"]
+
+
+def check_default_chain(torch):
+    """Kernel 7 at "default" at n=24: a P = 1 chain against its plain
+    version and bit for bit the D = 128 "default" mm step; a P = 8 chain
+    bit for bit eight P = 1 launches (a product's results become the next
+    product's fragments as a launch reads them back), each of which holds
+    to the plain version on its own input (one bf16 pass is
+    discontinuous: an ulp of a product's input may move its rounding by
+    2^-9, so a chain is held product by product); P = 1 bit for bit the
+    "high" arm on bf16-exact operands; timed at P = 1 and 8 beside the
+    "high" arm."""
+    from gpu_quantum_simulator_tpu_torch.engine.wide import KH0_BATCH
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+
+    n = WIDE_WIDTH
+    R = 1 << (n - 7)
+    rng = np.random.default_rng(1011)
+    gen = torch.Generator(device="cuda").manual_seed(1011)
+    re, im = random_state(torch, gen, (R, 128))
+    us = [random_unitary(rng, 128) for _ in range(KH0_BATCH)]
+    tabs = torch.tensor(np.stack([np.stack([u.real, u.imag]) for u in us]),
+                        dtype=torch.float32, device="cuda")
+    w16 = KW.kh0_high_tables(tabs)
+    one = KW.kh0_chain(re, im, tabs[:1], "default", w16=w16[:1])
+    step = KW.mm_step_default(re, im, w16[0], ())
+    whole = KW.kh0_chain(re, im, tabs, "default", w16=w16)
+    x, err = (re, im), 0.0
+    for j in range(KH0_BATCH):
+        y = KW.kh0_chain(*x, tabs[j : j + 1], "default", w16=w16[j : j + 1])
+        err = max(err, rel_diff(y, KW.kh0_chain_plain(
+            *x, tabs[j : j + 1], "default", w16=w16[j : j + 1])))
+        x = y
+    mr, mi = tabs[0, 0].T.contiguous(), tabs[0, 1].T.contiguous()
+    lib_call, lib = one_pass_library(torch, re, im, mr, mi)
+    se = [exact_values(torch, gen, (R, 128), 64, 2.0 ** -7) for _ in range(2)]
+    te = exact_values(torch, gen, (1, 2, 128, 128), 16, 2.0 ** -6)
+    we = KW.kh0_high_tables(te)
+    ed, eh = (KW.kh0_chain(*se, te, rung, w16=we)
+              for rung in ("default", "high"))
+    torch.cuda.synchronize()
+    e_lib = rel_diff(lib, one)
+    checks = {"P=1 vs the D=128 mm step": same(torch, one, step),
+              "P=8 vs eight P=1 launches": same(torch, whole, x),
+              "'high' arm on bf16-exact operands": same(torch, ed, eh)}
+    print(f"default chain n={n}: each product vs plain max|diff| {err:.3e} "
+          f"of the largest |value| (one bf16 torch.mm {e_lib:.3e}); bit for "
+          f"bit: {checks}")
+    if not (err <= DEFAULT_TOL and all(checks.values())):
+        raise AssertionError(f"default chain: {err}, {checks}")
+    del one, step, whole, x, y, se, te, we, ed, eh, lib
+    rec = None
+    for P in (1, KH0_BATCH):
+        out = (torch.empty_like(re), torch.empty_like(im))
+        timed = {rung: device_ms(torch, lambda rung=rung: KW.kh0_chain(
+            re, im, tabs[:P], rung, out=out, w16=w16[:P]), reps=10)
+            for rung in ("default", "high")}
+        plain_ms = device_ms(torch, lambda: KW.kh0_chain_plain(
+            re, im, tabs[:P], "default", w16=w16[:P]), reps=3)
+        # one call computes one product; a chain of 8 is no one call
+        library_ms = device_ms(torch, lib_call, reps=10) if P == 1 else None
+        flop = 6.0 * R * 128 * 128 * P
+        bnd = bound(flop, 16.0 * R * 128 + P * 3 * 128 * 128 * 2, BF16_FLOPS)
+        print(f"default chain n={n} P={P}: kernel {timed['default']:.4f} ms "
+              f"({flop / timed['default'] / 1e9:.1f} bf16 TFLOP/s), 'high' "
+              f"arm {timed['high']:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library " + ("none" if library_ms is None else
+                             f"{library_ms:.4f} ms")
+              + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if P == KH0_BATCH:
+            rec = record("wide_chain_kh0_default", CHAIN_DEFAULT_SRC,
+                         KH0_TPU, err, timed["default"], plain_ms, bnd, None)
+        del out
+    del re, im
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_default_mm(torch):
+    """mxu's "default" mm step at n=24, D = 512 and 256, through the row
+    map: against its plain version, bit for bit the "high" arm on
+    bf16-exact operands, timed beside the "high" arm, the plain version
+    and one bf16 torch.mm on the row-shuffled state (the shuffle outside
+    the timed call)."""
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+
+    n = WIDE_WIDTH
+    R = 1 << (n - 7)
+    rng = np.random.default_rng(1012)
+    gen = torch.Generator(device="cuda").manual_seed(1012)
+    re, im = random_state(torch, gen, (R, 128))
+    rec = None
+    for row_bits in MM_ROW_BITS:
+        D = 128 << len(row_bits)
+        M = (1 << n) // D
+        m32 = mm_unitary_tables(torch, rng, D, 1)[0]
+        w16 = KW.split_mm_tables(m32)
+        got = KW.mm_step_default(re, im, w16, row_bits)
+        want = KW.mm_step_default_plain(re, im, w16, row_bits)
+        fwd, bwd = KW.row_shuffles(row_bits, R)
+        lib_call, lib = one_pass_library(torch, fwd(re), fwd(im), m32[0],
+                                         m32[0] + m32[1])
+        se = [exact_values(torch, gen, (R, 128), 64, 2.0 ** -7)
+              for _ in range(2)]
+        we = KW.split_mm_tables(exact_values(torch, gen, (3, D, D), 16,
+                                             2.0 ** -6))
+        ed = KW.mm_step_default(*se, we, row_bits)
+        eh = KW.mm_step_high(*se, we, row_bits)
+        torch.cuda.synchronize()
+        e = rel_diff(got, want)
+        e_lib = rel_diff(tuple(bwd(t) for t in lib), want)
+        exact = same(torch, ed, eh)
+        if not (e <= DEFAULT_TOL and exact):
+            raise AssertionError(f"default mm step D={D}: {e}, bit for bit "
+                                 f"the 'high' arm on bf16-exact operands "
+                                 f"{exact}")
+        del got, want, lib, se, we, ed, eh
+        out = (torch.empty_like(re), torch.empty_like(im))
+        step = {"default": KW.mm_step_default, "high": KW.mm_step_high}
+        timed = {rung: device_ms(torch, lambda rung=rung: step[rung](
+            re, im, w16, row_bits, out=out), reps=10)
+            for rung in ("default", "high")}
+        plain_ms = device_ms(torch, lambda: KW.mm_step_default_plain(
+            re, im, w16, row_bits), reps=3)
+        library_ms = device_ms(torch, lib_call, reps=10)
+        flop = 6.0 * M * D * D           # three real products, one pass
+        bnd = bound(flop, 16.0 * M * D + 3 * D * D * 2, BF16_FLOPS)
+        print(f"default mm step n={n} D={D} row bits {row_bits}: max|diff| "
+              f"vs plain {e:.3e} of the largest |value| (one bf16 torch.mm "
+              f"{e_lib:.3e}); bit for bit the 'high' arm on bf16-exact "
+              f"operands; kernel {timed['default']:.4f} ms, 'high' arm "
+              f"{timed['high']:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"(bf16 torch.mm on the shuffled rows, fp32 out) "
+              f"{library_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        if rec is None:
+            rec = record("mm_step_default", MM_DEFAULT_SRC, MM_TPU, e,
+                         timed["default"], plain_ms, bnd, library_ms)
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        del out, w16, m32
+    del re, im
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_default_paths(torch, T, refs, highest24, add):
+    """The "default" rung through the Simulator, counts set to 0 before
+    each run and read after: prefetch flat at n=18 against the f64
+    reference (in (RUNG_FLOOR, DEFAULT_BAR]) and at n=24 against the
+    port's "highest" state, in place at n=30 (norm and peak memory), and
+    mxu at n=24 on the benchmark circuit (mm steps) and the low-only
+    circuit (chains of 8), launches against the plans."""
+    from gpu_quantum_simulator_tpu_torch import sampling as SP
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.engine import simulator as S
+
+    def cfg(**kw):
+        return T.Simulator(T.SimulatorConfig(precision="default", **kw),
+                           device="cuda")
+
+    prefetch = cfg(strategy="prefetch")
+    for n, runs in ((DEFAULT_REF_WIDTH, 2), (DEFAULT_FLAT, 1)):
+        c = T.models.grover_like(n, 2445, 318)
+        res, secs, counts, modes = drive(torch, PF, prefetch, c, runs)
+        add(counts)
+        want = refs[n] if n == DEFAULT_REF_WIDTH else highest24
+        err = float(np.max(np.abs(res.state - want)))
+        norm = float(np.linalg.norm(res.state))
+        report(n, res, secs, counts, f"prefetch 'default'; max|amp - "
+               f"{'f64' if n == DEFAULT_REF_WIDTH else 'its highest run'}| "
+               f"{err:.3e}; norm {norm:.8f}")
+        check_counts(n, counts, modes, runs + 1, False, default=True)
+        if not RUNG_FLOOR < err <= DEFAULT_BAR:
+            raise AssertionError(f"prefetch default n={n}: {err} outside "
+                                 f"({RUNG_FLOOR}, {DEFAULT_BAR}]")
+        del res
+
+    n = FULL_WIDTH
+    gib = float(1 << 30)
+    clear_caches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    parts, nops = prefetch.run_device_halves(T.models.grover_like(n, 2445,
+                                                                  318))
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    add(counts)
+    (prog,) = PF._RUN_CACHE.values()
+    modes = dict(prog.mode_rows)
+    norm = SP.norm_halves(*parts)
+    print(f"prefetch 'default' n={n} in place: {nops} steps; first run "
+          f"{secs:.2f} s (fusion, plan and tables included); norm_halves "
+          f"{norm:.8f}; peak device memory {peak / gib:.3f} GiB; launches "
+          f"{counts}")
+    check_inplace_counts(n, counts, modes, 1, False, default=True)
+    if not np.isfinite(norm):
+        raise AssertionError(f"prefetch default n={n}: norm {norm}")
+    del parts
+    clear_caches(torch)
+
+    def mxu(**kw):
+        return cfg(strategy="mxu", **kw)
+
+    def program():
+        (_, prog), = S._MXU_PLAN_CACHE.values()
+        steps = [st for seg in prog.segments for st in seg.steps]
+        return prog, sum(st[0] == "mm" for st in steps)
+
+    n = DEFAULT_FLAT
+    res, secs, counts = drive_engine(
+        torch, mxu(), T.models.grover_like(n, 2445, 318), 1,
+        S._MXU_PLAN_CACHE)
+    add(counts)
+    prog, mm = program()
+    err = float(np.max(np.abs(res.state - highest24)))
+    bar = KARATSUBA_BAR * max(1.0, float(np.max(np.abs(highest24)))
+                              / HIGH_BAR_PEAK)
+    report(n, res, secs, counts, f"mxu 'default'; vs prefetch's 'highest' "
+           f"{err:.3e} (bar {bar:.3e}); mm steps {mm}")
+    check_only(n, counts, 2, kh0_default=prog.num_kh0_runs, mm_default=mm)
+    if not RUNG_FLOOR < err <= bar:
+        raise AssertionError(f"mxu default n={n}: {err}")
+    n, gates, seed = LOW_ONLY
+    c = low_only(T, n, gates, seed)
+    res, secs, counts = drive_engine(torch, mxu(max_fused_qubits=3), c, 1,
+                                     S._MXU_PLAN_CACHE)
+    add(counts)
+    prog, mm = program()
+    ref = T.Simulator(T.SimulatorConfig(strategy="mxu", precision="highest",
+                                        max_fused_qubits=3),
+                      device="cuda").run(c)
+    err = float(np.max(np.abs(res.state - ref)))
+    bar = KARATSUBA_BAR * max(1.0, float(np.max(np.abs(ref))) / HIGH_BAR_PEAK)
+    report(n, res, secs, counts, f"mxu 'default' low-only max_fused_qubits"
+           f"=3: vs its 'highest' run {err:.3e} (bar {bar:.3e}); kh0 runs "
+           f"{prog.num_kh0_runs}")
+    check_only(n, counts, 2, kh0_default=prog.num_kh0_runs, mm_default=mm)
+    if not (prog.num_kh0_runs == 9 and RUNG_FLOOR < err <= bar):
+        raise AssertionError(f"mxu default low-only: {err}, "
+                             f"{prog.num_kh0_runs} kh0 runs")
+    clear_caches(torch)
+
+
+def run_complex128(torch, T, refs):
+    """complex128 through mxu and the megakernel (float64 torch ops, no
+    hand kernel: no launch is counted) at n=20 and 24: the second run
+    timed, peak device memory, a complex128 result; n=20 within
+    C128_TOL of the f64 reference, and at n=24 the two arms within it of
+    each other."""
+    states = {}
+    gib = float(1 << 30)
+    for n in C128_WIDTHS:
+        c = T.models.grover_like(n, 2445, 318)
+        for strategy in ("mxu", "megakernel"):
+            sim = T.Simulator(T.SimulatorConfig(strategy=strategy,
+                                                dtype="complex128"),
+                              device="cuda")
+            clear_caches(torch)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            first = sim.run_detailed(c)
+            res = sim.run_detailed(c)
+            peak = torch.cuda.max_memory_allocated()
+            counts = launch_counts()
+            line = (f"complex128 {strategy} n={n}: {res.num_fused_ops} ops; "
+                    f"first run {first.seconds:.4f} s, second "
+                    f"{res.seconds:.4f} s; peak device memory "
+                    f"{peak / gib:.3f} GiB; dtype {res.state.dtype}")
+            if n in refs:
+                err = float(np.max(np.abs(res.state - refs[n])))
+                line += f"; max|amp - f64| {err:.3e}"
+                if not err <= C128_TOL:
+                    raise AssertionError(f"complex128 {strategy} n={n}: "
+                                         f"{err}")
+            print(line)
+            if res.state.dtype != np.complex128 or any(counts.values()):
+                raise AssertionError(f"complex128 {strategy} n={n}: "
+                                     f"{res.state.dtype}, launches {counts}")
+            states[(n, strategy)] = res.state
+            del first, res
+    n = C128_WIDTHS[-1]
+    err = float(np.max(np.abs(states[(n, "mxu")]
+                              - states[(n, "megakernel")])))
+    print(f"complex128 n={n}: mxu vs megakernel max|diff| {err:.3e}")
+    if not err <= C128_TOL:
+        raise AssertionError(f"complex128 n={n}: mxu vs megakernel {err}")
+    clear_caches(torch)
+
+
+def run_default_phase(torch, T, refs, highest24, add):
+    """Phase 10: the "default" rung's four kernels, their drift, the rung
+    through the engines, and complex128."""
+    t0 = time.perf_counter()
+    mat, split = check_default_mat(torch)
+    chain = check_default_chain(torch)
+    mm = check_default_mm(torch)
+    check_high_drift(torch, "default")
+    run_default_paths(torch, T, refs, highest24, add)
+    run_complex128(torch, T, refs)
+    print(f"default rung and complex128: phase 10 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [(mat, "mat_default"), (split, "split_mat_default"),
+            (chain, "kh0_default"), (mm, "mm_default")]
+
+
 def run_main_path(torch, T, refs, add):
+    """Phase 4; returns prefetch's n=24 "highest" state."""
     highest24 = run_prefetch_path(torch, T, refs, add)
     run_mxu_path(torch, T, refs, highest24, add)
     run_pallas_path(torch, T, refs, add)
     run_vmem_path(torch, T, refs, add)
     run_small_widths(torch, T, refs, add)
+    return highest24
 
 
 def start_references(T, widths):
@@ -4173,7 +4739,8 @@ def main() -> int:
             totals[k] = totals.get(k, 0) + v
 
     rng = np.random.default_rng(2445)
-    pending_refs = start_references(T, set(REF_WIDTHS) | set(VMEM_WIDTHS))
+    pending_refs = start_references(T, set(REF_WIDTHS) | set(VMEM_WIDTHS)
+                                    | {C128_WIDTHS[0]})
     # phase 3: each kernel against its plain version
     block, mat = check_block_kernel(torch, rng)
     relayout = check_relayout_kernel(torch, rng)
@@ -4190,7 +4757,7 @@ def main() -> int:
     # phase 4: the main paths, counting launches; phase 5: the in-place
     # engine, its kernels first
     refs = pending_refs()
-    run_main_path(torch, T, refs, add)
+    highest24 = run_main_path(torch, T, refs, add)
     inplace = run_inplace_phase(torch, T, refs, add, rng)
     # phase 6: the public op (kernel 10) and the copy probes (kernel 11)
     butterfly = check_butterfly(torch, rng, add)
@@ -4201,12 +4768,14 @@ def main() -> int:
     run_cli_phase(torch, T, refs, add)
     # phase 9: the workloads on the state
     run_workloads(torch, T, add)
+    # phase 10: the "default" rung and complex128
+    defaults = run_default_phase(torch, T, refs, highest24, add)
     kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
              (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
              (chain_high, "kh0_high"), (block128, "block128"),
              (mm_high, "mm_high"),
              (vmem_chunk, "vmem"), (vmem_op, "vmem"), *inplace,
-             (butterfly, "butterfly"), *copies)
+             (butterfly, "butterfly"), *copies, *defaults)
     for rec, kind in kinds:
         rec["launches"] = totals[kind]
         if not rec["launches"] > 0:

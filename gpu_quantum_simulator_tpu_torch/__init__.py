@@ -27,7 +27,9 @@ place of ``jax.random``), density matrices (``density.py``), mitigation,
 classical shadows, the MPS and stabilizer simulators and the Qiskit
 import.  Every entry point runs on the card unless it is passed
 ``device="cpu"``, where the same paths run each kernel's plain torch
-version.  Anything else raises NotImplementedError naming its ROADMAP
+version.  Every precision rung ("highest", "high", "default") and
+complex128 (on mxu, the megakernel, the per-gate engines and reference)
+run; the sharded engines raise NotImplementedError naming their ROADMAP
 item.
 
 Qubit convention matches the JAX package: qubit ``k`` is bit ``k`` of the

@@ -173,9 +173,9 @@ def main(argv=None) -> int:
         "--precision", choices=["auto", "highest", "high", "default"],
         default="auto",
         help="matmul precision rung: highest = IEEE fp32 (the parity rung), "
-        "high = the 3-pass bf16 product on the tensor cores, default = not "
-        "yet ported (it exits with an error); auto (the default) = highest "
-        "below 24 qubits, high from there up",
+        "high = the 3-pass bf16 product on the tensor cores, default = one "
+        "bf16 pass (smoke runs only); auto (the default) = highest below 24 "
+        "qubits, high from there up",
     )
     p.add_argument("--seed", type=int, default=0, help="measurement RNG seed")
     p.add_argument(

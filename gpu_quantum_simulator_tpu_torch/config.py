@@ -64,7 +64,9 @@ STRATEGIES = (
 class SimulatorConfig:
     strategy: str = "mxu"
     # complex64 (split float32, like the GPU variants) or complex128 (like the
-    # CPU reference; the JAX package's parity-checking arm, not ported).
+    # CPU reference; the parity-checking arm: float64 torch ops on mxu, the
+    # megakernel, the per-gate engines and reference; prefetch, pallas and
+    # vmem refuse it).
     dtype: str = "complex64"
     # qubit-relabeling pass (correct version of ref's permute variants);
     # output is always returned in the ORIGINAL basis (ref defect #7 avoided).
@@ -73,8 +75,9 @@ class SimulatorConfig:
     # pallas and prefetch: qubits per block, at most 7).
     max_fused_qubits: int = 7
     # matmul precision rung: "highest" (IEEE fp32, no TF32), "high" (the
-    # 3-pass bf16 product on the tensor cores), "default" (not ported; it
-    # raises) or "auto" (resolve_precision above).
+    # 3-pass bf16 product on the tensor cores), "default" (one bf16 pass:
+    # the hi.hi term of "high", on the same kernels) or "auto"
+    # (resolve_precision above; never "default").
     precision: str = "auto"
     # scan strategy pads op tables to the next multiple of this bucket size
     # (engine/scan.py ``bucket_size``); the padding rows run too, as in the

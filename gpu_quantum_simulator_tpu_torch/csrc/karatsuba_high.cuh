@@ -43,6 +43,14 @@
 // + p % 2, as csrc/wgmma_high.cuh's tables), so that one float4 of a state
 // row (k 4t .. 4t + 3) is lane t's A-fragment values.
 //
+// The "default" rung (LO = false, the second instantiation of chunk and
+// result): one bf16 pass a real product, xh.mh, as the JAX package's
+// jnp.dot at Precision.DEFAULT on the TPU: the hi.hi partials summed as
+// above, no lo split (the compiler drops the unused residuals), no
+// correction wgmma, t_P = T_P.  It reads the hi parts of the same table
+// image.  On bf16-exact operands (s = xr + xi included) the "high" arm's
+// corrections are exact zeros, and the two arms agree bit for bit.
+//
 // Shape: a warpgroup's 64 rows (wgmma's M) by 32 output columns
 // (m64n32k16), per thread three fp32 sums T_P, three correction
 // accumulators C_P and four partials of 16 floats.  A chunk is three
@@ -161,7 +169,8 @@ __device__ __forceinline__ void add1(float (&sum)[16], float (&x)[16]) {
 // X[2 (P % 2) + 1], then its corrections xl.mh and xh.ml into C[P]; a
 // group's partials are added once the next group is queued.  Returns
 // after every pass of the chunk has completed (its fragments and table
-// parts are free again).
+// parts are free again).  LO false: the hi.hi passes alone (C untouched).
+template <bool LO>
 __device__ __forceinline__ void chunk(float (&T)[3][16], float (&C)[3][16],
                                       float (&X)[4][16],
                                       const uint32_t (&a)[3][2][4],
@@ -177,8 +186,10 @@ __device__ __forceinline__ void chunk(float (&T)[3][16], float (&C)[3][16],
     fence();
     mma(X[2 * b], x0, mh, 0);
     mma(X[2 * b + 1], x1, mh, 0);
-    mma(C[P], a[P][1], mh, 1);
-    mma(C[P], a[P][0], ml, 1);
+    if constexpr (LO) {
+      mma(C[P], a[P][1], mh, 1);
+      mma(C[P], a[P][0], ml, 1);
+    }
     commit();
     if (P > 0) {
       wait<1>();
@@ -192,13 +203,25 @@ __device__ __forceinline__ void chunk(float (&T)[3][16], float (&C)[3][16],
 }
 
 // output element x of the D fragment (re, im) from the sums: t_P = T_P +
-// C_P, out_re = t1 - t3, out_im = t1 + t2
+// C_P (LO false: T_P), out_re = t1 - t3, out_im = t1 + t2
+template <bool LO>
 __device__ __forceinline__ float2 result(const float (&T)[3][16],
                                          const float (&C)[3][16], int x) {
-  const float t1 = T[0][x] + C[0][x];
-  const float t2 = T[1][x] + C[1][x];
-  const float t3 = T[2][x] + C[2][x];
+  const float t1 = LO ? T[0][x] + C[0][x] : T[0][x];
+  const float t2 = LO ? T[1][x] + C[1][x] : T[1][x];
+  const float t3 = LO ? T[2][x] + C[2][x] : T[2][x];
   return make_float2(t1 - t3, t1 + t2);
+}
+
+// keep the compiler from moving reads of the corrections above the last
+// wait (LO false: there are none)
+template <bool LO>
+__device__ __forceinline__ void pin_corrections(float (&C)[3][16]) {
+  if constexpr (LO) {
+    pin(C[0]);
+    pin(C[1]);
+    pin(C[2]);
+  }
 }
 
 }  // namespace kh

@@ -29,6 +29,10 @@
 //
 // Input maps as in prefetch_block.cu: steered (column bit 7 <-> a row bit)
 // or folded relayout (rowmap.cuh), first launch of a block only.
+//
+// The "default" rung's mat step (the one bf16 pass of _make_dot("default"),
+// xh.mh alone) is the same body's second instantiation, chosen at compile
+// time: mat_high_kernel<false>.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,45 +78,55 @@ struct FlatMap {
   }
 };
 
+// LO: the "high" rung; false: the "default" rung (wgmma_high.cuh)
+template <bool LO>
 __global__ void __launch_bounds__(wgh::THREADS, 1)
 mat_high_kernel(FlatMap map, const uint8_t* __restrict__ w) {
-  wgh::mat_step(map, w);
+  wgh::mat_step<LO>(map, w);
 }
 
-bool smem_set = false;
-int slots = 0;   // CTAs of the kernel that fit on the card at once
+template <bool LO>
+cudaError_t launch(const FlatMap& map, const void* w, cudaStream_t stream) {
+  static bool smem_set = false;
+  static int slots = 0;   // CTAs of the kernel that fit on the card at once
+  cudaError_t e = async::allow_smem(mat_high_kernel<LO>, wgh::SMEM,
+                                    &smem_set);
+  if (e == cudaSuccess && slots == 0)
+    e = async::persistent_slots(mat_high_kernel<LO>, wgh::THREADS, wgh::SMEM,
+                                &slots);
+  if (e != cudaSuccess) return e;
+  // persistent: CTA groups of the four column blocks, one row block each
+  // at a time
+  const long long blocks = (map.rows + wgh::BM - 1) / wgh::BM;
+  const long long groups =
+      std::min<long long>(blocks, slots / wgh::COL_BLOCKS);
+  mat_high_kernel<LO><<<(unsigned)(groups * wgh::COL_BLOCKS), wgh::THREADS,
+                        wgh::SMEM, stream>>>(map,
+                                             static_cast<const uint8_t*>(w));
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// One "high"-rung mat step on an (rows, 256) state pair.  w: the slot's
-// tables as kernels/block.py split_tables lays them out (512 KB);
+// One "high"-rung (lo = 1) or "default"-rung (lo = 0) mat step on an
+// (rows, 256) state pair.  w: the slot's tables as kernels/block.py
+// split_tables lays them out (512 KB; "default" reads the hi words);
 // steer_bit: flat bit (>= 8) exchanged with bit 7 on input, or -1;
 // sigma/m/tr: the folded relayout on input (m = 0: none).
 int qsim_mat_step_high(const float* in_re, const float* in_im, float* out_re,
                        float* out_im, const void* w, long long rows,
-                       int steer_bit, const int* sigma, int m, int tr,
+                       int steer_bit, const int* sigma, int m, int tr, int lo,
                        void* stream) {
   FlatMap map{in_re, in_im, out_re, out_im, rows,
               steer_bit >= 0 ? steer_bit - 8 : -1, Fold{}};
   if (rows < 1 || rows > (1LL << 30) / DVIEW ||
       !make_fold(&map.fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = async::allow_smem(mat_high_kernel, wgh::SMEM, &smem_set);
-  if (e == cudaSuccess && slots == 0)
-    e = async::persistent_slots(mat_high_kernel, wgh::THREADS, wgh::SMEM,
-                                &slots);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // persistent: CTA groups of the four column blocks, one row block each
-  // at a time
-  const long long blocks = (rows + wgh::BM - 1) / wgh::BM;
-  const long long groups =
-      std::min<long long>(blocks, slots / wgh::COL_BLOCKS);
-  mat_high_kernel<<<(unsigned)(groups * wgh::COL_BLOCKS), wgh::THREADS,
-                    wgh::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      map, static_cast<const uint8_t*>(w));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(lo ? launch<true>(map, w, s)
+                             : launch<false>(map, w, s));
 }
 
 }  // extern "C"

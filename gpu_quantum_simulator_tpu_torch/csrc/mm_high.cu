@@ -28,7 +28,11 @@
 //
 // The arithmetic, where its sums are kept and the table image are
 // karatsuba_high.cuh's, whose k-chunk body this kernel and kernel 7's
-// "high" chain (wide_chain.cu) share.  The tables are split once per
+// "high" chain (wide_chain.cu) share.  The "default" rung's mm step (one
+// bf16 pass, the hi.hi sums alone) is the same kernel's second
+// instantiation, mm_high_kernel<D, false>: at n = 24, D = 512 its 6 hi.hi
+// passes a k-chunk are 103 GFLOP (0.104 ms; the useful 3 products,
+// 0.052 ms) against 0.080 ms of state bytes.  The tables are split once per
 // program (kernels/wide.py split_mm_tables).
 //
 // Shapes.  A CTA is two warpgroups: a tile of 128 rows (64 each, wgmma's
@@ -122,7 +126,7 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 // group blockIdx.x / (D / 32) of gridDim.x / (D / 32) takes every G-th
 // row block of 128 view rows.  w: the tables as split_mm_tables lays them
 // out (D / 32 column blocks of D / 16 chunks of CHUNK_BYTES).
-template <int D>
+template <int D, bool LO>
 __global__ void __launch_bounds__(THREADS, 1)
 mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                float* __restrict__ out_re, float* __restrict__ out_im,
@@ -209,11 +213,9 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       uint32_t a[3][2][4];
       kh::split_rows(r0, r1, i0, i1, a);
       // the chunk's six parts: descriptors differ only in the address
-      kh::chunk(T, C, X, a, tab0 + (uint64_t)(c * (CHUNK_BYTES >> 4)));
+      kh::chunk<LO>(T, C, X, a, tab0 + (uint64_t)(c * (CHUNK_BYTES >> 4)));
     }
-    kh::pin(C[0]);
-    kh::pin(C[1]);
-    kh::pin(C[2]);
+    kh::pin_corrections<LO>(C);
 
     // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of the
     // tile, column 8 jn + 2 t + e of the column block
@@ -225,7 +227,8 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 #pragma unroll
       for (int jn = 0; jn < BN / 8; ++jn) {
         const int x = 4 * jn + 2 * hh;
-        const float2 v0 = kh::result(T, C, x), v1 = kh::result(T, C, x + 1);
+        const float2 v0 = kh::result<LO>(T, C, x);
+        const float2 v1 = kh::result<LO>(T, C, x + 1);
         *reinterpret_cast<float2*>(out_re + o + 8 * jn) =
             make_float2(v0.x, v1.x);
         *reinterpret_cast<float2*>(out_im + o + 8 * jn) =
@@ -235,25 +238,26 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-template <int D>
+template <int D, bool LO>
 cudaError_t launch(const float* xr, const float* xi, float* out_re,
                    float* out_im, const void* w, RowMap map,
                    cudaStream_t stream) {
   using S = Shape<D>;
   static bool smem_set = false;
   static int slots = 0;      // CTAs of the kernel that fit on the card
-  cudaError_t e = async::allow_smem(mm_high_kernel<D>, S::SMEM, &smem_set);
+  cudaError_t e = async::allow_smem(mm_high_kernel<D, LO>, S::SMEM,
+                                    &smem_set);
   if (e == cudaSuccess && slots == 0)
-    e = async::persistent_slots(mm_high_kernel<D>, THREADS, S::SMEM,
+    e = async::persistent_slots(mm_high_kernel<D, LO>, THREADS, S::SMEM,
                                 &slots);
   if (e != cudaSuccess) return e;
   // persistent: CTA groups of the D / 32 column blocks, one row block each
   // at a time
   const int blocks = (map.rows + BM - 1) / BM;
   const int groups = std::min(blocks, std::max(1, slots / S::COL_BLOCKS));
-  mm_high_kernel<D><<<(unsigned)(groups * S::COL_BLOCKS), THREADS, S::SMEM,
-                      stream>>>(xr, xi, out_re, out_im,
-                                static_cast<const uint8_t*>(w), map);
+  mm_high_kernel<D, LO><<<(unsigned)(groups * S::COL_BLOCKS), THREADS,
+                          S::SMEM, stream>>>(
+      xr, xi, out_re, out_im, static_cast<const uint8_t*>(w), map);
   return cudaGetLastError();
 }
 
@@ -261,13 +265,14 @@ cudaError_t launch(const float* xr, const float* xi, float* out_re,
 
 extern "C" {
 
-// One "high" mm step on the (rows, 128) state pair (xr, xi) into the
-// separate pair (out_re, out_im), D = 128 << kh with kh = 0, 1 or 2 row
-// bits b0 < b1 (-1 where absent); rows a power of two above every row
-// bit.  w16: split_mm_tables of the step's Karatsuba tables.
+// One "high" (lo = 1) or "default" (lo = 0) mm step on the (rows, 128)
+// state pair (xr, xi) into the separate pair (out_re, out_im), D = 128 <<
+// kh with kh = 0, 1 or 2 row bits b0 < b1 (-1 where absent); rows a power
+// of two above every row bit.  w16: split_mm_tables of the step's
+// Karatsuba tables ("default" reads their hi parts).
 int qsim_mm_step_high(const float* xr, const float* xi, float* out_re,
                       float* out_im, const void* w16, long long rows, int D,
-                      int b0, int b1, void* stream) {
+                      int b0, int b1, int lo, void* stream) {
   const int kh = D == 128 ? 0 : D == 256 ? 1 : D == 512 ? 2 : -1;
   const int top = b1 >= 0 ? b1 : b0;
   const bool bits_ok = kh == 0   ? b0 < 0 && b1 < 0
@@ -280,9 +285,13 @@ int qsim_mm_step_high(const float* xr, const float* xi, float* out_re,
   const RowMap map{(int)(rows >> kh), b0, b1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      D == 128   ? launch<128>(xr, xi, out_re, out_im, w16, map, s)
-      : D == 256 ? launch<256>(xr, xi, out_re, out_im, w16, map, s)
-                 : launch<512>(xr, xi, out_re, out_im, w16, map, s);
+      lo ? (D == 128   ? launch<128, true>(xr, xi, out_re, out_im, w16, map, s)
+            : D == 256 ? launch<256, true>(xr, xi, out_re, out_im, w16, map, s)
+                       : launch<512, true>(xr, xi, out_re, out_im, w16, map, s))
+         : (D == 128 ? launch<128, false>(xr, xi, out_re, out_im, w16, map, s)
+            : D == 256
+                ? launch<256, false>(xr, xi, out_re, out_im, w16, map, s)
+                : launch<512, false>(xr, xi, out_re, out_im, w16, map, s));
   return static_cast<int>(e);
 }
 

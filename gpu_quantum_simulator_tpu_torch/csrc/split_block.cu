@@ -69,7 +69,9 @@
 // shared memory.  The launch is cooperative, and the group's warps count
 // their reads of a tile on a counter in device memory, which each waits
 // for before it writes.  A tile resident across a block's steps is later
-// work.
+// work.  The "default" step is the same kernel's second instantiation
+// (mat_high_halves_kernel<false>: the hi.hi sums alone), bit for bit
+// mat_high.cu's "default" step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -270,14 +272,39 @@ struct HalvesMap {
 // block's group can wait for each other's reads through counters in
 // device memory (sync) before writing.  (As clusters of four, which must
 // each sit in one GPC, fewer of these one-an-SM CTAs run at once.)
+// LO: the "high" rung; false: the "default" rung (wgmma_high.cuh).
+template <bool LO>
 __global__ void __launch_bounds__(wgh::THREADS, 1)
 mat_high_halves_kernel(HalvesMap map, const uint8_t* __restrict__ w,
                        int* sync) {
-  wgh::mat_step(map, w, sync);
+  wgh::mat_step<LO>(map, w, sync);
 }
 
-bool high_smem_set = false;
-int high_slots = 0;   // CTAs of the kernel that fit on the card at once
+template <bool LO>
+cudaError_t launch_high(HalvesMap map, const void* w, int* sync,
+                        int sync_groups, cudaStream_t stream) {
+  static bool smem_set = false;
+  static int slots = 0;   // CTAs of the kernel that fit on the card at once
+  cudaError_t e = async::allow_smem(mat_high_halves_kernel<LO>, wgh::SMEM,
+                                    &smem_set);
+  if (e == cudaSuccess && slots == 0)
+    e = async::persistent_slots(mat_high_halves_kernel<LO>, wgh::THREADS,
+                                wgh::SMEM, &slots);
+  if (e != cudaSuccess) return e;
+  // persistent: CTA groups of the four column blocks, one row block each
+  // at a time, every CTA resident
+  const long long blocks = (map.rows + wgh::BM - 1) / wgh::BM;
+  long long groups = slots / wgh::COL_BLOCKS;
+  if (groups > sync_groups) groups = sync_groups;
+  if (groups > blocks) groups = blocks;
+  void* args[] = {&map, &w, &sync};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(mat_high_halves_kernel<LO>),
+      dim3((unsigned)(groups * wgh::COL_BLOCKS)), dim3(wgh::THREADS), args,
+      wgh::SMEM, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
 
 // ------------------------------------------------------------ index steps
 constexpr int THREADS = 256;
@@ -416,32 +443,19 @@ int qsim_split_mat_step(float* re0, float* re1, float* im0, float* im1,
 }
 
 // w: the slot's tables as kernels/block.py split_tables lays them out;
-// sync: 2 * sync_groups ints, zero (and left zero), for as many CTA groups.
+// sync: 2 * sync_groups ints, zero (and left zero), for as many CTA groups;
+// lo: 1 the "high" rung, 0 the "default" rung (the hi words alone).
 int qsim_split_mat_step_high(float* re0, float* re1, float* im0, float* im1,
                              const void* w, long long rows, int pair_bit,
-                             int* sync, int sync_groups, void* stream) {
+                             int* sync, int sync_groups, int lo,
+                             void* stream) {
   if (rows < 1 || rows > (1LL << 30) / DVIEW || sync_groups < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = async::allow_smem(mat_high_halves_kernel, wgh::SMEM,
-                                    &high_smem_set);
-  if (e == cudaSuccess && high_slots == 0)
-    e = async::persistent_slots(mat_high_halves_kernel, wgh::THREADS,
-                                wgh::SMEM, &high_slots);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // persistent: CTA groups of the four column blocks, one row block each
-  // at a time, every CTA resident
-  const long long blocks = (rows + wgh::BM - 1) / wgh::BM;
-  long long groups = high_slots / wgh::COL_BLOCKS;
-  if (groups > sync_groups) groups = sync_groups;
-  if (groups > blocks) groups = blocks;
   HalvesMap map{re0, re1, im0, im1, rows, pair_bit};
-  void* args[] = {&map, &w, &sync};
-  e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(mat_high_halves_kernel),
-      dim3((unsigned)(groups * wgh::COL_BLOCKS)), dim3(wgh::THREADS), args,
-      wgh::SMEM, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      lo ? launch_high<true>(map, w, sync, sync_groups, s)
+         : launch_high<false>(map, w, sync, sync_groups, s));
 }
 
 // h1[r] <-> h0[r | 2^bit] over the rows with that bit clear (tswap, xswap).

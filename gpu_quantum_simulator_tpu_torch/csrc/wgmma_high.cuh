@@ -51,6 +51,16 @@
 // of a row) are its A-fragment values: wgmma position p holds k
 // 4 ((p % 8) / 2) + 2 (p / 8) + p % 2.
 //
+// The "default" rung (LO = false, a second instantiation of the same
+// body): one bf16 pass, the JAX package's jnp.dot at Precision.DEFAULT on
+// the TPU.  x and the tables are rounded to bf16 (the tables' hi words;
+// the lo words of the same image are not read) and only the hi.hi
+// partials are summed, in fp32 as above: no lo split, no correction
+// wgmma, out = the hi.hi sums.  On bf16-exact x and tables the "high"
+// arm's corrections are exact zeros, so the two arms then agree bit for
+// bit (chip_smoke.py phase 10).  At n = 24 its work is the 8 half-zero
+// hi.hi passes (68.7 GFLOP, 0.069 ms) against 0.080 ms of state bytes.
+//
 // What bounds it on the card: at n = 24 a step is 16 bf16 products of
 // (2^16 x 256) @ (256 x 256) on the tensor cores, 8 of them the half-zero
 // hi.hi passes (137 GFLOP at 989.4 TFLOP/s, 0.139 ms), 2.1e9 fp32 adds of
@@ -198,7 +208,9 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 // sync (in place): two ints a CTA group, zero before the launch, which is
 // cooperative (every CTA resident): no warp of a group writes a tile's rows
 // before every warp of the group's four CTAs has read them.  Left zero.
-template <class Map>
+// LO: the "high" rung (the lo splits and the corrections); false: the
+// "default" rung, the hi.hi sums alone.
+template <bool LO, class Map>
 __device__ __forceinline__ void mat_step(const Map& map,
                                          const uint8_t* __restrict__ w,
                                          int* sync = nullptr) {
@@ -300,6 +312,7 @@ __device__ __forceinline__ void mat_step(const Map& map,
       const float4 b0 = ld4(xq + (XROWS + g) * 16 + t * 4);
       const float4 b1 = ld4(xq + (XROWS + g + 8) * 16 + t * 4);
       wait<0>();                 // the last chunk's products read its A
+      // (without LO the lo words are never read: the compiler drops them)
       uint32_t rh[4], rl[4], ih[4], il[4];
       split2(a0.x, a0.y, rh[0], rl[0]);
       split2(a1.x, a1.y, rh[1], rl[1]);
@@ -332,21 +345,25 @@ __device__ __forceinline__ void mat_step(const Map& map,
           bf16<1>(p1, xi, dah, 0);
         }
         commit();
-        if (q == 0) {            // re: rl.A_hi + rh.A_lo - il.B_hi - ih.B_lo
-          bf16<1>(cre, rl, dah, 1);
-          bf16<1>(cre, rh, dal, 1);
-        } else if (q == 1) {     // im: rl.B_hi + rh.B_lo + il.A_hi + ih.A_lo
-          bf16<1>(cim, rl, dbh, 1);
-          bf16<1>(cim, rh, dbl, 1);
-        } else if (q == 2) {
-          bf16<-1>(cre, il, dbh, 1);
-          bf16<-1>(cre, ih, dbl, 1);
+        if constexpr (LO) {
+          if (q == 0) {          // re: rl.A_hi + rh.A_lo - il.B_hi - ih.B_lo
+            bf16<1>(cre, rl, dah, 1);
+            bf16<1>(cre, rh, dal, 1);
+          } else if (q == 1) {   // im: rl.B_hi + rh.B_lo + il.A_hi + ih.A_lo
+            bf16<1>(cim, rl, dbh, 1);
+            bf16<1>(cim, rh, dbl, 1);
+          } else if (q == 2) {
+            bf16<-1>(cre, il, dbh, 1);
+            bf16<-1>(cre, ih, dbl, 1);
+          } else {
+            bf16<1>(cim, il, dah, 1);
+            bf16<1>(cim, ih, dal, 1);
+          }
+          commit();
+          wait<1>();
         } else {
-          bf16<1>(cim, il, dah, 1);
-          bf16<1>(cim, ih, dal, 1);
+          wait<0>();
         }
-        commit();
-        wait<1>();
         pin(p0);
         pin(p1);
         if (q % 2 == 0) {
@@ -359,8 +376,10 @@ __device__ __forceinline__ void mat_step(const Map& map,
       }
     }
     wait<0>();
-    pin(cre);
-    pin(cim);
+    if constexpr (LO) {
+      pin(cre);
+      pin(cim);
+    }
 
     if (arrived != nullptr) {  // every warp of the group has read the tile
       if (lane == 0) wait_arrivals(arrived, GROUP_WARPS * (i + 1));
@@ -375,10 +394,17 @@ __device__ __forceinline__ void mat_step(const Map& map,
 #pragma unroll
       for (int jn = 0; jn < BN / 8; ++jn) {
         const int col = cb * BN + jn * 8 + 2 * t, e = 4 * jn + 2 * hh;
-        *reinterpret_cast<float2*>(map.out(0, r, col)) =
-            make_float2(sre[e] + cre[e], sre[e + 1] + cre[e + 1]);
-        *reinterpret_cast<float2*>(map.out(1, r, col)) =
-            make_float2(sim[e] + cim[e], sim[e + 1] + cim[e + 1]);
+        if constexpr (LO) {
+          *reinterpret_cast<float2*>(map.out(0, r, col)) =
+              make_float2(sre[e] + cre[e], sre[e + 1] + cre[e + 1]);
+          *reinterpret_cast<float2*>(map.out(1, r, col)) =
+              make_float2(sim[e] + cim[e], sim[e + 1] + cim[e + 1]);
+        } else {
+          *reinterpret_cast<float2*>(map.out(0, r, col)) =
+              make_float2(sre[e], sre[e + 1]);
+          *reinterpret_cast<float2*>(map.out(1, r, col)) =
+              make_float2(sim[e], sim[e + 1]);
+        }
       }
     }
   }

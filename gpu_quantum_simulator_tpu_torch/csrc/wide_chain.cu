@@ -113,6 +113,13 @@
 //     chunks (the next chunk's first group queued before the last one's
 //     adds) needs more registers than a thread has: ptxas then
 //     serializes every wgmma.
+// "default" design (chain_high_kernel<false>): the same kernel, chosen at
+// compile time, for the JAX package's one bf16 pass (get_kh0_kernel's
+// Precision.DEFAULT dot): the row tile held on chip as hi fragments only,
+// the hi.hi sums alone, no correction wgmma (karatsuba_high.cuh).  At
+// n = 24 a P = 8 chain's three real products a product are 103 GFLOP of
+// useful bf16 work (0.104 ms at 989 TFLOP/s) against 0.080 ms of state
+// bytes, so it is bound by operations.
 // The output may be the input pair: a tile is read whole before the
 // product that writes it, and no CTA touches another's rows.  Ragged and
 // small R (R = 8 at n = 10, the smallest width that chains) work: rows
@@ -378,6 +385,10 @@ static_assert(HIGH_SMEM <= 232448, "a CTA's shared memory");
 // ...; warpgroups 0 and 1 compute, warpgroup 2 feeds them the tables.
 // w: nmats products' tables, each split_mm_tables' D = 128 image
 // (MAT_BYTES).  in/out are not __restrict__: the engine passes one pair.
+// LO false: the "default" rung, the tile held as hi fragments only (the lo
+// slots of the fragment image are neither written nor read) and the hi.hi
+// sums alone.
+template <bool LO>
 __global__ void __launch_bounds__(HTHREADS, 1)
 chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
                   float* out_im, const uint8_t* __restrict__ w, int nmats,
@@ -429,7 +440,7 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
 #pragma unroll
       for (int p = 0; p < 3; ++p)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < (LO ? 2 : 1); ++h)
           frags[((c * 3 + p) * 2 + h) * 128 + warp * 32 + lane] =
               make_uint4(a[p][h][0], a[p][h][1], a[p][h][2], a[p][h][3]);
     }
@@ -493,7 +504,7 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
     // this warp's fragments [hi, lo] of product P, k-chunk c
     auto load = [&](uint32_t (&a)[2][4], int c, int P) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < (LO ? 2 : 1); ++h) {
         const uint4 v = frags[((c * 3 + P) * 2 + h) * 128 + warp * 32 + lane];
         a[h][0] = v.x;
         a[h][1] = v.y;
@@ -525,17 +536,15 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
             load(a[0], c, 0);
             load(a[1], c, 1);
             load(a[2], c, 2);
-            kh::chunk(T, C, X, a,
-                      ring0 + (uint64_t)(cs * (kh::CHUNK_BYTES >> 4)));
+            kh::chunk<LO>(T, C, X, a,
+                          ring0 + (uint64_t)(cs * (kh::CHUNK_BYTES >> 4)));
             if (lane == 0) async::bar_arrive(&my_freed[cs]);
             if (++cs == RING) {
               cs = 0;
               cphase ^= 1;
             }
           }
-          kh::pin(C[0]);
-          kh::pin(C[1]);
-          kh::pin(C[2]);
+          kh::pin_corrections<LO>(C);
           // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of
           // the tile, column 8 jn + 2 t + e of the column block
 #pragma unroll
@@ -546,8 +555,8 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
             for (int jn = 0; jn < kh::BN / 8; ++jn) {
               const int x = 4 * jn + 2 * hh;
               const int col = cb * kh::BN + 8 * jn + 2 * t;
-              const float2 v0 = kh::result(T, C, x);
-              const float2 v1 = kh::result(T, C, x + 1);
+              const float2 v0 = kh::result<LO>(T, C, x);
+              const float2 v1 = kh::result<LO>(T, C, x + 1);
               const float2 vr = make_float2(v0.x, v1.x);
               const float2 vi = make_float2(v0.y, v1.y);
               if (last) {
@@ -574,6 +583,26 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
     run(std::integral_constant<int, 0>());
   else
     run(std::integral_constant<int, 1>());
+}
+
+template <bool LO>
+cudaError_t launch_high(const float* in_re, const float* in_im,
+                        float* out_re, float* out_im, const void* w16,
+                        int nmats, long long rows, cudaStream_t stream) {
+  static bool attr = false;
+  static int slots = 0;
+  cudaError_t e = async::allow_smem(chain_high_kernel<LO>, HIGH_SMEM, &attr);
+  if (e != cudaSuccess) return e;
+  if (slots == 0 &&
+      (e = async::persistent_slots(chain_high_kernel<LO>, HTHREADS,
+                                   HIGH_SMEM, &slots)) != cudaSuccess)
+    return e;
+  const long long tiles = (rows + TILE - 1) / TILE;
+  const unsigned grid = (unsigned)(tiles < slots ? tiles : slots);
+  chain_high_kernel<LO><<<grid, HTHREADS, HIGH_SMEM, stream>>>(
+      in_re, in_im, out_re, out_im, static_cast<const uint8_t*>(w16), nmats,
+      rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -606,29 +635,20 @@ int qsim_wide_chain(const float* in_re, const float* in_im, float* out_re,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The "high" chain: w16 holds nmats products' tables, each the
-// split_mm_tables image of their Karatsuba combinations at D = 128.  out
-// may be in.  Every pointer 16-byte aligned.  The grid is persistent, as
+// The "high" (lo = 1) or "default" (lo = 0) chain: w16 holds nmats
+// products' tables, each the split_mm_tables image of their Karatsuba
+// combinations at D = 128 ("default" reads their hi parts).  out may be
+// in.  Every pointer 16-byte aligned.  The grid is persistent, as
 // qsim_wide_chain's.
 int qsim_wide_chain_high(const float* in_re, const float* in_im,
                          float* out_re, float* out_im, const void* w16,
-                         int nmats, long long rows, void* stream) {
-  static bool attr = false;
-  static int slots = 0;
+                         int nmats, long long rows, int lo, void* stream) {
   if (nmats < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t e = async::allow_smem(chain_high_kernel, HIGH_SMEM, &attr);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (slots == 0 &&
-      (e = async::persistent_slots(chain_high_kernel, HTHREADS, HIGH_SMEM,
-                                   &slots)) != cudaSuccess)
-    return static_cast<int>(e);
-  const long long tiles = (rows + TILE - 1) / TILE;
-  const unsigned grid = (unsigned)(tiles < slots ? tiles : slots);
-  chain_high_kernel<<<grid, HTHREADS, HIGH_SMEM,
-                      static_cast<cudaStream_t>(stream)>>>(
-      in_re, in_im, out_re, out_im, static_cast<const uint8_t*>(w16), nmats,
-      rows);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      lo ? launch_high<true>(in_re, in_im, out_re, out_im, w16, nmats, rows, s)
+         : launch_high<false>(in_re, in_im, out_re, out_im, w16, nmats, rows,
+                              s));
 }
 
 }  // extern "C"

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from .config import SimulatorConfig
+from .engine.simulator import _real_dtype
 from .ir.circuit import Circuit, Gate
 
 
@@ -271,16 +272,6 @@ def _split_segments(dc: DynamicCircuit, n: int) -> List[Tuple[str, object]]:
     if cur.gates:
         segments.append(("circuit", cur))
     return segments
-
-
-def _real_dtype(cfg: SimulatorConfig):
-    """The ensemble's float dtype.  complex128 raises, as the port's
-    Simulator does: its engines run split float32 only."""
-    if cfg.dtype != "complex64":
-        raise NotImplementedError(
-            "dtype complex128: the port runs complex64 (split float32) only "
-            "(ROADMAP queue A, \"The 'default' rung and complex128\")")
-    return torch.float32
 
 
 def _np_dtype(real_dtype):

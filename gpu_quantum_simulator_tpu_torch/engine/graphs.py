@@ -59,7 +59,7 @@ def _counted():
     return (block.run_block, relayout.run_relayout,
             relayout.run_relayout_inplace, split.run_split_block,
             split.run_xswap, vmem.vmem_chunk, wide.kh0_chain,
-            wide.apply_block128, wide.mm_step_high,
+            wide.apply_block128, wide.mm_step_high, wide.mm_step_default,
             pallas_kernels.apply_butterfly_high, copy.grid_copy,
             copy.stream_copy, copy.hbm_direct)
 

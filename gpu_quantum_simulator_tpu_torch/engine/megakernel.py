@@ -4,7 +4,9 @@ A port of the JAX package's ``engine/megakernel.py``, which traces the op
 list into one jitted program (XLA is its megakernel; no Pallas kernel is
 involved).  Here each op is the matching ``ops/apply.py`` primitive in
 torch calls: a ``cx`` op is an exact copy, a 1- or 2-qubit op four real
-einsums, a wider block ``apply_kq`` — IEEE fp32 throughout.  The gate
+einsums, a wider block ``apply_kq`` — IEEE fp32 throughout, or float64
+for complex128 (the JAX package's ``real_dtype``; the matrices then stay
+float64 from the host on).  The gate
 matrices go to the device once, when the callable is built.
 
 It runs every strategy's smallest widths (mxu, vmem and pallas at n <= 7,
@@ -26,24 +28,27 @@ _CACHE: dict = {}
 _CACHE_LIMIT = 64
 
 
-def build_megakernel(ops: Sequence[Op], num_qubits: int,
-                     device="cuda") -> Callable:
+def build_megakernel(ops: Sequence[Op], num_qubits: int, device="cuda",
+                     dtype: torch.dtype = torch.float32) -> Callable:
     """A ``(re, im) -> (re, im)`` callable applying the whole op list to
-    flat float32 (2^n,) tensors on ``device``."""
+    flat (2^n,) tensors of ``dtype`` (float32 or float64) on ``device``."""
     device = A.resolve_device(device)
-    key = ops_digest(ops, f"{num_qubits}|float32|{device}")
+    key = ops_digest(ops, f"{num_qubits}|{dtype}|{device}")
     fn = _CACHE.get(key)
     if fn is None:
-        fn = _build(ops, num_qubits, device)
+        fn = _build(ops, num_qubits, device, dtype)
         if len(_CACHE) >= _CACHE_LIMIT:
             _CACHE.pop(next(iter(_CACHE)))
         _CACHE[key] = fn
     return fn
 
 
-def _build(ops: Sequence[Op], n: int, device: torch.device) -> Callable:
+def _build(ops: Sequence[Op], n: int, device: torch.device,
+           dtype: torch.dtype) -> Callable:
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+
     def tab(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+        return torch.as_tensor(np.asarray(x, dtype=np_dtype), device=device)
 
     baked = []
     for op in ops:
@@ -53,8 +58,8 @@ def _build(ops: Sequence[Op], n: int, device: torch.device) -> Callable:
             baked.append(("u", op.qubits, tab(op.u.real), tab(op.u.imag)))
         else:
             # apply_kq's wide arm expands its matrix on the host
-            baked.append(("u", op.qubits, np.asarray(op.u.real, np.float32),
-                          np.asarray(op.u.imag, np.float32)))
+            baked.append(("u", op.qubits, np.asarray(op.u.real, np_dtype),
+                          np.asarray(op.u.imag, np_dtype)))
 
     def kernel(re: torch.Tensor, im: torch.Tensor):
         for kind, qs, ur, ui in baked:
@@ -71,13 +76,14 @@ def _build(ops: Sequence[Op], n: int, device: torch.device) -> Callable:
     return kernel
 
 
-def run_megakernel(ops: Sequence[Op], num_qubits: int, device, initial=None):
+def run_megakernel(ops: Sequence[Op], num_qubits: int, device, initial=None,
+                   dtype: torch.dtype = torch.float32):
     """The arm as the engines run it: ``(re, im, len(ops), None)`` from
     |0...0> or the complex ``initial`` vector (the ops' basis)."""
-    fn = build_megakernel(ops, num_qubits, device)
+    fn = build_megakernel(ops, num_qubits, device, dtype)
     if initial is None:
-        re, im = A.initial_state_parts(num_qubits, device=device)
+        re, im = A.initial_state_parts(num_qubits, dtype=dtype, device=device)
     else:
-        re, im = A.split_state(initial, device=device)
+        re, im = A.split_state(initial, dtype=dtype, device=device)
     re, im = fn(re, im)
     return re, im, len(ops), None

@@ -5,8 +5,9 @@ reference's launch-per-gate variant (quantum_simulator_naive.cu:163-189),
 kept as a baseline for the ablation rows: per-gate dispatch overhead is the
 analog of per-gate cudaLaunchKernel overhead.  There each gate is one
 jitted call; here it is the matching ``ops/apply.py`` primitive (four real
-einsums in IEEE fp32 for a 1q or 2q gate, an exact copy for a CNOT), so no
-hand kernel is involved, as no Pallas kernel is in the JAX package.
+einsums in IEEE fp32, or float64 on a float64 state, for a 1q or 2q gate,
+an exact copy for a CNOT), so no hand kernel is involved, as no Pallas
+kernel is in the JAX package.
 
 Every gate matrix of a run goes to the device once, before the first gate,
 as one stacked table through ``ops/apply.py`` ``upload`` (page-locked
@@ -82,9 +83,9 @@ def run_oplist(ops: Sequence[Op], num_qubits: int, re: torch.Tensor,
             re, im = A.apply_2q(re, im, *next(mats), op.qubits[0],
                                 op.qubits[1], n)
         else:
-            re, im = A.apply_kq(re, im, np.asarray(op.u.real, np.float32),
-                                np.asarray(op.u.imag, np.float32),
-                                op.qubits, n)
+            # apply_kq rounds the float64 matrix to the state's dtype
+            re, im = A.apply_kq(re, im, np.asarray(op.u.real),
+                                np.asarray(op.u.imag), op.qubits, n)
     return re, im
 
 

@@ -35,9 +35,12 @@ Device side it replaces the JAX program:
   fits either way; the in-place engine is there for parity with the JAX
   package and for the memory it frees.
 
-The slice covers flat and in-place plans at 9 <= n <= 30 at the "highest"
-and "high" precision rungs.  Everything else raises NotImplementedError
-naming its ROADMAP item.
+The slice covers flat and in-place plans at 9 <= n <= 30 at every precision
+rung: "highest", "high" and "default" (the mat step's one bf16 pass, the
+"high" kernels' second instantiation; the gathers stay exact at every
+rung).  complex128 raises ValueError (float32-only, as in the JAX
+package); the mesh gswap raises NotImplementedError naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ import numpy as np
 import torch
 
 from ..ir.oplist import Op, op_matrix
-from ..kernels.block import run_block, split_tables, swap_bits
+from ..kernels.block import (RUNGS, SPLIT_RUNGS, run_block, split_tables,
+                             swap_bits)
 from ..kernels.relayout import run_relayout, run_relayout_inplace
 from ..kernels.split import (join_component, run_split_block, run_xswap,
                              split_halves)
@@ -1074,8 +1078,9 @@ class DeviceChain:
     the two ping-pong buffer pairs, so the caller hands its state over (the
     port's stand-in for JAX's buffer donation).  ``mode_rows`` counts the
     scal rows by mode (3: standalone relayouts, 5: folded ones).  At the
-    "high" rung on a card the tables are also split once into the
-    operands of the "high" mat kernel (kernels/block.py ``split_tables``).
+    "high" and "default" rungs on a card the tables are also split once
+    into the operands of the bf16 mat kernels (kernels/block.py
+    ``split_tables``).
     """
 
     def __init__(self, entries, num_qubits: int, device,
@@ -1091,7 +1096,7 @@ class DeviceChain:
         self._mrow = int(np.log2(self._R2 // self._tr))
         self._parts = []
         self.mode_rows: dict = {}
-        split = precision == "high" and self.device.type == "cuda"
+        split = precision in SPLIT_RUNGS and self.device.type == "cuda"
         for (_, sizes, scal, u_re, u_im, mvec, hvec, mvec_o, hvec_o,
              phases, mono) in entries:
             for mode, cnt in zip(*np.unique(scal[:, 1], return_counts=True)):
@@ -1180,7 +1185,7 @@ class SplitChain:
 
     def __call__(self, re0, re1, im0, im1):
         halves = (re0, re1, im0, im1)
-        split = self.precision == "high" and self.device.type == "cuda"
+        split = self.precision in SPLIT_RUNGS and self.device.type == "cuda"
         for scal, tabs in self._parts:
             a_tab = b_tab = mono_src = high = None
             if any(row[0] for row in scal):    # a part of swaps needs none
@@ -1241,17 +1246,18 @@ def _size(x) -> int:
     return x.numel() if isinstance(x, torch.Tensor) else np.asarray(x).size
 
 
-def _component(x, shape, device) -> torch.Tensor:
-    """One state component as a new contiguous float32 tensor of ``shape``
-    on ``device``.  The caller's array or tensor is copied, never changed,
-    as in the JAX package: the engine runs in place on what it returns."""
+def _component(x, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """One state component as a new contiguous tensor of ``shape`` and
+    ``dtype`` (float32; float64 for a complex128 program) on ``device``.
+    The caller's array or tensor is copied, never changed, as in the JAX
+    package: the engine runs in place on what it returns."""
     if _size(x) != int(np.prod(shape)):
         raise ValueError(f"initial state has wrong length: a component of "
                          f"{tuple(x.shape)} for {tuple(shape)}")
     if isinstance(x, torch.Tensor):
-        x = x.to(device=device, dtype=torch.float32, copy=True)
+        x = x.to(device=device, dtype=dtype, copy=True)
     else:
-        x = torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+        x = torch.tensor(np.asarray(x), dtype=dtype, device=device)
     return x.reshape(shape).contiguous()
 
 
@@ -1341,20 +1347,16 @@ def join_halves(re0, re1, im0, im1):
 
 
 def check_slice(n: int, precision: str) -> None:
-    """Raise for any width, precision rung or engine the port does not run.
-
-    n > MAX_QUBITS is a ValueError, as in the JAX package; the rest are
-    NotImplementedError naming their ROADMAP item."""
+    """Raise for a width or precision rung the engine does not run: n >
+    MAX_QUBITS and an unknown rung are ValueErrors, as in the JAX
+    package."""
     if n > MAX_QUBITS:
         raise ValueError(
             f"n = {n} exceeds the prefetch engine's ceiling (n = "
             f"{MAX_QUBITS}); the sharded engines are not yet ported "
             "(ROADMAP queue A, parallel/)")
-    if precision not in ("highest", "high"):
-        raise NotImplementedError(
-            f"precision {precision!r}: the port runs the 'highest' (IEEE "
-            "fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, \"The "
-            "'default' rung and complex128\")")
+    if precision not in RUNGS:
+        raise ValueError(f"precision {precision!r}: the rungs are {RUNGS}")
 
 
 class PrefetchProgram:
@@ -1536,8 +1538,9 @@ def run_prefetch(circuit, config, device, initial_parts=None,
     precision = resolve_precision(getattr(config, "precision", "highest"), n)
     if config.dtype != "complex64":
         raise ValueError(
-            "the prefetch strategy is float32-only; use the JAX package's "
-            "mxu/reference strategies for complex128 parity checks")
+            "the prefetch strategy is float32-only (its kernels run no "
+            "float64, as the JAX package's Mosaic kernels); complex128 runs "
+            "on the parity arms mxu, megakernel and reference")
     device = resolve_device(device)
     if n < MIN_QUBITS:
         if return_halves:

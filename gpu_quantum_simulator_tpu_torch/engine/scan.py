@@ -112,7 +112,7 @@ def run_tables(re: torch.Tensor, im: torch.Tensor, tables: GateTables,
                num_qubits: int):
     """Apply every row of the tables, padding included, to the flat pair."""
     idx = _basis_index(num_qubits, re.device)
-    coef = A.upload(np.stack([tables.ur, tables.ui]).astype(np.float32),
+    coef = A.upload(np.stack([tables.ur, tables.ui]),
                     re.device)   # (2, rows, 2, 2): one pinned copy
     for j in range(len(tables.tmask)):
         tmask = int(tables.tmask[j])
@@ -140,7 +140,7 @@ def run_scan(ops: Sequence[Op], num_qubits: int, re: torch.Tensor,
     tables = build_tables(
         ops,
         bucket_size(len(ops), bucket),
-        real_dtype=np.float32,
+        real_dtype=np.float64 if re.dtype == torch.float64 else np.float32,
         index_dtype=np.int64 if num_qubits >= 31 else np.int32,
     )
     return run_tables(re, im, tables, num_qubits)

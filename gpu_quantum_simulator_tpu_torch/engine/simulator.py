@@ -9,10 +9,23 @@ smallest widths), the reference's ablation rows ``"naive"``,
 ``"fused2x2"``, ``"fused3in1"``, ``"fused4x4"`` (engine/naive.py) and
 ``"scan"`` (engine/scan.py), and ``"reference"`` (ref/cpu.py: numpy
 complex128 on the host, whatever the device; ``run`` and ``run_detailed``
-only, as in the JAX package).  ``"sharded"``, complex128 and the
-"default" rung raise NotImplementedError naming their ROADMAP item; n > 30,
-and vmem above n = 19, raise ValueError, as in the JAX package.  Nothing
-runs on another device than the one asked for.
+only, as in the JAX package).  ``"sharded"`` raises NotImplementedError
+naming its ROADMAP item; n > 30, and vmem above n = 19, raise ValueError,
+as in the JAX package.  Nothing runs on another device than the one asked
+for.
+
+Rungs: "highest" (IEEE fp32), "high" (3-pass bf16 on the tensor cores)
+and "default" (one bf16 pass, the hi.hi term of "high", on the same
+kernels' second instantiations); "auto" is "high" from n = 24, else
+"highest", never "default".  The megakernel, pallas, vmem and per-gate
+engines ignore the rung, as in the JAX package.
+
+``dtype="complex128"`` runs float64 from the tables to the result on mxu
+(every block a float64 ``torch.matmul`` step, no chain kernel), the
+megakernel, the per-gate engines and ``reference``: the JAX package's
+parity arms, torch ops with no hand kernel.  prefetch, pallas and vmem
+raise ValueError for it: their kernels are float32-only (the JAX
+package's Mosaic kernels run no float64 on the chip).
 
 ``prefetch`` runs in place on four column halves from n = 30 (or with
 ``prefetch_inplace=True``); ``run_device_halves`` returns those halves and
@@ -37,7 +50,6 @@ import torch
 
 from ..config import SimulatorConfig
 from ..ir.circuit import Circuit
-from ..kernels.block import RUNGS
 from ..ops import apply as A
 from ..passes.permute import plan_permutation, unpermute_state
 from .vmem import VMEM_MAX_QUBITS
@@ -204,9 +216,11 @@ class Simulator:
         if len(parts) != 2:
             raise ValueError(f"parts: a flat (re, im) pair, got {len(parts)} "
                              "arrays")
+        cfg = self.config
         n = circuit.num_qubits
         fn, nops = self._build_program(circuit)
-        re, im = (_component(p, (1 << n,), self.device) for p in parts)
+        re, im = (_component(p, (1 << n,), self.device, _real_dtype(cfg))
+                  for p in parts)
         re, im = fn(re, im)
         return re, im, nops
 
@@ -238,7 +252,9 @@ class Simulator:
 
         perm, programs = self._iterated_programs(body, repetitions, prefix,
                                                  suffix)
-        re, im = A.initial_state_parts(body.num_qubits, device=self.device)
+        re, im = A.initial_state_parts(body.num_qubits,
+                                       dtype=_real_dtype(self.config),
+                                       device=self.device)
         total_ops = 0
         for fn, nops, reps in programs:
             total_ops += nops * reps
@@ -308,7 +324,8 @@ class Simulator:
             ops = fuse_4x4(circuit) if cfg.strategy == "megakernel" else (
                 _fuse_pipeline(circuit, min(cfg.max_fused_qubits, n),
                                max_high=None))
-            return build_megakernel(ops, n, self.device), len(ops)
+            return build_megakernel(ops, n, self.device,
+                                    _real_dtype(cfg)), len(ops)
         if cfg.strategy == "vmem":
             ops, prog = self._vmem_program(circuit)
             return prog, len(ops)
@@ -483,7 +500,8 @@ class Simulator:
             else:
                 ops = _fuse_pipeline(circuit, min(cfg.max_fused_qubits, n),
                                      max_high=None)
-            return run_megakernel(ops, n, self.device, initial)
+            return run_megakernel(ops, n, self.device, initial,
+                                  _real_dtype(cfg))
         if cfg.strategy == "vmem":
             return self._run_vmem(circuit, initial)
         return self._run_mxu(circuit, initial)
@@ -548,9 +566,10 @@ class Simulator:
         return _cached_plan(key, plan)
 
     def _start(self, n: int, initial=None):
+        dtype = _real_dtype(self.config)
         if initial is None:
-            return A.initial_state_parts(n, device=self.device)
-        return A.split_state(initial, device=self.device)
+            return A.initial_state_parts(n, dtype=dtype, device=self.device)
+        return A.split_state(initial, dtype=dtype, device=self.device)
 
     def _run_mxu(self, circuit: Circuit, initial=None):
         """The wide engine: cost-model fusion, then the WideProgram."""
@@ -574,56 +593,60 @@ class Simulator:
                  if cfg.fusion_cost_model is not None else True)
         # plan cache: a repeat run neither re-fuses nor re-hashes the fused
         # matrices; the device takes the place of the JAX backend's name
-        key = (_circuit_fingerprint(circuit), n, precision, k, window, costm,
-               str(self.device))
+        key = (_circuit_fingerprint(circuit), n, cfg.dtype, precision, k,
+               window, costm, str(self.device))
 
         def plan():
             ops = _fuse_pipeline(circuit, k, max_high=2, window=window,
                                  cost_model=costm)
             return ops, build_wide_program(ops, n, precision=precision,
-                                           device=self.device)
+                                           device=self.device,
+                                           dtype=_real_dtype(cfg))
 
         return _cached_plan(key, plan)
 
 
 # The reference's ablation rows: torch ops per gate, op or table row
-# (engine/naive.py, engine/scan.py), at every width, always IEEE fp32.
+# (engine/naive.py, engine/scan.py), at every width, IEEE fp32 whatever the
+# rung (float64 for complex128).
 PER_GATE_STRATEGIES = ("naive", "fused2x2", "fused3in1", "fused4x4", "scan")
+
+# what runs complex128: the JAX package's float64 parity arms
+COMPLEX128_STRATEGIES = ("mxu", "megakernel", "reference") \
+    + PER_GATE_STRATEGIES
+
+
+def _real_dtype(cfg: SimulatorConfig) -> torch.dtype:
+    """The state's float dtype for ``cfg.dtype`` (the JAX package's
+    ``_init_real_dtype``)."""
+    return torch.float64 if cfg.dtype == "complex128" else torch.float32
 
 
 def _check_run(cfg: SimulatorConfig, n: int) -> None:
-    """Raise for what the port's mxu, pallas, vmem, megakernel and per-gate
-    engines do not run (the prefetch engine fences its own slice,
-    engine/prefetch.py ``run_prefetch``)."""
+    """Raise for what the port's engines do not run: n > 30, the sharded
+    strategy, complex128 on the float32-only kernel engines, vmem above
+    n = 19 (the prefetch engine fences its width itself,
+    engine/prefetch.py ``check_slice``)."""
     if n > 30:
         # fail BEFORE allocating, as the JAX package does
         raise ValueError(
             f"n = {n} exceeds the single-chip ceiling (n = 30); the sharded "
             "engines are not yet ported (ROADMAP queue A, \"parallel/ on "
             "torch.distributed\")")
-    if cfg.strategy == "prefetch":
-        return
     if cfg.strategy == "sharded":
         raise NotImplementedError(
             "strategy 'sharded' is not yet ported (ROADMAP queue A, "
             "\"parallel/ on torch.distributed\")")
-    if cfg.dtype != "complex64":
-        raise NotImplementedError(
-            "dtype complex128: the port runs complex64 (split float32) only "
-            "(ROADMAP queue A, \"The 'default' rung and complex128\")")
+    if cfg.dtype == "complex128" and cfg.strategy not in COMPLEX128_STRATEGIES:
+        raise ValueError(
+            f"strategy {cfg.strategy!r} is float32-only (its kernels run no "
+            "float64, as the JAX package's Mosaic kernels); complex128 runs "
+            "on the parity arms mxu, megakernel and reference (and the "
+            "per-gate engines)")
     if cfg.strategy == "vmem" and n > VMEM_MAX_QUBITS:
         raise ValueError(
             f"vmem strategy holds the state in VMEM: n <= {VMEM_MAX_QUBITS} "
             f"(got {n}); use mxu")
-    # the megakernel arm (n <= 7, and the megakernel strategy), the pallas,
-    # vmem and per-gate engines ignore the rung (always IEEE fp32), as in
-    # the JAX package
-    if cfg.strategy == "mxu" and n > LANE_QUBITS \
-            and cfg.effective_precision(n) not in RUNGS:
-        raise NotImplementedError(
-            f"precision {cfg.precision!r}: the port runs the 'highest' "
-            "(IEEE fp32) and 'high' (3-pass bf16) rungs (ROADMAP queue A, "
-            "\"The 'default' rung and complex128\")")
 
 
 # mxu plan cache: (circuit fingerprint, n, precision, fusion knobs, device)

@@ -2,7 +2,8 @@
 complex matrix product on the lane-layout state.
 
 A port of the JAX package's ``engine/wide.py``.  The state is the (R, 128)
-float32 pair, R = 2^(n-7), with the low 7 qubits on the columns.  A block
+float32 pair (float64 for complex128), R = 2^(n-7), with the low 7 qubits
+on the columns.  A block
 over qubits L ∪ H (L ⊆ [0, 7), H = kh high qubits, kh <= 2 by the fuser's
 ``max_high``) is expanded on the host over the lane qubits plus H into a
 D x D matrix, D = 2^(7+kh) <= 512, and applied as
@@ -17,10 +18,10 @@ half differs:
 
 * a run of up to ``KH0_BATCH`` consecutive kh = 0 blocks (``("kh0", run,
   P)``) is one launch of the chain kernel (kernels/wide.py ``kh0_chain``,
-  csrc/wide_chain.cu; TPU kernel 7), in place, Karatsuba products at both
-  rungs (IEEE fp32 at "highest", the mm step's 3-pass bf16 products on
-  the row tile held on chip at "high"), without the identity pads (P
-  records the padded length);
+  csrc/wide_chain.cu; TPU kernel 7), in place, Karatsuba products at every
+  rung (IEEE fp32 at "highest", the mm step's 3-pass bf16 products on the
+  row tile held on chip at "high", their hi.hi term alone at "default"),
+  without the identity pads (P records the padded length);
 * every other block (``("mm", D, idx, row_bits)``) is the JAX package's
   Karatsuba product.  At "highest" it runs between row shuffles
   (``permute`` copies), the three real products ``torch.matmul`` in IEEE
@@ -33,12 +34,22 @@ half differs:
   shuffle copy) and keeps the hi.hi sums out of the tensor core's
   truncating adds; it writes into a second pair, one per run, which then
   swaps with the state (a kh = 0 chain runs in place on whichever pair is
-  current).
+  current).  At "default" it is the same kernel's one-pass instantiation
+  (``mm_step_default``).
+
+complex128 (``dtype=torch.float64``) is the JAX package's parity arm:
+there kh0_pallas is off below float32, so every block, kh = 0 included, is
+an XLA dot between row shuffles, in float64 whatever the rung.  Here
+likewise: no kh0 run is planned, every block is ``_mm_step``'s float64
+``torch.matmul`` Karatsuba between row shuffles, the tables are float64
+from the host on, and the rung is not read (the program runs as
+"highest").
 
 Tables go to the device once per program (``build_wide_program`` caches
-programs by their ops); at "high" the Karatsuba combinations of every mm
-step and kh = 0 run are formed in float64 and split to bf16 once as well,
-into the mm step's table image (``split_mm_tables``).
+programs by their ops); at "high" and "default" the Karatsuba combinations
+of every mm step and kh = 0 run are formed in float64 and split to bf16
+once as well, into the mm step's table image (``split_mm_tables``; the
+"default" kernels read its hi parts).
 """
 
 from __future__ import annotations
@@ -50,9 +61,9 @@ import numpy as np
 import torch
 
 from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
-from ..kernels.block import RUNGS
-from ..kernels.wide import (ieee_fp32, kh0_chain, mm_step_high,
-                            row_shuffles, split_mm_tables)
+from ..kernels.block import RUNGS, SPLIT_RUNGS
+from ..kernels.wide import (MM_STEPS, ieee_fp32, kh0_chain, row_shuffles,
+                            split_mm_tables)
 from ..ops.apply import resolve_device, upload
 
 LANE_QUBITS = 7
@@ -92,18 +103,19 @@ def _mm_step(state: list, spare: list, m, row_bits, R: int,
     """One kh >= 1 block (or kh = 0 without the chain kernel) on
     ``state = [re, im]`` (R, 128), replaced in place by the result.
 
-    ``m``: at "highest" the (3, D, D) float32 Karatsuba combinations
-    m1 = M_re^T, m2 = (M_im - M_re)^T, m3 = (M_re + M_im)^T, and out_re =
-    t1 - t3, out_im = t1 + t2 with t1 = (x_re + x_im) @ m1, t2 = x_re @ m2,
-    t3 = x_im @ m3 in IEEE fp32 between ``row_shuffles`` copies; at "high"
+    ``m``: at "highest" the (3, D, D) Karatsuba combinations m1 = M_re^T,
+    m2 = (M_im - M_re)^T, m3 = (M_re + M_im)^T in the state's dtype
+    (float32 or float64), and out_re = t1 - t3, out_im = t1 + t2 with
+    t1 = (x_re + x_im) @ m1, t2 = x_re @ m2, t3 = x_im @ m3 (IEEE fp32, or
+    float64) between ``row_shuffles`` copies; at "high" and "default"
     their ``split_mm_tables`` image, the same product as one
-    ``mm_step_high`` (the kernel csrc/mm_high.cu on a card, which reads and
-    writes the state through the row map, its plain version on the CPU)
-    into ``spare``, a pair of the state's shape (empty before the first
-    such step), after which the two pairs swap."""
-    if precision == "high":
-        out = mm_step_high(state[0], state[1], m, row_bits,
-                           out=tuple(spare) if spare else None)
+    ``mm_step_high`` / ``mm_step_default`` (the kernel csrc/mm_high.cu on
+    a card, which reads and writes the state through the row map, its
+    plain version on the CPU) into ``spare``, a pair of the state's shape
+    (empty before the first such step), after which the two pairs swap."""
+    if precision in SPLIT_RUNGS:
+        out = MM_STEPS[precision](state[0], state[1], m, row_bits,
+                                  out=tuple(spare) if spare else None)
         spare[:] = state
         state[:] = out
         return
@@ -127,18 +139,18 @@ def _kh(op: Op) -> int:
     return sum(1 for q in op.qubits if q >= LANE_QUBITS)
 
 
-def plan_segments(ops: Sequence[Op], num_qubits: int):
+def plan_segments(ops: Sequence[Op], num_qubits: int, chain: bool = True):
     """The JAX package's step lists, without tables.
 
     Per 128-op segment: ``(steps, buckets, runs)`` — ``steps`` the step
     tuples ``("kh0", run, P)`` / ``("mm", D, idx, row_bits)``, ``buckets``
     D -> the indices into ``ops`` of that D's mm steps in order, ``runs``
     each kh0 run's op indices (P is its length padded to a power of two).
-    kh = 0 blocks chain when R >= 8, the JAX package's rule for float32
-    (the port's only dtype), kept on every device so the step lists agree;
-    below that every block is an mm step.
+    kh = 0 blocks chain when ``chain`` (float32; False for float64) and
+    R >= 8, the JAX package's rule (its kh0_pallas), kept on every device
+    so the step lists agree; otherwise every block is an mm step.
     """
-    chain = (1 << (num_qubits - LANE_QUBITS)) >= 8
+    chain = chain and (1 << (num_qubits - LANE_QUBITS)) >= 8
     segments = []
     for s0 in range(0, max(len(ops), 1), SEGMENT_OPS):
         buckets: Dict[int, list] = {}
@@ -175,12 +187,14 @@ def plan_segments(ops: Sequence[Op], num_qubits: int):
 @dataclass
 class _Segment:
     steps: list                     # the JAX package's step tuples
-    mm: dict                        # D -> (count, 3, D, D) float32, or at
-                                    # "high" (count, 6, D, D) bfloat16
+    mm: dict                        # D -> (count, 3, D, D) float32 (or
+                                    # float64), or at "high" and "default"
+                                    # (count, 6 D^2) bfloat16
                                     # (split_mm_tables)
     runs: List[torch.Tensor]        # (L, 2, 128, 128) float32 [M_re, M_im]
-    runs_w16: list                  # at "high" (L, 6 * 128^2) bfloat16 per
-                                    # run (split_mm_tables), else None
+    runs_w16: list                  # at "high" and "default" (L, 6 * 128^2)
+                                    # bfloat16 per run (split_mm_tables),
+                                    # else None
 
 
 class WideProgram:
@@ -188,30 +202,36 @@ class WideProgram:
 
     Calling it maps a flat (2^n,) state pair through every step and returns
     the new pair; the input pair is handed over (the chain kernel writes
-    into it)."""
+    into it).  ``dtype``: the state's float dtype, float32 or float64 (the
+    complex128 arm: no chain, every block a float64 matmul step, the rung
+    not read)."""
 
     def __init__(self, ops: Sequence[Op], num_qubits: int,
-                 precision: str = "highest", device="cuda"):
+                 precision: str = "highest", device="cuda",
+                 dtype: torch.dtype = torch.float32):
         n = num_qubits
         if n <= LANE_QUBITS:
             raise ValueError(f"the wide engine needs n > {LANE_QUBITS}")
         if precision not in RUNGS:
-            raise NotImplementedError(
-                f"precision {precision!r}: the wide engine runs the rungs "
-                f"{RUNGS} (ROADMAP queue A, \"The 'default' rung and "
-                "complex128\")")
+            raise ValueError(f"precision {precision!r}: the wide engine "
+                             f"runs the rungs {RUNGS}")
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {dtype}: float32 or float64")
+        f32 = dtype == torch.float32
         self.num_qubits = n
-        self.precision = precision
+        self.dtype = dtype
+        self.precision = precision if f32 else "highest"
         self.device = resolve_device(device)
         self._R = 1 << (n - LANE_QUBITS)
-        high = precision == "high"
+        high = self.precision in SPLIT_RUNGS
+        np_dtype = np.float32 if f32 else np.float64
 
         def dev(a):
-            return upload(np.asarray(a, dtype=np.float32), self.device)
+            return upload(np.asarray(a, dtype=np_dtype), self.device)
 
         self.segments: List[_Segment] = []
         self.num_kh0_runs = 0
-        for steps, buckets, runs in plan_segments(ops, n):
+        for steps, buckets, runs in plan_segments(ops, n, chain=f32):
             mm = {}
             for D, idxs in buckets.items():
                 mm[D] = dev(np.stack([_karatsuba(*_op_spec(ops[i], n)[3:])
@@ -250,14 +270,14 @@ _CACHE_LIMIT = 16
 
 
 def build_wide_program(ops: Sequence[Op], num_qubits: int,
-                       precision: str = "highest",
-                       device="cuda") -> WideProgram:
+                       precision: str = "highest", device="cuda",
+                       dtype: torch.dtype = torch.float32) -> WideProgram:
     device = resolve_device(device)
-    key = ops_digest(ops, f"{num_qubits}|{precision}|{device}")
+    key = ops_digest(ops, f"{num_qubits}|{precision}|{device}|{dtype}")
     prog = _CACHE.get(key)
     if prog is None:
         prog = WideProgram(ops, num_qubits, precision=precision,
-                           device=device)
+                           device=device, dtype=dtype)
         if len(_CACHE) >= _CACHE_LIMIT:
             _CACHE.pop(next(iter(_CACHE)))
         _CACHE[key] = prog

@@ -14,23 +14,29 @@ streamed twin.  A block is one row of the planner's ``scal`` table,
 * step kinds (``logt`` = log2 of the tile rows the plan assumed):
   0 mat (table slot midx), 1..logt tswap k, logt+1 perm (lane v = midx),
   logt+2 mono (slot midx).
-* precision rung of the mat step: "highest" (IEEE fp32 products) or
-  "high" (the 3-pass bf16 product of the JAX package's ``_make_dot``).
-  Perm, tswap and mono steps are exact gathers at every rung.
+* precision rung of the mat step: "highest" (IEEE fp32 products),
+  "high" (the 3-pass bf16 product of the JAX package's ``_make_dot``) or
+  "default" (its one bf16 pass: x and the table rounded to bf16, the
+  products summed in fp32, the hi.hi term of "high").  Perm, tswap and
+  mono steps are exact gathers at every rung.
 
 ``run_block`` launches the CUDA kernels of ``csrc/prefetch_block.cu`` and
 ``csrc/mat_high.cu`` for a CUDA state (one launch per step, ping-ponging
 between the state and a scratch pair) and runs ``run_block_plain`` — the
 same function in plain torch — for a CPU state.  Any other device raises.
 ``run_block.launches`` counts kernel launches by kind: ``mat`` (fp32 mat
-step), ``mat_high`` ("high" mat step), ``gather`` (every other step and a
-prologue-only block) and ``folded`` (the first launch of a mode-5 block,
-whichever step it runs); each launch is counted under one kind.
+step), ``mat_high`` ("high" mat step), ``mat_default`` ("default" mat
+step: the "high" kernel's second instantiation, csrc/mat_high.cu),
+``gather`` (every other step and a prologue-only block) and ``folded``
+(the first launch of a mode-5 block, whichever step it runs); each launch
+is counted under one kind.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
+
+import contextlib
 
 import numpy as np
 import torch
@@ -41,10 +47,11 @@ from .relayout import run_relayout_plain
 LANE_QUBITS = 7
 LOCAL_QUBITS = 8
 DVIEW = 256
-RUNGS = ("highest", "high")
+RUNGS = ("highest", "high", "default")
+SPLIT_RUNGS = ("high", "default")   # rungs whose mat step reads split_tables
 HIGH_COL_BLOCKS = 4        # the "high" kernel's column blocks of 64
 HIGH_SLOT_WORDS = DVIEW * DVIEW * 2   # int32 words: four bf16 tables a slot
-LAUNCH_KINDS = ("mat", "mat_high", "gather", "folded")
+LAUNCH_KINDS = ("mat", "mat_high", "mat_default", "gather", "folded")
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -53,8 +60,9 @@ def _check_mode(mode: int, sigma) -> None:
     if mode not in (0, 1, 5):
         raise NotImplementedError(
             f"block mode {mode}: the port's blocks are plain (0), steered "
-            "(1) and folded relayout (5); the in-place xswap (2) and the "
-            "mesh gswap (4) are ROADMAP queue A items")
+            "(1) and folded relayout (5); the in-place xswap (2) is an "
+            "entry of in-place plans, and the mesh gswap (4) comes with "
+            "ROADMAP queue A, \"parallel/ on torch.distributed\"")
     if (mode == 5) != (sigma is not None):
         raise ValueError(f"block mode {mode}: a sigma is given exactly for "
                          "a folded relayout (mode 5)")
@@ -62,10 +70,21 @@ def _check_mode(mode: int, sigma) -> None:
 
 def _check_rung(precision: str) -> None:
     if precision not in RUNGS:
-        raise NotImplementedError(
-            f"precision {precision!r}: the block kernel runs the rungs "
-            f"{RUNGS} (ROADMAP queue A, \"The 'default' rung and "
-            "complex128\")")
+        raise ValueError(f"precision {precision!r}: the rungs are {RUNGS}")
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Run float32 matmuls in IEEE fp32 (no TF32) whatever the process-wide
+    setting is, and restore that setting afterwards."""
+    saved = torch.get_float32_matmul_precision()
+    if saved != "highest":
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if saved != "highest":
+            torch.set_float32_matmul_precision(saved)
 
 
 def swap_bits(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -106,6 +125,17 @@ def mat_high_plain(re: torch.Tensor, im: torch.Tensor, a: torch.Tensor,
     ma, mb = bf16_split(a), bf16_split(b)
     return (_dot_high(xr, ma) - _dot_high(xi, mb),
             _dot_high(xr, mb) + _dot_high(xi, ma))
+
+
+def mat_default_plain(re: torch.Tensor, im: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor) -> Pair:
+    """The "default" rung's complex mat step in plain torch (schoolbook, as
+    the kernel): every real product ``xh @ mh``, float32 matmuls of
+    bf16-exact values (h = the bf16 rounding) in IEEE fp32."""
+    xr, xi = bf16_split(re)[0], bf16_split(im)[0]
+    ma, mb = bf16_split(a)[0], bf16_split(b)[0]
+    with ieee_fp32():
+        return xr @ ma - xi @ mb, xr @ mb + xi @ ma
 
 
 def split_tables(a_tab: torch.Tensor, b_tab: torch.Tensor) -> torch.Tensor:
@@ -154,8 +184,9 @@ def run_block_plain(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
     blocks (``run_relayout_plain``) followed by the steps.  mat is
     ``x @ A`` complex with A = M_re^T + i M_im^T from the slot's tables:
     float32 products at "highest" (on a card with TF32 off), the 3-pass
-    bf16 split at "high" (``mat_high_plain``); every other step is the
-    exact index map the kernel applies.
+    bf16 split at "high" (``mat_high_plain``), one bf16 pass at "default"
+    (``mat_default_plain``); every other step is the exact index map the
+    kernel applies.
     """
     mode = int(scal[1])
     _check_mode(mode, sigma)
@@ -173,6 +204,8 @@ def run_block_plain(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
             a, b = a_tab[idx], b_tab[idx]
             if precision == "high":
                 re, im = mat_high_plain(re, im, a, b)
+            elif precision == "default":
+                re, im = mat_default_plain(re, im, a, b)
             else:
                 re, im = re @ a - im @ b, re @ b + im @ a
         elif kind <= logt:
@@ -215,8 +248,9 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
     free for the caller's next entry.  ``a_tab``/``b_tab`` are the entry's
     (cap, 256, 256) tables, ``mono_src`` its (cap, 256) int32 gathers,
     ``sigma``/``tr`` a mode-5 block's folded relayout, and
-    ``high_tables`` the entry's ``split_tables`` for the "high" rung
-    (computed here when None; checked on every device when given).
+    ``high_tables`` the entry's ``split_tables`` for the "high" and
+    "default" rungs (computed here when None; checked on every device when
+    given).
     """
     if high_tables is not None:
         check_high_tables(high_tables, a_tab.shape[0], "block kernel")
@@ -244,7 +278,7 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
                              f"one sigma entry per row-block bit (rows "
                              f"{rows}, tr {tr}, sigma {list(sigma)})")
         fold = np.ascontiguousarray(np.asarray(sigma, dtype=np.int32))
-    high = precision == "high" and any(
+    high = precision in SPLIT_RUNGS and any(
         int(scal[4 + j]) == 0 for j in range(nsteps))
     if high and high_tables is None:
         high_tables = split_tables(a_tab, b_tab)
@@ -288,12 +322,12 @@ def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
     for j in range(nsteps):
         kind = int(scal[4 + j])
         idx = int(scal[4 + cap_steps + j])
-        if kind == 0 and precision == "high":
-            what = "mat_high"
+        if kind == 0 and high:
+            what = "mat_" + precision
             rc = lib.qsim_mat_step_high(
                 src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(),
                 dst[1].data_ptr(), w0 + idx * HIGH_SLOT_WORDS * 4, rows,
-                steer, *fold_args(), stream)
+                steer, *fold_args(), int(precision == "high"), stream)
         elif kind == 0:
             what = "mat"
             rc = lib.qsim_mat_step(

@@ -103,7 +103,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_mat_step.restype = I
     lib.qsim_mat_step.argtypes = [P, P, P, P, P, P, L, I, P, I, I, P]
     lib.qsim_mat_step_high.restype = I
-    lib.qsim_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, I, P]
+    lib.qsim_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, I, I, P]
     lib.qsim_gather_step.restype = I
     lib.qsim_gather_step.argtypes = [P, P, P, P, L, I, I, I, P, P, P, I, I, P]
     lib.qsim_relayout.restype = I
@@ -113,7 +113,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_split_mat_step.restype = I
     lib.qsim_split_mat_step.argtypes = [P, P, P, P, P, P, L, I, P]
     lib.qsim_split_mat_step_high.restype = I
-    lib.qsim_split_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, P]
+    lib.qsim_split_mat_step_high.argtypes = [P, P, P, P, P, L, I, P, I, I,
+                                             P]
     lib.qsim_split_swap_rows.restype = I
     lib.qsim_split_swap_rows.argtypes = [P, P, P, P, L, I, P]
     lib.qsim_split_tswap_pair.restype = I
@@ -123,9 +124,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.qsim_wide_chain.restype = I
     lib.qsim_wide_chain.argtypes = [P, P, P, P, P, P, L, I, L, P]
     lib.qsim_wide_chain_high.restype = I
-    lib.qsim_wide_chain_high.argtypes = [P, P, P, P, P, I, L, P]
+    lib.qsim_wide_chain_high.argtypes = [P, P, P, P, P, I, L, I, P]
     lib.qsim_mm_step_high.restype = I
-    lib.qsim_mm_step_high.argtypes = [P, P, P, P, P, L, I, I, I, P]
+    lib.qsim_mm_step_high.argtypes = [P, P, P, P, P, L, I, I, I, I, P]
     lib.qsim_butterfly_high.restype = I
     lib.qsim_butterfly_high.argtypes = [P, P, P, P, L, I, P, P]
     for fn in (lib.qsim_copy_stream, lib.qsim_copy_direct):

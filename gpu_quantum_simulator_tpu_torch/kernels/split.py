@@ -23,8 +23,9 @@ mat steps give the flat kernels' values bit for bit.
 CUDA tensors (one launch per step) and run the plain torch versions
 ``run_split_block_plain`` and ``run_xswap_plain`` for CPU tensors; any
 other device raises.  ``run_split_block.launches`` counts launches by kind:
-``mat``, ``mat_high``, ``gather`` (tswap, perm, mono) and ``pair`` (the
-first launch of a mode-1 block, whichever step it runs);
+``mat``, ``mat_high``, ``mat_default`` (the "high" kernel's "default"
+instantiation), ``gather`` (tswap, perm, mono) and ``pair`` (the first
+launch of a mode-1 block, whichever step it runs);
 ``run_xswap.launches`` counts the pair swaps.
 """
 
@@ -35,11 +36,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .block import (DVIEW, HIGH_SLOT_WORDS, _check_rung, check_high_tables,
-                    run_block_plain, split_tables)
+from .block import (DVIEW, HIGH_SLOT_WORDS, SPLIT_RUNGS, _check_rung,
+                    check_high_tables, run_block_plain, split_tables)
 
 LANES = 128
-LAUNCH_KINDS = ("mat", "mat_high", "gather", "pair")
+LAUNCH_KINDS = ("mat", "mat_high", "mat_default", "gather", "pair")
 HIGH_SYNC_GROUPS = 64      # CTA groups the "high" step's counters serve
 
 Halves = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -71,7 +72,8 @@ def _check_block_mode(mode: int) -> None:
             f"split block mode {mode}: in-place blocks are plain (0) or pair "
             "mode (1); 2 is the pair swap (run_xswap), 3 the in-place "
             "relayout (kernels/relayout.py), 5 never occurs in place, and "
-            "the mesh gswap (4) is a ROADMAP queue A item")
+            "the mesh gswap (4) comes with ROADMAP queue A, \"parallel/ on "
+            "torch.distributed\"")
 
 
 def run_xswap_plain(halves: Halves, row_bit: int) -> Halves:
@@ -167,7 +169,7 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
 
     ``a_tab``/``b_tab`` are the entry's (cap, 256, 256) tables, ``mono_src``
     its (cap, 256) int32 gathers and ``high_tables`` its ``split_tables``
-    for the "high" rung (computed here when None; checked on every device
+    for the "high" and "default" rungs (computed here when None; checked on every device
     when given); a block without steps reads no table, and they may then be
     None."""
     if high_tables is not None:
@@ -203,7 +205,7 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
             or mono_src.shape != a_tab.shape[:2]:
         raise ValueError("split block kernel: tables must be (cap, 256, 256) "
                          "and mono_src (cap, 256)")
-    high = precision == "high" and any(
+    high = precision in SPLIT_RUNGS and any(
         int(scal[4 + j]) == 0 for j in range(nsteps))
     if high and high_tables is None:
         high_tables = split_tables(a_tab, b_tab)
@@ -218,12 +220,12 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
     for j in range(nsteps):
         kind = int(scal[4 + j])
         idx = int(scal[4 + cap_steps + j])
-        if kind == 0 and precision == "high":
-            what = "mat_high"
+        if kind == 0 and high:
+            what = "mat_" + precision
             rc = lib.qsim_split_mat_step_high(
                 *ptrs, high_tables.data_ptr() + idx * HIGH_SLOT_WORDS * 4,
                 rows, pair, _high_sync(dev, stream).data_ptr(),
-                HIGH_SYNC_GROUPS, stream)
+                HIGH_SYNC_GROUPS, int(precision == "high"), stream)
         elif kind == 0:
             what = "mat"
             rc = lib.qsim_split_mat_step(*ptrs, a0 + idx * slot,

@@ -5,7 +5,7 @@ JAX package:
 
 * ``engine/wide.py`` ``get_kh0_kernel`` (kernel 7): a run of up to
   ``KH0_BATCH`` consecutive kh = 0 blocks applied while each row tile is
-  resident, at the "highest" or "high" rung — ``kh0_chain``;
+  resident, at the "highest", "high" or "default" rung — ``kh0_chain``;
 * ``ops/pallas_kernels.py`` ``apply_block128`` (kernel 9): one such
   product at "highest", the ``pallas`` engine's only matrix step —
   ``apply_block128``.
@@ -14,7 +14,7 @@ The state is the (R, 128) float32 pair with the low 7 qubits on the
 columns; each product is ``x <- x @ M^T`` (complex).  A chain's tables are
 (L, 2, 128, 128) float32 ``[M_re, M_im]``, each stored as M itself ([n][k],
 the output index first).  The complex form is the JAX package's
-Karatsuba at both rungs, in the kernel and in the plain versions alike:
+Karatsuba at every rung, in the kernel and in the plain versions alike:
 ``t1 = (x_re + x_im) @ m1``, ``t2 = x_re @ m2``, ``t3 = x_im @ m3`` with
 ``m1 = M_re^T``, ``m2 = (M_im - M_re)^T``, ``m3 = (M_re + M_im)^T``, then
 ``re = t1 - t3``, ``im = t1 + t2``.  At "highest" the three products are
@@ -23,7 +23,9 @@ stages them.  At "high" each real product is the 3-pass bf16 split
 ``xh.mh + xl.mh + xh.ml``, the mm step's arithmetic (``karatsuba_high``),
 on the combinations formed in float64 and split once per program into the
 mm step's D = 128 table image (``kh0_high_tables``), so that a chain of
-one product is the D = 128 mm step.
+one product is the D = 128 mm step.  At "default" each real product is the
+one bf16 pass ``xh.mh`` (``karatsuba_default``; the kernel's second
+instantiation, reading the hi parts of the same image).
 
 A second kernel (``csrc/mm_high.cu``) is the mxu engine's mm step at the
 "high" rung, ``mm_step_high``: the JAX package's Karatsuba product
@@ -38,23 +40,24 @@ split once per program into the kernel's shared-memory image
 (``split_mm_tables``; ``mm_tables_f32`` reads them back).  The JAX package
 computes it outside any Pallas kernel; it is hand-written here because
 cuBLAS's bf16 GEMMs keep their fp32 sums in the tensor core, whose
-truncating adds shrink the norm.
+truncating adds shrink the norm.  At the "default" rung the same kernel's
+second instantiation, ``mm_step_default``, computes the one bf16 pass
+``xh.mh`` of each real product (``karatsuba_default``).
 
 For a CUDA state the wrappers launch the kernel; for a CPU state they run
 the plain torch version; any other device raises.  ``kh0_chain.launches``
-counts launches by rung, ``apply_block128.launches`` and
-``mm_step_high.launches`` their own.
+counts launches by rung, ``apply_block128.launches``,
+``mm_step_high.launches`` and ``mm_step_default.launches`` their own.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import build
-from .block import RUNGS, bf16_split
+from .block import RUNGS, _check_rung, bf16_split, ieee_fp32
 
 LANES = 128
 MM_WIDTHS = (128, 256, 512)     # the mm step's D = 128 << kh, kh <= 2
@@ -63,31 +66,9 @@ MM_BN = 32                      # output columns a CTA of csrc/mm_high.cu
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
-@contextlib.contextmanager
-def ieee_fp32():
-    """Run float32 matmuls in IEEE fp32 (no TF32) whatever the process-wide
-    setting is, and restore that setting afterwards."""
-    saved = torch.get_float32_matmul_precision()
-    if saved != "highest":
-        torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        if saved != "highest":
-            torch.set_float32_matmul_precision(saved)
-
-
-def _check_rung(precision: str) -> None:
-    if precision not in RUNGS:
-        raise NotImplementedError(
-            f"precision {precision!r}: the chain kernel runs the rungs "
-            f"{RUNGS} (ROADMAP queue A, \"The 'default' rung and "
-            "complex128\")")
-
-
 def kh0_high_tables(tables: torch.Tensor) -> torch.Tensor:
     """(L, 2, 128, 128) float32 [M_re, M_im] -> (L, 6 * 128^2) bfloat16: the
-    "high" chain's operands, the Karatsuba combinations m1 = M_re^T, m2 =
+    "high" and "default" chains' operands, the Karatsuba combinations m1 = M_re^T, m2 =
     (M_im - M_re)^T, m3 = (M_re + M_im)^T formed in float64, rounded to
     float32 and split into the mm step's table image (``split_mm_tables``
     at D = 128).  The wide engine forms them from the blocks' float64
@@ -110,16 +91,17 @@ def kh0_chain_plain(re: torch.Tensor, im: torch.Tensor,
                     tables: torch.Tensor, precision: str = "highest",
                     w16: Optional[torch.Tensor] = None) -> Pair:
     """The chain in plain torch, on any device: ``x <- x @ M_j^T`` for each
-    table j in order, in the kernel's arithmetic, Karatsuba at both rungs:
-    three IEEE fp32 products at "highest"; at "high" ``karatsuba_high`` on
-    the tables read back from ``w16`` (``kh0_high_tables(tables)`` when
-    None), each product the D = 128 ``mm_step_high_plain``."""
+    table j in order, in the kernel's arithmetic, Karatsuba at every rung:
+    three IEEE fp32 products at "highest"; at "high" (``karatsuba_high``)
+    and "default" (``karatsuba_default``) on the tables read back from
+    ``w16`` (``kh0_high_tables(tables)`` when None), each product the
+    D = 128 mm step's plain version."""
     _check_rung(precision)
-    if precision == "high":
+    if precision in KARATSUBA:
         if w16 is None:
             w16 = kh0_high_tables(tables)
         for j in range(w16.shape[0]):
-            re, im = karatsuba_high(re, im, mm_tables_f32(w16[j]))
+            re, im = KARATSUBA[precision](re, im, mm_tables_f32(w16[j]))
         return re, im
     for j in range(tables.shape[0]):
         re, im = _karatsuba_f32(re, im, tables[j, 0], tables[j, 1])
@@ -173,8 +155,8 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
 
     The result lands in ``out`` (allocated when None; it may be the input
     pair itself: each row tile is read whole before it is written).
-    ``w16``: the "high" rung's operands, (L, 6 * 128^2) bfloat16
-    (``kh0_high_tables(tables)`` when None).
+    ``w16``: the "high" and "default" rungs' operands, (L, 6 * 128^2)
+    bfloat16 (``kh0_high_tables(tables)`` when None).
     """
     _check_rung(precision)
     if re.device.type == "cpu":
@@ -190,7 +172,7 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
     f32 = torch.float32
     lib = build.load()
     stream = torch.cuda.current_stream(re.device).cuda_stream
-    if precision == "high":
+    if precision in KARATSUBA:
         if w16 is None:
             w16 = kh0_high_tables(tables)
         if w16.shape != (nmats, 6 * LANES * LANES):
@@ -200,7 +182,8 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
                     "chain kernel")
         rc = lib.qsim_wide_chain_high(
             re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), w16.data_ptr(), nmats, re.shape[0], stream)
+            out[1].data_ptr(), w16.data_ptr(), nmats, re.shape[0],
+            int(precision == "high"), stream)
     else:
         _check_cuda([re, im, *out, tables], [f32] * 5, "chain kernel")
         rc = lib.qsim_wide_chain(
@@ -213,12 +196,42 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
     return out
 
 
-def apply_block128(re: torch.Tensor, im: torch.Tensor, m_re: torch.Tensor,
-                   m_im: torch.Tensor, out: Optional[Pair] = None) -> Pair:
-    """``(re + i im) @ (m_re + i m_im)^T`` on the (R, 128) pair, IEEE fp32.
+TPU_TILE_ROWS = 512      # the JAX op's default row tile (VMEM blocking)
 
-    The result lands in ``out`` (allocated when None; it may be the input
-    pair)."""
+
+def check_tpu_keywords(interpret, rows: int = 0,
+                       tile_rows: Optional[int] = None) -> None:
+    """Check the JAX ops' TPU-only keywords as the JAX package does, so that
+    a call written for its signature means the same here: ``interpret`` a
+    bool, ``tile_rows`` (when given) a positive int whose
+    ``min(tile_rows, R)`` divides the ``rows``.  Neither changes what the
+    card runs: the row tile is the CUDA kernel's own, and Pallas's
+    interpret mode is the CPU's plain torch version, which a CPU tensor
+    selects."""
+    if tile_rows is not None and (
+            isinstance(tile_rows, bool) or not isinstance(tile_rows, int)
+            or tile_rows < 1 or rows % min(tile_rows, rows)):
+        raise ValueError(f"tile_rows must be a positive int whose "
+                         f"min(tile_rows, R) divides R = {rows}, got "
+                         f"{tile_rows!r}")
+    if not isinstance(interpret, bool):
+        raise ValueError(f"interpret must be a bool, got {interpret!r}")
+
+
+def apply_block128(s_re: torch.Tensor, s_im: torch.Tensor,
+                   m_re: torch.Tensor, m_im: torch.Tensor, *,
+                   tile_rows: int = TPU_TILE_ROWS, interpret: bool = False,
+                   out: Optional[Pair] = None) -> Pair:
+    """``(s_re + i s_im) @ (m_re + i m_im)^T`` on the (R, 128) pair, IEEE
+    fp32, with the JAX op's signature.
+
+    ``tile_rows`` and ``interpret`` are checked (``check_tpu_keywords``)
+    and otherwise ignored: they pick the TPU kernel's VMEM tile and Pallas's
+    interpreter, and the card runs its own tiling while a CPU state runs
+    the plain version.  The result lands in ``out`` (allocated when None;
+    it may be the input pair)."""
+    re, im = s_re, s_im
+    check_tpu_keywords(interpret, re.shape[0], tile_rows)
     if re.device.type == "cpu":
         return _to_out(apply_block128_plain(re, im, m_re, m_im), out)
     if not re.is_cuda:
@@ -294,6 +307,26 @@ def karatsuba_high(xr: torch.Tensor, xi: torch.Tensor, tabs) -> Pair:
         return t1 - t3, t1 + t2
 
 
+def karatsuba_default(xr: torch.Tensor, xi: torch.Tensor, tabs) -> Pair:
+    """``karatsuba_high`` with the hi.hi term alone: each real product the
+    one bf16 pass ``xh @ mh`` (x and the table rounded to bf16, the
+    products summed in IEEE fp32), as the JAX package's dot at
+    ``Precision.DEFAULT`` on the TPU.  ``tabs``: ``mm_tables_f32`` (the lo
+    tables are not read)."""
+    def dot(x, c):
+        return bf16_split(x)[0] @ tabs[2 * c]
+
+    with ieee_fp32():
+        t1 = dot(xr + xi, 0)
+        t2 = dot(xr, 1)
+        t3 = dot(xi, 2)
+        return t1 - t3, t1 + t2
+
+
+# the bf16 rungs' Karatsuba products, as the kernels compute them
+KARATSUBA = {"high": karatsuba_high, "default": karatsuba_default}
+
+
 def row_shuffles(row_bits, R):
     """(fwd, bwd) moving the given row bits adjacent to the lane dim.
 
@@ -334,14 +367,26 @@ def row_shuffles(row_bits, R):
     return fwd2, bwd2
 
 
+def _mm_step_plain(re, im, w16, row_bits, precision: str) -> Pair:
+    fwd, bwd = row_shuffles(tuple(row_bits), re.shape[0])
+    t1, t2 = KARATSUBA[precision](fwd(re), fwd(im), mm_tables_f32(w16))
+    return bwd(t1), bwd(t2)
+
+
 def mm_step_high_plain(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
                        row_bits: Sequence[int]) -> Pair:
     """The "high" mm step in plain torch, on any device: the (R, 128) pair
     shuffled by ``row_shuffles`` (fwd), ``karatsuba_high`` on the tables
     read back from the ``split_mm_tables`` image ``w16``, shuffled back."""
-    fwd, bwd = row_shuffles(tuple(row_bits), re.shape[0])
-    t1, t2 = karatsuba_high(fwd(re), fwd(im), mm_tables_f32(w16))
-    return bwd(t1), bwd(t2)
+    return _mm_step_plain(re, im, w16, row_bits, "high")
+
+
+def mm_step_default_plain(re: torch.Tensor, im: torch.Tensor,
+                          w16: torch.Tensor,
+                          row_bits: Sequence[int]) -> Pair:
+    """The "default" mm step in plain torch: ``mm_step_high_plain`` with
+    ``karatsuba_default`` (the hi parts of ``w16``)."""
+    return _mm_step_plain(re, im, w16, row_bits, "default")
 
 
 def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -350,15 +395,8 @@ def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
             and b0 < a0 + a.numel() * a.element_size())
 
 
-def mm_step_high(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
-                 row_bits: Sequence[int], out: Optional[Pair] = None) -> Pair:
-    """The mxu engine's "high" mm step on the unshuffled (R, 128) pair: the
-    block on the lane qubits and the row bits ``row_bits`` (ascending, at
-    most two; D = 128 << len(row_bits)), one launch of ``csrc/mm_high.cu``
-    for CUDA tensors, which reads and writes the state through the row map,
-    and ``mm_step_high_plain`` for CPU tensors.  ``w16``: (6 D^2,) bfloat16,
-    ``split_mm_tables`` of the step's tables.  The result lands in ``out``
-    (allocated when None), a pair that must not overlap the input."""
+def _mm_step(re, im, w16, row_bits, out, precision: str) -> Pair:
+    """``mm_step_high`` (precision "high") or ``mm_step_default``."""
     row_bits = tuple(int(b) for b in row_bits)
     R = re.shape[0] if re.dim() == 2 else -1
     if R < 1 or re.shape != (R, LANES) or im.shape != re.shape:
@@ -384,7 +422,7 @@ def mm_step_high(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
             raise ValueError("mm step: out must not alias the input pair "
                              "or itself (the kernel is not in place)")
     if re.device.type == "cpu":
-        return _to_out(mm_step_high_plain(re, im, w16, row_bits), out)
+        return _to_out(_mm_step_plain(re, im, w16, row_bits, precision), out)
     if not re.is_cuda:
         raise ValueError(f"mm step: unsupported device {re.device}")
     if out is None:
@@ -395,19 +433,45 @@ def mm_step_high(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
     lib = build.load()
     rc = lib.qsim_mm_step_high(
         re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-        w16.data_ptr(), R, D, *bits,
+        w16.data_ptr(), R, D, *bits, int(precision == "high"),
         torch.cuda.current_stream(re.device).cuda_stream)
-    build.check(lib, rc, f"mm step (high, D = {D})")
-    mm_step_high.launches += 1
+    build.check(lib, rc, f"mm step ({precision}, D = {D})")
+    MM_STEPS[precision].launches += 1
     return out
 
 
+def mm_step_high(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
+                 row_bits: Sequence[int], out: Optional[Pair] = None) -> Pair:
+    """The mxu engine's "high" mm step on the unshuffled (R, 128) pair: the
+    block on the lane qubits and the row bits ``row_bits`` (ascending, at
+    most two; D = 128 << len(row_bits)), one launch of ``csrc/mm_high.cu``
+    for CUDA tensors, which reads and writes the state through the row map,
+    and ``mm_step_high_plain`` for CPU tensors.  ``w16``: (6 D^2,) bfloat16,
+    ``split_mm_tables`` of the step's tables.  The result lands in ``out``
+    (allocated when None), a pair that must not overlap the input."""
+    return _mm_step(re, im, w16, row_bits, out, "high")
+
+
+def mm_step_default(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
+                    row_bits: Sequence[int],
+                    out: Optional[Pair] = None) -> Pair:
+    """``mm_step_high`` at the "default" rung: one launch of the same
+    kernel's second instantiation (the hi.hi sums alone) for CUDA tensors,
+    ``mm_step_default_plain`` for CPU tensors; counted on
+    ``mm_step_default.launches``."""
+    return _mm_step(re, im, w16, row_bits, out, "default")
+
+
+MM_STEPS = {"high": mm_step_high, "default": mm_step_default}
+
+
 def reset_launches() -> None:
-    """Set the launch counts of ``kh0_chain``, ``apply_block128`` and
-    ``mm_step_high`` to 0."""
+    """Set the launch counts of ``kh0_chain``, ``apply_block128``,
+    ``mm_step_high`` and ``mm_step_default`` to 0."""
     kh0_chain.launches = dict.fromkeys(RUNGS, 0)
     apply_block128.launches = 0
     mm_step_high.launches = 0
+    mm_step_default.launches = 0
 
 
 reset_launches()

@@ -1,8 +1,8 @@
 """Split re/im state helpers and gate-application primitives on torch.
 
 Like the JAX package (and the reference's split ``vr``/``vi`` arrays), the
-state is a pair of real float32 tensors ``(re, im)`` over the flat 2^n
-index, qubit k = bit k (little-endian).  Every constructor takes a
+state is a pair of real float32 tensors ``(re, im)`` (float64 for
+complex128) over the flat 2^n index, qubit k = bit k (little-endian).  Every constructor takes a
 ``device``, the card unless the caller asks for the CPU; nothing here
 moves data between devices implicitly.
 
@@ -306,8 +306,9 @@ def _apply_kq_wide(re, im, ur, ui, qubits, n):
     superset = tuple(range(LANE_QUBITS)) + tuple(high)
     u = _host(ur).astype(np.complex128) + 1j * _host(ui)
     big = expand_unitary(u, qubits, superset)
-    bre = _like(np.ascontiguousarray(big.real.T, dtype=np.float32), re)
-    bim = _like(np.ascontiguousarray(big.imag.T, dtype=np.float32), re)
+    # one rounding, float64 -> the state's dtype (none for float64)
+    bre = _like(np.ascontiguousarray(big.real.T), re)
+    bim = _like(np.ascontiguousarray(big.imag.T), re)
 
     nrow = n - LANE_QUBITS
     # row axes: axis j <-> row bit nrow-1-j <-> qubit 7 + (nrow-1-j)

@@ -8,6 +8,11 @@ qubits the row index.
 * ``apply_block128`` (TPU kernel 9): ``S @ M^T`` for one 128 x 128 complex
   matrix, the chain kernel with one matrix (kernels/wide.py,
   csrc/wide_chain.cu).
+
+Both ops take the JAX signatures: the state as ``s_re``/``s_im``, and the
+keyword-only ``tile_rows=`` (``apply_block128``) and ``interpret=``,
+checked as the JAX package checks them and then ignored (the TPU's VMEM
+tile and Pallas's interpreter have no counterpart on the card).
 * ``apply_butterfly_high`` (TPU kernel 10): a 2 x 2 gate on one high qubit,
   csrc/butterfly_high.cu, one read and one write of the state.  No engine
   calls it, as in the JAX package: it is a public op.
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
-from ..kernels.wide import apply_block128
+from ..kernels.wide import apply_block128, check_tpu_keywords
 
 LANE_QUBITS = 7
 LANES = 1 << LANE_QUBITS
@@ -96,13 +101,20 @@ def apply_butterfly_high_plain(re: torch.Tensor, im: torch.Tensor, u,
             torch.stack([oai, obi], dim=1).reshape(rows, LANES))
 
 
-def apply_butterfly_high(re: torch.Tensor, im: torch.Tensor, u,
-                         high_bit: int, *, out: Optional[Pair] = None) -> Pair:
+def apply_butterfly_high(s_re: torch.Tensor, s_im: torch.Tensor, u,
+                         high_bit: int, *, interpret: bool = False,
+                         out: Optional[Pair] = None) -> Pair:
     """Apply the 2 x 2 complex gate ``u`` on row bit ``high_bit`` (qubit
-    ``high_bit + 7``) of the (R, 128) float32 pair.
+    ``high_bit + 7``) of the (R, 128) float32 pair, with the JAX op's
+    signature.
 
-    The result lands in ``out`` (allocated when None; it may be the input
-    pair, since the kernel owns both rows of every pair)."""
+    ``interpret`` is checked and otherwise ignored: it picks Pallas's
+    interpreter on the TPU side, and here a CPU state runs the plain
+    version while a CUDA state runs the kernel.  The result lands in
+    ``out`` (allocated when None; it may be the input pair, since the
+    kernel owns both rows of every pair)."""
+    re, im = s_re, s_im
+    check_tpu_keywords(interpret)
     if re.device.type == "cpu":
         res = apply_butterfly_high_plain(re, im, u, high_bit)
         if out is None:

@@ -110,3 +110,52 @@ def test_the_module_is_the_ops_of_the_engines():
     assert PK.apply_block128 is KW.apply_block128
     assert TPE.swap_low_high is PK.swap_low_high
     assert TPE.apply_block128 is PK.apply_block128
+
+
+def test_ops_take_the_jax_keywords():
+    """Calls written for the JAX ops' signatures (the state as ``s_re`` /
+    ``s_im``, keyword-only ``tile_rows=`` and ``interpret=``) run here and
+    give the JAX ops' results; the TPU-only keywords are checked as the
+    JAX package checks them and otherwise ignored."""
+    import inspect
+
+    for name in ("apply_block128", "apply_butterfly_high"):
+        jsig = inspect.signature(getattr(JPK, name)).parameters
+        tsig = inspect.signature(getattr(PK, name)).parameters
+        for p, param in jsig.items():
+            assert p in tsig and tsig[p].kind == param.kind, (name, p)
+    rng = np.random.default_rng(11)
+    v = _state(rng, 10)
+    m = np.linalg.qr(rng.standard_normal((128, 128))
+                     + 1j * rng.standard_normal((128, 128)))[0]
+    m_re, m_im = (np.ascontiguousarray(x, dtype=np.float32)
+                  for x in (m.real, m.imag))
+    want = JPK.apply_block128(s_re=jnp.asarray(v[0]), s_im=jnp.asarray(v[1]),
+                              m_re=jnp.asarray(m_re), m_im=jnp.asarray(m_im),
+                              tile_rows=4, interpret=True)
+    got = PK.apply_block128(s_re=torch.from_numpy(v[0]),
+                            s_im=torch.from_numpy(v[1]),
+                            m_re=torch.from_numpy(m_re),
+                            m_im=torch.from_numpy(m_im), tile_rows=4,
+                            interpret=True)
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= TOL
+    u = _unitary(rng)
+    want = JPK.apply_butterfly_high(s_re=jnp.asarray(v[0]),
+                                    s_im=jnp.asarray(v[1]), u=u, high_bit=2,
+                                    interpret=True)
+    got = PK.apply_butterfly_high(s_re=torch.from_numpy(v[0]),
+                                  s_im=torch.from_numpy(v[1]), u=u,
+                                  high_bit=2, interpret=True)
+    for g, w in zip(got, want):
+        assert np.max(np.abs(g.numpy() - np.asarray(w))) <= TOL
+    x = torch.from_numpy(v[0])
+    for tile in (0, 3, 2.0, True):      # min(tile, R = 8) must divide R
+        with pytest.raises(ValueError, match="tile_rows"):
+            PK.apply_block128(x, x, torch.from_numpy(m_re),
+                              torch.from_numpy(m_im), tile_rows=tile)
+    with pytest.raises(ValueError, match="interpret"):
+        PK.apply_butterfly_high(x, x, u, 0, interpret="yes")
+    with pytest.raises(TypeError):
+        PK.apply_block128(x, x, torch.from_numpy(m_re),
+                          torch.from_numpy(m_im), 512)   # keyword-only

@@ -203,23 +203,40 @@ def test_error_paths_match_jax(files, case):
     assert rc == 1 and "ERROR" in err
 
 
-def test_port_only_errors(files, monkeypatch):
-    """What the port refuses that the JAX package runs: complex128 (the
-    noise route included) and the "default" rung, each an ERROR line and
-    exit 1; and the card asked for on a host without one, by either
+def test_port_only_errors(files, monkeypatch, tmp_path):
+    """What the port once refused runs now, and the CLI's result is the
+    Simulator's bit for bit: complex128 (its noise route too, with
+    ``sample_noisy``'s outcomes) and the "default" rung.  The card asked
+    for on a host without one is still an ERROR line and exit 1, by either
     route."""
     import torch
 
-    for args, what in (
-            (["-m", "5", "--noise-p1", "0.1", "--dtype", "complex128"],
-             "complex128"),
-            (["--dtype", "complex128"], "complex128"),
-            (["--precision", "default"], "'default'")):
-        # n = 10: the megakernel arm of n <= 7 ignores the rung
-        rc, out, err = _call(port_main, [files["ghz10"], "--device", "cpu",
-                                         *args])
-        assert rc == 1 and out == "" and err.startswith("ERROR: ") \
-            and what in err, err
+    from gpu_quantum_simulator_tpu_torch import Simulator, SimulatorConfig
+    from gpu_quantum_simulator_tpu_torch.dynamic import sample_noisy
+    from gpu_quantum_simulator_tpu_torch.qasm.parser import parse_qasm_file
+    from gpu_quantum_simulator_tpu_torch.utils.checkpoint import load_state
+
+    # n = 10: the megakernel arm of n <= 7 ignores the rung
+    circuit = parse_qasm_file(files["ghz10"])
+    ck = str(tmp_path / "state.npz")
+    for args, kw in ((["--dtype", "complex128"], dict(dtype="complex128")),
+                     (["--precision", "default"], dict(precision="default"))):
+        rc, _, err = _call(port_main, [files["ghz10"], "--device", "cpu",
+                                       "--save-state", ck, *args])
+        assert rc == 0 and err == "", err
+        re, im, _ = load_state(ck)
+        want = Simulator(SimulatorConfig(**kw), device="cpu").run(circuit)
+        assert re.dtype == want.real.dtype
+        assert np.array_equal(re, want.real) and np.array_equal(im, want.imag)
+    rc, out, err = _call(port_main, [files["ghz10"], "--device", "cpu", "-m",
+                                     "5", "--noise-p1", "0.1", "--dtype",
+                                     "complex128"])
+    assert rc == 0 and err == "", err
+    want = sample_noisy(circuit, 5, kind="depolarizing", p1=0.1, seed=0,
+                        config=SimulatorConfig(dtype="complex128"),
+                        device="cpu")
+    assert [line.split()[-1] for line in out.splitlines()[1:]] == \
+        [f"({int(o)})" for o in want]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     rc, out, err = _call(port_main, [files["ghz"], "--device", "cuda"])
     assert rc == 1 and out == "" and "cuda" in err

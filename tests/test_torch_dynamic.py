@@ -191,12 +191,24 @@ def test_validation_errors_match_jax(call):
 
 
 def test_complex128_and_missing_card_raise():
-    dc = _teleport(TY)
-    with pytest.raises(NotImplementedError, match="complex128"):
-        TY.run_dynamic(dc, TConfig(dtype="complex128"), device="cpu")
-    with pytest.raises(NotImplementedError, match="complex128"):
-        TY.run_dynamic_batched(dc, TConfig(dtype="complex128"), shots=4,
-                               device="cpu")
+    """complex128 runs now, as in the JAX package: float64 trajectories
+    (the default config's mxu at n = 9 and the megakernel arm below), the
+    JAX package's classical bits for a seed and its complex128 states
+    within 1e-12; the batched ensemble is float64 and normalised too.  (A
+    missing card still raises: test_cuda_request_without_a_card_raises.)"""
+    got = TY.run_dynamic(_mixed(TY), TConfig(dtype="complex128"), shots=2,
+                         seed=5, return_states=True, device="cpu")
+    want = JY.run_dynamic(_mixed(JY), JConfig(dtype="complex128"), shots=2,
+                          seed=5, return_states=True)
+    for a, b in zip(got, want):
+        assert a.clbits == b.clbits and a.state.dtype == np.complex128
+        assert np.max(np.abs(a.state - np.asarray(b.state))) <= 1e-12
+    batch = TY.run_dynamic_batched(_teleport(TY), TConfig(dtype="complex128"),
+                                   shots=4, return_states=True, device="cpu")
+    assert len(batch) == 4
+    for r in batch:
+        assert r.state.dtype == np.complex128
+        assert abs(np.linalg.norm(r.state) - 1.0) <= 1e-12
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):

@@ -5,8 +5,9 @@ At "high" every real product of a mat step is the 3-pass bf16 split
 ``_make_dot("high")``); perm, tswap and mono steps stay exact gathers.
 The port's plain versions run here; the CUDA kernel (csrc/mat_high.cu) is
 held to them on the card by chip_smoke.py.  Also the fences of the slice
-at its edges: the "default" rung and n > 30, also at n = 30, where the
-engine runs in place by default.
+at its edges: n > 30, an unknown rung and complex128 (float32-only), also
+at n = 30, where the engine runs in place by default; the "default" rung
+runs (tests/test_torch_default.py).
 """
 
 import numpy as np
@@ -225,27 +226,30 @@ def test_auto_is_high_from_24():
 
 
 def test_check_slice_fences():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPF.check_slice(12, "default")
+    TPF.check_slice(12, "default")       # every rung runs
     with pytest.raises(ValueError, match="ceiling"):
         TPF.check_slice(31, "highest")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TPF.check_slice(30, "default")   # in place by default, still fenced
+    TPF.check_slice(30, "default")       # in place by default, at any rung
     TPF.check_slice(30, "high")          # n = 30 is in, flat and in place
+    with pytest.raises(ValueError, match="rungs"):
+        TPF.check_slice(12, "bogus")
 
 
+# The "default" rung runs at every width (tests/test_torch_default.py);
+# what still raises before anything is planned is complex128, which the
+# engine refuses as the JAX package does, in place at n = 30 and flat.
 @pytest.mark.parametrize("n,kw,exc", [
     (31, {}, ValueError),
-    (30, {"precision": "default"}, NotImplementedError),   # in place there
-    (30, {"prefetch_inplace": True, "precision": "default"},
-     NotImplementedError),
-    (12, {"precision": "default"}, NotImplementedError),
+    (30, {"dtype": "complex128", "precision": "default"},
+     ValueError),                                           # in place there
+    (30, {"prefetch_inplace": True, "dtype": "complex128"}, ValueError),
+    (12, {"dtype": "complex128", "precision": "default"}, ValueError),
 ])
 def test_simulator_raises_before_running(n, kw, exc):
     c = T.models.grover_like(n, 40, 1)
     cfg = T.SimulatorConfig(strategy="prefetch", **kw)
     TPF._RUN_CACHE.clear()
-    with pytest.raises(exc, match="ROADMAP|ceiling"):
+    with pytest.raises(exc, match="ceiling|float32-only"):
         T.Simulator(cfg, device="cpu").run(c)
     assert not TPF._RUN_CACHE            # nothing was planned or built
 

@@ -48,10 +48,11 @@ def tiles(monkeypatch):
         cache.clear()
 
 
-def _plan(models, config, pf, fuse, plan_permutation, n, planner=None):
+def _plan(models, config, pf, fuse, plan_permutation, n, planner=None,
+          gates=2445):
     """Fuse and plan the benchmark circuit as the engine does; ``planner``
     defaults to ``pf.plan_prefetch``, and from n = 23 the relayouts fold."""
-    c = models.grover_like(n, 2445, 318)
+    c = models.grover_like(n, gates, 318)
     perm = plan_permutation(c)
     max_high, cap_mats, window = pf.resolve_prefetch_knobs(
         config(strategy="prefetch"), n, False)
@@ -213,3 +214,39 @@ def test_resolve_stream_relayout_refuses_inplace():
         assert TPF.resolve_stream_relayout(n, inplace=True) is False
         assert TPF.resolve_stream_relayout(n, False) is (n >= 23)
         assert TPF.resolve_stream_relayout(n) == JPF.resolve_stream_relayout(n)
+
+
+@pytest.mark.parametrize("n,inplace", [(12, False), (12, True), (23, False)])
+def test_plans_do_not_depend_on_the_rung(tiles, n, inplace):
+    """The prefetch engine's program is planned alike at every rung, as in
+    the JAX package (whose planner takes no rung): flat (n = 12 with a
+    4-row tile), in place, and the portfolio with folded relayouts (n = 23,
+    a 300-gate prefix of the benchmark family).  Each rung's chain holds
+    the same scal rows and tables, and the flat ones are the JAX
+    package's."""
+    if n == 12:
+        tiles(4, 1)
+    jc, jops, jplan, jent = _plan(JM, JConfig, JPF, j_fuse, j_perm, n,
+                                  JPF.plan_prefetch_best, gates=300)
+    tc, tops, tplan, tent = _plan(TM, TConfig, TPF, t_fuse, t_perm, n,
+                                  TPF.plan_circuit, gates=300)
+    _, cap_mats, _ = TPF.resolve_prefetch_knobs(
+        TConfig(strategy="prefetch"), n, inplace)
+    chains = {}
+    for rung in ("highest", "high", "default"):
+        prog = TPF.PrefetchProgram(
+            tops, n, precision=rung, cap_mats=cap_mats,
+            final_layout=np.argsort(t_perm(tc)), device="cpu",
+            inplace=inplace)
+        chains[rung] = prog._chain._parts
+    for rung in ("high", "default"):
+        assert len(chains[rung]) == len(chains["highest"])
+        for a, b in zip(chains[rung], chains["highest"]):
+            assert a[0] == b[0]                          # scal rows
+            # in place the host factors, flat the expanded device tables
+            for u, w in zip(*((a[1], b[1]) if inplace else (a[1:4], b[1:4]))):
+                assert np.array_equal(np.asarray(u), np.asarray(w))
+    if not inplace:
+        rows = [r for part in chains["default"] for r in part[0]]
+        want = np.concatenate([e[2] for e in jent]).tolist()
+        assert rows == want

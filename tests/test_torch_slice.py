@@ -135,26 +135,25 @@ def test_auto_resolves_to_prefetch():
     assert res.strategy == "prefetch"
 
 
-@pytest.mark.parametrize("kind", ["n8", "n30", "default", "mxu", "inplace"])
+@pytest.mark.parametrize("kind", ["n8", "n30", "inplace10", "pallas7",
+                                  "inplace"])
 def test_outside_the_slice_raises(kind):
-    # n = 30 runs in place by default, as in the JAX package, and keeps the
-    # rung fence there (raised before anything is planned or allocated);
-    # the halves of a flat run do not exist ("inplace").
-    # n = 8 (prefetch) and n = 7 (mxu) run the megakernel arm, which keeps
-    # the float32 fence: prefetch's ValueError, as in the JAX package, and
-    # the port's complex128 NotImplementedError for mxu
-    n = {"n8": 8, "n30": 30, "mxu": 7}.get(kind, 10)
+    # Every rung runs; complex128 is refused by the float32-only engines at
+    # every width, before anything is planned or allocated: prefetch at
+    # n = 8 (its megakernel arm), at n = 30 (in place by default) and in
+    # place at n = 10, as in the JAX package, and pallas on its megakernel
+    # arm at n = 7; the halves of a flat run do not exist ("inplace").
+    n = {"n8": 8, "n30": 30, "pallas7": 7}.get(kind, 10)
     c = T.models.grover_like(n, 40, 1)
-    kw = {"default": dict(precision="default"),
-          "n30": dict(precision="default"),
-          "mxu": dict(strategy="mxu", dtype="complex128"),
+    kw = {"n30": dict(dtype="complex128", precision="default"),
+          "inplace10": dict(dtype="complex128", prefetch_inplace=True),
+          "pallas7": dict(strategy="pallas", dtype="complex128"),
           "n8": dict(dtype="complex128"),
-          "inplace": dict(prefetch_inplace=False)}.get(kind, {})
+          "inplace": dict(prefetch_inplace=False)}[kind]
     sim = T.Simulator(T.SimulatorConfig(**{"strategy": "prefetch", **kw}),
                       device="cpu")
-    exc, match = {"n8": (ValueError, "float32-only"),
-                  "inplace": (ValueError, "in-place engine")}.get(
-        kind, (NotImplementedError, "ROADMAP"))
+    exc, match = {"inplace": (ValueError, "in-place engine")}.get(
+        kind, (ValueError, "float32-only"))
     TPF._RUN_CACHE.clear()
     with pytest.raises(exc, match=match):
         sim.run_device_halves(c) if kind == "inplace" else sim.run(c)

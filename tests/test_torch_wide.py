@@ -32,6 +32,7 @@ from gpu_quantum_simulator_tpu_torch.ir.oplist import Op
 from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
 from gpu_quantum_simulator_tpu_torch.ops import apply as TA
 from gpu_quantum_simulator_tpu_torch.passes.permute import plan_permutation
+from gpu_quantum_simulator_tpu_torch.ref.cpu import simulate_reference
 
 MAT_TOL = 1e-12      # fused matrices: the same f64 products, another build
 AMP_TOL = 1e-6       # "highest" amplitudes (BASELINE.md bar)
@@ -335,7 +336,7 @@ def test_kh0_chain_plain_matches_jax_kernel(P, precision, tol):
     KW.reset_launches()
     wrapped = KW.kh0_chain(re, im, tables, precision, w16=w16)
     assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
-    assert KW.kh0_chain.launches == {"highest": 0, "high": 0}
+    assert KW.kh0_chain.launches == {"highest": 0, "high": 0, "default": 0}
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -610,7 +611,8 @@ def test_mm_step_high_plain_row_map(D, row_bits):
 
 def test_mm_step_high_refuses():
     """The wrapper refuses other devices, dtypes, shapes and row bits; the
-    wide program, which owns the mm step, refuses the "default" rung."""
+    wide program, which owns the mm step, refuses a rung that is not one
+    ("default" runs: tests/test_torch_default.py)."""
     v, m32 = _mm_inputs(256, 1)
     x = torch.from_numpy(v[0])
     w16 = KW.split_mm_tables(torch.from_numpy(m32))
@@ -633,8 +635,8 @@ def test_mm_step_high_refuses():
         with pytest.raises(ValueError, match="row_bits"):
             KW.mm_step_high(x, x, w16, bits)
     ops = TS._fuse_pipeline(mixed(T.Circuit, 10), 7, max_high=2, window=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TW.WideProgram(ops, 10, precision="default", device="cpu")
+    with pytest.raises(ValueError, match="rungs"):
+        TW.WideProgram(ops, 10, precision="bogus", device="cpu")
 
 
 def test_mm_step_high_refuses_aliased_out():
@@ -667,8 +669,13 @@ def test_kh0_chain_writes_into_out_and_rejects_default():
     out = (re.clone(), im.clone())
     got = KW.kh0_chain(*out, tables, out=out)
     assert got[0] is out[0] and torch.equal(got[0], want[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KW.kh0_chain(re, im, tables, "default")
+    # "default" runs (its one pass, tests/test_torch_default.py); a rung
+    # that is not one is refused
+    got = KW.kh0_chain(re, im, tables, "default")
+    assert all(torch.equal(g, w) for g, w in zip(
+        got, KW.kh0_chain_plain(re, im, tables, "default")))
+    with pytest.raises(ValueError, match="rungs"):
+        KW.kh0_chain(re, im, tables, "bogus")
 
 
 def test_wrappers_refuse_other_devices():
@@ -787,12 +794,14 @@ def test_permute_true_matches_permute_false(strategy):
 
 
 @pytest.mark.parametrize("kind,exc", [
-    ("n7", NotImplementedError), ("n31", ValueError),
-    ("default", NotImplementedError), ("complex128", NotImplementedError),
+    ("n7", None), ("n31", ValueError), ("default", None), ("complex128", None),
 ])
 def test_mxu_faults_raise(kind, exc):
-    # n = 7 runs the megakernel arm (tests/test_torch_megakernel.py), which
-    # keeps the complex64 fence
+    # Only n > 30 still raises, before anything is planned or built.  The
+    # former fences run now: complex128 on the megakernel arm of n = 7 and
+    # on the wide engine (float64 throughout), and the "default" rung (one
+    # bf16 pass: its error lies above 1e-6, within the Karatsuba bar of
+    # tests/test_torch_default.py)
     n = {"n7": 7, "n31": 31}.get(kind, 10)
     kw = {"default": dict(precision="default"),
           "complex128": dict(dtype="complex128"),
@@ -800,6 +809,16 @@ def test_mxu_faults_raise(kind, exc):
     c = T.Circuit(n)
     c.h(0)
     TS._MXU_PLAN_CACHE.clear()
-    with pytest.raises(exc, match="ROADMAP|ceiling"):
-        _mxu(**kw).run(c)
-    assert not TS._MXU_PLAN_CACHE        # nothing was planned or built
+    if exc is not None:
+        with pytest.raises(exc, match="ceiling"):
+            _mxu(**kw).run(c)
+        assert not TS._MXU_PLAN_CACHE    # nothing was planned or built
+        return
+    c = T.models.grover_like(n, 300, 9)
+    got = _mxu(**kw).run(c)
+    err = float(np.max(np.abs(got - simulate_reference(c))))
+    if kind == "default":
+        assert 1e-6 < err <= 2e-3 * max(1.0, float(np.max(np.abs(got)))
+                                        / HIGH_BAR_PEAK)
+    else:
+        assert got.dtype == np.complex128 and err <= 1e-9
