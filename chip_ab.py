@@ -3,8 +3,10 @@
 
     python3 chip_ab.py --trees ab/parent . . ab/parent \\
         [--phases sass mat high highdrift split chain chaindrift vmem mm \\
-                  drift mxupeak pergate workloads] \\
+                  drift mxupeak pergate workloads defmat defmm defchain \\
+                  defdrift defsteps defpaths] \\
         [--profile "--strategy mxu --widths 24"] \\
+        [--strip adds|wgmmas] \\
         [--out chiprun_out/ab]
 
 For each tree, in the order given (name a tree twice to run it twice, as
@@ -37,11 +39,33 @@ Phases (chip_smoke function, where the tree has it):
   pergate  time_ablation: the reference's ablation rows at n=18 through
          the CLI (naive, fused2x2, fused3in1, fused4x4, scan, megakernel,
          mxu, prefetch; the CLI's seconds, median of 3 after a warm-up)
+  defmat check_default_mat: the "default" mat step flat (n=24, 28) and in
+         place (n=24, 30) beside its "high" arm, plain version, one bf16
+         torch.mm and bound
+  defmm  check_default_mm: the mxu "default" mm step, n=24, D = 512 and 256
+  defchain  check_default_chain: kernel 7's "default" chain, n=24, P = 1
+         and 8
+  defdrift  check_high_drift(torch, "default"): the "default" mat step's
+         norm drift, n=24
+  defsteps  (this script's own) the "default" mat step flat and in place
+         and the mm step at D = 512 and 256, n=24, timed alone (no check:
+         with --strip the values are wrong by design)
+  defpaths  (this script's own) the Simulator at "default" on grover_like:
+         prefetch flat and mxu at n=24 (run_detailed, median of 3 after a
+         warm-up) and prefetch in place at n=30 (run_device_halves to a
+         sync, median of 2 after a warm-up)
   workloads  time_workloads: the workloads on the state — adjoint_gradient
          on the default config at n=24 (seconds, peak reserved), run_vqe's
          40 steps at n=20 (ms a step), the n + s = 28 trajectory ensemble
          (GHZ-20, 256 shots) and a per-gate noisy one with the segments'
          pair handed over and copied (the copies' share)
+
+--strip adds|wgmmas runs each tree from a copy under build/ whose
+"default" mat and mm k-loops lack their partials' fp32 adds, or their
+wgmmas: with defsteps, what each side of the overlap takes alone.  A
+diagnostic tied to the exact text of those k-loop lines (STRIP's regexes):
+it exits when a pattern matches another number of times than STRIP says,
+so an edit to those lines has to update STRIP.
 """
 
 from __future__ import annotations
@@ -67,6 +91,12 @@ PHASES = {
     "mxupeak": "mxu_peak((24, 28))",
     "pergate": "C.time_ablation(torch, T)",
     "workloads": "C.time_workloads(torch, T)",
+    "defmat": "C.check_default_mat(torch)",
+    "defmm": "C.check_default_mm(torch)",
+    "defchain": "C.check_default_chain(torch)",
+    "defdrift": "C.check_high_drift(torch, 'default')",
+    "defsteps": "default_steps()",
+    "defpaths": "default_paths()",
 }
 FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "highdrift": "check_high_drift", "split": "check_split_block",
@@ -75,12 +105,15 @@ FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "vmem": "check_vmem_kernel", "mm": "check_mm_high",
          "drift": "mxu_high_drift", "streams": "check_two_streams",
          "sass": "check_high_sass", "mxupeak": None,
-         "pergate": "time_ablation", "workloads": "time_workloads"}
+         "pergate": "time_ablation", "workloads": "time_workloads",
+         "defmat": "check_default_mat", "defmm": "check_default_mm",
+         "defchain": "check_default_chain", "defdrift": "check_high_drift",
+         "defsteps": None, "defpaths": None}
 ECHO = ("mat step n=", "split mat step n=", "at the end kernel", "vmem one op",
         "vmem chunk kernel", "mm step high", "over seeds", "run_detailed",
         "busy", "NVIDIA", "kernels built", "mxu peak", "sass ",
         "two streams", "ptxas", "chain kernel n=", "apply_block128 n=",
-        "ablation n=", "workloads ")
+        "ablation n=", "workloads ", "default ", "stripped")
 
 PHASE_RUN = """
 import sys, numpy as np, torch
@@ -121,6 +154,76 @@ def mxu_peak(widths):
         C.clear_caches(torch)
 
 
+def default_steps(n=24):
+    from gpu_quantum_simulator_tpu_torch.engine import prefetch as PF
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+    from gpu_quantum_simulator_tpu_torch.kernels.block import (
+        run_block, split_tables)
+    from gpu_quantum_simulator_tpu_torch.kernels.split import (
+        run_split_block)
+
+    blk = PF._Block(kinds=[0], midx=[0], mats=[
+        (C.random_unitary(rng, 128), tuple(range(7)), None)])
+    scal, a, b, mono = C.device_tables(torch, PF, [blk], 2)
+    w = split_tables(a, b)
+    R2 = 1 << (n - 8)
+    args = (a[0], b[0], mono[0], int(np.log2(PF.tile_rows(n))),
+            PF.CAP_STEPS)
+    re, im = (torch.randn(R2, 256, device="cuda") / 16 for _ in range(2))
+    spare = (torch.empty_like(re), torch.empty_like(im))
+    ms = {{"mat flat": C.device_ms(torch, lambda: run_block(
+        scal[0], re, im, *args, scratch=spare, precision="default",
+        high_tables=w[0]))}}
+    h4 = (re[:, :128].contiguous(), re[:, 128:].contiguous(),
+          im[:, :128].contiguous(), im[:, 128:].contiguous())
+    ms["mat in place"] = C.device_ms(torch, lambda: run_split_block(
+        scal[0], h4, *args, precision="default", high_tables=w[0]))
+    x = (re.reshape(-1, 128), im.reshape(-1, 128))
+    out = (torch.empty_like(x[0]), torch.empty_like(x[1]))
+    for bits in ((0, 1), (0,)):
+        D = 128 << len(bits)
+        w16 = KW.split_mm_tables_hi(C.mm_unitary_tables(torch, rng, D, 1)[0])
+        ms[f"mm D={{D}}"] = C.device_ms(torch, lambda: KW.mm_step_default(
+            *x, w16, bits, out=out), reps=10)
+    print("default steps n=%d: " % n + ", ".join(
+        "%s %.4f ms" % kv for kv in ms.items()))
+
+
+def default_paths():
+    import statistics
+    import time
+
+    def sim(strategy):
+        return T.Simulator(T.SimulatorConfig(strategy=strategy,
+                                             precision="default"),
+                           device="cuda")
+
+    for strategy in ("prefetch", "mxu"):
+        s, c = sim(strategy), T.models.grover_like(24, 2445, 318)
+        s.run_detailed(c)
+        secs = [s.run_detailed(c).seconds for _ in range(3)]
+        print("default path %s n=24: run_detailed %.4f s (median of %s)"
+              % (strategy, statistics.median(secs),
+                 ", ".join("%.4f" % x for x in secs)))
+        del s
+        C.clear_caches(torch)
+    s, c = sim("prefetch"), T.models.grover_like(30, 2445, 318)
+    secs = []
+    for run in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts, _ = s.run_device_halves(c)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        del parts
+    print("default path prefetch in place n=30: run_device_halves %.4f s "
+          "(median of %s after a first run of %.4f s)"
+          % (statistics.median(secs[1:]),
+             ", ".join("%.4f" % x for x in secs[1:]), secs[0]))
+    del s
+    C.clear_caches(torch)
+
+
 for name, call in {calls!r}:
     if name is not None and not hasattr(C, name):
         print("phase", name, "absent in this tree")
@@ -128,6 +231,44 @@ for name, call in {calls!r}:
     eval(call)
     torch.cuda.synchronize()
 """
+
+
+# --strip: (file, pattern, replacement, matches) edits of a tree's copy
+STRIP = {
+    "adds": [("wgmma_high.cuh",
+              r"sre\[e\] = \(sre\[e\] \+ d0\[e\]\) - d1\[e\];", ";", 1),
+             ("wgmma_high.cuh",
+              r"sim\[e\] = \(sim\[e\] \+ d0\[e\]\) \+ d1\[e\];", ";", 1),
+             ("mm_high.cu", r"kh::add1\(T\[P\], (X\[P\]\[[01]\])\);",
+              r"kh::pin(\1);", 2)],
+    "wgmmas": [("wgmma_high.cuh", r"bf16<1>\((pa|pb|pc|pd), [^;]*\);", "", 8),
+               ("karatsuba_high.cuh", r"mma\(x\[[01]\], h[01], mh, 0\);",
+                "", 2)],
+}
+
+
+def stripped(tree, what, i):
+    """A copy of the tree's port package and chip_smoke.py under build/
+    with the "default" k-loops' ``what`` removed (STRIP)."""
+    import re
+    import shutil
+
+    dst = os.path.abspath(f"build/strip_{i}_{what}")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "gpu_quantum_simulator_tpu_torch"),
+                    os.path.join(dst, "gpu_quantum_simulator_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(tree, "chip_smoke.py"), dst)
+    csrc = os.path.join(dst, "gpu_quantum_simulator_tpu_torch", "csrc")
+    for name, pat, rep, count in STRIP[what]:
+        path = os.path.join(csrc, name)
+        text, n = re.subn(pat, rep, open(path).read())
+        if n != count:
+            raise SystemExit(f"--strip {what}: {n} matches of {pat!r} in "
+                             f"{name}, expected {count}")
+        with open(path, "w") as f:
+            f.write(text)
+    return dst
 
 
 def run(cmd, cwd, log, env):
@@ -150,6 +291,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", nargs="*", default=[], choices=sorted(PHASES))
     ap.add_argument("--profile", action="append", default=[],
                     help="arguments of one profiling.py run (repeatable)")
+    ap.add_argument("--strip", choices=sorted(STRIP))
     ap.add_argument("--out", default="chiprun_out/ab")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -161,6 +303,10 @@ def main(argv=None) -> int:
     for i, tree in enumerate(args.trees):
         tree = os.path.abspath(tree)
         name = os.path.basename(tree.rstrip("/")) or "tree"
+        if args.strip:
+            tree = stripped(tree, args.strip, i + 1)
+            print(f"   stripped of the 'default' k-loops' {args.strip}: "
+                  f"{tree}")
         log = os.path.abspath(f"{args.out}_{i + 1}_{name}.txt")
         print(f"== {i + 1}: {tree} -> {log}")
         with open(log, "w") as f:

@@ -12,7 +12,8 @@ failure raises and the script exits non-zero:
    check in the library's SASS that both "high" mat-step kernels (flat and
    in place) run on wgmma (HGMMA, and no tf32 mma.sync k4), and so do
    the mxu mm step at every D and the chain kernel's "high" arm (HGMMA,
-   and no mma.sync HMMA at all);
+   and no mma.sync HMMA at all), at both rungs, printing the k-loop's
+   instruction mix with the registers and spills ptxas reported;
 3. hold each kernel against its plain torch version on the card at the
    main path's shapes — the block kernel at n=18 on synthetic blocks
    covering mat, mono, perm v=0..6 and tswap k=1..9 in plain and steered
@@ -182,8 +183,9 @@ failure raises and the script exits non-zero:
    1e-5).  Shadows: 4000 snapshots of GHZ-20, <Z0 Z1> within 5 standard
    errors of 1.
 10. the "default" rung (one bf16 pass) and complex128.  The four
-   "default" kernels, each the second instantiation of its "high" body
-   (SASS checked in phase 2): the mat step flat at n=24 and 28 and in
+   "default" kernels, the "high" bodies' LO = false instantiations (the
+   mat step and the mm step on k-loops of their own and hi-only table
+   images; SASS checked in phase 2): the mat step flat at n=24 and 28 and in
    place at n=24 (bit for bit the flat step) against its plain version
    (<= 1e-6 of the output's largest |value|), timed in place at n=30 too;
    the chain at n=24, P = 1 against its plain version and bit for bit the
@@ -376,7 +378,18 @@ BEFORE_MS = {"fp32 mat step n=22": "0.1941-0.1951",
              "mm step n=24 D=512": "1.4342",
              "mm step n=24 D=256": "0.7629-0.7694",
              "chain n=24 P=8 high": "2.2199-2.2200",
-             "chain n=24 P=1 high": "0.3543-0.3560"}
+             "chain n=24 P=1 high": "0.3543-0.3560",
+             # the "default" arms as the "high" bodies' second
+             # instantiations, before their own k-loops (PERF.md
+             # section 6)
+             "default mat step n=24 (flat)": "0.3262",
+             "default mat step n=28 (flat)": "4.8701",
+             "default mat step n=24 (in place)": "0.4028",
+             "default mat step n=30 (in place)": "22.2428",
+             "default mm step n=24 D=512": "0.6119",
+             "default mm step n=24 D=256": "0.2709",
+             "default chain n=24 P=1": "0.1577",
+             "default chain n=24 P=8": "0.8935"}
 
 
 def norm2(pair):
@@ -506,10 +519,13 @@ def synthetic_blocks(PF, rng, logt):
     return blocks
 
 
-def sass_kloop(part):
-    """(instructions, HGMMA, F2FP, FADD, LDS) of the innermost loop of one
-    function's SASS that holds an HGMMA: its k-loop, one k-chunk an
-    iteration (F2FP: the bf16 packs of the hi/lo splits)."""
+def sass_kloop(part, per_chunk, chunks=1):
+    """(instructions, HGMMA, F2FP, FADD, LDS) a k-chunk of one function's
+    k-loop (F2FP: the bf16 packs of the splits): the shortest loop that
+    holds ``chunks`` k-chunks' HGMMA (``per_chunk`` a chunk; the "default"
+    mat and mm steps unroll their k-loops in runs of DEFAULT_RUN chunks),
+    its counts over ``chunks``.  The counts are the loop's code, branches
+    not taken included."""
     import re
 
     code = []
@@ -525,45 +541,92 @@ def sass_kloop(part):
         if not (op.startswith("BRA") and m):
             continue
         t = int(m.group(1), 16)
-        if t < b and any(t <= a <= b for a in wgmma) and (
-                best is None or b - t < best[1] - best[0]):
+        if t < b and sum(t <= a <= b for a in wgmma) == per_chunk * chunks \
+                and (best is None or b - t < best[1] - best[0]):
             best = (t, b)
     if best is None:
         return None
     body = [op for a, op, _ in code if best[0] <= a <= best[1]]
-    return (len(body),) + tuple(sum(op.startswith(k) for op in body)
-                                for k in ("HGMMA", "F2FP", "FADD", "LDS"))
+    return tuple(round(x / chunks, 1) for x in (
+        (len(body),) + tuple(sum(op.startswith(k) for op in body)
+                             for k in ("HGMMA", "F2FP", "FADD", "LDS"))))
+
+
+DEFAULT_RUN = 4             # k-chunks a run of the "default" mat and mm
+                            # steps' unrolled k-loops (KRUN in
+                            # csrc/wgmma_high.cuh and csrc/mm_high.cu)
+BF16_KERNEL = (r"\d(mat_high_kernel|mat_high_halves_kernel|mm_high_kernel|"
+               r"chain_high_kernel)I(?:Li(\d+)E)?Lb([01])E")
+
+
+def bf16_kernel_key(name):
+    """'mat_high_kernel<default>' and the like for a mangled name of one of
+    the bf16 kernels' instantiations, else None."""
+    import re
+
+    m = re.search(BF16_KERNEL, name)
+    if not m:
+        return None
+    rung = "high" if m.group(3) == "1" else "default"
+    return (m.group(1) + "<" + (f"{m.group(2)}, " if m.group(2) else "")
+            + rung + ">")
+
+
+def ptxas_usage(log):
+    """{kernel key: (registers, spill stores, spill loads)} of the bf16
+    kernels from the build's ``-Xptxas -v`` log."""
+    import re
+
+    usage, key, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            key = bf16_kernel_key(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and key:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            usage[key] = (int(m.group(1)),) + spills
+            key, spills = None, (0, 0)
+    return usage
 
 
 def check_high_sass():
     """The bf16 kernels that run on wgmma, each at both of its rungs (the
-    "high" and "default" instantiations of one body): the two mat-step
+    "high" and "default" instantiations of one kernel): the two mat-step
     kernels (flat and in place) hold HGMMA and none of their previous
     design's tf32 mma.sync k4 (HMMA.1684.F32.TF32); every instantiation of
     the mxu mm step (mm_high_kernel, one per D) and the chain kernel's bf16
     arm (chain_high_kernel) hold HGMMA and no mma.sync HMMA at all (their
-    previous designs' bf16 m16n8k16 and tf32 k4 passes).  For the chain
-    and the D = 128 mm step, which share their k-chunk body, it prints
-    the k-loop's instruction mix at each rung: the chain splits its rows
-    once per product, outside the loop."""
+    previous designs' bf16 m16n8k16 and tf32 k4 passes).  It prints the
+    k-loop's instruction mix (a k-chunk an iteration; the chain splits its
+    rows once per product, outside the loop) with the registers and spills
+    ptxas reported, for every "default" kernel, both "high" mat-step
+    kernels and the "high" chain and D = 128 mm step, which share their
+    k-chunk body."""
+    import os
     import re
 
     from gpu_quantum_simulator_tpu_torch.kernels import build
 
     counts, loops = {}, {}
     for part in build.dump_sass().split("Function : ")[1:]:
-        name = part.split("\n", 1)[0]
-        m = re.search(r"\d(mat_high_kernel|mat_high_halves_kernel|"
-                      r"mm_high_kernel|chain_high_kernel)"
-                      r"I(?:Li(\d+)E)?Lb([01])E", name)
-        if m:
-            rung = "high" if m.group(3) == "1" else "default"
-            key = (m.group(1) + "<" + (f"{m.group(2)}, " if m.group(2)
-                                       else "") + rung + ">")
+        key = bf16_kernel_key(part.split("\n", 1)[0])
+        if key:
             counts[key] = (part.count("HGMMA"),
                            part.count("HMMA.1684.F32.TF32"),
                            len(re.findall(r"\bHMMA\.", part)))
-            loops[key] = sass_kloop(part)
+            kernel, high = key.split("<")[0], key.endswith("high>")
+            per_chunk = {"mat_high_kernel": 16, "mat_high_halves_kernel": 16,
+                         "mm_high_kernel": 12, "chain_high_kernel": 12}[
+                kernel] // (1 if high else 2)
+            runs = not high and kernel != "chain_high_kernel"
+            loops[key] = sass_kloop(part, per_chunk,
+                                    DEFAULT_RUN if runs else 1)
     want = [k for rung in ("high", "default") for k in (
         [f"mat_high_kernel<{rung}>", f"mat_high_halves_kernel<{rung}>",
          f"chain_high_kernel<{rung}>"]
@@ -576,14 +639,24 @@ def check_high_sass():
         if kernel not in counts or hgmma == 0 or old != 0:
             raise AssertionError(f"{kernel}: not the wgmma kernel "
                                  f"({hgmma} HGMMA, {hmma} HMMA)")
-    for kernel in ("chain_high_kernel<high>", "mm_high_kernel<128, high>",
-                   "chain_high_kernel<default>",
-                   "mm_high_kernel<128, default>"):
+    log_path = os.path.join(build.BUILD_DIR, "build.log")
+    usage = ptxas_usage(open(log_path).read()) if os.path.exists(
+        log_path) else {}
+    shown = ["mat_high_kernel<high>", "mat_high_halves_kernel<high>",
+             "chain_high_kernel<high>", "mm_high_kernel<128, high>"] + [
+        k for k in want if k.endswith("default>")]
+    for kernel in shown:
+        regs = usage.get(kernel)
+        regs = ("registers not in the build log" if regs is None else
+                f"{regs[0]} registers, spill stores {regs[1]} B, loads "
+                f"{regs[2]} B")
         if loops.get(kernel):
             n, hg, f2fp, fadd, lds = loops[kernel]
             print(f"sass {kernel} k-loop: {n} instructions a k-chunk and "
                   f"thread, {hg} HGMMA, {f2fp} F2FP (bf16 splits), {fadd} "
-                  f"FADD, {lds} LDS")
+                  f"FADD, {lds} LDS; {regs}")
+        else:
+            print(f"sass {kernel}: no k-loop found; {regs}")
 
 
 def check_block_kernel(torch, rng):
@@ -4274,7 +4347,8 @@ def check_default_mat(torch):
             del xe, d, h
         print(f"default mat step n={n}: max|diff| vs plain {e:.3e} of the "
               f"largest |value| (one bf16 torch.mm {e_lib:.3e}){exact}; "
-              f"kernel {timed['default']:.4f} ms, 'high' arm "
+              f"kernel {timed['default']:.4f} ms (before "
+              f"{BEFORE_MS[f'default mat step n={n} (flat)']} ms), 'high' arm "
               f"{timed['high']:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"(bf16 torch.mm, fp32 out) {library_ms:.4f} ms, bound "
               f"{bnd[0]:.4f} ms ({bnd[1]})")
@@ -4328,9 +4402,10 @@ def check_default_mat(torch):
             for rung in ("default", "high")}
         bnd = bound(6.0 * R2 * 256 * 256,
                     16.0 * R2 * 256 + 2 * 256 * 256 * 2, BF16_FLOPS)
+        before = BEFORE_MS[f"default mat step n={n} (in place)"]
         print(f"default split mat step n={n} in place: {checked}kernel "
-              f"{timed['default']:.4f} ms, 'high' arm {timed['high']:.4f} "
-              f"ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f"{timed['default']:.4f} ms (before {before} ms), 'high' arm "
+              f"{timed['high']:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
         if n == DEFAULT_SPLIT_WIDTHS[0][0]:
             recs["split"] = record("split_mat_step_default",
                                    SPLIT_DEFAULT_SRC, SPLIT_TPU, e,
@@ -4364,7 +4439,7 @@ def check_default_chain(torch):
                         dtype=torch.float32, device="cuda")
     w16 = KW.kh0_high_tables(tabs)
     one = KW.kh0_chain(re, im, tabs[:1], "default", w16=w16[:1])
-    step = KW.mm_step_default(re, im, w16[0], ())
+    step = KW.mm_step_default(re, im, KW.mm_hi_image(w16[0]), ())
     whole = KW.kh0_chain(re, im, tabs, "default", w16=w16)
     x, err = (re, im), 0.0
     for j in range(KH0_BATCH):
@@ -4402,8 +4477,10 @@ def check_default_chain(torch):
         library_ms = device_ms(torch, lib_call, reps=10) if P == 1 else None
         flop = 6.0 * R * 128 * 128 * P
         bnd = bound(flop, 16.0 * R * 128 + P * 3 * 128 * 128 * 2, BF16_FLOPS)
+        before = BEFORE_MS[f"default chain n={n} P={P}"]
         print(f"default chain n={n} P={P}: kernel {timed['default']:.4f} ms "
-              f"({flop / timed['default'] / 1e9:.1f} bf16 TFLOP/s), 'high' "
+              f"({flop / timed['default'] / 1e9:.1f} bf16 TFLOP/s; before "
+              f"{before} ms), 'high' "
               f"arm {timed['high']:.4f} ms, plain {plain_ms:.4f} ms, "
               f"library " + ("none" if library_ms is None else
                              f"{library_ms:.4f} ms")
@@ -4435,18 +4512,19 @@ def check_default_mm(torch):
         D = 128 << len(row_bits)
         M = (1 << n) // D
         m32 = mm_unitary_tables(torch, rng, D, 1)[0]
-        w16 = KW.split_mm_tables(m32)
-        got = KW.mm_step_default(re, im, w16, row_bits)
-        want = KW.mm_step_default_plain(re, im, w16, row_bits)
+        # each rung's image: the hi parts alone at "default"
+        w16 = {"default": KW.split_mm_tables_hi(m32),
+               "high": KW.split_mm_tables(m32)}
+        got = KW.mm_step_default(re, im, w16["default"], row_bits)
+        want = KW.mm_step_default_plain(re, im, w16["default"], row_bits)
         fwd, bwd = KW.row_shuffles(row_bits, R)
         lib_call, lib = one_pass_library(torch, fwd(re), fwd(im), m32[0],
                                          m32[0] + m32[1])
         se = [exact_values(torch, gen, (R, 128), 64, 2.0 ** -7)
               for _ in range(2)]
-        we = KW.split_mm_tables(exact_values(torch, gen, (3, D, D), 16,
-                                             2.0 ** -6))
-        ed = KW.mm_step_default(*se, we, row_bits)
-        eh = KW.mm_step_high(*se, we, row_bits)
+        me = exact_values(torch, gen, (3, D, D), 16, 2.0 ** -6)
+        ed = KW.mm_step_default(*se, KW.split_mm_tables_hi(me), row_bits)
+        eh = KW.mm_step_high(*se, KW.split_mm_tables(me), row_bits)
         torch.cuda.synchronize()
         e = rel_diff(got, want)
         e_lib = rel_diff(tuple(bwd(t) for t in lib), want)
@@ -4455,21 +4533,23 @@ def check_default_mm(torch):
             raise AssertionError(f"default mm step D={D}: {e}, bit for bit "
                                  f"the 'high' arm on bf16-exact operands "
                                  f"{exact}")
-        del got, want, lib, se, we, ed, eh
+        del got, want, lib, se, me, ed, eh
         out = (torch.empty_like(re), torch.empty_like(im))
         step = {"default": KW.mm_step_default, "high": KW.mm_step_high}
         timed = {rung: device_ms(torch, lambda rung=rung: step[rung](
-            re, im, w16, row_bits, out=out), reps=10)
+            re, im, w16[rung], row_bits, out=out), reps=10)
             for rung in ("default", "high")}
         plain_ms = device_ms(torch, lambda: KW.mm_step_default_plain(
-            re, im, w16, row_bits), reps=3)
+            re, im, w16["default"], row_bits), reps=3)
         library_ms = device_ms(torch, lib_call, reps=10)
         flop = 6.0 * M * D * D           # three real products, one pass
         bnd = bound(flop, 16.0 * M * D + 3 * D * D * 2, BF16_FLOPS)
+        before = BEFORE_MS[f"default mm step n={n} D={D}"]
         print(f"default mm step n={n} D={D} row bits {row_bits}: max|diff| "
               f"vs plain {e:.3e} of the largest |value| (one bf16 torch.mm "
               f"{e_lib:.3e}); bit for bit the 'high' arm on bf16-exact "
-              f"operands; kernel {timed['default']:.4f} ms, 'high' arm "
+              f"operands; kernel {timed['default']:.4f} ms (before {before} "
+              f"ms), 'high' arm "
               f"{timed['high']:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"(bf16 torch.mm on the shuffled rows, fp32 out) "
               f"{library_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")

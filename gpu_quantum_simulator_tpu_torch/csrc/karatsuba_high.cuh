@@ -43,18 +43,22 @@
 // + p % 2, as csrc/wgmma_high.cuh's tables), so that one float4 of a state
 // row (k 4t .. 4t + 3) is lane t's A-fragment values.
 //
-// The "default" rung (LO = false, the second instantiation of chunk and
-// result): one bf16 pass a real product, xh.mh, as the JAX package's
-// jnp.dot at Precision.DEFAULT on the TPU: the hi.hi partials summed as
-// above, no lo split (the compiler drops the unused residuals), no
-// correction wgmma, t_P = T_P.  It reads the hi parts of the same table
-// image.  On bf16-exact operands (s = xr + xi included) the "high" arm's
-// corrections are exact zeros, and the two arms agree bit for bit.
+// The "default" rung: one bf16 pass a real product, xh.mh, as the JAX
+// package's jnp.dot at Precision.DEFAULT on the TPU: the hi.hi partials
+// summed as above, in the same order, no lo split, no correction wgmma,
+// t_P = T_P.  On bf16-exact operands (s = xr + xi included) the "high"
+// arm's corrections are exact zeros, and the two arms agree bit for bit.
+// Kernel 7's chain runs it as chunk<false> (the tables' full image, a
+// chunk drained before the next) and mxu's mm step on a pipeline of its
+// own (mm_high.cu) from the pieces below: three partial pairs, one a
+// product, two groups queued while a third is added, across a run of
+// chunks; the tables a hi-only image (kernels/wide.py split_mm_tables_hi:
+// per 32-column block and k-chunk [m1_hi, m2_hi, m3_hi]).
 //
 // Shape: a warpgroup's 64 rows (wgmma's M) by 32 output columns
 // (m64n32k16), per thread three fp32 sums T_P, three correction
-// accumulators C_P and four partials of 16 floats.  A chunk is three
-// groups of wgmmas, one a product: two hi.hi passes into a pair of
+// accumulators C_P and four partials of 16 floats ("high").  A chunk is
+// three groups of wgmmas, one a product: two hi.hi passes into a pair of
 // partials and two corrections; a group's partials are added while the
 // next group runs on the tensor core.
 
@@ -63,23 +67,19 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bf16_split.cuh"
+
 namespace kh {
 
 constexpr int BN = 32;                      // output columns of a block
 constexpr int PART = 2 * BN * 16;           // bytes: one table's k-chunk
 constexpr int CHUNK_BYTES = 6 * PART;       // the six tables' k-chunk
+constexpr int HI_CHUNK_BYTES = 3 * PART;    // the three hi tables' k-chunk
 constexpr int CORE_K = BN * 16;             // core-matrix stride along k
 constexpr int CORE_N = 128;                 // and along n
 
-// (x0, x1) -> bf16x2 hi and bf16x2 lo (x0 in the low 16 bits)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
+using bfround::hi2;
+using bfround::split2;
 
 // rows g (r0) and g + 8 (r1), k 4t .. 4t + 3: the A fragment, hi and lo
 __device__ __forceinline__ void split_frag(float4 r0, float4 r1,
@@ -211,6 +211,31 @@ __device__ __forceinline__ float2 result(const float (&T)[3][16],
   const float t2 = LO ? T[1][x] + C[1][x] : T[1][x];
   const float t3 = LO ? T[2][x] + C[2][x] : T[2][x];
   return make_float2(t1 - t3, t1 + t2);
+}
+
+// ---------------------------------------- the "default" mm step's pieces
+// rows g (r0) and g + 8 (r1), k 4t .. 4t + 3, rounded to bf16 into the two
+// half-zero fragments: h0 for wgmma positions 0..7 (registers 0, 1), h1 for
+// 8..15 (registers 2, 3); the zero registers are not written
+__device__ __forceinline__ void split_hi(float4 r0, float4 r1,
+                                         uint32_t (&h0)[4],
+                                         uint32_t (&h1)[4]) {
+  h0[0] = hi2(r0.x, r0.y);
+  h0[1] = hi2(r1.x, r1.y);
+  h1[2] = hi2(r0.z, r0.w);
+  h1[3] = hi2(r1.z, r1.w);
+}
+
+// one product's two hi.hi passes from zero into its partial pair x: one
+// wgmma group
+__device__ __forceinline__ void hi_group(float (&x)[2][16],
+                                         const uint32_t (&h0)[4],
+                                         const uint32_t (&h1)[4],
+                                         uint64_t mh) {
+  fence();
+  mma(x[0], h0, mh, 0);
+  mma(x[1], h1, mh, 0);
+  commit();
 }
 
 // keep the compiler from moving reads of the corrections above the last

@@ -31,8 +31,9 @@
 // or folded relayout (rowmap.cuh), first launch of a block only.
 //
 // The "default" rung's mat step (the one bf16 pass of _make_dot("default"),
-// xh.mh alone) is the same body's second instantiation, chosen at compile
-// time: mat_high_kernel<false>.
+// xh.mh alone) is mat_high_kernel<false>: the same header's "default"
+// k-loop (two partial pairs in flight across the chunks) with the "high"
+// arm's sums, on the same tables (it reads their hi words).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

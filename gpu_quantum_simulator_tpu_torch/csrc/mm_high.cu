@@ -28,13 +28,25 @@
 //
 // The arithmetic, where its sums are kept and the table image are
 // karatsuba_high.cuh's, whose k-chunk body this kernel and kernel 7's
-// "high" chain (wide_chain.cu) share.  The "default" rung's mm step (one
-// bf16 pass, the hi.hi sums alone) is the same kernel's second
-// instantiation, mm_high_kernel<D, false>: at n = 24, D = 512 its 6 hi.hi
-// passes a k-chunk are 103 GFLOP (0.104 ms; the useful 3 products,
-// 0.052 ms) against 0.080 ms of state bytes.  The tables are split once per
-// program (kernels/wide.py split_mm_tables).
-//
+// "high" chain (wide_chain.cu) share.  The tables are split once per
+// program (kernels/wide.py split_mm_tables).  The "default" rung's mm step
+// (one bf16 pass, the hi.hi sums alone, in the same order) is
+// mm_high_kernel<D, false>, on a k-loop of its own: three partial pairs,
+// one a product, two wgmma groups queued while a third group's partials
+// are added, the next chunk's rows loaded and rounded while the chunk's
+// last groups run, no drain inside a tile; its tables the hi-only image
+// (split_mm_tables_hi, 96 KB a column block at D = 512), which leaves room
+// for an eight-stage row ring (two at "high" there).  At n = 24, D = 512
+// its 6 hi.hi passes a k-chunk are 103 GFLOP issued (0.104 ms; the useful
+// 3 products, 0.052 ms) against 0.080 ms of state bytes, and the partials'
+// 3.2e9 fp32 adds (~0.1 ms of the CUDA cores) now run beside them: the
+// adds alone take about as long as one bf16 torch.mm of the step, which
+// keeps its sums in the tensor core, so the arm stays above that call.  On
+// an H100 each side alone (chip_ab.py --strip adds, --strip wgmmas) takes
+// about two thirds of the step: the CUDA cores issue ~280 instructions a
+// k-chunk and thread (104 of them the adds) and the m64n32k16 wgmmas run
+// well below the tensor core's peak (PERF.md section 6).
+
 // Shapes.  A CTA is two warpgroups: a tile of 128 rows (64 each, wgmma's
 // M) by 32 output columns (m64n32k16), per thread three fp32 sums T_P,
 // three correction accumulators C_P and four partials of 16 floats.  The
@@ -47,7 +59,8 @@
 // read from L2 once per CTA and launch.  Each warp copies its own 16 rows
 // with cp.async through the row map, a k-chunk at a time, into a ring of
 // its own that runs on across tiles (two stages at D = 512, which is what
-// the tables leave of the 227 KB; four below); a lane copies exactly the
+// the tables leave of the 227 KB; four below; eight at "default", whose
+// hi-only tables take half the room); a lane copies exactly the
 // 64 bytes it reads back as its A fragment, which it splits to bf16 (hi,
 // lo) in registers.
 //
@@ -80,21 +93,25 @@ constexpr int BM = 64 * WGS;                // rows per tile
 constexpr int THREADS = 128 * WGS;
 constexpr int WARPS = THREADS / 32;
 constexpr int XROWS = 16;                   // rows a warp stages
-constexpr int CHUNK_BYTES = kh::CHUNK_BYTES;   // the six tables' k-chunk
 constexpr int XSTAGE_F = 2 * XROWS * 16;    // floats: re, im of 16 rows
 constexpr int XSTAGE_BYTES = WARPS * XSTAGE_F * 4;
 constexpr int SMEM_MAX = 232448;            // a CTA's shared memory
+constexpr int KRUN = 4;                     // "default": chunks a run
 static_assert(WARPS * XROWS == BM, "each warp stages its own rows");
 
-template <int D>
+template <int D, bool LO>
 struct Shape {
   static constexpr int CHUNKS = D / 16;
   static constexpr int SEG_CHUNKS = LANES / 16;     // k-chunks a segment
   static constexpr int COL_BLOCKS = D / BN;
+  // a chunk of the tables: the six parts ("high") or the three hi parts
+  static constexpr int CHUNK_BYTES =
+      LO ? kh::CHUNK_BYTES : kh::HI_CHUNK_BYTES;
   static constexpr int TAB = CHUNKS * CHUNK_BYTES;  // a column block's
   static constexpr int BARS = CHUNKS * 8;
   static constexpr int FIT = (SMEM_MAX - TAB - BARS) / XSTAGE_BYTES;
-  static constexpr int XSTAGES = FIT < 4 ? FIT : 4;
+  static constexpr int CAP = LO ? 4 : 8;           // stages of the ring
+  static constexpr int XSTAGES = FIT < CAP ? FIT : CAP;
   static constexpr int SMEM = TAB + XSTAGES * XSTAGE_BYTES + BARS;
   static_assert(XSTAGES >= 2, "the ring needs two stages");
 };
@@ -122,16 +139,17 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// One "high" mm step.  blockIdx.x % (D / 32) is the column block, the CTA
-// group blockIdx.x / (D / 32) of gridDim.x / (D / 32) takes every G-th
-// row block of 128 view rows.  w: the tables as split_mm_tables lays them
-// out (D / 32 column blocks of D / 16 chunks of CHUNK_BYTES).
+// One mm step.  blockIdx.x % (D / 32) is the column block, the CTA group
+// blockIdx.x / (D / 32) of gridDim.x / (D / 32) takes every G-th row
+// block of 128 view rows.  w: the tables as split_mm_tables (LO) or
+// split_mm_tables_hi lays them out (D / 32 column blocks of D / 16 chunks
+// of Shape::CHUNK_BYTES).
 template <int D, bool LO>
 __global__ void __launch_bounds__(THREADS, 1)
 mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                float* __restrict__ out_re, float* __restrict__ out_im,
                const uint8_t* __restrict__ w, RowMap map) {
-  using S = Shape<D>;
+  using S = Shape<D, LO>;
   extern __shared__ __align__(1024) uint8_t smem[];
   float* xs = reinterpret_cast<float*>(smem + S::TAB);
   uint64_t* full = reinterpret_cast<uint64_t*>(
@@ -153,86 +171,218 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   __syncthreads();
   if (tid == 0)
     for (int c = 0; c < S::CHUNKS; ++c)
-      async::bulk_load(smem + c * CHUNK_BYTES,
-                       w + ((long long)cb * S::CHUNKS + c) * CHUNK_BYTES,
-                       CHUNK_BYTES, &full[c]);
+      async::bulk_load(smem + c * S::CHUNK_BYTES,
+                       w + ((long long)cb * S::CHUNKS + c) * S::CHUNK_BYTES,
+                       S::CHUNK_BYTES, &full[c]);
 
-  // this warp's 16 rows of global chunk G (tile G / CHUNKS, k-chunk G %
-  // CHUNKS): lane (g, t) copies k 4t .. 4t + 3 of rows g and g + 8, re and
-  // im, through the row map -- the values it reads back as its fragment
   float* xw = xs + warp * S::XSTAGES * XSTAGE_F;
   const int total = tiles * S::CHUNKS;
-  auto stage_x = [&](int G) {
-    if (G < total) {
-      const int i = G / S::CHUNKS, c = G % S::CHUNKS;
-      const int m0 = (cg + i * groups) * BM + warp * XROWS + g;
-      const int k0 = map.seg(c / S::SEG_CHUNKS) * LANES +
-                     (c % S::SEG_CHUNKS) * 16 + 4 * t;
-      float* st = xw + (G % S::XSTAGES) * XSTAGE_F;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + 8 * h;
-        const bool ok = m < map.rows;
-        const int o = ok ? map.base(m) * LANES + k0 : 0;
-        async::cp16(st + (g + 8 * h) * 16 + 4 * t, xr + o, ok);
-        async::cp16(st + (XROWS + g + 8 * h) * 16 + 4 * t, xi + o, ok);
-      }
-    }
-    async::commit();
-  };
-#pragma unroll
-  for (int G = 0; G < S::XSTAGES - 1; ++G) stage_x(G);
-
   const uint64_t tab0 = kh::desc(async::smem_u32(smem));
   // the CTA's output columns lie in one segment of the row map
   const int seg_out = cb * BN / LANES, col0 = cb * BN % LANES;
-  float T[3][16], C[3][16], X[4][16];
+
+  if constexpr (LO) {
+    // this warp's 16 rows of global chunk G (tile G / CHUNKS, k-chunk G %
+    // CHUNKS): lane (g, t) copies k 4t .. 4t + 3 of rows g and g + 8, re
+    // and im, through the row map -- the values it reads back as its
+    // fragment
+    auto stage_x = [&](int G) {
+      if (G < total) {
+        const int i = G / S::CHUNKS, c = G % S::CHUNKS;
+        const int m0 = (cg + i * groups) * BM + warp * XROWS + g;
+        const int k0 = map.seg(c / S::SEG_CHUNKS) * LANES +
+                       (c % S::SEG_CHUNKS) * 16 + 4 * t;
+        float* st = xw + (G % S::XSTAGES) * XSTAGE_F;
 #pragma unroll
-  for (int e = 0; e < 16; ++e) X[0][e] = X[1][e] = X[2][e] = X[3][e] = 0.f;
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + 8 * h;
+          const bool ok = m < map.rows;
+          const int o = ok ? map.base(m) * LANES + k0 : 0;
+          async::cp16(st + (g + 8 * h) * 16 + 4 * t, xr + o, ok);
+          async::cp16(st + (XROWS + g + 8 * h) * 16 + 4 * t, xi + o, ok);
+        }
+      }
+      async::commit();
+    };
+#pragma unroll
+    for (int G = 0; G < S::XSTAGES - 1; ++G) stage_x(G);
+
+    float T[3][16], C[3][16], X[4][16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) X[0][e] = X[1][e] = X[2][e] = X[3][e] = 0.f;
 
 #pragma unroll 1
-  for (int i = 0; i < tiles; ++i) {
-    const int rb = cg + i * groups;
+    for (int i = 0; i < tiles; ++i) {
+      const int rb = cg + i * groups;
 #pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      T[0][e] = T[1][e] = T[2][e] = 0.f;
-      C[0][e] = C[1][e] = C[2][e] = 0.f;
+      for (int e = 0; e < 16; ++e) {
+        T[0][e] = T[1][e] = T[2][e] = 0.f;
+        C[0][e] = C[1][e] = C[2][e] = 0.f;
+      }
+
+#pragma unroll 1
+      for (int c = 0; c < S::CHUNKS; ++c) {
+        const int G = i * S::CHUNKS + c;
+        stage_x(G + S::XSTAGES - 1);
+        async::wait_groups<S::XSTAGES - 1>();
+        if (i == 0) async::bar_wait(&full[c], 0);
+        const float* xq = xw + (G % S::XSTAGES) * XSTAGE_F;
+        const float4 r0 = ld4(xq + g * 16 + 4 * t);
+        const float4 r1 = ld4(xq + (g + 8) * 16 + 4 * t);
+        const float4 i0 = ld4(xq + (XROWS + g) * 16 + 4 * t);
+        const float4 i1 = ld4(xq + (XROWS + g + 8) * 16 + 4 * t);
+        uint32_t a[3][2][4];
+        kh::split_rows(r0, r1, i0, i1, a);
+        // the chunk's six parts: descriptors differ only in the address
+        kh::chunk<LO>(T, C, X, a,
+                      tab0 + (uint64_t)(c * (S::CHUNK_BYTES >> 4)));
+      }
+      kh::pin_corrections<LO>(C);
+
+      // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of
+      // the tile, column 8 jn + 2 t + e of the column block
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = rb * BM + warp * XROWS + g + 8 * hh;
+        if (m >= map.rows) continue;
+        const int o =
+            (map.base(m) + map.seg(seg_out)) * LANES + col0 + 2 * t;
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          const int x = 4 * jn + 2 * hh;
+          const float2 v0 = kh::result<LO>(T, C, x);
+          const float2 v1 = kh::result<LO>(T, C, x + 1);
+          *reinterpret_cast<float2*>(out_re + o + 8 * jn) =
+              make_float2(v0.x, v1.x);
+          *reinterpret_cast<float2*>(out_im + o + 8 * jn) =
+              make_float2(v0.y, v1.y);
+        }
+      }
     }
-
-#pragma unroll 1
-    for (int c = 0; c < S::CHUNKS; ++c) {
-      const int G = i * S::CHUNKS + c;
-      stage_x(G + S::XSTAGES - 1);
-      async::wait_groups<S::XSTAGES - 1>();
-      if (i == 0) async::bar_wait(&full[c], 0);
+  } else {
+    // The "default" k-loop: group (c, P) is product P's two hi.hi passes
+    // of chunk c into the pair X[P]; it is queued while groups (c, P - 2)
+    // and (c, P - 1) run and waited on (wait<2>) two groups later, when
+    // its partials are added into T[P] -- in chunk order, so the sums are
+    // chunk<false>'s.  A product's fragments h0[P], h1[P] are rounded just
+    // before its group, once the group of the chunk before, which read
+    // them, is done; the next chunk's rows load while the chunk's last two
+    // groups run.  The queue drains once a run of KRUN chunks.
+    //
+    // this warp's 16 rows of global chunk G, as the "high" arm stages them,
+    // their row-map offsets worked out once a tile
+    int st_tile = -1, st_o[2];
+    auto stage_x = [&](int G) {
+      if (G < total) {
+        const int i = G / S::CHUNKS, c = G % S::CHUNKS;
+        if (i != st_tile) {
+          st_tile = i;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = (cg + i * groups) * BM + warp * XROWS + g + 8 * h;
+            st_o[h] = m < map.rows ? map.base(m) * LANES : -1;
+          }
+        }
+        const int k0 = map.seg(c / S::SEG_CHUNKS) * LANES +
+                       (c % S::SEG_CHUNKS) * 16 + 4 * t;
+        float* st = xw + (G % S::XSTAGES) * XSTAGE_F;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool ok = st_o[h] >= 0;
+          const int o = ok ? st_o[h] + k0 : 0;
+          async::cp16(st + (g + 8 * h) * 16 + 4 * t, xr + o, ok);
+          async::cp16(st + (XROWS + g + 8 * h) * 16 + 4 * t, xi + o, ok);
+        }
+      }
+      async::commit();
+    };
+    float4 r0, r1, i0, i1;       // the chunk's rows g and g + 8, re and im
+    auto take = [&](int G) {
       const float* xq = xw + (G % S::XSTAGES) * XSTAGE_F;
-      const float4 r0 = ld4(xq + g * 16 + 4 * t);
-      const float4 r1 = ld4(xq + (g + 8) * 16 + 4 * t);
-      const float4 i0 = ld4(xq + (XROWS + g) * 16 + 4 * t);
-      const float4 i1 = ld4(xq + (XROWS + g + 8) * 16 + 4 * t);
-      uint32_t a[3][2][4];
-      kh::split_rows(r0, r1, i0, i1, a);
-      // the chunk's six parts: descriptors differ only in the address
-      kh::chunk<LO>(T, C, X, a, tab0 + (uint64_t)(c * (CHUNK_BYTES >> 4)));
+      r0 = ld4(xq + g * 16 + 4 * t);
+      r1 = ld4(xq + (g + 8) * 16 + 4 * t);
+      i0 = ld4(xq + (XROWS + g) * 16 + 4 * t);
+      i1 = ld4(xq + (XROWS + g + 8) * 16 + 4 * t);
+    };
+    float T[3][16], X[3][2][16];
+    uint32_t h0[3][4], h1[3][4];
+#pragma unroll
+    for (int P = 0; P < 3; ++P) {
+      h0[P][2] = h0[P][3] = h1[P][0] = h1[P][1] = 0u;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) X[P][0][e] = X[P][1][e] = 0.f;
     }
-    kh::pin_corrections<LO>(C);
+    static_assert(S::CHUNKS % KRUN == 0, "a tile is whole runs of chunks");
+    auto add = [&](int P) {      // T_P = (T_P + H(c, 0)) + H(c, 1)
+      kh::add1(T[P], X[P][0]);
+      kh::add1(T[P], X[P][1]);
+    };
+#pragma unroll
+    for (int G = 0; G < S::XSTAGES; ++G) stage_x(G);
+    async::wait_groups<S::XSTAGES - 1>();
+    take(0);
 
-    // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of the
-    // tile, column 8 jn + 2 t + e of the column block
+#pragma unroll 1
+    for (int i = 0; i < tiles; ++i) {
+      const int rb = cg + i * groups;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int m = rb * BM + warp * XROWS + g + 8 * hh;
-      if (m >= map.rows) continue;
-      const int o = (map.base(m) + map.seg(seg_out)) * LANES + col0 + 2 * t;
+      for (int e = 0; e < 16; ++e) T[0][e] = T[1][e] = T[2][e] = 0.f;
+
+      // KRUN chunks a run, unrolled: ptxas keeps groups in flight only
+      // within straight-line code (across a loop's back edge it serializes
+      // every wgmma), so a run ends with its last groups waited on
+#pragma unroll 1
+      for (int c0 = 0; c0 < S::CHUNKS; c0 += KRUN) {
 #pragma unroll
-      for (int jn = 0; jn < BN / 8; ++jn) {
-        const int x = 4 * jn + 2 * hh;
-        const float2 v0 = kh::result<LO>(T, C, x);
-        const float2 v1 = kh::result<LO>(T, C, x + 1);
-        *reinterpret_cast<float2*>(out_re + o + 8 * jn) =
-            make_float2(v0.x, v1.x);
-        *reinterpret_cast<float2*>(out_im + o + 8 * jn) =
-            make_float2(v0.y, v1.y);
+        for (int u = 0; u < KRUN; ++u) {
+          const int c = c0 + u, G = i * S::CHUNKS + c;
+          if (i == 0) async::bar_wait(&full[c], 0);
+          const uint64_t d = tab0 + (uint64_t)(c * (S::CHUNK_BYTES >> 4));
+          constexpr uint64_t part = kh::PART >> 4;
+          kh::split_hi(kh::add4(r0, i0), kh::add4(r1, i1), h0[0], h1[0]);
+          kh::hi_group(X[0], h0[0], h1[0], d);              // t1: s.m1
+          if (u > 0) {
+            kh::wait<2>();
+            add(1);              // (c - 1, 1)
+          }
+          kh::split_hi(r0, r1, h0[1], h1[1]);
+          kh::hi_group(X[1], h0[1], h1[1], d + part);       // t2: xr.m2
+          if (u > 0) {
+            kh::wait<2>();
+            add(2);              // (c - 1, 2)
+          }
+          kh::split_hi(i0, i1, h0[2], h1[2]);
+          kh::hi_group(X[2], h0[2], h1[2], d + 2 * part);   // t3: xi.m3
+          stage_x(G + S::XSTAGES);
+          async::wait_groups<S::XSTAGES - 1>();
+          take(G + 1);
+          kh::wait<2>();
+          add(0);                // (c, 0)
+        }
+        kh::wait<1>();
+        add(1);
+        kh::wait<0>();
+        add(2);
+      }
+
+      // D fragment, as the "high" arm stores it (result<false> reads no
+      // corrections: T stands in for them)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = rb * BM + warp * XROWS + g + 8 * hh;
+        if (m >= map.rows) continue;
+        const int o =
+            (map.base(m) + map.seg(seg_out)) * LANES + col0 + 2 * t;
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          const int x = 4 * jn + 2 * hh;
+          const float2 v0 = kh::result<false>(T, T, x);
+          const float2 v1 = kh::result<false>(T, T, x + 1);
+          *reinterpret_cast<float2*>(out_re + o + 8 * jn) =
+              make_float2(v0.x, v1.x);
+          *reinterpret_cast<float2*>(out_im + o + 8 * jn) =
+              make_float2(v0.y, v1.y);
+        }
       }
     }
   }
@@ -242,7 +392,7 @@ template <int D, bool LO>
 cudaError_t launch(const float* xr, const float* xi, float* out_re,
                    float* out_im, const void* w, RowMap map,
                    cudaStream_t stream) {
-  using S = Shape<D>;
+  using S = Shape<D, LO>;
   static bool smem_set = false;
   static int slots = 0;      // CTAs of the kernel that fit on the card
   cudaError_t e = async::allow_smem(mm_high_kernel<D, LO>, S::SMEM,
@@ -268,8 +418,8 @@ extern "C" {
 // One "high" (lo = 1) or "default" (lo = 0) mm step on the (rows, 128)
 // state pair (xr, xi) into the separate pair (out_re, out_im), D = 128 <<
 // kh with kh = 0, 1 or 2 row bits b0 < b1 (-1 where absent); rows a power
-// of two above every row bit.  w16: split_mm_tables of the step's
-// Karatsuba tables ("default" reads their hi parts).
+// of two above every row bit.  w16: the step's Karatsuba tables,
+// split_mm_tables at "high", split_mm_tables_hi at "default".
 int qsim_mm_step_high(const float* xr, const float* xi, float* out_re,
                       float* out_im, const void* w16, long long rows, int D,
                       int b0, int b1, int lo, void* stream) {

@@ -69,9 +69,9 @@
 // shared memory.  The launch is cooperative, and the group's warps count
 // their reads of a tile on a counter in device memory, which each waits
 // for before it writes.  A tile resident across a block's steps is later
-// work.  The "default" step is the same kernel's second instantiation
-// (mat_high_halves_kernel<false>: the hi.hi sums alone), bit for bit
-// mat_high.cu's "default" step.
+// work.  The "default" step (mat_high_halves_kernel<false>: the hi.hi sums
+// alone) runs wgmma_high.cuh's "default" k-loop on the same tables, bit
+// for bit mat_high.cu's "default" step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -51,21 +51,44 @@
 // of a row) are its A-fragment values: wgmma position p holds k
 // 4 ((p % 8) / 2) + 2 (p / 8) + p % 2.
 //
-// The "default" rung (LO = false, a second instantiation of the same
-// body): one bf16 pass, the JAX package's jnp.dot at Precision.DEFAULT on
-// the TPU.  x and the tables are rounded to bf16 (the tables' hi words;
-// the lo words of the same image are not read) and only the hi.hi
-// partials are summed, in fp32 as above: no lo split, no correction
-// wgmma, out = the hi.hi sums.  On bf16-exact x and tables the "high"
-// arm's corrections are exact zeros, so the two arms then agree bit for
-// bit (chip_smoke.py phase 10).  At n = 24 its work is the 8 half-zero
-// hi.hi passes (68.7 GFLOP, 0.069 ms) against 0.080 ms of state bytes.
+// The "default" rung (LO = false): one bf16 pass, the JAX package's
+// jnp.dot at Precision.DEFAULT on the TPU.  x and the tables are rounded to
+// bf16 and only the hi.hi partials are summed, in fp32 as above, in the
+// same order (out_re: + xr.A_hi(c, 0) - xi.B_hi(c, 0) + xr.A_hi(c, 1) -
+// xi.B_hi(c, 1) for every chunk c in turn; out_im alike): no lo split, no
+// correction wgmma, out = the hi.hi sums.  On bf16-exact x and tables the
+// "high" arm's corrections are exact zeros, so the two arms then agree bit
+// for bit (chip_smoke.py phase 10).  Its own k-loop, not the "high" one
+// without its corrections: nothing else would keep the tensor core busy
+// while the CUDA cores add, so
+//   * it holds two partial pairs (the registers of the "high" arm's
+//     correction accumulators): pass q + 1 is queued before pass q is
+//     waited on, and q's partials are added while q + 1 runs, across the
+//     chunk boundary too (a chunk's four passes alternate the pairs);
+//   * the next chunk's rows are loaded and rounded during the chunk's last
+//     pass, positions 0..7 then (their passes are done) and 8..15 after the
+//     chunk boundary, once the passes that read those registers are done:
+//     no wait<0> inside a tile;
+//   * the tables and the five-stage row ring are the "high" arm's: it reads
+//     the hi parts of split_tables' image (A_hi, B_hi: parts 0 and 2 of a
+//     chunk).  A hi-only image (64 KB a column block) with the room it
+//     frees spent on an eight-stage ring was no faster on an H100 (PERF.md
+//     section 6).
+// At n = 24 its work is the 8 half-zero hi.hi passes (68.7 GFLOP issued,
+// 0.069 ms), 2.1e9 fp32 adds of partials (~0.07 ms of the CUDA cores,
+// which now run beside the passes) against 0.080 ms of state bytes.  What
+// bounds it on an H100 is the CUDA cores' side: run alone (the wgmmas
+// removed, chip_ab.py --strip wgmmas) it takes four fifths of the step,
+// the tensor core's side alone (--strip adds) under half (PERF.md section
+// 6), at about half the issue rate its ~394 instructions a k-chunk allow:
+// likely the latency two warps a scheduler cannot hide, and more warps do
+// not fit beside the four partials of 32 floats.
 //
-// What bounds it on the card: at n = 24 a step is 16 bf16 products of
-// (2^16 x 256) @ (256 x 256) on the tensor cores, 8 of them the half-zero
-// hi.hi passes (137 GFLOP at 989.4 TFLOP/s, 0.139 ms), 2.1e9 fp32 adds of
-// partials (~0.07 ms, overlapping the other warpgroup's wgmma) and 256 MB
-// of state moved once (0.08 ms).
+// What bounds the "high" arm on the card: at n = 24 a step is 16 bf16
+// products of (2^16 x 256) @ (256 x 256) on the tensor cores, 8 of them the
+// half-zero hi.hi passes (137 GFLOP at 989.4 TFLOP/s, 0.139 ms), 2.1e9 fp32
+// adds of partials (~0.07 ms, overlapping the other warpgroup's wgmma) and
+// 256 MB of state moved once (0.08 ms).
 
 #pragma once
 
@@ -74,6 +97,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "bf16_split.cuh"
 
 namespace wgh {
 
@@ -96,21 +120,20 @@ constexpr int XSTAGE_F = 2 * XROWS * 16;    // floats: re, im of 16 rows
 constexpr int CORE_K = 1024;                // core-matrix stride along k
 constexpr int CORE_N = 128;                 // and along n
 constexpr uint32_t NO_ROW = 0xffffffffu;    // a slot past the state
+constexpr int KRUN = 4;                     // "default": chunks a run
 constexpr size_t X_OFF = BLOCK_BYTES;
 constexpr size_t SRC_OFF = X_OFF + (size_t)XSTAGES * WARPS * XSTAGE_F * 4;
 constexpr size_t BAR_OFF = SRC_OFF + 3 * 2 * BM * sizeof(uint32_t);
 constexpr size_t SMEM = BAR_OFF + CHUNKS * sizeof(uint64_t);
 static_assert(THREADS == 2 * BM, "one thread per (row slot, k half)");
 static_assert(WARPS * XROWS == BM, "each warp stages its own rows");
+static_assert(CHUNKS % KRUN == 0, "a tile is whole runs of chunks");
 
-// (x0, x1) -> bf16x2 hi and bf16x2 lo (x0 in the low 16 bits)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+using bfround::hi2;
+using bfround::split2;
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
 // K-major, unswizzled shared-memory matrix descriptor at byte address a
@@ -204,12 +227,13 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 //   const float* src(int comp, uint32_t code);   that half-row of
 //                                         component comp (0 re, 1 im)
 //   float* out(int comp, long long r, int col);  where output (r, col) goes
-// w: the slot's tables as split_tables lays them out (4 blocks of 128 KB).
+// w: the slot's tables as split_tables lays them out (4 blocks of 128 KB;
+// "default" reads the hi parts).
 // sync (in place): two ints a CTA group, zero before the launch, which is
 // cooperative (every CTA resident): no warp of a group writes a tile's rows
 // before every warp of the group's four CTAs has read them.  Left zero.
 // LO: the "high" rung (the lo splits and the corrections); false: the
-// "default" rung, the hi.hi sums alone.
+// "default" rung, the hi.hi sums alone, on a k-loop of its own.
 template <bool LO, class Map>
 __device__ __forceinline__ void mat_step(const Map& map,
                                          const uint8_t* __restrict__ w,
@@ -282,74 +306,74 @@ __device__ __forceinline__ void mat_step(const Map& map,
   for (int G = 0; G < XSTAGES - 1; ++G) stage_x(G);
 
   const uint32_t tab_s = async::smem_u32(tab);
-  float sre[32], sim[32], cre[32], cim[32], p0[32], p1[32];
+  if constexpr (LO) {
+    float sre[32], sim[32], cre[32], cim[32], p0[32], p1[32];
 #pragma unroll
-  for (int e = 0; e < 32; ++e) p0[e] = p1[e] = 0.f;
+    for (int e = 0; e < 32; ++e) p0[e] = p1[e] = 0.f;
 
 #pragma unroll 1
-  for (int i = 0; i < tiles; ++i) {
-    const long long rb = cg + i * groups;
-    if (i > 0) __syncthreads();
-    if (i + 2 < tiles) fill_src(i + 2);
+    for (int i = 0; i < tiles; ++i) {
+      const long long rb = cg + i * groups;
+      if (i > 0) __syncthreads();
+      if (i + 2 < tiles) fill_src(i + 2);
 #pragma unroll
-    for (int e = 0; e < 32; ++e) sre[e] = sim[e] = cre[e] = cim[e] = 0.f;
+      for (int e = 0; e < 32; ++e) sre[e] = sim[e] = cre[e] = cim[e] = 0.f;
 
 #pragma unroll 1
-    for (int c = 0; c < CHUNKS; ++c) {
-      const int G = i * CHUNKS + c;
-      __syncwarp();              // every lane is done with stage G - 1
-      stage_x(G + XSTAGES - 1);
-      async::wait_groups<XSTAGES - 1>();
-      __syncwarp();
-      if (arrived != nullptr && c == CHUNKS - 1 && lane == 0)
-        arrive(arrived);         // the warp's reads of the tile are done
-      async::bar_wait(&full[c], 0);
-      // rows g and g + 8, k 4 t .. 4 t + 3 of the chunk: this lane's A
-      // fragments (the tables' k order, above)
-      const float* xq = xw + (G % XSTAGES) * XSTAGE_F;
-      const float4 a0 = ld4(xq + g * 16 + t * 4);
-      const float4 a1 = ld4(xq + (g + 8) * 16 + t * 4);
-      const float4 b0 = ld4(xq + (XROWS + g) * 16 + t * 4);
-      const float4 b1 = ld4(xq + (XROWS + g + 8) * 16 + t * 4);
-      wait<0>();                 // the last chunk's products read its A
-      // (without LO the lo words are never read: the compiler drops them)
-      uint32_t rh[4], rl[4], ih[4], il[4];
-      split2(a0.x, a0.y, rh[0], rl[0]);
-      split2(a1.x, a1.y, rh[1], rl[1]);
-      split2(a0.z, a0.w, rh[2], rl[2]);
-      split2(a1.z, a1.w, rh[3], rl[3]);
-      split2(b0.x, b0.y, ih[0], il[0]);
-      split2(b1.x, b1.y, ih[1], il[1]);
-      split2(b0.z, b0.w, ih[2], il[2]);
-      split2(b1.z, b1.w, ih[3], il[3]);
-      const uint32_t base = tab_s + c * CHUNK_BYTES;
-      const uint64_t dah = desc(base), dal = desc(base + PART),
-                     dbh = desc(base + 2 * PART), dbl = desc(base + 3 * PART);
-      // four hi.hi passes, (re, im) x (wgmma positions 0..7, 8..15), each
-      // two partials from zero; behind each, two of the eight correction
-      // products, so that the tensor core has work queued while the CUDA
-      // cores add the partials
+      for (int c = 0; c < CHUNKS; ++c) {
+        const int G = i * CHUNKS + c;
+        __syncwarp();              // every lane is done with stage G - 1
+        stage_x(G + XSTAGES - 1);
+        async::wait_groups<XSTAGES - 1>();
+        __syncwarp();
+        if (arrived != nullptr && c == CHUNKS - 1 && lane == 0)
+          arrive(arrived);         // the warp's reads of the tile are done
+        async::bar_wait(&full[c], 0);
+        // rows g and g + 8, k 4 t .. 4 t + 3 of the chunk: this lane's A
+        // fragments (the tables' k order, above)
+        const float* xq = xw + (G % XSTAGES) * XSTAGE_F;
+        const float4 a0 = ld4(xq + g * 16 + t * 4);
+        const float4 a1 = ld4(xq + (g + 8) * 16 + t * 4);
+        const float4 b0 = ld4(xq + (XROWS + g) * 16 + t * 4);
+        const float4 b1 = ld4(xq + (XROWS + g + 8) * 16 + t * 4);
+        wait<0>();                 // the last chunk's products read its A
+        uint32_t rh[4], rl[4], ih[4], il[4];
+        split2(a0.x, a0.y, rh[0], rl[0]);
+        split2(a1.x, a1.y, rh[1], rl[1]);
+        split2(a0.z, a0.w, rh[2], rl[2]);
+        split2(a1.z, a1.w, rh[3], rl[3]);
+        split2(b0.x, b0.y, ih[0], il[0]);
+        split2(b1.x, b1.y, ih[1], il[1]);
+        split2(b0.z, b0.w, ih[2], il[2]);
+        split2(b1.z, b1.w, ih[3], il[3]);
+        const uint32_t base = tab_s + c * CHUNK_BYTES;
+        const uint64_t dah = desc(base), dal = desc(base + PART),
+                       dbh = desc(base + 2 * PART),
+                       dbl = desc(base + 3 * PART);
+        // four hi.hi passes, (re, im) x (wgmma positions 0..7, 8..15), each
+        // two partials from zero; behind each, two of the eight correction
+        // products, so that the tensor core has work queued while the CUDA
+        // cores add the partials
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int p = q / 2;
-        const uint32_t xr[4] = {p ? 0u : rh[0], p ? 0u : rh[1],
-                                p ? rh[2] : 0u, p ? rh[3] : 0u};
-        const uint32_t xi[4] = {p ? 0u : ih[0], p ? 0u : ih[1],
-                                p ? ih[2] : 0u, p ? ih[3] : 0u};
-        fence();
-        if (q % 2 == 0) {        // out_re: + xr.A_hi - xi.B_hi
-          bf16<1>(p0, xr, dah, 0);
-          bf16<1>(p1, xi, dbh, 0);
-        } else {                 // out_im: + xr.B_hi + xi.A_hi
-          bf16<1>(p0, xr, dbh, 0);
-          bf16<1>(p1, xi, dah, 0);
-        }
-        commit();
-        if constexpr (LO) {
-          if (q == 0) {          // re: rl.A_hi + rh.A_lo - il.B_hi - ih.B_lo
+        for (int q = 0; q < 4; ++q) {
+          const int p = q / 2;
+          const uint32_t xr[4] = {p ? 0u : rh[0], p ? 0u : rh[1],
+                                  p ? rh[2] : 0u, p ? rh[3] : 0u};
+          const uint32_t xi[4] = {p ? 0u : ih[0], p ? 0u : ih[1],
+                                  p ? ih[2] : 0u, p ? ih[3] : 0u};
+          fence();
+          if (q % 2 == 0) {        // out_re: + xr.A_hi - xi.B_hi
+            bf16<1>(p0, xr, dah, 0);
+            bf16<1>(p1, xi, dbh, 0);
+          } else {                 // out_im: + xr.B_hi + xi.A_hi
+            bf16<1>(p0, xr, dbh, 0);
+            bf16<1>(p1, xi, dah, 0);
+          }
+          commit();
+          if (q == 0) {            // re: rl.A_hi + rh.A_lo - il.B_hi - ih.B_lo
             bf16<1>(cre, rl, dah, 1);
             bf16<1>(cre, rh, dal, 1);
-          } else if (q == 1) {   // im: rl.B_hi + rh.B_lo + il.A_hi + ih.A_lo
+          } else if (q == 1) {     // im: rl.B_hi + rh.B_lo + il.A_hi + ih.A_lo
             bf16<1>(cim, rl, dbh, 1);
             bf16<1>(cim, rh, dbl, 1);
           } else if (q == 2) {
@@ -361,51 +385,166 @@ __device__ __forceinline__ void mat_step(const Map& map,
           }
           commit();
           wait<1>();
-        } else {
-          wait<0>();
-        }
-        pin(p0);
-        pin(p1);
-        if (q % 2 == 0) {
+          pin(p0);
+          pin(p1);
+          if (q % 2 == 0) {
 #pragma unroll
-          for (int e = 0; e < 32; ++e) sre[e] = (sre[e] + p0[e]) - p1[e];
-        } else {
+            for (int e = 0; e < 32; ++e) sre[e] = (sre[e] + p0[e]) - p1[e];
+          } else {
 #pragma unroll
-          for (int e = 0; e < 32; ++e) sim[e] = (sim[e] + p0[e]) + p1[e];
+            for (int e = 0; e < 32; ++e) sim[e] = (sim[e] + p0[e]) + p1[e];
+          }
         }
       }
-    }
-    wait<0>();
-    if constexpr (LO) {
+      wait<0>();
       pin(cre);
       pin(cim);
-    }
 
-    if (arrived != nullptr) {  // every warp of the group has read the tile
-      if (lane == 0) wait_arrivals(arrived, GROUP_WARPS * (i + 1));
-      __syncwarp();
-    }
-    // D fragment: element 4 jn + 2 hh + e is row 16 (warp % 4) + g + 8 hh
-    // of the warpgroup, column 8 jn + 2 t + e of the column block
+      if (arrived != nullptr) {  // every warp of the group has read the tile
+        if (lane == 0) wait_arrivals(arrived, GROUP_WARPS * (i + 1));
+        __syncwarp();
+      }
+      // D fragment: element 4 jn + 2 hh + e is row 16 (warp % 4) + g + 8 hh
+      // of the warpgroup, column 8 jn + 2 t + e of the column block
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const long long r = map.row(rb, warp * XROWS + g + 8 * hh);
-      if (r >= map.rows) continue;
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long r = map.row(rb, warp * XROWS + g + 8 * hh);
+        if (r >= map.rows) continue;
 #pragma unroll
-      for (int jn = 0; jn < BN / 8; ++jn) {
-        const int col = cb * BN + jn * 8 + 2 * t, e = 4 * jn + 2 * hh;
-        if constexpr (LO) {
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          const int col = cb * BN + jn * 8 + 2 * t, e = 4 * jn + 2 * hh;
           *reinterpret_cast<float2*>(map.out(0, r, col)) =
               make_float2(sre[e] + cre[e], sre[e + 1] + cre[e + 1]);
           *reinterpret_cast<float2*>(map.out(1, r, col)) =
               make_float2(sim[e] + cim[e], sim[e + 1] + cim[e + 1]);
-        } else {
-          *reinterpret_cast<float2*>(map.out(0, r, col)) =
-              make_float2(sre[e], sre[e + 1]);
-          *reinterpret_cast<float2*>(map.out(1, r, col)) =
-              make_float2(sim[e], sim[e + 1]);
         }
       }
+    }
+  } else {
+    // Passes 4c .. 4c + 3 of chunk c: (re, im) x (positions 0..7, 8..15),
+    // pass s into pair s % 2 (pa, pb or pc, pd), queued before pass s - 1
+    // is waited on and added, over a run of KRUN chunks.  xr0/xi0 are
+    // the chunk's half-zero fragments for positions 0..7 (read by passes
+    // 4c, 4c + 1), xr1/xi1 for 8..15 (4c + 2, 4c + 3); their zero halves
+    // are never written.
+    float sre[32], sim[32], pa[32], pb[32], pc[32], pd[32];
+    uint32_t xr0[4], xi0[4], xr1[4], xi1[4];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) pa[e] = pb[e] = pc[e] = pd[e] = 0.f;
+    xr0[2] = xr0[3] = xi0[2] = xi0[3] = 0u;
+    xr1[0] = xr1[1] = xi1[0] = xi1[1] = 0u;
+    // rows g and g + 8 of stage G: k 4 t, 4 t + 1 (positions 0..7) or
+    // 4 t + 2, 4 t + 3 (8..15), rounded to bf16 (split2's hi)
+    auto take = [&](int G, int h, uint32_t (&xr)[4], uint32_t (&xi)[4]) {
+      const float* xq = xw + (G % XSTAGES) * XSTAGE_F + t * 4 + 2 * h;
+      const float2 a0 = ld2(xq + g * 16), a1 = ld2(xq + (g + 8) * 16);
+      const float2 b0 = ld2(xq + (XROWS + g) * 16);
+      const float2 b1 = ld2(xq + (XROWS + g + 8) * 16);
+      xr[2 * h] = hi2(a0.x, a0.y);
+      xr[2 * h + 1] = hi2(a1.x, a1.y);
+      xi[2 * h] = hi2(b0.x, b0.y);
+      xi[2 * h + 1] = hi2(b1.x, b1.y);
+    };
+    auto add_re = [&](float (&d0)[32], float (&d1)[32]) {
+      pin(d0);
+      pin(d1);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sre[e] = (sre[e] + d0[e]) - d1[e];
+    };
+    auto add_im = [&](float (&d0)[32], float (&d1)[32]) {
+      pin(d0);
+      pin(d1);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sim[e] = (sim[e] + d0[e]) + d1[e];
+    };
+    // the tile's results: every warp of the group has read its rows first
+    // (in place); element 4 jn + 2 hh + e of a D fragment is row 16 (warp %
+    // 4) + g + 8 hh of the warpgroup, column 8 jn + 2 t + e of the column
+    // block
+    auto store = [&](int i, const float (&vre)[32],
+                     const float (&vim)[32]) {
+      if (arrived != nullptr) {
+        if (lane == 0) wait_arrivals(arrived, GROUP_WARPS * (i + 1));
+        __syncwarp();
+      }
+      const long long rb = cg + i * groups;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long r = map.row(rb, warp * XROWS + g + 8 * hh);
+        if (r >= map.rows) continue;
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          const int col = cb * BN + jn * 8 + 2 * t, e = 4 * jn + 2 * hh;
+          *reinterpret_cast<float2*>(map.out(0, r, col)) =
+              make_float2(vre[e], vre[e + 1]);
+          *reinterpret_cast<float2*>(map.out(1, r, col)) =
+              make_float2(vim[e], vim[e + 1]);
+        }
+      }
+    };
+    stage_x(XSTAGES - 1);
+    async::wait_groups<XSTAGES - 1>();
+    __syncwarp();
+    take(0, 0, xr0, xi0);
+
+#pragma unroll 1
+    for (int i = 0; i < tiles; ++i) {
+      if (i > 0) __syncthreads();
+      if (i + 2 < tiles) fill_src(i + 2);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sre[e] = sim[e] = 0.f;
+
+      // KRUN chunks a run, unrolled: ptxas keeps passes in flight only
+      // within straight-line code (across a loop's back edge it serializes
+      // every wgmma), so a run ends with its last pass waited on
+#pragma unroll 1
+      for (int c0 = 0; c0 < CHUNKS; c0 += KRUN) {
+#pragma unroll
+        for (int u = 0; u < KRUN; ++u) {
+          const int c = c0 + u, G = i * CHUNKS + c;
+          async::bar_wait(&full[c], 0);
+          const uint32_t base = tab_s + c * CHUNK_BYTES;
+          const uint64_t dah = desc(base), dbh = desc(base + 2 * PART);
+          fence();                 // 4c: out_re += xr.A_hi - xi.B_hi
+          bf16<1>(pa, xr0, dah, 0);
+          bf16<1>(pb, xi0, dbh, 0);
+          commit();
+          if (u > 0) {             // 4c - 1, of the chunk before
+            wait<1>();
+            add_im(pc, pd);
+          }
+          take(G, 1, xr1, xi1);    // passes 4c - 2, 4c - 1 read them
+          fence();                 // 4c + 1: out_im += xr.B_hi + xi.A_hi
+          bf16<1>(pc, xr0, dbh, 0);
+          bf16<1>(pd, xi0, dah, 0);
+          commit();
+          wait<1>();
+          add_re(pa, pb);          // 4c
+          fence();                 // 4c + 2
+          bf16<1>(pa, xr1, dah, 0);
+          bf16<1>(pb, xi1, dbh, 0);
+          commit();
+          wait<1>();
+          add_im(pc, pd);          // 4c + 1
+          fence();                 // 4c + 3
+          bf16<1>(pc, xr1, dbh, 0);
+          bf16<1>(pd, xi1, dah, 0);
+          commit();
+          // the next chunk's rows, positions 0..7, while 4c + 2 and 4c + 3
+          // run (4c and 4c + 1, which read xr0/xi0, are done)
+          stage_x(G + XSTAGES);
+          async::wait_groups<XSTAGES - 1>();
+          __syncwarp();
+          if (arrived != nullptr && c == CHUNKS - 2 && lane == 0)
+            arrive(arrived);       // the warp's reads of the tile are done
+          take(G + 1, 0, xr0, xi0);
+          wait<1>();
+          add_re(pa, pb);          // 4c + 2
+        }
+        wait<0>();
+        add_im(pc, pd);            // the run's last pass
+      }
+      store(i, sre, sim);
     }
   }
   // the group's last warp past its last wait leaves both counters zero

@@ -37,8 +37,8 @@ Device side it replaces the JAX program:
 
 The slice covers flat and in-place plans at 9 <= n <= 30 at every precision
 rung: "highest", "high" and "default" (the mat step's one bf16 pass, the
-"high" kernels' second instantiation; the gathers stay exact at every
-rung).  complex128 raises ValueError (float32-only, as in the JAX
+"high" kernels' "default" arm, on the same tables; the gathers stay exact
+at every rung).  complex128 raises ValueError (float32-only, as in the JAX
 package); the mesh gswap raises NotImplementedError naming its ROADMAP
 item.
 """
@@ -1070,6 +1070,13 @@ def expand_tables(u_re, u_im, mvec_i, hvec_i, mvec_o, hvec_o, phases, mono):
     return a, b, mono_src
 
 
+def splits_tables(device: torch.device) -> bool:
+    """Whether a chain on ``device`` splits its tables for the bf16 mat
+    kernels: on a card; a CPU chain runs the plain versions, which read
+    the float32 tables."""
+    return device.type == "cuda"
+
+
 class DeviceChain:
     """The device tables of materialized entries and the loop that runs them.
 
@@ -1096,7 +1103,7 @@ class DeviceChain:
         self._mrow = int(np.log2(self._R2 // self._tr))
         self._parts = []
         self.mode_rows: dict = {}
-        split = precision in SPLIT_RUNGS and self.device.type == "cuda"
+        split = precision in SPLIT_RUNGS and splits_tables(self.device)
         for (_, sizes, scal, u_re, u_im, mvec, hvec, mvec_o, hvec_o,
              phases, mono) in entries:
             for mode, cnt in zip(*np.unique(scal[:, 1], return_counts=True)):
@@ -1154,9 +1161,12 @@ class SplitChain:
     chunk; a call uploads and expands one part at a time and drops its
     tables before the next, so the device holds the state and one part's
     tables (the caching allocator hands the freed blocks to the next part
-    in stream order).  scal mode 0 and 1 rows go to the split block kernel
-    (1: pair mode), 2 to the pair swap, 3 to the in-place relayout; any
-    other mode raises.  ``mode_rows`` counts the scal rows by mode.
+    in stream order).  At the "high" and "default" rungs on a card each
+    part's tables are split into the bf16 mat kernel's image as they are
+    expanded (``split_tables``).  scal mode 0 and 1 rows go to the split
+    block kernel (1: pair mode), 2 to the pair swap, 3 to the in-place
+    relayout; any other mode raises.  ``mode_rows`` counts the scal rows by
+    mode.
     """
 
     def __init__(self, entries, num_qubits: int, device,
@@ -1185,7 +1195,7 @@ class SplitChain:
 
     def __call__(self, re0, re1, im0, im1):
         halves = (re0, re1, im0, im1)
-        split = self.precision in SPLIT_RUNGS and self.device.type == "cuda"
+        split = self.precision in SPLIT_RUNGS and splits_tables(self.device)
         for scal, tabs in self._parts:
             a_tab = b_tab = mono_src = high = None
             if any(row[0] for row in scal):    # a part of swaps needs none

@@ -48,8 +48,9 @@ from the host on, and the rung is not read (the program runs as
 Tables go to the device once per program (``build_wide_program`` caches
 programs by their ops); at "high" and "default" the Karatsuba combinations
 of every mm step and kh = 0 run are formed in float64 and split to bf16
-once as well, into the mm step's table image (``split_mm_tables``; the
-"default" kernels read its hi parts).
+once as well, into the mm step's table image: ``split_mm_tables`` (hi and
+lo parts) for every kh = 0 run, ``rung_mm_tables`` for the mm steps (at
+"default" the hi parts alone, what the kernel reads).
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ import torch
 from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
 from ..kernels.block import RUNGS, SPLIT_RUNGS
 from ..kernels.wide import (MM_STEPS, ieee_fp32, kh0_chain, row_shuffles,
-                            split_mm_tables)
+                            rung_mm_tables, split_mm_tables)
 from ..ops.apply import resolve_device, upload
 
 LANE_QUBITS = 7
@@ -108,7 +109,7 @@ def _mm_step(state: list, spare: list, m, row_bits, R: int,
     (float32 or float64), and out_re = t1 - t3, out_im = t1 + t2 with
     t1 = (x_re + x_im) @ m1, t2 = x_re @ m2, t3 = x_im @ m3 (IEEE fp32, or
     float64) between ``row_shuffles`` copies; at "high" and "default"
-    their ``split_mm_tables`` image, the same product as one
+    their ``rung_mm_tables`` image, the same product as one
     ``mm_step_high`` / ``mm_step_default`` (the kernel csrc/mm_high.cu on
     a card, which reads and writes the state through the row map, its
     plain version on the CPU) into ``spare``, a pair of the state's shape
@@ -188,9 +189,10 @@ def plan_segments(ops: Sequence[Op], num_qubits: int, chain: bool = True):
 class _Segment:
     steps: list                     # the JAX package's step tuples
     mm: dict                        # D -> (count, 3, D, D) float32 (or
-                                    # float64), or at "high" and "default"
-                                    # (count, 6 D^2) bfloat16
-                                    # (split_mm_tables)
+                                    # float64), or at "high" (count, 6 D^2)
+                                    # bfloat16 (split_mm_tables), at
+                                    # "default" (count, 3 D^2)
+                                    # (split_mm_tables_hi)
     runs: List[torch.Tensor]        # (L, 2, 128, 128) float32 [M_re, M_im]
     runs_w16: list                  # at "high" and "default" (L, 6 * 128^2)
                                     # bfloat16 per run (split_mm_tables),
@@ -237,7 +239,7 @@ class WideProgram:
                 mm[D] = dev(np.stack([_karatsuba(*_op_spec(ops[i], n)[3:])
                                       for i in idxs]))
                 if high:
-                    mm[D] = split_mm_tables(mm[D])
+                    mm[D] = rung_mm_tables(mm[D], self.precision)
             specs = [[_op_spec(ops[i], n)[3:] for i in run] for run in runs]
             run_tabs = [dev(np.stack([np.stack(m) for m in ms]))
                         for ms in specs]

@@ -26,7 +26,8 @@ between the state and a scratch pair) and runs ``run_block_plain`` — the
 same function in plain torch — for a CPU state.  Any other device raises.
 ``run_block.launches`` counts kernel launches by kind: ``mat`` (fp32 mat
 step), ``mat_high`` ("high" mat step), ``mat_default`` ("default" mat
-step: the "high" kernel's second instantiation, csrc/mat_high.cu),
+step: the "high" kernel's "default" arm, csrc/mat_high.cu, which reads
+the hi words of ``split_tables``),
 ``gather`` (every other step and a prologue-only block) and ``folded``
 (the first launch of a mode-5 block, whichever step it runs); each launch
 is counted under one kind.
@@ -138,6 +139,20 @@ def mat_default_plain(re: torch.Tensor, im: torch.Tensor, a: torch.Tensor,
         return xr @ ma - xi @ mb, xr @ mb + xi @ ma
 
 
+def kernel_order(t: torch.Tensor) -> torch.Tensor:
+    """(..., 256, 256) tables [k][n] -> (..., 4, 16, 1024): per 64-column
+    block and k-chunk of 16, 16-byte core matrices [kc 2][n 64][8],
+    position 8 c + 2 a + b of the chunk holding k 4 a + 2 c + b (the order
+    of each part of ``split_tables``)."""
+    lead = t.shape[:-2]
+    # k = 16 q + 4 a + 2 c + b, n = 64 cb + nn -> (cb, q, c, nn, a, b)
+    t = t.reshape(*lead, DVIEW // 16, 4, 2, 2, HIGH_COL_BLOCKS,
+                  DVIEW // HIGH_COL_BLOCKS)
+    t = t.permute(*range(len(lead)),
+                  *(t.dim() + d for d in (-2, -6, -4, -1, -5, -3)))
+    return t.reshape(*lead, HIGH_COL_BLOCKS, DVIEW // 16, -1)
+
+
 def split_tables(a_tab: torch.Tensor, b_tab: torch.Tensor) -> torch.Tensor:
     """(..., 256, 256) float32 tables [k][n] (A = M_re^T, B = M_im^T) ->
     (..., HIGH_SLOT_WORDS) int32: the bfloat16 operands of the "high" mat
@@ -151,12 +166,7 @@ def split_tables(a_tab: torch.Tensor, b_tab: torch.Tensor) -> torch.Tensor:
     lead = a_tab.shape[:-2]
     parts = []
     for t in (a_tab, b_tab):
-        # k = 16 q + 4 a + 2 c + b, n = 64 cb + nn -> (cb, q, c, nn, a, b)
-        t = t.reshape(*lead, DVIEW // 16, 4, 2, 2, HIGH_COL_BLOCKS,
-                      DVIEW // HIGH_COL_BLOCKS)
-        t = t.permute(*range(len(lead)),
-                      *(t.dim() + d for d in (-2, -6, -4, -1, -5, -3)))
-        t = t.reshape(*lead, HIGH_COL_BLOCKS, DVIEW // 16, -1)
+        t = kernel_order(t)
         hi = t.to(torch.bfloat16)
         parts += [hi, (t - hi.float()).to(torch.bfloat16)]
     return torch.stack(parts, -2).reshape(*lead, -1).view(torch.int32)

@@ -41,8 +41,11 @@ split once per program into the kernel's shared-memory image
 computes it outside any Pallas kernel; it is hand-written here because
 cuBLAS's bf16 GEMMs keep their fp32 sums in the tensor core, whose
 truncating adds shrink the norm.  At the "default" rung the same kernel's
-second instantiation, ``mm_step_default``, computes the one bf16 pass
-``xh.mh`` of each real product (``karatsuba_default``).
+"default" instantiation, ``mm_step_default``, computes the one bf16 pass
+``xh.mh`` of each real product (``karatsuba_default``) with the "high"
+arm's hi.hi sums, on a k-loop of its own that keeps wgmma groups queued
+while the partials are added, from the hi parts alone
+(``split_mm_tables_hi``).
 
 For a CUDA state the wrappers launch the kernel; for a CPU state they run
 the plain torch version; any other device raises.  ``kh0_chain.launches``
@@ -272,24 +275,67 @@ def split_mm_tables(m: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).reshape(*lead, 6 * D * D)
 
 
-def _mm_width(w16: torch.Tensor) -> int:
-    D = int(round((w16.shape[-1] / 6) ** 0.5)) if w16.dim() else 0
-    if D not in MM_WIDTHS or w16.shape[-1] != 6 * D * D:
-        raise ValueError(f"mm step: tables must be (..., 6 D^2) with D in "
-                         f"{MM_WIDTHS}, got {tuple(w16.shape)}")
-    return D
+def split_mm_tables_hi(m: torch.Tensor) -> torch.Tensor:
+    """``split_mm_tables`` for the "default" mm step, which reads the hi
+    parts alone: (..., 3 D^2) bfloat16, per 32-column block and k-chunk of
+    16 the three parts [m1_hi, m2_hi, m3_hi], each word for word the same
+    part of ``split_mm_tables``' image (half its bytes: 96 KB of shared
+    memory a column block at D = 512 instead of 192).  Done once per
+    program."""
+    lead, D = m.shape[:-3], m.shape[-1]
+    L = len(lead)
+    t = m.to(torch.bfloat16).reshape(*lead, 3, D // 16, 4, 2, 2,
+                                     D // MM_BN, MM_BN)
+    # (P, c, a, kc, b, cb, nn) -> (cb, c, P, kc, nn, a, b)
+    t = t.permute(*range(L), *(L + d for d in (5, 1, 0, 3, 6, 2, 4)))
+    return t.reshape(*lead, 3 * D * D)
+
+
+def rung_mm_tables(m: torch.Tensor, precision: str) -> torch.Tensor:
+    """The image the rung's mm kernel reads: ``split_mm_tables`` at
+    "high", ``split_mm_tables_hi`` at "default"."""
+    return (split_mm_tables_hi if precision == "default"
+            else split_mm_tables)(m)
+
+
+def _mm_layout(w16: torch.Tensor) -> Tuple[int, int]:
+    """(D, parts) of a ``split_mm_tables`` (6 parts) or
+    ``split_mm_tables_hi`` (3) image."""
+    for parts in (6, 3):
+        D = int(round((w16.shape[-1] / parts) ** 0.5)) if w16.dim() else 0
+        if D in MM_WIDTHS and w16.shape[-1] == parts * D * D:
+            return D, parts
+    raise ValueError(f"mm step: tables must be (..., 6 D^2) or (..., 3 D^2) "
+                     f"with D in {MM_WIDTHS}, got {tuple(w16.shape)}")
+
+
+def mm_hi_image(w16: torch.Tensor) -> torch.Tensor:
+    """The hi parts of a ``split_mm_tables`` image as a new
+    ``split_mm_tables_hi`` image (of the same tables)."""
+    lead, D = w16.shape[:-1], _mm_layout(w16)[0]
+    t = w16.reshape(*lead, D // MM_BN, D // 16, 3, 2, -1)[..., 0, :]
+    return t.reshape(*lead, 3 * D * D).contiguous()
 
 
 def mm_tables_f32(w16: torch.Tensor) -> list:
     """The six float32 [k][n] tables of a ``split_mm_tables`` image:
-    [m1_hi, m1_lo, m2_hi, m2_lo, m3_hi, m3_lo], bf16-exact values."""
-    lead, D = w16.shape[:-1], _mm_width(w16)
+    [m1_hi, m1_lo, m2_hi, m2_lo, m3_hi, m3_lo], bf16-exact values.  Of a
+    ``split_mm_tables_hi`` image, which holds no lo parts, the lo tables
+    are zeros."""
+    lead = w16.shape[:-1]
+    D, parts = _mm_layout(w16)
+    hl = parts // 3
     L = len(lead)
-    t = w16.float().reshape(*lead, D // MM_BN, D // 16, 3, 2, 2, MM_BN, 4, 2)
+    t = w16.float().reshape(*lead, D // MM_BN, D // 16, 3, hl, 2, MM_BN, 4,
+                            2)
     # (cb, c, P, HL, kc, nn, a, b) -> (P, HL, c, a, kc, b, cb, nn)
     t = t.permute(*range(L), *(L + d for d in (2, 3, 1, 6, 4, 7, 0, 5)))
-    t = t.reshape(*lead, 6, D, D)
-    return [t[..., j, :, :].contiguous() for j in range(6)]
+    t = t.reshape(*lead, parts, D, D)
+    tabs = [t[..., j, :, :].contiguous() for j in range(parts)]
+    if hl == 1:
+        zero = torch.zeros_like(tabs[0])
+        tabs = [tabs[0], zero, tabs[1], zero, tabs[2], zero]
+    return tabs
 
 
 def karatsuba_high(xr: torch.Tensor, xi: torch.Tensor, tabs) -> Pair:
@@ -408,9 +454,15 @@ def _mm_step(re, im, w16, row_bits, out, precision: str) -> Pair:
         raise ValueError(f"mm step: row_bits must be at most two ascending "
                          f"bits of the {R} rows (a power of two), got "
                          f"{row_bits}")
-    if w16.shape != (6 * D * D,) or w16.dtype != torch.bfloat16:
-        raise ValueError(f"mm step: tables must be ({6 * D * D},) bfloat16 "
-                         f"for D = {D}, got {tuple(w16.shape)} {w16.dtype}")
+    hi = precision == "default"
+    sizes = [((3 if hi else 6) * D * D,)]
+    if hi and re.device.type == "cpu":
+        sizes.append((6 * D * D,))         # the plain version reads either
+    if tuple(w16.shape) not in sizes or w16.dtype != torch.bfloat16:
+        raise ValueError(f"mm step: tables must be "
+                         f"{' or '.join(map(str, sizes))} bfloat16 for D = "
+                         f"{D} at {precision!r}, got {tuple(w16.shape)} "
+                         f"{w16.dtype}")
     if re.dtype != torch.float32 or im.dtype != torch.float32:
         raise ValueError(f"mm step: state must be float32, got {re.dtype} "
                          f"and {im.dtype}")
@@ -456,9 +508,12 @@ def mm_step_default(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
                     row_bits: Sequence[int],
                     out: Optional[Pair] = None) -> Pair:
     """``mm_step_high`` at the "default" rung: one launch of the same
-    kernel's second instantiation (the hi.hi sums alone) for CUDA tensors,
-    ``mm_step_default_plain`` for CPU tensors; counted on
-    ``mm_step_default.launches``."""
+    kernel's "default" instantiation (the hi.hi sums alone, on a k-loop of
+    its own) for CUDA tensors, ``mm_step_default_plain`` for CPU tensors;
+    counted on ``mm_step_default.launches``.  ``w16``: (3 D^2,)
+    ``split_mm_tables_hi`` of the step's tables, the image the kernel
+    reads; on the CPU the plain version also reads their (6 D^2,)
+    ``split_mm_tables``."""
     return _mm_step(re, im, w16, row_bits, out, "default")
 
 

@@ -208,6 +208,190 @@ def test_default_launch_kinds_and_rungs():
                            precision="bogus")
 
 
+# ------------------------------------------------------- the table images
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_hi_mat_image_is_the_hi_parts_of_split_tables(lead):
+    """What the "default" mat kernel reads of ``split_tables``' image: per
+    64-column block and k-chunk of 16, parts 0 and 2 of [A_hi | A_lo |
+    B_hi | B_lo], word for word the bf16 rounding of A and B in the
+    kernel's order; per slot when the tables have a leading dimension.
+    Parts 1 and 3 are the rounded remainders, which it skips."""
+    rng = np.random.default_rng(11)
+    a, b = (_t(rng.standard_normal((*lead, 256, 256))) for _ in range(2))
+    full = KB.split_tables(a, b)
+    assert full.dtype == torch.int32 and full.is_contiguous()
+    assert tuple(full.shape) == (*lead, KB.HIGH_SLOT_WORDS)
+    parts = full.reshape(*lead, 4, 16, 4, 512).view(torch.bfloat16)
+    for j, t in ((0, a), (2, b)):
+        order = KB.kernel_order(t)
+        hi = order.to(torch.bfloat16)
+        assert torch.equal(parts[..., j, :], hi)
+        assert torch.equal(parts[..., j + 1, :],
+                           (order - hi.float()).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("site", ["flat", "inplace"])
+def test_mat_launch_sites_take_the_rungs_image(site):
+    """Both launch sites of the bf16 mat step take ``split_tables``' image
+    at both rungs (the "default" kernel reads its hi parts) and refuse,
+    before choosing a device, an image of another size: half of it, which
+    would be the hi parts alone, included."""
+    rng = np.random.default_rng(19)
+    cap = TPF.CAP_STEPS
+    row = [1, 0, 0, 0] + [0] * cap + [0] + [0] * (cap - 1)
+    a, b = (_t(rng.standard_normal((1, 256, 256)) / 16) for _ in range(2))
+    mono = torch.zeros(1, 256, dtype=torch.int32)
+    x = [_t(rng.standard_normal((16, 256)) / 16) for _ in range(2)]
+
+    def run(rung, tables):
+        if site == "flat":
+            return KB.run_block(row, *x, a, b, mono, 4, cap,
+                                precision=rung, high_tables=tables)
+        return KS.run_split_block(row, (*KS.split_halves(x[0]),
+                                        *KS.split_halves(x[1])), a, b,
+                                  mono, 4, cap, precision=rung,
+                                  high_tables=tables)
+
+    full = KB.split_tables(a, b)
+    for rung in ("default", "high"):
+        run(rung, full)
+        with pytest.raises(ValueError, match="high_tables"):
+            run(rung, full[:, : KB.HIGH_SLOT_WORDS // 2].contiguous())
+
+
+@pytest.mark.parametrize("D", [128, 256, 512])
+def test_hi_mm_image_is_the_hi_parts_of_split_mm_tables(D):
+    """The "default" mm kernel's image (``split_mm_tables_hi``) is, per
+    32-column block and k-chunk of 16, the m1_hi, m2_hi, m3_hi parts of
+    ``split_mm_tables``' six word for word; ``mm_hi_image`` takes them out
+    of a full image, and ``mm_tables_f32`` reads a hi image back as the
+    full image's hi tables with zero lo tables."""
+    rng = np.random.default_rng(D)
+    m = _t(rng.standard_normal((3, D, D)))
+    full = KW.split_mm_tables(m)
+    hi = KW.split_mm_tables_hi(m)
+    assert hi.dtype == torch.bfloat16 and tuple(hi.shape) == (3 * D * D,)
+    part = 2 * KW.MM_BN * 16 // 2          # bf16 values of a part
+    blocks = (D // KW.MM_BN, D // 16)
+    assert torch.equal(hi.view(*blocks, 3, part),
+                       full.view(*blocks, 3, 2, part)[..., 0, :])
+    assert torch.equal(KW.mm_hi_image(full), hi)
+    assert torch.equal(KW.rung_mm_tables(m, "default"), hi)
+    assert torch.equal(KW.rung_mm_tables(m, "high"), full)
+    back, want = KW.mm_tables_f32(hi), KW.mm_tables_f32(full)
+    for j in range(6):
+        assert torch.equal(back[j], want[j] if j % 2 == 0
+                           else torch.zeros(D, D))
+    two = torch.stack([m, m.flip(-1)])
+    assert torch.equal(KW.split_mm_tables_hi(two)[1],
+                       KW.split_mm_tables_hi(m.flip(-1)))
+
+
+def test_mm_step_tables_by_rung():
+    """On the CPU the "default" mm step's plain version reads the hi
+    image or the full one (the same values); "high" takes the full one
+    alone."""
+    rng = np.random.default_rng(13)
+    D, R = 256, 16
+    v = [_t(rng.standard_normal((R, 128)) / 16) for _ in range(2)]
+    m = _t(rng.standard_normal((3, D, D)) / 16)
+    full, hi = KW.split_mm_tables(m), KW.split_mm_tables_hi(m)
+    a = KW.mm_step_default(*v, hi, (1,))
+    b = KW.mm_step_default(*v, full, (1,))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="mm step: tables"):
+        KW.mm_step_high(*v, hi, (1,))
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+def test_prefetch_chains_build_the_rungs_image(monkeypatch, inplace):
+    """``DeviceChain`` (flat) and ``SplitChain`` (in place, part by part as
+    it runs) split the tables into ``split_tables``' image at both bf16
+    rungs, the image the "default" kernel reads as the "high" one does.
+    On the CPU the chains split nothing (the plain versions read the
+    float32 tables), so the split is switched on here; the plain run then
+    checks each image's size, and the amplitudes are those of the chain
+    without it."""
+    n = 12
+    ops = TS._fuse_pipeline(T.models.grover_like(n, 300, 13), 7, max_high=2)
+    made = []
+    real = TPF.split_tables
+
+    def spy(a, b):
+        out = real(a, b)
+        made.append(out.shape[-1])
+        return out
+
+    want = {}
+    for split in (False, True):
+        monkeypatch.setattr(TPF, "splits_tables", lambda dev, s=split: s)
+        monkeypatch.setattr(TPF, "split_tables", spy)
+        for rung in ("high", "default"):
+            made.clear()
+            prog = TPF.PrefetchProgram(ops, n, precision=rung, device="cpu",
+                                       inplace=inplace)
+            out = prog.run_parts(*TPF.initial_halves(n, "cpu")) if inplace \
+                else prog(*TA.initial_state_parts(n, device="cpu"))
+            if not split:
+                assert made == []
+                want[rung] = out
+                continue
+            words = KB.HIGH_SLOT_WORDS
+            assert made and all(m == words for m in made), made
+            if not inplace:
+                assert all(part[4].shape[-1] == words
+                           for part in prog._chain._parts)
+            assert all(torch.equal(x, y) for x, y in zip(out, want[rung]))
+
+
+def test_wide_program_builds_the_rungs_mm_image():
+    """``WideProgram`` holds its mm steps' tables as the hi image at
+    "default" (``split_mm_tables_hi``, 3 D^2) and the full image at "high"
+    (6 D^2); the kh = 0 runs' chain tables are the full D = 128 image at
+    both rungs (the chain kernel reads it as the "high" arm does)."""
+    n = 10
+    c = T.Circuit(n)
+    for i, g in enumerate(T.models.grover_like(7, 260, 41).gates):
+        c.gates.append(g)
+        if i % 40 == 39:
+            c.cx(7, 8).cx(8, 9).h(7)
+    ops = TS._fuse_pipeline(c, 7, max_high=2, window=8)
+    for rung, parts in (("high", 6), ("default", 3)):
+        prog = TW.WideProgram(ops, n, precision=rung, device="cpu")
+        mm = [t for seg in prog.segments for t in seg.mm.values()]
+        runs = [w for seg in prog.segments for w in seg.runs_w16]
+        assert mm and runs
+        for t in mm:
+            D = int(round((t.shape[-1] / parts) ** 0.5))
+            assert t.dtype == torch.bfloat16 and t.shape[-1] == parts * D * D
+        assert all(w.shape[-1] == 6 * 128 * 128 for w in runs)
+
+
+def test_default_launch_counters_count_launches_alone():
+    """The "default" kernels' launch counters (``mat_default`` of both mat
+    wrappers, ``mm_step_default.launches``, ``kh0_chain.launches
+    ["default"]``) exist beside the "high" ones, and a CPU run, which
+    launches nothing, leaves every one of them at 0."""
+    KB.reset_launches()
+    KS.reset_launches()
+    KW.reset_launches()
+    rng = np.random.default_rng(17)
+    x = [_t(rng.standard_normal((16, 128)) / 16) for _ in range(2)]
+    m = _t(rng.standard_normal((3, 256, 256)) / 16)
+    KW.mm_step_default(*x, KW.split_mm_tables_hi(m), (2,))
+    tables = _t(rng.standard_normal((2, 2, 128, 128)) / 16)
+    KW.kh0_chain(*x, tables, "default")
+    prog = TPF.PrefetchProgram(
+        TS._fuse_pipeline(T.models.grover_like(12, 200, 5), 7, max_high=2),
+        12, precision="default", device="cpu", inplace=True)
+    prog.run_parts(*TPF.initial_halves(12, "cpu"))
+    assert KB.run_block.launches == dict.fromkeys(KB.LAUNCH_KINDS, 0)
+    assert KS.run_split_block.launches == dict.fromkeys(KS.LAUNCH_KINDS, 0)
+    assert KW.mm_step_default.launches == 0 == KW.mm_step_high.launches
+    assert KW.kh0_chain.launches == dict.fromkeys(KB.RUNGS, 0)
+    assert "mat_default" in KB.LAUNCH_KINDS and "mat_high" in KB.LAUNCH_KINDS
+
+
 # ------------------------------------------------------------ whole runs
 def _err(got, ref):
     return float(np.max(np.abs(np.asarray(got) - ref)))
