@@ -4,7 +4,7 @@
     python3 chip_ab.py --trees ab/parent . . ab/parent \\
         [--phases sass mat high highdrift split chain chaindrift vmem mm \\
                   drift mxupeak pergate workloads defmat defmm defchain \\
-                  defdrift defsteps defpaths] \\
+                  defdrift defsteps defpaths lowonly copy] \\
         [--profile "--strategy mxu --widths 24"] \\
         [--strip adds|wgmmas] \\
         [--out chiprun_out/ab]
@@ -44,7 +44,7 @@ Phases (chip_smoke function, where the tree has it):
          torch.mm and bound
   defmm  check_default_mm: the mxu "default" mm step, n=24, D = 512 and 256
   defchain  check_default_chain: kernel 7's "default" chain, n=24, P = 1
-         and 8
+         and 8 (beside its "high" arm, plain version, library and bound)
   defdrift  check_high_drift(torch, "default"): the "default" mat step's
          norm drift, n=24
   defsteps  (this script's own) the "default" mat step flat and in place
@@ -54,6 +54,12 @@ Phases (chip_smoke function, where the tree has it):
          prefetch flat and mxu at n=24 (run_detailed, median of 3 after a
          warm-up) and prefetch in place at n=30 (run_device_halves to a
          sync, median of 2 after a warm-up)
+  lowonly  (this script's own) mxu at "default" on chip_smoke's low-only
+         circuit (LOW_ONLY, n=24) at max_fused_qubits 3, the path that
+         launches kernel 7's "default" chain: run_detailed, median of 5
+         after a warm-up, and the chain launches of one run
+  copy   check_copy_probes: kernel 11's three routes at n = 24, 28, 30
+         beside copy_ (GB/s, and each route's fastest as a ratio)
   workloads  time_workloads: the workloads on the state — adjoint_gradient
          on the default config at n=24 (seconds, peak reserved), run_vqe's
          40 steps at n=20 (ms a step), the n + s = 28 trajectory ensemble
@@ -97,6 +103,8 @@ PHASES = {
     "defdrift": "C.check_high_drift(torch, 'default')",
     "defsteps": "default_steps()",
     "defpaths": "default_paths()",
+    "lowonly": "low_only_default()",
+    "copy": "C.check_copy_probes(torch, lambda counts: None)",
 }
 FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "highdrift": "check_high_drift", "split": "check_split_block",
@@ -108,12 +116,14 @@ FUNCS = {"mat": "check_block_kernel", "high": "check_high_mat",
          "pergate": "time_ablation", "workloads": "time_workloads",
          "defmat": "check_default_mat", "defmm": "check_default_mm",
          "defchain": "check_default_chain", "defdrift": "check_high_drift",
-         "defsteps": None, "defpaths": None}
+         "defsteps": None, "defpaths": None, "lowonly": None,
+         "copy": "check_copy_probes"}
 ECHO = ("mat step n=", "split mat step n=", "at the end kernel", "vmem one op",
         "vmem chunk kernel", "mm step high", "over seeds", "run_detailed",
         "busy", "NVIDIA", "kernels built", "mxu peak", "sass ",
         "two streams", "ptxas", "chain kernel n=", "apply_block128 n=",
-        "ablation n=", "workloads ", "default ", "stripped")
+        "ablation n=", "workloads ", "default ", "stripped", "copy probe",
+        "low-only")
 
 PHASE_RUN = """
 import sys, numpy as np, torch
@@ -221,6 +231,31 @@ def default_paths():
           % (statistics.median(secs[1:]),
              ", ".join("%.4f" % x for x in secs[1:]), secs[0]))
     del s
+    C.clear_caches(torch)
+
+
+def low_only_default():
+    import statistics
+
+    from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
+
+    n, gates, seed = C.LOW_ONLY
+    c = C.low_only(T, n, gates, seed)
+    sim = T.Simulator(T.SimulatorConfig(strategy="mxu", precision="default",
+                                        max_fused_qubits=3), device="cuda")
+    sim.run_detailed(c)
+    KW.reset_launches()
+    runs = [sim.run_detailed(c) for _ in range(5)]
+    secs = [r.seconds for r in runs]
+    chains = KW.kh0_chain.launches["default"] // 5
+    ref = T.Simulator(T.SimulatorConfig(strategy="mxu", precision="highest",
+                                        max_fused_qubits=3),
+                      device="cuda").run(c)
+    print("default low-only mxu n=%d: run_detailed %.4f s (median of %s), "
+          "%d chain launches a run, max|amp - 'highest'| %.3e"
+          % (n, statistics.median(secs), ", ".join("%.4f" % x for x in secs),
+             chains, float(np.max(np.abs(runs[-1].state - ref)))))
+    del sim, runs
     C.clear_caches(torch)
 
 

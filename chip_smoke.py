@@ -388,8 +388,9 @@ BEFORE_MS = {"fp32 mat step n=22": "0.1941-0.1951",
              "default mat step n=30 (in place)": "22.2428",
              "default mm step n=24 D=512": "0.6119",
              "default mm step n=24 D=256": "0.2709",
-             "default chain n=24 P=1": "0.1577",
-             "default chain n=24 P=8": "0.8935"}
+             # kernel 7's "default" chain before its body of its own
+             "default chain n=24 P=1": "0.1577-0.1579",
+             "default chain n=24 P=8": "0.8786-0.8795"}
 
 
 def norm2(pair):
@@ -555,6 +556,8 @@ def sass_kloop(part, per_chunk, chunks=1):
 DEFAULT_RUN = 4             # k-chunks a run of the "default" mat and mm
                             # steps' unrolled k-loops (KRUN in
                             # csrc/wgmma_high.cuh and csrc/mm_high.cu)
+CHAIN_DEFAULT_UNROLL = 2    # k-chunks an iteration of the "default"
+                            # chain's k-loop (csrc/wide_chain.cu)
 BF16_KERNEL = (r"\d(mat_high_kernel|mat_high_halves_kernel|mm_high_kernel|"
                r"chain_high_kernel)I(?:Li(\d+)E)?Lb([01])E")
 
@@ -603,11 +606,12 @@ def check_high_sass():
     the mxu mm step (mm_high_kernel, one per D) and the chain kernel's bf16
     arm (chain_high_kernel) hold HGMMA and no mma.sync HMMA at all (their
     previous designs' bf16 m16n8k16 and tf32 k4 passes).  It prints the
-    k-loop's instruction mix (a k-chunk an iteration; the chain splits its
-    rows once per product, outside the loop) with the registers and spills
-    ptxas reported, for every "default" kernel, both "high" mat-step
-    kernels and the "high" chain and D = 128 mm step, which share their
-    k-chunk body."""
+    k-loop's instruction mix (a k-chunk an iteration, averaged over the
+    chunks of an iteration in the "default" k-loops; the chain splits or
+    rounds its rows once per product, outside the loop) with the registers
+    and spills ptxas reported, for every "default" kernel, both "high"
+    mat-step kernels and the "high" chain and D = 128 mm step, which share
+    their k-chunk body."""
     import os
     import re
 
@@ -624,9 +628,9 @@ def check_high_sass():
             per_chunk = {"mat_high_kernel": 16, "mat_high_halves_kernel": 16,
                          "mm_high_kernel": 12, "chain_high_kernel": 12}[
                 kernel] // (1 if high else 2)
-            runs = not high and kernel != "chain_high_kernel"
-            loops[key] = sass_kloop(part, per_chunk,
-                                    DEFAULT_RUN if runs else 1)
+            chunks = (1 if high else CHAIN_DEFAULT_UNROLL
+                      if kernel == "chain_high_kernel" else DEFAULT_RUN)
+            loops[key] = sass_kloop(part, per_chunk, chunks)
     want = [k for rung in ("high", "default") for k in (
         [f"mat_high_kernel<{rung}>", f"mat_high_halves_kernel<{rung}>",
          f"chain_high_kernel<{rung}>"]
@@ -2945,8 +2949,10 @@ def check_butterfly(torch, rng, add):
 def check_copy_probes(torch, add):
     """Kernel 11, the copy probe harness (gpu_quantum_simulator_tpu_torch/
     dma_probe.py) at n = 24, 28 and 30: every route and tile shape copies
-    bit for bit; GB/s per variant beside ``copy_``'s.  The records take each
-    route's fastest pair copy at n=30, with its max |dst - src|."""
+    bit for bit; GB/s per variant beside ``copy_``'s, and at every width
+    each route's fastest pair copy as a ratio of ``copy_``'s time.  The
+    records take each route's fastest pair copy at n=30, with its max
+    |dst - src|."""
     from gpu_quantum_simulator_tpu_torch import dma_probe
     from gpu_quantum_simulator_tpu_torch.kernels import copy as KC
 
@@ -2956,6 +2962,11 @@ def check_copy_probes(torch, add):
     launches = dict.fromkeys(routes, 0)
     if any(fn.launches for _, fn in routes.values()):
         raise AssertionError("a copy probe kernel ran on an engine path")
+
+    def fastest(res, prefix):
+        return max((v for v in res if v.startswith(prefix)),
+                   key=lambda v: res[v]["GBps"])
+
     for n in COPY_WIDTHS:
         KC.reset_launches()
         res = dma_probe.measure(n)
@@ -2963,20 +2974,24 @@ def check_copy_probes(torch, add):
             launches[k] += fn.launches
         print(f"copy probe n={n}: " + json.dumps(
             {k: v["GBps"] for k, v in res.items()}))
+        lib = res["torch_copy"]
+        print(f"copy probe n={n} ratio to copy_ ({lib['ms']:.4f} ms): " +
+              ", ".join(f"{k} {fastest(res, p)} "
+                        f"{res[fastest(res, p)]['ms'] / lib['ms']:.4f}x"
+                        for k, (p, _) in routes.items()))
         bad = [k for k, v in res.items() if not v["exact"]]
         if bad:
             raise AssertionError(f"copy probe n={n}: not bit-exact: {bad}")
         torch.cuda.empty_cache()
     add({f"copy_{k}": v for k, v in launches.items()})
-    lib = res["torch_copy"]
     bnd = bound(nbytes=2.0 * 8 * (1 << COPY_WIDTHS[-1]))
     recs = []
     for k, (prefix, _) in routes.items():
-        name = max((v for v in res if v.startswith(prefix)),
-                   key=lambda v: res[v]["GBps"])
+        name = fastest(res, prefix)
         print(f"copy probe n={COPY_WIDTHS[-1]} {k}: fastest {name} "
-              f"{res[name]['ms']:.4f} ms ({res[name]['GBps']:.1f} GB/s); "
-              f"copy_ {lib['ms']:.4f} ms ({lib['GBps']:.1f} GB/s); bound "
+              f"{res[name]['ms']:.4f} ms ({res[name]['GBps']:.1f} GB/s, "
+              f"{res[name]['ms'] / lib['ms']:.4f}x copy_); copy_ "
+              f"{lib['ms']:.4f} ms ({lib['GBps']:.1f} GB/s); bound "
               f"{bnd[0]:.4f} ms ({HBM_BYTES / 1e9:.0f} GB/s)")
         recs.append((record(f"copy_{k}", COPY_SRC, COPY_TPU[k],
                             res[name]["max_abs_err"], res[name]["ms"],
@@ -4237,7 +4252,7 @@ C128_WIDTHS = (20, 24)      # complex128 mxu and megakernel, timed; n=20
 C128_TOL = 1e-9             # tests/test_engines.py:69-74
 MAT_DEFAULT_SRC = HIGH_SRC + " (mat_high_kernel<false>)"
 SPLIT_DEFAULT_SRC = SPLIT_SRC + " (mat_high_halves_kernel<false>)"
-CHAIN_DEFAULT_SRC = WIDE_SRC + " (chain_high_kernel<false>)"
+CHAIN_DEFAULT_SRC = WIDE_SRC + " (chain_high_kernel<false>, its own body)"
 MM_DEFAULT_SRC = MM_SRC + " (mm_high_kernel<D, false>)"
 
 
@@ -4417,15 +4432,18 @@ def check_default_mat(torch):
 
 
 def check_default_chain(torch):
-    """Kernel 7 at "default" at n=24: a P = 1 chain against its plain
-    version and bit for bit the D = 128 "default" mm step; a P = 8 chain
-    bit for bit eight P = 1 launches (a product's results become the next
-    product's fragments as a launch reads them back), each of which holds
-    to the plain version on its own input (one bf16 pass is
-    discontinuous: an ulp of a product's input may move its rounding by
-    2^-9, so a chain is held product by product); P = 1 bit for bit the
-    "high" arm on bf16-exact operands; timed at P = 1 and 8 beside the
-    "high" arm."""
+    """Kernel 7 at "default" at n=24, on its hi-only tables
+    (``kh0_high_tables(tables, "default")``, the full image's hi parts; the
+    full image raises): a P = 1 chain against its plain version and bit for
+    bit the D = 128 "default" mm step; a P = 8 chain bit for bit eight
+    P = 1 launches (a product's results become the next product's bf16
+    fragments as a launch rounds its input), each of which holds to the
+    plain version on its own input (one bf16 pass is discontinuous: an ulp
+    of a product's input may move its rounding by 2^-9, so a chain is held
+    product by product); P = 1 bit for bit the "high" arm on bf16-exact
+    operands; timed at P = 1 and 8 beside the "high" arm, the plain
+    version and the library: one bf16 torch.mm of the real form a product
+    (eight in a row at P = 8, each on operands of its own)."""
     from gpu_quantum_simulator_tpu_torch.engine.wide import KH0_BATCH
     from gpu_quantum_simulator_tpu_torch.kernels import wide as KW
 
@@ -4438,58 +4456,77 @@ def check_default_chain(torch):
     tabs = torch.tensor(np.stack([np.stack([u.real, u.imag]) for u in us]),
                         dtype=torch.float32, device="cuda")
     w16 = KW.kh0_high_tables(tabs)
-    one = KW.kh0_chain(re, im, tabs[:1], "default", w16=w16[:1])
-    step = KW.mm_step_default(re, im, KW.mm_hi_image(w16[0]), ())
-    whole = KW.kh0_chain(re, im, tabs, "default", w16=w16)
+    wd = KW.kh0_high_tables(tabs, "default")
+    if not (wd.shape == (KH0_BATCH, 3 * 128 * 128)
+            and torch.equal(wd, KW.mm_hi_image(w16))):
+        raise AssertionError("default chain: the hi-only image is not the "
+                             "full image's hi parts")
+    try:
+        KW.kh0_chain(re, im, tabs[:1], "default", w16=w16[:1])
+        raise AssertionError("default chain: took the full image")
+    except ValueError:
+        pass
+    one = KW.kh0_chain(re, im, tabs[:1], "default", w16=wd[:1])
+    step = KW.mm_step_default(re, im, wd[0], ())
+    whole = KW.kh0_chain(re, im, tabs, "default", w16=wd)
     x, err = (re, im), 0.0
     for j in range(KH0_BATCH):
-        y = KW.kh0_chain(*x, tabs[j : j + 1], "default", w16=w16[j : j + 1])
+        y = KW.kh0_chain(*x, tabs[j : j + 1], "default", w16=wd[j : j + 1])
         err = max(err, rel_diff(y, KW.kh0_chain_plain(
-            *x, tabs[j : j + 1], "default", w16=w16[j : j + 1])))
+            *x, tabs[j : j + 1], "default", w16=wd[j : j + 1])))
         x = y
-    mr, mi = tabs[0, 0].T.contiguous(), tabs[0, 1].T.contiguous()
-    lib_call, lib = one_pass_library(torch, re, im, mr, mi)
+    lib_calls, lib = [], None
+    for j in range(KH0_BATCH):
+        mr, mi = tabs[j, 0].T.contiguous(), tabs[j, 1].T.contiguous()
+        call, res = one_pass_library(torch, re, im, mr, mi)
+        lib_calls.append(call)
+        lib = res if lib is None else lib
     se = [exact_values(torch, gen, (R, 128), 64, 2.0 ** -7) for _ in range(2)]
     te = exact_values(torch, gen, (1, 2, 128, 128), 16, 2.0 ** -6)
-    we = KW.kh0_high_tables(te)
-    ed, eh = (KW.kh0_chain(*se, te, rung, w16=we)
+    ed, eh = (KW.kh0_chain(*se, te, rung,
+                           w16=KW.kh0_high_tables(te, rung))
               for rung in ("default", "high"))
     torch.cuda.synchronize()
     e_lib = rel_diff(lib, one)
     checks = {"P=1 vs the D=128 mm step": same(torch, one, step),
               "P=8 vs eight P=1 launches": same(torch, whole, x),
               "'high' arm on bf16-exact operands": same(torch, ed, eh)}
-    print(f"default chain n={n}: each product vs plain max|diff| {err:.3e} "
-          f"of the largest |value| (one bf16 torch.mm {e_lib:.3e}); bit for "
-          f"bit: {checks}")
+    print(f"default chain n={n}: hi-only tables; each product vs plain "
+          f"max|diff| {err:.3e} of the largest |value| (one bf16 torch.mm "
+          f"{e_lib:.3e}); bit for bit: {checks}")
     if not (err <= DEFAULT_TOL and all(checks.values())):
         raise AssertionError(f"default chain: {err}, {checks}")
-    del one, step, whole, x, y, se, te, we, ed, eh, lib
+    del one, step, whole, x, y, se, te, ed, eh, lib
     rec = None
     for P in (1, KH0_BATCH):
         out = (torch.empty_like(re), torch.empty_like(im))
+        images = {"default": wd, "high": w16}
         timed = {rung: device_ms(torch, lambda rung=rung: KW.kh0_chain(
-            re, im, tabs[:P], rung, out=out, w16=w16[:P]), reps=10)
+            re, im, tabs[:P], rung, out=out, w16=images[rung][:P]), reps=10)
             for rung in ("default", "high")}
         plain_ms = device_ms(torch, lambda: KW.kh0_chain_plain(
-            re, im, tabs[:P], "default", w16=w16[:P]), reps=3)
-        # one call computes one product; a chain of 8 is no one call
-        library_ms = device_ms(torch, lib_call, reps=10) if P == 1 else None
+            re, im, tabs[:P], "default", w16=wd[:P]), reps=3)
+
+        def library(P=P):
+            for call in lib_calls[:P]:
+                call()
+
+        library_ms = device_ms(torch, library, reps=10)
         flop = 6.0 * R * 128 * 128 * P
         bnd = bound(flop, 16.0 * R * 128 + P * 3 * 128 * 128 * 2, BF16_FLOPS)
         before = BEFORE_MS[f"default chain n={n} P={P}"]
         print(f"default chain n={n} P={P}: kernel {timed['default']:.4f} ms "
               f"({flop / timed['default'] / 1e9:.1f} bf16 TFLOP/s; before "
-              f"{before} ms), 'high' "
-              f"arm {timed['high']:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library " + ("none" if library_ms is None else
-                             f"{library_ms:.4f} ms")
-              + f", bound {bnd[0]:.4f} ms ({bnd[1]})")
+              f"{before} ms), 'high' arm {timed['high']:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library ({P} bf16 torch.mm, fp32 out) "
+              f"{library_ms:.4f} ms ({timed['default'] / library_ms:.2f}x), "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]})")
         if P == KH0_BATCH:
             rec = record("wide_chain_kh0_default", CHAIN_DEFAULT_SRC,
-                         KH0_TPU, err, timed["default"], plain_ms, bnd, None)
+                         KH0_TPU, err, timed["default"], plain_ms, bnd,
+                         library_ms)
         del out
-    del re, im
+    del re, im, lib_calls
     torch.cuda.empty_cache()
     return rec
 

@@ -9,8 +9,11 @@
 //   hbm_direct (:164) direct HBM -> HBM block DMAs, W in flight.
 // Each is written again for the card, by hand, to read what a kernel of
 // the port can copy per second at the port's tile shapes:
-//   grid_copy_kernel    one CTA per T-row tile of one operand, 128-bit
-//                       loads and stores through registers;
+//   grid_copy_kernel    one CTA per T-row tile of one operand, 512
+//                       threads; each loads GRID_BATCH 16-byte quads into
+//                       registers before it stores them, so at T = 32 a
+//                       whole 32 KB tile is in flight before its first
+//                       store;
 //   stream_copy_kernel  persistent CTAs; one thread keeps W-1 tiles in
 //                       flight into a W-stage shared-memory ring with TMA
 //                       bulk copies (cp.async.bulk, completion on an
@@ -23,7 +26,15 @@
 //                       global-to-global DMA that a kernel can issue.
 // What bounds them: bytes only (each byte read once and written once),
 // 3.35 TB/s published at 700 W.  The probe's use is the measured rate, a
-// second denominator for every bytes-bound kernel of the port.
+// second denominator for every bytes-bound kernel of the port.  Levers
+// measured on an H100 (PERF.md section 6): a whole tile's loads in
+// flight before its stores made the grid copy faster; non-coherent or
+// L1::no_allocate loads, an L2 prefetch hint, streaming stores and other
+// batch sizes did not.  For the staged routes no lever paid beyond the
+// spread between calls: warps releasing their stage on "empty" mbarriers
+// with a producer warp, streaming stores and evict-first loads (stream);
+// more bulk stores in flight before a refill, L2 hints (direct).  Both
+// keep their first design.
 //
 // A tile of stream_copy / hbm_direct is `unit` bytes of one operand,
 // contiguous; tiles of both operands are dealt round robin to the CTAs.
@@ -44,7 +55,8 @@ using async::smem_u32;
 
 constexpr int MAX_OPS = 4;
 constexpr int MAX_STAGES = 16;
-constexpr int GRID_THREADS = 256;
+constexpr int GRID_THREADS = 512;
+constexpr int GRID_BATCH = 4;           // quads a thread loads before storing
 constexpr int STREAM_THREADS = 256;
 constexpr int DIRECT_THREADS = 32;
 constexpr int MAX_SMEM = 227 * 1024;
@@ -61,6 +73,10 @@ __device__ __forceinline__ T pick(T const (&p)[MAX_OPS], long long j) {
   return j == 0 ? p[0] : j == 1 ? p[1] : j == 2 ? p[2] : p[3];
 }
 
+// One CTA per tile of one operand: each thread loads GRID_BATCH quads
+// (GRID_THREADS apart, so a warp's loads are contiguous) into registers,
+// then stores them: at T = 32 rows the whole 32 KB tile is in flight
+// before the first store.
 __global__ void __launch_bounds__(GRID_THREADS)
 grid_copy_kernel(Ops ops, long long quads, long long tile_quads) {
   const float4* __restrict__ s =
@@ -68,9 +84,16 @@ grid_copy_kernel(Ops ops, long long quads, long long tile_quads) {
   float4* __restrict__ d = reinterpret_cast<float4*>(pick(ops.dst, blockIdx.y));
   const long long base = (long long)blockIdx.x * tile_quads;
   const long long end = min(base + tile_quads, quads);
-#pragma unroll 4
-  for (long long i = base + threadIdx.x; i < end; i += GRID_THREADS)
-    d[i] = s[i];
+  long long i = base + threadIdx.x;
+  for (; i + (GRID_BATCH - 1) * GRID_THREADS < end;
+       i += GRID_BATCH * GRID_THREADS) {
+    float4 v[GRID_BATCH];
+#pragma unroll
+    for (int k = 0; k < GRID_BATCH; ++k) v[k] = s[i + k * GRID_THREADS];
+#pragma unroll
+    for (int k = 0; k < GRID_BATCH; ++k) d[i + k * GRID_THREADS] = v[k];
+  }
+  for (; i < end; i += GRID_THREADS) d[i] = s[i];
 }
 
 // TMA bulk copy shared -> global, one bulk group.
@@ -135,6 +158,9 @@ stream_copy_kernel(Ops ops, int nops, long long per_op, int unit,
   }
 }
 
+// One thread a CTA: bulk loads into W stages on mbarriers, bulk stores out
+// of them in bulk groups; a stage is refilled once the next tile's store
+// is out, so W - 1 loads stay in flight.
 __global__ void __launch_bounds__(DIRECT_THREADS)
 hbm_direct_kernel(Ops ops, int nops, long long per_op, int unit,
                   int stages) {

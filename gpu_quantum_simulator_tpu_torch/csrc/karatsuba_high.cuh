@@ -48,12 +48,13 @@
 // summed as above, in the same order, no lo split, no correction wgmma,
 // t_P = T_P.  On bf16-exact operands (s = xr + xi included) the "high"
 // arm's corrections are exact zeros, and the two arms agree bit for bit.
-// Kernel 7's chain runs it as chunk<false> (the tables' full image, a
-// chunk drained before the next) and mxu's mm step on a pipeline of its
-// own (mm_high.cu) from the pieces below: three partial pairs, one a
-// product, two groups queued while a third is added, across a run of
-// chunks; the tables a hi-only image (kernels/wide.py split_mm_tables_hi:
-// per 32-column block and k-chunk [m1_hi, m2_hi, m3_hi]).
+// Both kernels run it on a k-loop of their own from the pieces below, on
+// a hi-only table image (kernels/wide.py split_mm_tables_hi: per 32-column
+// block and k-chunk [m1_hi, m2_hi, m3_hi]): mxu's mm step (mm_high.cu) on
+// three partial pairs, one a product, two groups queued while a third is
+// added, across a run of chunks; kernel 7's chain (wide_chain.cu) a chunk
+// at a time on two partial pairs, its fragments rounded once a product
+// and kept in shared memory (hi_frag).
 //
 // Shape: a warpgroup's 64 rows (wgmma's M) by 32 output columns
 // (m64n32k16), per thread three fp32 sums T_P, three correction
@@ -169,8 +170,7 @@ __device__ __forceinline__ void add1(float (&sum)[16], float (&x)[16]) {
 // X[2 (P % 2) + 1], then its corrections xl.mh and xh.ml into C[P]; a
 // group's partials are added once the next group is queued.  Returns
 // after every pass of the chunk has completed (its fragments and table
-// parts are free again).  LO false: the hi.hi passes alone (C untouched).
-template <bool LO>
+// parts are free again).
 __device__ __forceinline__ void chunk(float (&T)[3][16], float (&C)[3][16],
                                       float (&X)[4][16],
                                       const uint32_t (&a)[3][2][4],
@@ -186,10 +186,8 @@ __device__ __forceinline__ void chunk(float (&T)[3][16], float (&C)[3][16],
     fence();
     mma(X[2 * b], x0, mh, 0);
     mma(X[2 * b + 1], x1, mh, 0);
-    if constexpr (LO) {
-      mma(C[P], a[P][1], mh, 1);
-      mma(C[P], a[P][0], ml, 1);
-    }
+    mma(C[P], a[P][1], mh, 1);
+    mma(C[P], a[P][0], ml, 1);
     commit();
     if (P > 0) {
       wait<1>();
@@ -213,10 +211,17 @@ __device__ __forceinline__ float2 result(const float (&T)[3][16],
   return make_float2(t1 - t3, t1 + t2);
 }
 
-// ---------------------------------------- the "default" mm step's pieces
-// rows g (r0) and g + 8 (r1), k 4t .. 4t + 3, rounded to bf16 into the two
-// half-zero fragments: h0 for wgmma positions 0..7 (registers 0, 1), h1 for
-// 8..15 (registers 2, 3); the zero registers are not written
+// ------------------------------------------- the "default" k-loops' pieces
+// rows g (r0) and g + 8 (r1), k 4t .. 4t + 3, rounded to bf16: the whole A
+// fragment (the chain keeps it in shared memory)
+__device__ __forceinline__ uint4 hi_frag(float4 r0, float4 r1) {
+  return make_uint4(hi2(r0.x, r0.y), hi2(r1.x, r1.y), hi2(r0.z, r0.w),
+                    hi2(r1.z, r1.w));
+}
+
+// the same rounded into the two half-zero fragments: h0 for wgmma
+// positions 0..7 (registers 0, 1), h1 for 8..15 (registers 2, 3); the zero
+// registers are not written
 __device__ __forceinline__ void split_hi(float4 r0, float4 r1,
                                          uint32_t (&h0)[4],
                                          uint32_t (&h1)[4]) {
@@ -239,14 +244,11 @@ __device__ __forceinline__ void hi_group(float (&x)[2][16],
 }
 
 // keep the compiler from moving reads of the corrections above the last
-// wait (LO false: there are none)
-template <bool LO>
+// wait
 __device__ __forceinline__ void pin_corrections(float (&C)[3][16]) {
-  if constexpr (LO) {
-    pin(C[0]);
-    pin(C[1]);
-    pin(C[2]);
-  }
+  pin(C[0]);
+  pin(C[1]);
+  pin(C[2]);
 }
 
 }  // namespace kh

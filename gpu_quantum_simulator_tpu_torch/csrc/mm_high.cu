@@ -234,10 +234,10 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         uint32_t a[3][2][4];
         kh::split_rows(r0, r1, i0, i1, a);
         // the chunk's six parts: descriptors differ only in the address
-        kh::chunk<LO>(T, C, X, a,
+        kh::chunk(T, C, X, a,
                       tab0 + (uint64_t)(c * (S::CHUNK_BYTES >> 4)));
       }
-      kh::pin_corrections<LO>(C);
+      kh::pin_corrections(C);
 
       // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of
       // the tile, column 8 jn + 2 t + e of the column block
@@ -264,10 +264,11 @@ mm_high_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     // of chunk c into the pair X[P]; it is queued while groups (c, P - 2)
     // and (c, P - 1) run and waited on (wait<2>) two groups later, when
     // its partials are added into T[P] -- in chunk order, so the sums are
-    // chunk<false>'s.  A product's fragments h0[P], h1[P] are rounded just
-    // before its group, once the group of the chunk before, which read
-    // them, is done; the next chunk's rows load while the chunk's last two
-    // groups run.  The queue drains once a run of KRUN chunks.
+    // the "high" arm's hi.hi sums.  A product's fragments h0[P], h1[P] are
+    // rounded just before its group, once the group of the chunk before,
+    // which read them, is done; the next chunk's rows load while the
+    // chunk's last two groups run.  The queue drains once a run of KRUN
+    // chunks.
     //
     // this warp's 16 rows of global chunk G, as the "high" arm stages them,
     // their row-map offsets worked out once a tile

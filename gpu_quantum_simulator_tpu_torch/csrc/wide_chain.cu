@@ -17,10 +17,11 @@
 // product.  The identity pads that make a run's length a power of two in
 // the JAX package's step list are not passed in: nmats is the run's true
 // length.  Tables at "highest": M itself, [n][k] with k contiguous, float32
-// [M_re, M_im]; at "high": the Karatsuba combinations m1 = Mr^T, m2 = (Mi -
-// Mr)^T, m3 = (Mr + Mi)^T, formed on the host in float64 and split once
-// per program into split_mm_tables' D = 128 image (kernels/wide.py
-// kh0_high_tables), the one the mm step (mm_high.cu) reads.
+// [M_re, M_im]; at "high" and "default": the Karatsuba combinations m1 =
+// Mr^T, m2 = (Mi - Mr)^T, m3 = (Mr + Mi)^T, formed on the host in float64
+// and split once per program into the D = 128 image the mm step
+// (mm_high.cu) reads at the rung (kernels/wide.py kh0_high_tables):
+// split_mm_tables' at "high", split_mm_tables_hi's at "default".
 //
 // On the TPU both kernels compute Karatsuba: t1 = (r + i).m1, t2 = r.m2,
 // t3 = i.m3 with m1 = Mr^T, m2 = (Mi - Mr)^T, m3 = (Mr + Mi)^T, and
@@ -111,15 +112,30 @@
 //     groups with the partials' adds between them, and two consumer
 //     warpgroups an SM do not hide it.  Running the groups on across
 //     chunks (the next chunk's first group queued before the last one's
-//     adds) needs more registers than a thread has: ptxas then
-//     serializes every wgmma.
-// "default" design (chain_high_kernel<false>): the same kernel, chosen at
-// compile time, for the JAX package's one bf16 pass (get_kh0_kernel's
-// Precision.DEFAULT dot): the row tile held on chip as hi fragments only,
-// the hi.hi sums alone, no correction wgmma (karatsuba_high.cuh).  At
-// n = 24 a P = 8 chain's three real products a product are 103 GFLOP of
-// useful bf16 work (0.104 ms at 989 TFLOP/s) against 0.080 ms of state
-// bytes, so it is bound by operations.
+//     adds) needs more registers than a thread has beside the correction
+//     accumulators: ptxas then serializes every wgmma.
+// "default" design (chain_high_kernel<false>, a body of its own): the JAX
+// package's one bf16 pass (get_kh0_kernel's Precision.DEFAULT dot), the
+// hi.hi sums alone in the "high" arm's order, no correction.  At n = 24 a
+// P = 8 chain's three real products a product are 103 GFLOP of useful
+// bf16 work (0.104 ms at 989 TFLOP/s) against 0.080 ms of state bytes, so
+// it is bound by operations; the half-zero hi.hi passes issue twice that.
+// The same CTA, tile and producer as "high", and:
+//   * Hi-only tables (kernels/wide.py split_mm_tables_hi, 96 KB a product,
+//     3 KB a ring stage): half the L2 reads of the full image, and a ring
+//     of ten stages a consumer.
+//   * A k-loop of its own: a k-chunk's three wgmma groups on two partial
+//     pairs, added as they complete, the chunk drained before the next,
+//     the next chunk's fragments loading (pre-split, from shared memory)
+//     into a second set of A registers meanwhile.  The "default" mm step's
+//     pipeline (three partial pairs, two groups queued across runs of
+//     chunks) ran 4-12% slower here (PERF.md section 6).
+//   * The tile held as hi fragments only, in two buffers (48 KB each): a
+//     product reads one and writes its results straight into the other as
+//     the next product's bf16 fragments (s = re + im formed in fp32 first,
+//     as the plain version does), so no fp32 round trip, no re-split and
+//     one consumer barrier a product; the fp32 staging tile takes the next
+//     tile's rows.
 // The output may be the input pair: a tile is read whole before the
 // product that writes it, and no CTA touches another's rows.  Ragged and
 // small R (R = 8 at n = 10, the smallest width that chains) work: rows
@@ -361,48 +377,108 @@ chain_f32_kernel(const float* in_re, const float* in_im, float* out_re,
   }
 }
 
-// ---------------------------------------------------------------- "high"
+// ------------------------------------------------- "high" and "default"
 constexpr int HWGS = 2;                       // consumers, the same rows
 constexpr int HBLOCKS = LANES / kh::BN;       // 32-column blocks
 constexpr int ROUNDS = HBLOCKS / HWGS;        // blocks a warpgroup takes
 constexpr int KCHUNKS = LANES / 16;           // k-chunks of a product
-constexpr int RING = 5;                       // table stages a warpgroup
 constexpr int LDX = LANES + 8;                // staged row stride (floats)
 constexpr int XSTAGE = TILE * LDX;            // floats a staged component
-constexpr int MAT_BYTES = HBLOCKS * KCHUNKS * kh::CHUNK_BYTES;
-// the tile's A fragments: [k-chunk][product s, xr, xi][hi, lo][warp][lane],
-// 16 bytes each
-constexpr int FRAG_BYTES = KCHUNKS * 3 * 2 * 4 * 32 * 16;
-constexpr int RING_OFF = FRAG_BYTES;
-constexpr int X_OFF = RING_OFF + HWGS * RING * kh::CHUNK_BYTES;
-constexpr int HBAR_OFF = X_OFF + 2 * XSTAGE * (int)sizeof(float);
-constexpr size_t HIGH_SMEM = HBAR_OFF + 2 * HWGS * RING * sizeof(uint64_t);
 static_assert(HWGS * 128 == THREADS, "two consumer warpgroups");
+static_assert(KCHUNKS % 2 == 0, "a product is whole pairs of chunks");
 constexpr int HTHREADS = THREADS + 128;       // and a producer warpgroup
-static_assert(HIGH_SMEM <= 232448, "a CTA's shared memory");
 
-// The "high" chain, persistent: CTA b takes the 64-row tiles b, b + grid,
-// ...; warpgroups 0 and 1 compute, warpgroup 2 feeds them the tables.
-// w: nmats products' tables, each split_mm_tables' D = 128 image
-// (MAT_BYTES).  in/out are not __restrict__: the engine passes one pair.
-// LO false: the "default" rung, the tile held as hi fragments only (the lo
-// slots of the fragment image are neither written nor read) and the hi.hi
-// sums alone.
+// A rung's shared memory: the tile's A fragments (LO: one buffer of hi and
+// lo fragments; "default": two buffers of hi fragments, one a product in
+// turn), each fragment [k-chunk][product s, xr, xi][hi(, lo)][warp][lane],
+// 16 bytes; a ring of table k-chunks per consumer (LO: the six-part image,
+// "default": the three hi parts); the fp32 staging tile (re, im); the
+// rings' barriers.
+template <bool LO>
+struct Chain {
+  static constexpr int CHUNK = LO ? kh::CHUNK_BYTES : kh::HI_CHUNK_BYTES;
+  static constexpr int MAT = HBLOCKS * KCHUNKS * CHUNK;   // a product's
+  static constexpr int RING = LO ? 5 : 10;     // table stages a consumer
+  static constexpr int FRAG = KCHUNKS * 3 * (LO ? 2 : 1) * 4 * 32 * 16;
+  static constexpr int RING_OFF = (LO ? 1 : 2) * FRAG;
+  static constexpr int X_OFF = RING_OFF + HWGS * RING * CHUNK;
+  static constexpr int BAR_OFF = X_OFF + 2 * XSTAGE * (int)sizeof(float);
+  static constexpr size_t SMEM =
+      BAR_OFF + 2 * HWGS * RING * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "a CTA's shared memory");
+};
+
+// the consumer warpgroups' barrier
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// Tile it's rows into the staging tile xs (re, then im), every consumer
+// thread 16 pieces of 16 bytes (cp.async, one commit group); rows past R
+// are zeros.
+__device__ __forceinline__ void stage_tile(float* xs, const float* in_re,
+                                           const float* in_im, int it,
+                                           long long rows, int tid) {
+  const long long row0 = (blockIdx.x + (long long)it * gridDim.x) * TILE;
+#pragma unroll 1
+  for (int u = 0; u < 2 * TILE * LANES / 4 / THREADS; ++u) {
+    const int q = tid + u * THREADS;
+    const int comp = q / (TILE * LANES / 4);
+    const int r = q / (LANES / 4) % TILE, col = q % (LANES / 4) * 4;
+    const bool ok = row0 + r < rows;
+    const float* src = comp ? in_im : in_re;
+    async::cp16(xs + comp * XSTAGE + r * LDX + col,
+                src + (ok ? (row0 + r) * LANES + col : 0), ok);
+  }
+  async::commit();
+}
+
+// The producer warpgroup's one thread: it feeds both consumers' rings,
+// chunk n of each (per tile and product j, its column blocks' k-chunks,
+// one after the other in the image) into stage n % RING once the
+// consumer's four warps have released that stage's last use.
+template <bool LO>
+__device__ __forceinline__ void feed_tables(uint8_t* smem, const uint8_t* w,
+                                            uint64_t* landed, uint64_t* freed,
+                                            int total, int nmats) {
+  using S = Chain<LO>;
+  for (int n = 0; n < total; ++n) {
+    const int s = n % S::RING, q = n % (ROUNDS * KCHUNKS);
+    const int j = n / (ROUNDS * KCHUNKS) % nmats;
+    for (int W = 0; W < HWGS; ++W) {
+      if (n >= S::RING)
+        async::bar_wait(&freed[W * S::RING + s], (n / S::RING + 1) & 1);
+      async::bulk_load(smem + S::RING_OFF + (W * S::RING + s) * S::CHUNK,
+                       w + (long long)j * S::MAT +
+                           (W * ROUNDS * KCHUNKS + q) * S::CHUNK,
+                       S::CHUNK, &landed[W * S::RING + s]);
+    }
+  }
+}
+
+// The "high" chain (this primary template; "default" is the specialization
+// below), persistent: CTA b takes the 64-row tiles b, b + grid, ...;
+// warpgroups 0 and 1 compute, warpgroup 2 feeds them the tables.  w:
+// nmats products' tables, each split_mm_tables' D = 128 image
+// (Chain<true>::MAT bytes).  in/out are not __restrict__: the engine
+// passes one pair.
 template <bool LO>
 __global__ void __launch_bounds__(HTHREADS, 1)
 chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
                   float* out_im, const uint8_t* __restrict__ w, int nmats,
                   long long rows) {
+  static_assert(LO, "the 'default' chain is the specialization below");
+  using S = Chain<true>;
   // the dynamic shared memory, under a name of its own (chain_f32_kernel
   // declares it as floats)
   extern __shared__ __align__(1024) uint8_t hsmem[];
   uint8_t* smem = hsmem;
   uint4* frags = reinterpret_cast<uint4*>(smem);
-  float* xs = reinterpret_cast<float*>(smem + X_OFF);   // re, then im
+  float* xs = reinterpret_cast<float*>(smem + S::X_OFF);   // re, then im
   // [consumer][stage]: the stage's table chunk has landed; its four warps
   // have released it
-  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + HBAR_OFF);
-  uint64_t* freed = landed + HWGS * RING;
+  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* freed = landed + HWGS * S::RING;
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
   const int lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -411,22 +487,6 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
   const int per_tile = nmats * ROUNDS * KCHUNKS;   // a warpgroup's chunks
   const int total = mine * per_tile;
 
-  // tile it's rows into the staging buffer, every consumer thread 16
-  // pieces of 16 bytes (cp.async); rows past R are zeros
-  auto stage_tile = [&](int it) {
-    const long long row0 = (blockIdx.x + (long long)it * gridDim.x) * TILE;
-#pragma unroll 1
-    for (int u = 0; u < 2 * TILE * LANES / 4 / THREADS; ++u) {
-      const int q = tid + u * THREADS;
-      const int comp = q / (TILE * LANES / 4);
-      const int r = q / (LANES / 4) % TILE, col = q % (LANES / 4) * 4;
-      const bool ok = row0 + r < rows;
-      const float* src = comp ? in_im : in_re;
-      async::cp16(xs + comp * XSTAGE + r * LDX + col,
-                  src + (ok ? (row0 + r) * LANES + col : 0), ok);
-    }
-    async::commit();
-  };
   // staged rows -> the next product's A fragments, split once: thread
   // (wg, warp, lane) forms k-chunks 4 wg .. 4 wg + 3 of its warp's rows
   auto take_tile = [&]() {
@@ -440,16 +500,14 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
 #pragma unroll
       for (int p = 0; p < 3; ++p)
 #pragma unroll
-        for (int h = 0; h < (LO ? 2 : 1); ++h)
+        for (int h = 0; h < 2; ++h)
           frags[((c * 3 + p) * 2 + h) * 128 + warp * 32 + lane] =
               make_uint4(a[p][h][0], a[p][h][1], a[p][h][2], a[p][h][3]);
     }
   };
-  // the consumer warpgroups' barrier
-  auto sync = [] { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
 
   if (tid == 0) {
-    for (int s = 0; s < HWGS * RING; ++s) {
+    for (int s = 0; s < HWGS * S::RING; ++s) {
       async::bar_init(&landed[s]);
       async::bar_init(&freed[s], 4);
     }
@@ -457,34 +515,17 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
   }
   __syncthreads();
   if (wg == HWGS) {
-    // The producer warpgroup: one thread feeds both rings, chunk n of
-    // each warpgroup (per tile and product j, its column blocks' 16
-    // k-chunks, one after the other in the image) into stage n % RING
-    // once the warpgroup's four warps have released its last use.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (tid == HWGS * 128) {
-      for (int n = 0; n < total; ++n) {
-        const int s = n % RING, q = n % (ROUNDS * KCHUNKS);
-        const int j = n / (ROUNDS * KCHUNKS) % nmats;
-        for (int W = 0; W < HWGS; ++W) {
-          if (n >= RING)
-            async::bar_wait(&freed[W * RING + s], (n / RING + 1) & 1);
-          async::bulk_load(
-              smem + RING_OFF + (W * RING + s) * kh::CHUNK_BYTES,
-              w + (long long)j * MAT_BYTES +
-                  (W * ROUNDS * KCHUNKS + q) * kh::CHUNK_BYTES,
-              kh::CHUNK_BYTES, &landed[W * RING + s]);
-        }
-      }
-    }
+    if (tid == HWGS * 128)
+      feed_tables<true>(smem, w, landed, freed, total, nmats);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-  stage_tile(0);
+  stage_tile(xs, in_re, in_im, 0, rows, tid);
   async::wait_groups<0>();
-  sync();
+  consumers_sync();
   take_tile();
-  sync();
+  consumers_sync();
 
   // A consumer's k-loop, compiled once for each warpgroup W: its ring,
   // barriers and table descriptors are then warp-uniform, so ptxas keeps
@@ -492,10 +533,10 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
   // P = 8 launch on an H100, PERF.md section 6).
   auto run = [&](auto wgc) {
     constexpr int W = decltype(wgc)::value;
-    uint64_t* my_landed = landed + W * RING;
-    uint64_t* my_freed = freed + W * RING;
+    uint64_t* my_landed = landed + W * S::RING;
+    uint64_t* my_freed = freed + W * S::RING;
     const uint64_t ring0 = kh::desc(
-        async::smem_u32(smem + RING_OFF + W * RING * kh::CHUNK_BYTES));
+        async::smem_u32(smem + S::RING_OFF + W * S::RING * S::CHUNK));
     float T[3][16], C[3][16], X[4][16];
 #pragma unroll
     for (int e = 0; e < 16; ++e) X[0][e] = X[1][e] = X[2][e] = X[3][e] = 0.f;
@@ -504,7 +545,7 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
     // this warp's fragments [hi, lo] of product P, k-chunk c
     auto load = [&](uint32_t (&a)[2][4], int c, int P) {
 #pragma unroll
-      for (int h = 0; h < (LO ? 2 : 1); ++h) {
+      for (int h = 0; h < 2; ++h) {
         const uint4 v = frags[((c * 3 + P) * 2 + h) * 128 + warp * 32 + lane];
         a[h][0] = v.x;
         a[h][1] = v.y;
@@ -520,7 +561,7 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
         const bool last = j + 1 == nmats, more = it + 1 < mine;
         // the last product writes device memory: the staging buffer takes
         // the next tile meanwhile
-        if (last && more) stage_tile(it + 1);
+        if (last && more) stage_tile(xs, in_re, in_im, it + 1, rows, tid);
 #pragma unroll 1
         for (int r = 0; r < ROUNDS; ++r) {
           const int cb = W * ROUNDS + r;
@@ -536,15 +577,14 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
             load(a[0], c, 0);
             load(a[1], c, 1);
             load(a[2], c, 2);
-            kh::chunk<LO>(T, C, X, a,
-                          ring0 + (uint64_t)(cs * (kh::CHUNK_BYTES >> 4)));
+            kh::chunk(T, C, X, a, ring0 + (uint64_t)(cs * (S::CHUNK >> 4)));
             if (lane == 0) async::bar_arrive(&my_freed[cs]);
-            if (++cs == RING) {
+            if (++cs == S::RING) {
               cs = 0;
               cphase ^= 1;
             }
           }
-          kh::pin_corrections<LO>(C);
+          kh::pin_corrections(C);
           // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of
           // the tile, column 8 jn + 2 t + e of the column block
 #pragma unroll
@@ -555,8 +595,8 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
             for (int jn = 0; jn < kh::BN / 8; ++jn) {
               const int x = 4 * jn + 2 * hh;
               const int col = cb * kh::BN + 8 * jn + 2 * t;
-              const float2 v0 = kh::result<LO>(T, C, x);
-              const float2 v1 = kh::result<LO>(T, C, x + 1);
+              const float2 v0 = kh::result<true>(T, C, x);
+              const float2 v1 = kh::result<true>(T, C, x + 1);
               const float2 vr = make_float2(v0.x, v1.x);
               const float2 vi = make_float2(v0.y, v1.y);
               if (last) {
@@ -571,10 +611,221 @@ chain_high_kernel(const float* in_re, const float* in_im, float* out_re,
           }
         }
         if (last && more) async::wait_groups<0>();   // the next tile landed
-        sync();                   // every fragment read, every result staged
+        consumers_sync();         // every fragment read, every result staged
         if (!last || more) {
           take_tile();
-          sync();
+          consumers_sync();
+        }
+      }
+    }
+  };
+  if (wg == 0)
+    run(std::integral_constant<int, 0>());
+  else
+    run(std::integral_constant<int, 1>());
+}
+
+// The "default" chain: the same CTA, tile and producer, for the JAX
+// package's one bf16 pass (the hi.hi sums alone, no correction), on a
+// k-loop of its own.  w: nmats products' tables, each split_mm_tables_hi's
+// D = 128 image (Chain<false>::MAT bytes).
+//   * The k-loop: a k-chunk is three wgmma groups, group P product P's two
+//     hi.hi passes into the partial pair X[P % 2]; each pair is added into
+//     T[P] once the next group is queued, in chunk order, so the sums are
+//     the "high" arm's hi.hi sums, and the chunk drains before the next
+//     (its table stage is then released).  Its fragments come pre-split
+//     from shared memory into the half-zero registers of one of two A sets
+//     (the zero halves set once): while chunk c's groups run, chunk c + 1's
+//     three fragments load into the other set, so no group waits on a
+//     shared-memory load.  Two chunks an iteration, so the set is known at
+//     compile time.
+//   * A product's results go straight into the next product's fragments:
+//     each thread forms s = re + im in fp32 from its own outputs, as the
+//     plain version does, rounds s, re and im to bf16 and stores them as
+//     the 32-bit halves of A-fragment registers in the other fragment
+//     buffer (no fp32 round trip, no re-split; one consumer barrier a
+//     product).  The fp32 staging tile holds the next tile's rows.
+template <>
+__global__ void __launch_bounds__(HTHREADS, 1)
+chain_high_kernel<false>(const float* in_re, const float* in_im,
+                         float* out_re, float* out_im,
+                         const uint8_t* __restrict__ w, int nmats,
+                         long long rows) {
+  using S = Chain<false>;
+  extern __shared__ __align__(1024) uint8_t hsmem[];
+  uint8_t* smem = hsmem;
+  uint4* frags = reinterpret_cast<uint4*>(smem);      // two buffers
+  float* xs = reinterpret_cast<float*>(smem + S::X_OFF);
+  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* freed = landed + HWGS * S::RING;
+  constexpr int FRAG4 = S::FRAG / 16;                  // uint4 a buffer
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const long long tiles = (rows + TILE - 1) / TILE;
+  const int mine = (int)((tiles - 1 - blockIdx.x) / gridDim.x + 1);
+  const int total = mine * nmats * ROUNDS * KCHUNKS;
+
+  // staged rows -> buffer b's fragments, rounded once: thread (wg, warp,
+  // lane) forms k-chunks 4 wg .. 4 wg + 3 of its warp's rows
+  auto take_tile = [&](int b) {
+#pragma unroll
+    for (int u = 0; u < KCHUNKS / HWGS; ++u) {
+      const int c = wg * (KCHUNKS / HWGS) + u;
+      const float* x = xs + (16 * warp + g) * LDX + 16 * c + 4 * t;
+      const float4 r0 = ld4(x), r1 = ld4(x + 8 * LDX);
+      const float4 i0 = ld4(x + XSTAGE), i1 = ld4(x + XSTAGE + 8 * LDX);
+      uint4* f = frags + b * FRAG4 + c * 3 * 128 + warp * 32 + lane;
+      f[0] = kh::hi_frag(kh::add4(r0, i0), kh::add4(r1, i1));
+      f[128] = kh::hi_frag(r0, r1);
+      f[256] = kh::hi_frag(i0, i1);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < HWGS * S::RING; ++s) {
+      async::bar_init(&landed[s]);
+      async::bar_init(&freed[s], 4);
+    }
+    async::bar_init_fence();
+  }
+  __syncthreads();
+  if (wg == HWGS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == HWGS * 128)
+      feed_tables<false>(smem, w, landed, freed, total, nmats);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  stage_tile(xs, in_re, in_im, 0, rows, tid);
+  async::wait_groups<0>();
+  consumers_sync();
+  take_tile(0);
+  consumers_sync();
+
+  auto run = [&](auto wgc) {
+    constexpr int W = decltype(wgc)::value;
+    constexpr uint64_t part = kh::PART >> 4;
+    uint64_t* my_landed = landed + W * S::RING;
+    uint64_t* my_freed = freed + W * S::RING;
+    const uint64_t ring0 = kh::desc(
+        async::smem_u32(smem + S::RING_OFF + W * S::RING * S::CHUNK));
+    float T[3][16], X[2][2][16];
+    uint32_t h0[2][3][4], h1[2][3][4];    // [A set][product]
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int P = 0; P < 3; ++P)
+        h0[q][P][2] = h0[q][P][3] = h1[q][P][0] = h1[q][P][1] = 0u;
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      X[0][0][e] = X[0][1][e] = X[1][0][e] = X[1][1][e] = 0.f;
+    int cs = 0;                       // the stage of the warpgroup's chunk
+    uint32_t cphase = 0;              // and the phase it lands in
+    int b = 0;                        // the fragment buffer a product reads
+    const uint4* cur = frags + warp * 32 + lane;
+    // k-chunk c's three fragments into A set q's half-zero pairs
+    auto load = [&](int q, int c) {
+#pragma unroll
+      for (int P = 0; P < 3; ++P) {
+        const uint4 v = cur[(c * 3 + P) * 128];
+        h0[q][P][0] = v.x;
+        h0[q][P][1] = v.y;
+        h1[q][P][2] = v.z;
+        h1[q][P][3] = v.w;
+      }
+    };
+#pragma unroll 1
+    for (int it = 0; it < mine; ++it) {
+      const long long row0 = (blockIdx.x + (long long)it * gridDim.x) * TILE;
+#pragma unroll 1
+      for (int j = 0; j < nmats; ++j) {
+        const bool last = j + 1 == nmats, more = it + 1 < mine;
+        if (last && more) stage_tile(xs, in_re, in_im, it + 1, rows, tid);
+        cur = frags + b * FRAG4 + warp * 32 + lane;
+        uint32_t* next = reinterpret_cast<uint32_t*>(frags + (b ^ 1) * FRAG4);
+#pragma unroll 1
+        for (int r = 0; r < ROUNDS; ++r) {
+          const int cb = W * ROUNDS + r;
+#pragma unroll
+          for (int e = 0; e < 16; ++e) T[0][e] = T[1][e] = T[2][e] = 0.f;
+          load(0, 0);
+          // k-chunks in pairs, A set u for the pair's chunk u
+#pragma unroll 1
+          for (int c0 = 0; c0 < KCHUNKS; c0 += 2) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int c = c0 + u;
+              async::bar_wait(&my_landed[cs], cphase);
+              const uint64_t d = ring0 + (uint64_t)(cs * (S::CHUNK >> 4));
+#pragma unroll
+              for (int P = 0; P < 3; ++P) {
+                kh::hi_group(X[P % 2], h0[u][P], h1[u][P], d + P * part);
+                // the other set is free: chunk c - 1 is done
+                if (P == 2 && c + 1 < KCHUNKS) load(u ^ 1, c + 1);
+                if (P > 0) {
+                  kh::wait<1>();      // T_P = (T_P + H(c, 0)) + H(c, 1)
+                  kh::add1(T[P - 1], X[1 - P % 2][0]);
+                  kh::add1(T[P - 1], X[1 - P % 2][1]);
+                }
+              }
+              kh::wait<0>();
+              kh::add1(T[2], X[0][0]);
+              kh::add1(T[2], X[0][1]);
+              if (lane == 0) async::bar_arrive(&my_freed[cs]);
+              if (++cs == S::RING) {
+                cs = 0;
+                cphase ^= 1;
+              }
+            }
+          }
+          // D fragment: element 4 jn + 2 hh + e is row 16 warp + g + 8 hh of
+          // the tile, column n = 32 cb + 8 jn + 2 t + e, which is k of the
+          // next product: k-chunk 2 cb + jn / 2, there A-fragment register
+          // hh + 2 (t % 2) of lane 4 g + 2 (jn % 2) + t / 2, its bf16 pair
+          // (e = 0, 1).  Registers hh = 0, 1 are one 8-byte store.
+#pragma unroll
+          for (int jn = 0; jn < kh::BN / 8; ++jn) {
+            uint32_t hs[2], hr[2], hi[2];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int x = 4 * jn + 2 * hh;
+              const float2 v0 = kh::result<false>(T, T, x);
+              const float2 v1 = kh::result<false>(T, T, x + 1);
+              if (last) {
+                const int row = 16 * warp + g + 8 * hh;
+                if (row0 + row < rows) {
+                  const long long o = (row0 + row) * LANES + cb * kh::BN +
+                                      8 * jn + 2 * t;
+                  *reinterpret_cast<float2*>(out_re + o) =
+                      make_float2(v0.x, v1.x);
+                  *reinterpret_cast<float2*>(out_im + o) =
+                      make_float2(v0.y, v1.y);
+                }
+              } else {
+                hs[hh] = kh::hi2(v0.x + v0.y, v1.x + v1.y);
+                hr[hh] = kh::hi2(v0.x, v1.x);
+                hi[hh] = kh::hi2(v0.y, v1.y);
+              }
+            }
+            if (!last) {
+              const int c2 = 2 * cb + jn / 2;
+              const int dst = warp * 32 + 4 * g + 2 * (jn % 2) + t / 2;
+              uint32_t* o = next + ((c2 * 3) * 128 + dst) * 4 + 2 * (t % 2);
+              *reinterpret_cast<uint2*>(o) = make_uint2(hs[0], hs[1]);
+              *reinterpret_cast<uint2*>(o + 128 * 4) =
+                  make_uint2(hr[0], hr[1]);
+              *reinterpret_cast<uint2*>(o + 256 * 4) =
+                  make_uint2(hi[0], hi[1]);
+            }
+          }
+        }
+        b ^= 1;
+        if (last && more) async::wait_groups<0>();   // the next tile landed
+        consumers_sync();   // every fragment read, the next one written
+        if (last && more) {
+          take_tile(b);
+          consumers_sync();
         }
       }
     }
@@ -591,15 +842,16 @@ cudaError_t launch_high(const float* in_re, const float* in_im,
                         int nmats, long long rows, cudaStream_t stream) {
   static bool attr = false;
   static int slots = 0;
-  cudaError_t e = async::allow_smem(chain_high_kernel<LO>, HIGH_SMEM, &attr);
+  constexpr size_t smem = Chain<LO>::SMEM;
+  cudaError_t e = async::allow_smem(chain_high_kernel<LO>, smem, &attr);
   if (e != cudaSuccess) return e;
   if (slots == 0 &&
-      (e = async::persistent_slots(chain_high_kernel<LO>, HTHREADS,
-                                   HIGH_SMEM, &slots)) != cudaSuccess)
+      (e = async::persistent_slots(chain_high_kernel<LO>, HTHREADS, smem,
+                                   &slots)) != cudaSuccess)
     return e;
   const long long tiles = (rows + TILE - 1) / TILE;
   const unsigned grid = (unsigned)(tiles < slots ? tiles : slots);
-  chain_high_kernel<LO><<<grid, HTHREADS, HIGH_SMEM, stream>>>(
+  chain_high_kernel<LO><<<grid, HTHREADS, smem, stream>>>(
       in_re, in_im, out_re, out_im, static_cast<const uint8_t*>(w16), nmats,
       rows);
   return cudaGetLastError();
@@ -636,10 +888,10 @@ int qsim_wide_chain(const float* in_re, const float* in_im, float* out_re,
 }
 
 // The "high" (lo = 1) or "default" (lo = 0) chain: w16 holds nmats
-// products' tables, each the split_mm_tables image of their Karatsuba
-// combinations at D = 128 ("default" reads their hi parts).  out may be
-// in.  Every pointer 16-byte aligned.  The grid is persistent, as
-// qsim_wide_chain's.
+// products' tables, each the image of their Karatsuba combinations at
+// D = 128: split_mm_tables' at "high", split_mm_tables_hi's at "default".
+// out may be in.  Every pointer 16-byte aligned.  The grid is persistent,
+// as qsim_wide_chain's.
 int qsim_wide_chain_high(const float* in_re, const float* in_im,
                          float* out_re, float* out_im, const void* w16,
                          int nmats, long long rows, int lo, void* stream) {

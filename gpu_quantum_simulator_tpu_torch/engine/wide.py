@@ -20,8 +20,9 @@ half differs:
   P)``) is one launch of the chain kernel (kernels/wide.py ``kh0_chain``,
   csrc/wide_chain.cu; TPU kernel 7), in place, Karatsuba products at every
   rung (IEEE fp32 at "highest", the mm step's 3-pass bf16 products on the
-  row tile held on chip at "high", their hi.hi term alone at "default"),
-  without the identity pads (P records the padded length);
+  row tile held on chip at "high", their hi.hi term alone, on a body of
+  its own, at "default"), without the identity pads (P records the padded
+  length);
 * every other block (``("mm", D, idx, row_bits)``) is the JAX package's
   Karatsuba product.  At "highest" it runs between row shuffles
   (``permute`` copies), the three real products ``torch.matmul`` in IEEE
@@ -48,9 +49,9 @@ from the host on, and the rung is not read (the program runs as
 Tables go to the device once per program (``build_wide_program`` caches
 programs by their ops); at "high" and "default" the Karatsuba combinations
 of every mm step and kh = 0 run are formed in float64 and split to bf16
-once as well, into the mm step's table image: ``split_mm_tables`` (hi and
-lo parts) for every kh = 0 run, ``rung_mm_tables`` for the mm steps (at
-"default" the hi parts alone, what the kernel reads).
+once as well, into the image the rung's kernels read (``rung_mm_tables``):
+``split_mm_tables`` (hi and lo parts) at "high", ``split_mm_tables_hi``
+(the hi parts alone) at "default".
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ import torch
 from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
 from ..kernels.block import RUNGS, SPLIT_RUNGS
 from ..kernels.wide import (MM_STEPS, ieee_fp32, kh0_chain, row_shuffles,
-                            rung_mm_tables, split_mm_tables)
+                            rung_mm_tables)
 from ..ops.apply import resolve_device, upload
 
 LANE_QUBITS = 7
@@ -194,9 +195,10 @@ class _Segment:
                                     # "default" (count, 3 D^2)
                                     # (split_mm_tables_hi)
     runs: List[torch.Tensor]        # (L, 2, 128, 128) float32 [M_re, M_im]
-    runs_w16: list                  # at "high" and "default" (L, 6 * 128^2)
-                                    # bfloat16 per run (split_mm_tables),
-                                    # else None
+    runs_w16: list                  # per run at "high" (L, 6 * 128^2)
+                                    # bfloat16 (split_mm_tables), at
+                                    # "default" (L, 3 * 128^2)
+                                    # (split_mm_tables_hi), else None
 
 
 class WideProgram:
@@ -243,8 +245,9 @@ class WideProgram:
             specs = [[_op_spec(ops[i], n)[3:] for i in run] for run in runs]
             run_tabs = [dev(np.stack([np.stack(m) for m in ms]))
                         for ms in specs]
-            w16 = [split_mm_tables(dev(np.stack([_karatsuba(*m) for m in ms])))
-                   if high else None for ms in specs]
+            w16 = [rung_mm_tables(dev(np.stack([_karatsuba(*m) for m in ms])),
+                                  self.precision) if high else None
+                   for ms in specs]
             self.segments.append(_Segment(steps, mm, run_tabs, w16))
             self.num_kh0_runs += len(runs)
 

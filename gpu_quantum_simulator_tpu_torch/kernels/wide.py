@@ -24,8 +24,8 @@ stages them.  At "high" each real product is the 3-pass bf16 split
 on the combinations formed in float64 and split once per program into the
 mm step's D = 128 table image (``kh0_high_tables``), so that a chain of
 one product is the D = 128 mm step.  At "default" each real product is the
-one bf16 pass ``xh.mh`` (``karatsuba_default``; the kernel's second
-instantiation, reading the hi parts of the same image).
+one bf16 pass ``xh.mh`` (``karatsuba_default``; a kernel body of its own,
+on the hi-only image ``split_mm_tables_hi``, as the "default" mm step).
 
 A second kernel (``csrc/mm_high.cu``) is the mxu engine's mm step at the
 "high" rung, ``mm_step_high``: the JAX package's Karatsuba product
@@ -69,17 +69,19 @@ MM_BN = 32                      # output columns a CTA of csrc/mm_high.cu
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
 
-def kh0_high_tables(tables: torch.Tensor) -> torch.Tensor:
-    """(L, 2, 128, 128) float32 [M_re, M_im] -> (L, 6 * 128^2) bfloat16: the
-    "high" and "default" chains' operands, the Karatsuba combinations m1 = M_re^T, m2 =
+def kh0_high_tables(tables: torch.Tensor,
+                    precision: str = "high") -> torch.Tensor:
+    """(L, 2, 128, 128) float32 [M_re, M_im] -> the chain's operands at the
+    bf16 rung ``precision``: the Karatsuba combinations m1 = M_re^T, m2 =
     (M_im - M_re)^T, m3 = (M_re + M_im)^T formed in float64, rounded to
-    float32 and split into the mm step's table image (``split_mm_tables``
-    at D = 128).  The wide engine forms them from the blocks' float64
+    float32 and split into the image the D = 128 mm step reads at that rung
+    (``rung_mm_tables``): (L, 6 * 128^2) bfloat16 at "high", (L, 3 * 128^2)
+    at "default".  The wide engine forms them from the blocks' float64
     matrices instead (``engine/wide.py`` ``_karatsuba``)."""
     t = tables.double()
     mr, mi = t[:, 0], t[:, 1]
     combos = torch.stack([mr, mi - mr, mr + mi], dim=1).transpose(-1, -2)
-    return split_mm_tables(combos.float().contiguous())
+    return rung_mm_tables(combos.float().contiguous(), precision)
 
 
 def _karatsuba_f32(re, im, m_re, m_im):
@@ -97,12 +99,18 @@ def kh0_chain_plain(re: torch.Tensor, im: torch.Tensor,
     table j in order, in the kernel's arithmetic, Karatsuba at every rung:
     three IEEE fp32 products at "highest"; at "high" (``karatsuba_high``)
     and "default" (``karatsuba_default``) on the tables read back from
-    ``w16`` (``kh0_high_tables(tables)`` when None), each product the
-    D = 128 mm step's plain version."""
+    ``w16`` (``kh0_high_tables(tables, precision)`` when None), each
+    product the D = 128 mm step's plain version.  At "default" ``w16`` may
+    be either image (the hi parts are the same words); "high" needs the
+    full one."""
     _check_rung(precision)
     if precision in KARATSUBA:
         if w16 is None:
-            w16 = kh0_high_tables(tables)
+            w16 = kh0_high_tables(tables, precision)
+        if precision == "high" and _mm_layout(w16) != (LANES, 6):
+            raise ValueError(f"chain: the 'high' rung reads the (L, "
+                             f"{6 * LANES * LANES}) split_mm_tables image, "
+                             f"got {tuple(w16.shape)}")
         for j in range(w16.shape[0]):
             re, im = KARATSUBA[precision](re, im, mm_tables_f32(w16[j]))
         return re, im
@@ -158,10 +166,22 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
 
     The result lands in ``out`` (allocated when None; it may be the input
     pair itself: each row tile is read whole before it is written).
-    ``w16``: the "high" and "default" rungs' operands, (L, 6 * 128^2)
-    bfloat16 (``kh0_high_tables(tables)`` when None).
+    ``w16``: the "high" and "default" rungs' operands, the image the
+    kernel reads at the rung (``kh0_high_tables(tables, precision)`` when
+    None): (L, 6 * 128^2) bfloat16 at "high", (L, 3 * 128^2) at "default";
+    the other rung's image raises ValueError, on every device.
     """
     _check_rung(precision)
+    if precision in KARATSUBA:
+        if w16 is None:
+            w16 = kh0_high_tables(tables, precision)
+        words = (3 if precision == "default" else 6) * LANES * LANES
+        if tuple(w16.shape) != (tables.shape[0], words) \
+                or w16.dtype != torch.bfloat16:
+            raise ValueError(f"chain kernel: w16 must be ({tables.shape[0]}, "
+                             f"{words}) bfloat16 at {precision!r} (the "
+                             f"rung's image), got {tuple(w16.shape)} "
+                             f"{w16.dtype}")
     if re.device.type == "cpu":
         return _to_out(kh0_chain_plain(re, im, tables, precision, w16), out)
     if not re.is_cuda:
@@ -176,11 +196,6 @@ def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
     lib = build.load()
     stream = torch.cuda.current_stream(re.device).cuda_stream
     if precision in KARATSUBA:
-        if w16 is None:
-            w16 = kh0_high_tables(tables)
-        if w16.shape != (nmats, 6 * LANES * LANES):
-            raise ValueError(f"chain kernel: w16 must be ({nmats}, "
-                             f"{6 * LANES * LANES}), got {tuple(w16.shape)}")
         _check_cuda([re, im, *out, w16], [f32] * 4 + [torch.bfloat16],
                     "chain kernel")
         rc = lib.qsim_wide_chain_high(
@@ -276,12 +291,12 @@ def split_mm_tables(m: torch.Tensor) -> torch.Tensor:
 
 
 def split_mm_tables_hi(m: torch.Tensor) -> torch.Tensor:
-    """``split_mm_tables`` for the "default" mm step, which reads the hi
-    parts alone: (..., 3 D^2) bfloat16, per 32-column block and k-chunk of
-    16 the three parts [m1_hi, m2_hi, m3_hi], each word for word the same
-    part of ``split_mm_tables``' image (half its bytes: 96 KB of shared
-    memory a column block at D = 512 instead of 192).  Done once per
-    program."""
+    """``split_mm_tables`` for the "default" mm step and chain, which read
+    the hi parts alone: (..., 3 D^2) bfloat16, per 32-column block and
+    k-chunk of 16 the three parts [m1_hi, m2_hi, m3_hi], each word for word
+    the same part of ``split_mm_tables``' image (half its bytes: 96 KB of
+    shared memory a column block at D = 512 instead of 192).  Done once
+    per program."""
     lead, D = m.shape[:-3], m.shape[-1]
     L = len(lead)
     t = m.to(torch.bfloat16).reshape(*lead, 3, D // 16, 4, 2, 2,
@@ -292,8 +307,8 @@ def split_mm_tables_hi(m: torch.Tensor) -> torch.Tensor:
 
 
 def rung_mm_tables(m: torch.Tensor, precision: str) -> torch.Tensor:
-    """The image the rung's mm kernel reads: ``split_mm_tables`` at
-    "high", ``split_mm_tables_hi`` at "default"."""
+    """The image the rung's mm kernel and chain read: ``split_mm_tables``
+    at "high", ``split_mm_tables_hi`` at "default"."""
     return (split_mm_tables_hi if precision == "default"
             else split_mm_tables)(m)
 

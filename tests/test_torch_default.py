@@ -347,8 +347,9 @@ def test_prefetch_chains_build_the_rungs_image(monkeypatch, inplace):
 def test_wide_program_builds_the_rungs_mm_image():
     """``WideProgram`` holds its mm steps' tables as the hi image at
     "default" (``split_mm_tables_hi``, 3 D^2) and the full image at "high"
-    (6 D^2); the kh = 0 runs' chain tables are the full D = 128 image at
-    both rungs (the chain kernel reads it as the "high" arm does)."""
+    (6 D^2), and so its kh = 0 runs' chain tables: (L, 3 * 128^2) at
+    "default", (L, 6 * 128^2) at "high" (each chain arm reads its rung's
+    image)."""
     n = 10
     c = T.Circuit(n)
     for i, g in enumerate(T.models.grover_like(7, 260, 41).gates):
@@ -364,7 +365,59 @@ def test_wide_program_builds_the_rungs_mm_image():
         for t in mm:
             D = int(round((t.shape[-1] / parts) ** 0.5))
             assert t.dtype == torch.bfloat16 and t.shape[-1] == parts * D * D
-        assert all(w.shape[-1] == 6 * 128 * 128 for w in runs)
+        assert all(w.dtype == torch.bfloat16 and w.dim() == 2
+                   and w.shape[-1] == parts * 128 * 128 for w in runs)
+
+
+def test_chain_plain_reads_either_default_image():
+    """At "default" the chain's plain version reads the hi-only image
+    (``kh0_high_tables(tables, "default")``, what the kernel reads) and the
+    full one to the same result bit for bit: the hi parts are the same
+    words; the hi image is the full image's hi parts."""
+    rng = np.random.default_rng(23)
+    x = [_t(rng.standard_normal((16, 128)) / 16) for _ in range(2)]
+    us = [_unitary(rng, 128) for _ in range(3)]
+    tables = _t(np.stack([np.stack([u.real, u.imag]) for u in us]))
+    full = KW.kh0_high_tables(tables)
+    hi = KW.kh0_high_tables(tables, "default")
+    assert full.shape == (3, 6 * 128 * 128) and hi.shape == (3, 3 * 128 * 128)
+    assert hi.dtype == torch.bfloat16
+    assert torch.equal(hi, KW.mm_hi_image(full))
+    got = KW.kh0_chain_plain(*x, tables, "default", w16=hi)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, KW.kh0_chain_plain(*x, tables, "default", w16=full)))
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, KW.kh0_chain_plain(*x, tables, "default")))
+    out = KW.kh0_chain(*x, tables, "default", w16=hi)
+    assert all(torch.equal(a, b) for a, b in zip(out, got))
+
+
+@pytest.mark.parametrize("rung", ["high", "default"])
+def test_chain_refuses_the_other_rungs_image(rung):
+    """``kh0_chain`` takes the image its rung's kernel reads and raises
+    ValueError for the other rung's, on every device (here the CPU, before
+    the plain version runs); the "high" plain version refuses the hi-only
+    image, which lacks its lo parts."""
+    rng = np.random.default_rng(29)
+    x = [_t(rng.standard_normal((8, 128)) / 16) for _ in range(2)]
+    tables = _t(np.stack([np.stack([u.real, u.imag])
+                          for u in [_unitary(rng, 128)]]))
+    other = KW.kh0_high_tables(
+        tables, "high" if rung == "default" else "default")
+    KW.reset_launches()
+    with pytest.raises(ValueError, match="rung's image"):
+        KW.kh0_chain(*x, tables, rung, w16=other)
+    with pytest.raises(ValueError, match="rung's image"):
+        KW.kh0_chain(*x, tables, rung, w16=KW.kh0_high_tables(tables, rung)
+                     .float())
+    if rung == "high":
+        with pytest.raises(ValueError, match="'high' rung reads"):
+            KW.kh0_chain_plain(*x, tables, "high", w16=other)
+    mine = KW.kh0_chain(*x, tables, rung,
+                        w16=KW.kh0_high_tables(tables, rung))
+    assert all(torch.equal(a, b) for a, b in zip(
+        mine, KW.kh0_chain_plain(*x, tables, rung)))
+    assert KW.kh0_chain.launches == dict.fromkeys(KB.RUNGS, 0)
 
 
 def test_default_launch_counters_count_launches_alone():

@@ -252,6 +252,49 @@ def test_wide_program_high_run_tables(case):
     assert all(w is None for seg in low.segments for w in seg.runs_w16)
 
 
+@pytest.mark.parametrize("case", ["mixed", "low_only_k3"])
+def test_wide_program_default_run_tables(case):
+    """At "default" each kh = 0 run's chain tables are the hi-only image
+    (``split_mm_tables_hi``, (L, 3 * 128^2)), word for word the hi parts of
+    the "high" program's (L, 6 * 128^2) image of the same run; and the
+    "default" program, whose chains read them, is step by step the plain
+    versions on the same images: the chain of each run and the mm steps,
+    bit for bit."""
+    n = 10
+    tc, k, cost = ((mixed(T.Circuit, n), 7, False) if case == "mixed"
+                   else (low_only(T.Circuit, n, 600), 3, True))
+    ops = TS._fuse_pipeline(tc, k, max_high=2, window=8, cost_model=cost)
+    progs = {rung: TW.WideProgram(ops, n, precision=rung, device="cpu")
+             for rung in ("high", "default")}
+    runs = 0
+    for dseg, hseg in zip(progs["default"].segments,
+                          progs["high"].segments):
+        for d, h in zip(dseg.runs_w16, hseg.runs_w16):
+            assert d.dtype == torch.bfloat16
+            assert d.shape == (h.shape[0], 3 * 128 * 128)
+            assert h.shape == (h.shape[0], 6 * 128 * 128)
+            assert torch.equal(d, KW.mm_hi_image(h))
+            runs += 1
+    assert runs == progs["default"].num_kh0_runs > 0
+    rng = np.random.default_rng(11)
+    v = rng.standard_normal((2, 1 << n))
+    v = (v / np.linalg.norm(v)).astype(np.float32)
+    got = progs["default"](torch.from_numpy(v[0].copy()),
+                           torch.from_numpy(v[1].copy()))
+    R = 1 << (n - 7)
+    x = (torch.from_numpy(v[0]).reshape(R, 128),
+         torch.from_numpy(v[1]).reshape(R, 128))
+    for seg in progs["default"].segments:
+        for st in seg.steps:
+            if st[0] == "kh0":
+                x = KW.kh0_chain_plain(*x, seg.runs[st[1]], "default",
+                                       w16=seg.runs_w16[st[1]])
+            else:
+                _, D, idx, bits = st
+                x = KW.mm_step_default_plain(*x, seg.mm[D][idx], bits)
+    assert all(torch.equal(g, w.reshape(-1)) for g, w in zip(got, x))
+
+
 @pytest.mark.parametrize("precision", ["highest", "high"])
 def test_carried_ops_through_both_programs(precision):
     """The JAX package's fused ops, rebuilt as the port's ``Op`` from their
