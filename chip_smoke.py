@@ -203,6 +203,22 @@ failure raises and the script exits non-zero:
    and the megakernel at n=20 (within 1e-9 of the f64 reference) and 24
    (within 1e-9 of each other), timed, with peak memory and no kernel
    launch.
+11. the sharded engines (``strategy="sharded"``), their meshes repeating
+   the card (``device=["cuda:0"] * k``): grover_like(23, 2445, 318) over
+   8 shards at "highest" against the f64 reference (1e-6; gswaps > 0,
+   counted once an entry); n=24 over 4 shards at "auto" ("high") against
+   phase 4's "highest" state (the "high" bar); that state saved shard by
+   shard and reloaded onto 4 and 2 shards, bit for bit; complex128 at
+   n=20 over 4 shards through the dense engine (1e-9 of the f64
+   reference); phase 7's Grover (n=24) through ``run_device_iterated``
+   over 4 shards at "highest" against phase 7's flat result and the
+   exact state; n=31 over 8 shards (nl=28): the mirror of
+   grover_like(31, 400, 31) at "highest" (<0|psi> within 1e-5 of 1, norm
+   within 1e-4), one timed run_device of grover_like(31, 2445, 318) at
+   "auto" (planning, table and device seconds apart), the sampler on its
+   sharded state, ``Simulator.sample`` of the mirror (every shot |0>),
+   peak device memory <= 34 GiB.  Launch counts against each plan:
+   relayouts once a shard and relayout row, gswaps once a gswap row.
 
 Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
 steps at n=24 on a normalised random state over eight random unitary
@@ -2724,8 +2740,10 @@ def clear_caches(torch):
     from gpu_quantum_simulator_tpu_torch.engine import vmem as V
     from gpu_quantum_simulator_tpu_torch.engine import wide as W
 
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
+
     for cache in (PF._PROGRAM_CACHE, PF._RUN_CACHE, S._MXU_PLAN_CACHE,
-                  W._CACHE, PE._CACHE, V._CACHE):
+                  W._CACHE, PE._CACHE, V._CACHE, SP._RUN_CACHE):
         cache.clear()
     G.release()
     gc.collect()
@@ -3044,6 +3062,11 @@ def graph_pool_bytes(torch, graph):
     return total
 
 
+# phase 7's iterated Grover state at 71 repetitions, flat prefetch at
+# "highest" (host tensors), for phase 11
+PHASE7_GROVER: dict = {}
+
+
 def check_grover_iterated(torch, T, add, smi):
     """run_device_iterated on Grover at n=24, mxu and flat prefetch, at
     "auto" ("high") and "highest", at GROVER_DEPTHS and the natural 71
@@ -3107,6 +3130,10 @@ def check_grover_iterated(torch, T, add, smi):
                 torch.cuda.synchronize()
                 if reps == iters:
                     first = time.perf_counter() - t0
+                    if (strategy, rung) == ("prefetch", "highest"):
+                        # phase 11 holds the sharded iterated run to it
+                        PHASE7_GROVER.update(re=re.cpu(), im=im.cpu(),
+                                             ops=nops[reps])
                 counts[reps] = launch_counts()
                 got[reps] = (re, im)
                 del re, im
@@ -4762,6 +4789,334 @@ def run_default_phase(torch, T, refs, highest24, add):
             (chain, "kh0_default"), (mm, "mm_default")]
 
 
+# ------------------------------------------- phase 11: the sharded engines
+SHARD_REF = (23, 8)         # (n, shards): grover_like at "highest" vs f64
+SHARD_HIGH = (24, 4)        # "auto" ("high") vs phase 4's "highest" state
+SHARD_FULL = (31, 8)        # nl = 28: the JAX package's scale target
+SHARD_MIRROR = (400, 31)    # grover_like(31, 400, 31), then its inverse
+SHARD_PEAK = 34 << 30       # peak device memory of the n=31 runs: the
+                            # state (16 GiB) and its spare pair (16 GiB)
+SHARD_SAMPLES = 1000
+SHARD_C128 = (20, 4)        # complex128 through the dense engine
+SHARD_ITERATED = 4          # shards of the iterated Grover run (n=24)
+SHARD_RELOAD = (4, 2)       # shard counts the n=24 checkpoint reloads onto
+
+
+def shard_sim(T, shards, **kw):
+    """The sharded strategy over ``shards`` shards on the first card."""
+    return T.Simulator(T.SimulatorConfig(strategy="sharded",
+                                         mesh_shape=(shards,), **kw),
+                       device=["cuda:0"] * shards)
+
+
+def shard_reset():
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
+
+    reset_counts()
+    SP.gswap.launches = 0
+
+
+def shard_counts():
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
+
+    return {**launch_counts(), "gswap": SP.gswap.launches}
+
+
+def newest_shard_program():
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
+
+    return list(SP._RUN_CACHE.values())[-1]
+
+
+def check_shard_counts(what, counts, modes, shards, runs, high):
+    """Launch counts of ``runs`` runs of a segmented sharded program against
+    its plan: block launches, relayouts once a shard and standalone
+    relayout, gswaps once an entry, no folded input (the sharded chains do
+    not fold), and the mat step of the rung."""
+    block = (counts["mat"] + counts["mat_high"] + counts["mat_default"]
+             + counts["gather"])
+    bad = []
+    if block <= 0:
+        bad.append("no block launch")
+    if counts["relayout"] != runs * shards * modes.get(3, 0):
+        bad.append(f"relayouts {counts['relayout']} for {modes.get(3, 0)} "
+                   f"rows x {shards} shards x {runs}")
+    if not (counts["gswap"] == runs * modes.get(4, 0) and modes.get(4, 0)):
+        bad.append(f"gswaps {counts['gswap']} for {modes.get(4, 0)} rows "
+                   f"x {runs}")
+    if counts["folded"]:
+        bad.append(f"folded launches {counts['folded']}")
+    if high != (counts["mat_high"] > 0) or high == (counts["mat"] > 0):
+        bad.append(f"mat {counts['mat']}, mat_high {counts['mat_high']} at "
+                   f"high={high}")
+    if bad:
+        raise AssertionError(f"{what}: {bad}")
+
+
+def short_counts(counts):
+    keys = ("mat", "mat_high", "gather", "relayout", "gswap")
+    return {k: counts[k] for k in keys}
+
+
+def check_sharded_reference(torch, T, refs, add):
+    """(a) n=23 over eight shards at "highest" against the f64 reference."""
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
+
+    n, shards = SHARD_REF
+    c = T.models.grover_like(n, 2445, 318)
+    sim = shard_sim(T, shards, precision="highest")
+    SP._RUN_CACHE.clear()
+    shard_reset()
+    res = sim.run_detailed(c)
+    counts = shard_counts()
+    add(counts)
+    prog = newest_shard_program()
+    err = float(np.max(np.abs(res.state - refs[n])))
+    norm = float(np.linalg.norm(res.state))
+    print(f"sharded n={n} over {shards} shards (nl={n - 3}) 'highest': "
+          f"{res.num_fused_ops} items, {prog.plan.num_gswaps} gswaps, "
+          f"{prog.plan.num_relayouts} relayouts; first run_detailed "
+          f"{res.seconds:.3f} s (planning {prog.build_seconds:.3f} s); "
+          f"max|amp - f64| {err:.3e}; norm {norm:.8f}; launches "
+          f"{short_counts(counts)}")
+    check_shard_counts(f"sharded n={n}", counts, prog.mode_rows, shards, 1,
+                       False)
+    if not (err <= AMP_TOL and abs(norm - 1.0) <= NORM_TOL
+            and prog.plan.num_gswaps > 0):
+        raise AssertionError(f"sharded n={n}: error {err}, norm {norm}")
+    SP._RUN_CACHE.clear()
+
+
+def check_sharded_high(torch, T, highest24, add):
+    """(b) n=24 over four shards at "auto" ("high") against phase 4's
+    "highest" state; returns the run's shard lists (for (f))."""
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
+    from gpu_quantum_simulator_tpu_torch.parallel.sharded import join_shards
+
+    n, shards = SHARD_HIGH
+    c = T.models.grover_like(n, 2445, 318)
+    sim = shard_sim(T, shards)
+    SP._RUN_CACHE.clear()
+    shard_reset()
+    t0 = time.perf_counter()
+    re, im, nops = sim.run_device(c)
+    secs = time.perf_counter() - t0
+    counts = shard_counts()
+    add(counts)
+    prog = newest_shard_program()
+    state = join_shards(re, im)
+    err = float(np.max(np.abs(state - highest24)))
+    scale = max(1.0, float(np.max(np.abs(highest24))) / HIGH_BAR_PEAK)
+    print(f"sharded n={n} over {shards} shards 'auto' (high): {nops} items, "
+          f"{prog.plan.num_gswaps} gswaps; first run_device {secs:.3f} s; "
+          f"vs prefetch 'highest' max|diff| {err:.3e} (bar "
+          f"{HIGH_TOL * scale:.3e}); launches {short_counts(counts)}")
+    check_shard_counts(f"sharded n={n}", counts, prog.mode_rows, shards, 1,
+                       True)
+    if not 0.0 < err <= HIGH_TOL * scale:
+        raise AssertionError(f"sharded n={n} 'high': {err}")
+    SP._RUN_CACHE.clear()
+    return re, im
+
+
+def check_sharded_checkpoint(torch, T, re, im):
+    """(f) the n=24 state saved shard by shard and reloaded onto four and
+    two shards: bit for bit the saved state."""
+    import tempfile
+
+    from gpu_quantum_simulator_tpu_torch.parallel.mesh import make_mesh
+    from gpu_quantum_simulator_tpu_torch.utils import checkpoint as CK
+
+    n = SHARD_HIGH[0]
+    flat_re, flat_im = torch.cat(re), torch.cat(im)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        CK.save_state_sharded(d, re, im, n, meta={"phase": 11})
+        save = time.perf_counter() - t0
+        same, loads = [], []
+        for count in SHARD_RELOAD:
+            mesh = make_mesh((count,), ("amp",), [re[0].device] * count)
+            t0 = time.perf_counter()
+            lre, lim, meta = CK.load_state_sharded(d, mesh=mesh)
+            loads.append(time.perf_counter() - t0)
+            same.append(len(lre) == count and meta["phase"] == 11
+                        and torch.equal(torch.cat(lre), flat_re)
+                        and torch.equal(torch.cat(lim), flat_im))
+    print(f"sharded checkpoint n={n}: saved from {len(re)} shards in "
+          f"{save:.3f} s, reloaded onto {SHARD_RELOAD} shards in "
+          f"{[round(x, 3) for x in loads]} s, bit for bit {same}")
+    if not all(same):
+        raise AssertionError(f"sharded checkpoint: {same}")
+
+
+def check_sharded_full(torch, T, add, smi):
+    """(c) n=31 over eight shards (nl=28) on one card: the mirror circuit
+    at "highest" (<0|psi> within MIRROR_TOL of 1, norm within NORM_TOL,
+    read through sampling.py's sharded helpers), one timed run_device of
+    grover_like(31, 2445, 318) at "auto" (planning and table seconds on
+    the host apart from the chain's device seconds, CUDA events), the
+    sampler on its state, ``Simulator.sample`` of the mirror (every shot
+    |0>), and the peak device memory of all of it (<= SHARD_PEAK)."""
+    from gpu_quantum_simulator_tpu_torch import sampling
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
+
+    n, shards = SHARD_FULL
+    gib = float(1 << 30)
+    clear_caches(torch)
+    SP._RUN_CACHE.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gates, seed = SHARD_MIRROR
+    mirror = T.models.grover_like(n, gates, seed)
+    mirror = mirror.compose(mirror.inverse())
+    highest = shard_sim(T, shards, precision="highest")
+    shard_reset()
+    t0 = time.perf_counter()
+    re, im, nops = highest.run_device(mirror)
+    secs = time.perf_counter() - t0
+    counts = shard_counts()
+    add(counts)
+    prog = newest_shard_program()
+    amp0 = complex(sampling.amplitudes_device(re, im, [0])[0])
+    norm = sampling.norm_device(re, im)
+    del re, im
+    print(f"sharded n={n} over {shards} shards (nl={n - 3}) mirror of "
+          f"grover_like({n}, {gates}, {seed}) at 'highest': {nops} items, "
+          f"{prog.plan.num_gswaps} gswaps, {prog.plan.num_relayouts} "
+          f"relayouts; run_device {secs:.2f} s (planning "
+          f"{prog.build_seconds:.2f} s); <0|psi> {amp0:.8f}; |psi|^2 "
+          f"{norm:.8f}; launches {short_counts(counts)}")
+    check_shard_counts(f"sharded n={n} mirror", counts, prog.mode_rows,
+                       shards, 1, False)
+
+    c = T.models.grover_like(n, 2445, 318)
+    sim = shard_sim(T, shards)
+    shard_reset()
+    t0 = time.perf_counter()
+    re, im, nops = sim.run_device(c)
+    wall = time.perf_counter() - t0
+    counts = shard_counts()
+    add(counts)
+    prog = newest_shard_program()
+    start, end = prog._chain.events
+    device_s = start.elapsed_time(end) / 1e3
+    tnorm = sampling.norm_device(re, im)
+    t0 = time.perf_counter()
+    shots = sampling.sample_state_device(re, im, n, SHARD_SAMPLES, seed=1)
+    sample_s = time.perf_counter() - t0
+    del re, im
+    print(f"sharded n={n} grover_like({n}, 2445, 318) at 'auto' (high): "
+          f"{nops} items, {prog.plan.num_gswaps} gswaps, "
+          f"{prog.plan.num_relayouts} relayouts, table chunks "
+          f"{prog.chunk_sizes}; first run_device {wall:.2f} s = planning "
+          f"{prog.build_seconds:.2f} s (host) + the chain, of which table "
+          f"uploads and expansions {prog.table_seconds:.2f} s host time, "
+          f"device {device_s:.2f} s (CUDA events, first to last entry); "
+          f"norm {tnorm:.8f}; {SHARD_SAMPLES} samples from the sharded "
+          f"state in {sample_s:.3f} s; launches {short_counts(counts)}; "
+          f"{smi}")
+    check_shard_counts(f"sharded n={n}", counts, prog.mode_rows, shards, 1,
+                       True)
+    t0 = time.perf_counter()
+    zeros = highest.sample(mirror, SHARD_SAMPLES, seed=2)
+    facade_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"sharded n={n}: Simulator.sample(mirror, {SHARD_SAMPLES}) "
+          f"{facade_s:.2f} s (run and sampling), {int(np.sum(zeros == 0))} "
+          f"shots |0>; peak device memory {peak / gib:.3f} GiB (bar "
+          f"{SHARD_PEAK / gib:.0f})")
+    SP._RUN_CACHE.clear()
+    torch.cuda.empty_cache()
+    bad = []
+    if not abs(amp0 - 1.0) <= MIRROR_TOL:
+        bad.append(f"mirror <0|psi> {amp0}")
+    if not (abs(norm - 1.0) <= NORM_TOL and abs(tnorm - 1.0) <= NORM_TOL):
+        bad.append(f"norms {norm}, {tnorm}")
+    if not (shots.shape == (SHARD_SAMPLES,) and shots.min() >= 0
+            and shots.max() < 1 << n and np.all(zeros == 0)):
+        bad.append("samples")
+    if peak > SHARD_PEAK:
+        bad.append(f"peak {peak / gib:.3f} GiB")
+    if bad:
+        raise AssertionError(f"sharded n={n}: {bad}")
+
+
+def check_sharded_complex128(torch, T, refs):
+    """(d) complex128 through the dense engine: n=20 over four shards
+    against the f64 reference (C128_TOL); torch ops, no kernel launch."""
+    n, shards = SHARD_C128
+    sim = shard_sim(T, shards, dtype="complex128")
+    c = T.models.grover_like(n, 2445, 318)
+    reset_counts()
+    res = sim.run_detailed(c)
+    counts = launch_counts()
+    err = float(np.max(np.abs(res.state - refs[n])))
+    print(f"sharded complex128 n={n} over {shards} shards (dense engine): "
+          f"{res.num_fused_ops} items, run_detailed {res.seconds:.2f} s; "
+          f"max|amp - f64| {err:.3e}; dtype {res.state.dtype}")
+    if (sim._shard_segmented(n) or res.state.dtype != np.complex128
+            or not err <= C128_TOL or any(counts.values())):
+        raise AssertionError(f"sharded complex128 n={n}: {err}, {counts}")
+    clear_caches(torch)
+
+
+def check_sharded_iterated(torch, T, add):
+    """(e) run_device_iterated of phase 7's Grover (n=24) over four shards
+    at "highest", against phase 7's flat prefetch result at the natural
+    71 repetitions and the exact f64 state, within phase 7's "highest"
+    bar; launches = the prefix's + the body's once a repetition."""
+    nd, marked = GROVER_DATA, GROVER_MARKED
+    prefix, body, iters = T.models.grover_parts(nd, marked)
+    n = body.num_qubits
+    sim = shard_sim(T, SHARD_ITERATED, precision="highest")
+    shard_reset()
+    t0 = time.perf_counter()
+    re, im, nops = sim.run_device_iterated(body, iters, prefix=prefix)
+    secs = time.perf_counter() - t0
+    counts = shard_counts()
+    add(counts)
+    _, programs = sim._iterated_programs(body, iters, prefix)
+    gswaps = sum(p.mode_rows.get(4, 0) * reps for p, _, reps in programs)
+    got = torch.complex(torch.cat(re).double(), torch.cat(im).double())
+    del re, im
+    exact = torch.zeros(1 << n, dtype=torch.float64)
+    exact[:1 << nd] = torch.from_numpy(grover_exact(nd, marked, iters))
+    exact = exact.cuda()
+    scale = max(1.0, float(exact.abs().max()) / HIGH_BAR_PEAK)
+    bar = AMP_TOL * scale * max(1.0, nops / BENCH_OPS)
+    e_exact = float((got - exact).abs().max())
+    flat = torch.complex(PHASE7_GROVER["re"].double(),
+                         PHASE7_GROVER["im"].double()).cuda()
+    e_flat = float((got - flat).abs().max())
+    peak_at = int(torch.argmax(got.abs()))
+    del got, exact, flat
+    print(f"sharded iterated grover n={n} x{iters} over {SHARD_ITERATED} "
+          f"shards 'highest': {nops} ops in {secs:.2f} s (first call); vs "
+          f"phase 7's flat prefetch {e_flat:.3e}, vs exact f64 "
+          f"{e_exact:.3e} (bar {bar:.3e}); peak at {peak_at}; gswaps "
+          f"{counts['gswap']} (plan {gswaps}); launches "
+          f"{short_counts(counts)}")
+    if not (e_flat <= bar and e_exact <= bar and peak_at == marked
+            and counts["gswap"] == gswaps and counts["gather"] > 0):
+        raise AssertionError(f"sharded iterated: {e_flat}, {e_exact}, "
+                             f"{peak_at}, {counts}")
+    clear_caches(torch)
+
+
+def run_sharded_phase(torch, T, refs, highest24, add, smi):
+    """Phase 11: the sharded engines on one card (meshes repeating
+    cuda:0)."""
+    t0 = time.perf_counter()
+    check_sharded_reference(torch, T, refs, add)
+    re, im = check_sharded_high(torch, T, highest24, add)
+    check_sharded_checkpoint(torch, T, re, im)
+    del re, im
+    check_sharded_complex128(torch, T, refs)
+    check_sharded_iterated(torch, T, add)
+    check_sharded_full(torch, T, add, smi)
+    clear_caches(torch)
+    print(f"sharded engines: phase 11 in {time.perf_counter() - t0:.1f} s")
+
+
 def run_main_path(torch, T, refs, add):
     """Phase 4; returns prefetch's n=24 "highest" state."""
     highest24 = run_prefetch_path(torch, T, refs, add)
@@ -4887,6 +5242,8 @@ def main() -> int:
     run_workloads(torch, T, add)
     # phase 10: the "default" rung and complex128
     defaults = run_default_phase(torch, T, refs, highest24, add)
+    # phase 11: the sharded engines, meshes repeating the card
+    run_sharded_phase(torch, T, refs, highest24, add, smi.splitlines()[0])
     kinds = ((block, "gather"), (mat, "mat"), (relayout, "relayout"),
              (folded, "folded"), (high, "mat_high"), (chain, "kh0"),
              (chain_high, "kh0_high"), (block128, "block128"),

@@ -6,10 +6,10 @@ never ``jax``, and never the JAX package: the host modules it needs
 (``ir``, ``passes``, ``models``, ``ref``, ``config`` and the numpy planner)
 are JAX-free copies, held to the originals by the tests.
 
-So far it runs the ``mxu`` (the default config), ``pallas``,
-``prefetch``, ``vmem`` (n <= 19) and ``megakernel`` strategies, e.g.
-``Simulator(device="cuda")``, up to 30 qubits at the "highest" (IEEE fp32)
-and "high" (3-pass bf16) precision rungs, through the kernels in
+It runs every strategy of the JAX package: ``mxu`` (the default
+config), ``pallas``, ``prefetch``, ``vmem`` (n <= 19) and ``megakernel``,
+e.g. ``Simulator(device="cuda")``, up to 30 qubits at the "highest"
+(IEEE fp32) and "high" (3-pass bf16) precision rungs, through the kernels in
 ``kernels/`` (CUDA sources in ``csrc/``), with every strategy's smallest
 widths on the megakernel arm, and the reference's per-gate ablation rows
 (``naive``, ``fused2x2``, ``fused3in1``, ``fused4x4``, ``scan``) as torch
@@ -28,9 +28,19 @@ classical shadows, the MPS and stabilizer simulators and the Qiskit
 import.  Every entry point runs on the card unless it is passed
 ``device="cpu"``, where the same paths run each kernel's plain torch
 version.  Every precision rung ("highest", "high", "default") and
-complex128 (on mxu, the megakernel, the per-gate engines and reference)
-run; the sharded engines raise NotImplementedError naming their ROADMAP
-item.
+complex128 (on mxu, the megakernel, the per-gate engines, the dense
+sharded engine and reference) run.
+
+``strategy="sharded"`` (``parallel/``) cuts the state into 2^d shards, one
+pair a device of a mesh, in one process: ``Simulator(SimulatorConfig(
+strategy="sharded", mesh_shape=(8,)), device=["cuda:0"] * 8)`` runs eight
+shards on one card (``device=["cpu"] * 8`` in the tests), and
+``device="cuda"`` with no ``mesh_shape`` shards over every visible card.
+Every shard runs the prefetch chain's kernels; a gate on a shard-index
+qubit is a half-block exchange between two shards.  It is the one
+strategy above 30 qubits (n = 31 on one H100 over eight shards), and its
+state stays sharded: ``run_device`` returns shard lists, sampling.py reads
+them, ``utils/checkpoint.py`` saves them shard by shard.
 
 Qubit convention matches the JAX package: qubit ``k`` is bit ``k`` of the
 basis index (little-endian).

@@ -30,12 +30,10 @@ def resolve_precision(precision: str, num_qubits: int) -> str:
             else "highest")
 
 
-# Every strategy of the JAX package.  The port runs all of them but
-# "sharded", which raises NotImplementedError (ROADMAP queue A, "parallel/
-# on torch.distributed").
+# Every strategy of the JAX package; the port runs all of them.
 STRATEGIES = (
-    "auto",        # width-based dispatch; in the port always prefetch
-                   # (engine.simulator._auto_strategy)
+    "auto",        # width-based dispatch; in the port prefetch, or sharded
+                   # when a mesh is configured (engine.simulator._auto_strategy)
     "reference",   # NumPy complex128 ground truth (quantum_simulator.c semantics)
     "naive",       # one dispatch of torch ops per gate (engine/naive.py;
                    # ref: naive launch-per-gate)
@@ -56,7 +54,9 @@ STRATEGIES = (
                    # swap copies (engine/pallas_engine.py)
     "vmem",        # 96-op chunks, each one cooperative CUDA launch with the
                    # state in L2 (engine/vmem.py, n <= 19)
-    "sharded",     # mesh-sharded state vector, all_to_all qubit swaps
+    "sharded",     # the state sharded over a list of devices, one shard
+                   # pair each, qubit swaps as half-block copies between
+                   # shards (parallel/sharded.py, parallel/sharded_prefetch.py)
 )
 
 
@@ -102,8 +102,16 @@ class SimulatorConfig:
     # capacity (None = 8 at n >= 21, else the engine's CAP_MATS).
     prefetch_max_high: Optional[int] = None
     prefetch_cap_mats: Optional[int] = None
-    # device mesh for the sharded engine: not ported; setting it raises.
+    # sharding: the device mesh of the sharded engine; None = every device
+    # the Simulator was given, cut down to a power of two
+    # (parallel/mesh.py ``make_mesh``).
     mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axis_names: Tuple[str, ...] = ("amp",)
+    # segmented sharded execution (parallel/sharded_prefetch.py): the
+    # prefetch chain on every shard instead of the dense engine's per-item
+    # torch ops.  None = automatic (segmented for complex64 with >= 9
+    # local qubits).
+    shard_segmented: Optional[bool] = None
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES:

@@ -106,14 +106,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
   bulk_copy(dst, src, bytes, bar);
 }
 
-// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB), once:
-// *done is set when the attribute has been set.
+// Let `kernel` take `bytes` of dynamic shared memory (above 48 KB) on the
+// current device, once a device: the attribute belongs to the device, and
+// the shards of a mesh may sit on several cards.  *done holds one bit a
+// device ordinal, set when the attribute has been set there.
 template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
+inline cudaError_t allow_smem(K kernel, size_t bytes, unsigned* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (*done & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  *done = e == cudaSuccess;
+  if (e == cudaSuccess) *done |= bit;
   return e;
 }
 

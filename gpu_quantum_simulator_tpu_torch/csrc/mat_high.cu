@@ -88,7 +88,7 @@ mat_high_kernel(FlatMap map, const uint8_t* __restrict__ w) {
 
 template <bool LO>
 cudaError_t launch(const FlatMap& map, const void* w, cudaStream_t stream) {
-  static bool smem_set = false;
+  static unsigned smem_set = 0;
   static int slots = 0;   // CTAs of the kernel that fit on the card at once
   cudaError_t e = async::allow_smem(mat_high_kernel<LO>, wgh::SMEM,
                                     &smem_set);

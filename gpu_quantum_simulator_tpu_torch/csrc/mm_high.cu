@@ -394,7 +394,7 @@ cudaError_t launch(const float* xr, const float* xi, float* out_re,
                    float* out_im, const void* w, RowMap map,
                    cudaStream_t stream) {
   using S = Shape<D, LO>;
-  static bool smem_set = false;
+  static unsigned smem_set = 0;
   static int slots = 0;      // CTAs of the kernel that fit on the card
   cudaError_t e = async::allow_smem(mm_high_kernel<D, LO>, S::SMEM,
                                     &smem_set);

@@ -287,7 +287,7 @@ int qsim_mat_step(const float* in_re, const float* in_im, float* out_re,
   Fold fold;
   if (!make_fold(&fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr = false;
+  static unsigned attr = 0;
   const cudaError_t e = async::allow_smem(mat_step_kernel, MAT_SMEM, &attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned grid = (unsigned)((rows + BM - 1) / BM) * (DVIEW / BN);

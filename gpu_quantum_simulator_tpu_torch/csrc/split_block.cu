@@ -283,7 +283,7 @@ mat_high_halves_kernel(HalvesMap map, const uint8_t* __restrict__ w,
 template <bool LO>
 cudaError_t launch_high(HalvesMap map, const void* w, int* sync,
                         int sync_groups, cudaStream_t stream) {
-  static bool smem_set = false;
+  static unsigned smem_set = 0;
   static int slots = 0;   // CTAs of the kernel that fit on the card at once
   cudaError_t e = async::allow_smem(mat_high_halves_kernel<LO>, wgh::SMEM,
                                     &smem_set);

@@ -333,7 +333,7 @@ int qsim_vmem_chunk(float* re0, float* im0, float* re1, float* im1,
                     void* stream) {
   if (nops < 1 || num_qubits < 8 || num_qubits > 30 || max_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  static bool attr = false;
+  static unsigned attr = 0;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = async::allow_smem(vmem_chunk_kernel, SMEM, &attr);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);

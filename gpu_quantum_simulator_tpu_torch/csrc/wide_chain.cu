@@ -840,7 +840,7 @@ template <bool LO>
 cudaError_t launch_high(const float* in_re, const float* in_im,
                         float* out_re, float* out_im, const void* w16,
                         int nmats, long long rows, cudaStream_t stream) {
-  static bool attr = false;
+  static unsigned attr = 0;
   static int slots = 0;
   constexpr size_t smem = Chain<LO>::SMEM;
   cudaError_t e = async::allow_smem(chain_high_kernel<LO>, smem, &attr);
@@ -870,7 +870,7 @@ int qsim_wide_chain(const float* in_re, const float* in_im, float* out_re,
                     float* out_im, const float* m_re, const float* m_im,
                     long long mat_stride, int nmats, long long rows,
                     void* stream) {
-  static bool attr = false;
+  static unsigned attr = 0;
   static int slots = 0;
   if (nmats < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = async::allow_smem(chain_f32_kernel, F32_SMEM, &attr);

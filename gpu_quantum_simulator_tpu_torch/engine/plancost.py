@@ -11,9 +11,11 @@ whichever plan this model prices cheapest, so other constants would pick
 other plans.  They are not figures of the CUDA card, and the seconds
 ``estimate_plan`` returns are not a prediction of the port's run time; only
 the ranking of candidate plans is used.  A card calibration is queued in
-ROADMAP (queue A, "Card policies").  The sharded estimators wait for
-``parallel/``; the JAX package's measured tswap anchors and its streamed
-in-place chains (environment-selected there) have no counterpart here.
+ROADMAP (queue A, "Card policies").  The sharded estimators
+(``estimate_plan_sharded``, ``estimate_shard_plan``, ``choose_num_global``)
+are copied with the JAX package's exchange constants for the same reason.
+The JAX package's measured tswap anchors and its streamed in-place chains
+(environment-selected there) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -98,3 +100,94 @@ def estimate_plan(plan, n: int, inplace: bool = False,
     total += nparts * DISPATCH_S
     acc["dispatch_parts"] = nparts
     return total, acc
+
+
+# The JAX package's planning constants for the exchange between shards:
+# its chips' interconnect (ICI) rate and latency and its elementwise memory
+# pass rate.  They are not figures of the card or of a copy between
+# shards on it; they stay so that the sharded portfolio and
+# ``choose_num_global`` pick the JAX package's plans (ROADMAP queue A,
+# "Card policies").
+ICI_GBS = 45.0
+GSWAP_LAT_US = 25.0
+HBM_EFF_GBS = 233.0
+
+
+def estimate_plan_sharded(plan, n: int, d: int):
+    """(model seconds, breakdown) for a mesh plan: local steps at nl = n - d
+    on every shard (all shards in parallel) plus the gswap half-block
+    exchanges."""
+    nl = n - d
+    secs, acc = estimate_plan(plan, nl)
+    gswap_us = (1 << nl) * 4 / (ICI_GBS * 1e9) * 1e6 + GSWAP_LAT_US
+    acc["gswap"] = plan.num_gswaps * gswap_us * US
+    return secs + acc["gswap"], acc
+
+
+def estimate_shard_plan(plan, n: int):
+    """(model seconds, breakdown) for a dense-engine ``ShardPlan``
+    (passes/shard.py over parallel/sharded.py).
+
+    Every plan item is one pass over each shard's 2^(n-d) block (read and
+    write at HBM_EFF_GBS); a ``SwapItem`` also ships half the block to the
+    partner shard.  That term is the plan's own byte count,
+    ``plan.ici_bytes_per_device()``, spread over its swaps, at ICI_GBS,
+    plus GSWAP_LAT_US an exchange.  All shards run in parallel, so
+    per-shard seconds are plan seconds.
+    """
+    from ..passes.shard import LocalSwapItem, SwapItem
+
+    nl = n - plan.num_global
+    blk_bytes = 2 * (1 << nl) * 4           # split re/im float32 block
+    pass_s = 2 * blk_bytes / (HBM_EFF_GBS * 1e9)   # read + write
+    per_swap = (plan.ici_bytes_per_device() // plan.num_swaps
+                if plan.num_swaps else 0)
+    swap_ici_s = per_swap / (ICI_GBS * 1e9) + GSWAP_LAT_US * US
+    acc = {"ops": 0.0, "local_swaps": 0.0, "gswap_ici": 0.0,
+           "gswap_hbm": 0.0}
+    for it in plan.items:
+        if isinstance(it, SwapItem):
+            acc["gswap_ici"] += swap_ici_s
+            acc["gswap_hbm"] += pass_s      # select + reassemble the halves
+        elif isinstance(it, LocalSwapItem):
+            acc["local_swaps"] += pass_s
+        else:
+            acc["ops"] += pass_s
+    return sum(acc.values()), acc
+
+
+def choose_num_global(ops, n: int, num_devices: int, segmented: bool = False,
+                      victim_policy: str = "cold", max_local_high=None):
+    """Pick the mesh split d (the number of shard-index qubits) by model
+    seconds: ``(best_d, {d: model seconds})``.
+
+    Plans each candidate d in 1..log2(num_devices) with the matching
+    planner (dense ``ShardPlan``, or the prefetch planner at
+    ``num_global=d``) and prices it; a larger d halves every local pass
+    but adds exchanges.  Candidates with an op wider than the local region
+    are skipped.
+    """
+    import math
+
+    from ..passes.shard import plan_sharded
+
+    max_d = int(math.log2(num_devices))
+    scores = {}
+    for d in range(1, max_d + 1):
+        try:
+            if segmented:
+                from . import prefetch as P
+
+                plan = P.plan_prefetch(ops, n, num_global=d)
+                secs, _ = estimate_plan_sharded(plan, n, d)
+            else:
+                plan = plan_sharded(ops, n, d, victim_policy=victim_policy,
+                                    max_local_high=max_local_high)
+                secs, _ = estimate_shard_plan(plan, n)
+        except ValueError:
+            continue
+        scores[d] = secs
+    if not scores:
+        raise ValueError(f"no feasible mesh split for n={n} over "
+                         f"{num_devices} devices")
+    return min(scores, key=scores.get), scores

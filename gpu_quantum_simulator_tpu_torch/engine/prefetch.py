@@ -39,8 +39,9 @@ The slice covers flat and in-place plans at 9 <= n <= 30 at every precision
 rung: "highest", "high" and "default" (the mat step's one bf16 pass, the
 "high" kernels' "default" arm, on the same tables; the gathers stay exact
 at every rung).  complex128 raises ValueError (float32-only, as in the JAX
-package); the mesh gswap raises NotImplementedError naming its ROADMAP
-item.
+package).  The mesh gswap (scal mode 4) is an entry of the sharded chain
+(parallel/sharded_prefetch.py), which runs these flat chains on every
+shard of a mesh; a flat or in-place chain refuses it.
 """
 
 from __future__ import annotations
@@ -1125,32 +1126,41 @@ class DeviceChain:
     def __call__(self, re: torch.Tensor, im: torch.Tensor):
         cur = (re.reshape(self._R2, DVIEW), im.reshape(self._R2, DVIEW))
         spare = None
-        soff = 4 + 2 * self.cap_steps        # folded sigma in the scal tail
+        geometry = (self._logt, self._tr, self._mrow)
         for scal, a_tab, b_tab, mono_src, high in self._parts:
             for i, row in enumerate(scal):
-                mode = row[1]
-                if mode == 3:
-                    out = run_relayout(row[4 : 4 + self._mrow], *cur,
-                                       self._tr, out=spare)
-                elif mode in (0, 1, 5):
-                    sigma = (row[soff : soff + self._mrow] if mode == 5
-                             else None)
-                    out = run_block(row, *cur, a_tab[i], b_tab[i],
-                                    mono_src[i], self._logt, self.cap_steps,
-                                    scratch=spare, sigma=sigma, tr=self._tr,
-                                    precision=self.precision,
-                                    high_tables=None if high is None
-                                    else high[i])
-                else:
-                    raise NotImplementedError(
-                        f"scal mode {mode} in a flat chain: 2 (the pair "
-                        "swap) belongs to in-place plans (SplitChain); 4 "
-                        "(mesh gswap) is not in the port's slice yet "
-                        "(ROADMAP queue A, \"parallel/ on "
-                        "torch.distributed\")")
+                out = run_flat_entry(row, cur, spare, a_tab[i], b_tab[i],
+                                     mono_src[i],
+                                     None if high is None else high[i],
+                                     geometry, self.cap_steps,
+                                     self.precision)
                 if out[0] is not cur[0]:
                     spare, cur = cur, out
         return cur[0].reshape(-1), cur[1].reshape(-1)
+
+
+def run_flat_entry(row, cur, spare, a_tab, b_tab, mono_src, high, geometry,
+                   cap_steps: int, precision: str):
+    """One scal row of a flat chain on the (R2, 256) pair ``cur``: a
+    relayout (mode 3) or a block (modes 0, 1, 5), the result in ``cur`` or
+    in ``spare`` (allocated when None).  ``geometry`` = (logt, relayout
+    tile rows, relayout sigma length); the tables are the entry's own.
+    The sharded chain (parallel/sharded_prefetch.py) runs every shard's
+    entries through here and executes the mesh gswap (mode 4) itself."""
+    logt, tr, mrow = geometry
+    mode = row[1]
+    if mode == 3:
+        return run_relayout(row[4 : 4 + mrow], *cur, tr, out=spare)
+    if mode in (0, 1, 5):
+        soff = 4 + 2 * cap_steps             # folded sigma in the scal tail
+        sigma = row[soff : soff + mrow] if mode == 5 else None
+        return run_block(row, *cur, a_tab, b_tab, mono_src, logt, cap_steps,
+                         scratch=spare, sigma=sigma, tr=tr,
+                         precision=precision, high_tables=high)
+    raise ValueError(
+        f"scal mode {mode} in a flat chain: 2 (the pair swap) belongs to "
+        "in-place plans (SplitChain), 4 (the mesh gswap) to the sharded "
+        "chain (parallel/sharded_prefetch.py)")
 
 
 class SplitChain:
@@ -1218,11 +1228,11 @@ class SplitChain:
                                     high_tables=None if high is None
                                     else high[i])
                 else:
-                    raise NotImplementedError(
+                    raise ValueError(
                         f"scal mode {mode} in an in-place chain: 5 (the "
-                        "folded relayout) never occurs in place; 4 (mesh "
-                        "gswap) is not in the port's slice yet (ROADMAP "
-                        "queue A, \"parallel/ on torch.distributed\")")
+                        "folded relayout) never occurs in place, and 4 (the "
+                        "mesh gswap) is an entry of the sharded chain "
+                        "(parallel/sharded_prefetch.py)")
             del a_tab, b_tab, mono_src, high
         return halves
 
@@ -1363,8 +1373,7 @@ def check_slice(n: int, precision: str) -> None:
     if n > MAX_QUBITS:
         raise ValueError(
             f"n = {n} exceeds the prefetch engine's ceiling (n = "
-            f"{MAX_QUBITS}); the sharded engines are not yet ported "
-            "(ROADMAP queue A, parallel/)")
+            f"{MAX_QUBITS}); use strategy='sharded' over a mesh")
     if precision not in RUNGS:
         raise ValueError(f"precision {precision!r}: the rungs are {RUNGS}")
 

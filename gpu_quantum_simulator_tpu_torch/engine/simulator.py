@@ -7,12 +7,18 @@ prefetch.py; ``"auto"`` resolves to it), ``"vmem"`` (engine/vmem.py),
 ``"megakernel"`` (engine/megakernel.py, also every strategy's arm at the
 smallest widths), the reference's ablation rows ``"naive"``,
 ``"fused2x2"``, ``"fused3in1"``, ``"fused4x4"`` (engine/naive.py) and
-``"scan"`` (engine/scan.py), and ``"reference"`` (ref/cpu.py: numpy
+``"scan"`` (engine/scan.py), ``"reference"`` (ref/cpu.py: numpy
 complex128 on the host, whatever the device; ``run`` and ``run_detailed``
-only, as in the JAX package).  ``"sharded"`` raises NotImplementedError
-naming its ROADMAP item; n > 30, and vmem above n = 19, raise ValueError,
-as in the JAX package.  Nothing runs on another device than the one asked
-for.
+only, as in the JAX package) and ``"sharded"``: the state cut into 2^d
+shards over a mesh of devices (parallel/mesh.py), run by the segmented
+prefetch chain on every shard (parallel/sharded_prefetch.py) or, for
+complex128, shards below 9 qubits and ``shard_segmented=False``, by the
+dense engine (parallel/sharded.py).  ``device`` may then be a list of
+devices, which may repeat one (``["cuda:0"] * 8``: a mesh on one card);
+one device string means every visible device of its type.  The other
+strategies run on the first device of a list.  n > 30 raises ValueError
+unless the strategy is "sharded", and vmem above n = 19, as in the JAX
+package.  Nothing runs on another device than the ones asked for.
 
 Rungs: "highest" (IEEE fp32), "high" (3-pass bf16 on the tensor cores)
 and "default" (one bf16 pass, the hi.hi term of "high", on the same
@@ -30,6 +36,12 @@ package's Mosaic kernels run no float64 on the chip).
 ``prefetch`` runs in place on four column halves from n = 30 (or with
 ``prefetch_inplace=True``); ``run_device_halves`` returns those halves and
 ``sample`` reads them, through sampling.py, without a flat 2^n tensor.
+
+A sharded run's device state is a pair of shard lists, ``re[s]``/``im[s]``
+the (2^(n-d),) tensors of shard s on its device, in the original basis:
+``run_device`` and the entry points return it so, never put together on
+one device; sampling.py reads it shard by shard, and ``run``/
+``run_detailed`` copy each shard into its slice of one host buffer.
 
 The program entry points are the JAX package's: ``run_device_parts`` runs
 a layout-closed program (``_build_program``) on a device-resident pair,
@@ -51,6 +63,7 @@ import torch
 from ..config import SimulatorConfig
 from ..ir.circuit import Circuit
 from ..ops import apply as A
+from ..parallel.sharded import is_sharded
 from ..passes.permute import plan_permutation, unpermute_state
 from .vmem import VMEM_MAX_QUBITS
 from .wide import LANE_QUBITS
@@ -71,12 +84,12 @@ def _auto_strategy(cfg: SimulatorConfig, n: int) -> str:
 
     The JAX package's 23..28 ``mxu`` band encodes a TPU link's transfer
     cost and is not copied: the port's ``auto`` is ``prefetch`` (which
-    raises outside its slice) until card measurements say otherwise.
+    raises outside its slice) until card measurements say otherwise.  An
+    explicit device mesh always means the sharded engine, as in the JAX
+    package.
     """
     if cfg.mesh_shape is not None:
-        raise NotImplementedError(
-            "a device mesh means the sharded engine, not yet ported "
-            "(ROADMAP queue A, parallel/ on torch.distributed)")
+        return "sharded"
     return "prefetch"
 
 
@@ -84,7 +97,14 @@ class Simulator:
     def __init__(self, config: Optional[SimulatorConfig] = None,
                  device="cuda"):
         self.config = config or SimulatorConfig()
-        self.device = A.resolve_device(device)
+        if isinstance(device, (list, tuple)):
+            if not device:
+                raise ValueError("device: an empty list of devices")
+            self.devices = [A.resolve_device(d) for d in device]
+            self.device = self.devices[0]
+        else:
+            self.devices = None
+            self.device = A.resolve_device(device)
 
     def _resolved(self, n: int) -> "Simulator":
         """Resolve ``strategy='auto'`` to a concrete engine for width n."""
@@ -92,7 +112,36 @@ class Simulator:
             return self
         return Simulator(dataclasses.replace(
             self.config, strategy=_auto_strategy(self.config, n)),
-            device=self.device)
+            device=self.devices or self.device)
+
+    def mesh(self):
+        """The sharded engine's mesh: ``config.mesh_shape`` over the devices
+        given (a list), or over every visible device of ``device``'s type;
+        cut down to a power of two when no shape is set.  A shape larger
+        than its devices raises ValueError."""
+        from ..parallel.mesh import make_mesh, visible_devices
+
+        cfg = self.config
+        devices = (self.devices if self.devices is not None
+                   else visible_devices(self.device))
+        return make_mesh(cfg.mesh_shape, cfg.mesh_axis_names, devices)
+
+    def _shard_segmented(self, n: int) -> bool:
+        """Route 'sharded' through the segmented prefetch chain?"""
+        cfg = self.config
+        if cfg.strategy != "sharded":
+            return False
+        if cfg.dtype != "complex64":
+            return False
+        from ..parallel.mesh import num_global_qubits
+        from .prefetch import MIN_QUBITS
+
+        d = num_global_qubits(self.mesh(), cfg.mesh_axis_names[0])
+        if n - d < MIN_QUBITS:
+            return False
+        if cfg.shard_segmented is not None:
+            return bool(cfg.shard_segmented)
+        return True
 
     # ------------------------------------------------------------------ API
     def run(self, circuit: Circuit, initial=None) -> np.ndarray:
@@ -105,9 +154,10 @@ class Simulator:
 
         Above n = 22 the distribution, its CDFs and the searches run on the
         simulator's device (sampling.py) and only the indices reach the
-        host: on the column halves when prefetch runs in place, else on the
-        flat pair.  Up to n = 22 it is the host sampler (ref/cpu.py) on the
-        final state, the JAX package's samples bit for bit.
+        host: on the column halves when prefetch runs in place, shard by
+        shard for "sharded", else on the flat pair.  Up to n = 22 it is
+        the host sampler (ref/cpu.py) on the final state, the JAX package's
+        samples bit for bit.
         """
         sim = self._resolved(circuit.num_qubits)
         if sim is not self:
@@ -167,16 +217,15 @@ class Simulator:
 
     def run_device(self, circuit: Circuit, initial=None):
         """Run and return (re, im, num_ops): flat float32 tensors on the
-        simulator's device, in the original basis, once the device has run
-        them.
+        simulator's device (for "sharded": shard lists on the mesh's
+        devices), in the original basis, once the device has run them.
 
         ``initial``: optional complex state vector (original basis) to
         resume from instead of |0...0>.
         """
         sim = self._resolved(circuit.num_qubits)
         re, im, num_ops = sim._run_device(circuit, initial)
-        if sim.device.type == "cuda":
-            torch.cuda.synchronize(sim.device)
+        _synchronize(re, sim.device)
         return re, im, num_ops
 
     def _run_device(self, circuit: Circuit, initial=None):
@@ -205,8 +254,9 @@ class Simulator:
         the host (the building block of dynamic-circuit trajectories).
         ``parts`` (tensors or numpy arrays, original basis) are copied once
         on the device and never changed: the programs write into the pair
-        they are handed.  Programs come from the same caches as the plain
-        runs, so a repeat re-plans nothing.
+        they are handed.  For "sharded" ``parts`` may also be shard lists,
+        and the result is a pair of shard lists.  Programs come from the
+        same caches as the plain runs, so a repeat re-plans nothing.
         """
         sim = self._resolved(circuit.num_qubits)
         if sim is not self:
@@ -219,8 +269,14 @@ class Simulator:
         cfg = self.config
         n = circuit.num_qubits
         fn, nops = self._build_program(circuit)
-        re, im = (_component(p, (1 << n,), self.device, _real_dtype(cfg))
-                  for p in parts)
+        if cfg.strategy == "sharded":
+            from ..parallel.sharded import shard_component
+
+            re, im = (shard_component(p, fn.devices, _real_dtype(cfg))
+                      for p in parts)
+        else:
+            re, im = (_component(p, (1 << n,), self.device, _real_dtype(cfg))
+                      for p in parts)
         re, im = fn(re, im)
         return re, im, nops
 
@@ -234,11 +290,12 @@ class Simulator:
         Structured deep circuits (Grover iterations, Trotter steps, QAOA
         layers) repeat one block many times.  All parts share one qubit
         relabeling, so no basis shuffling happens between repetitions.
-        Strategies: mxu, vmem, megakernel and prefetch (its flat program,
-        planned layout-closed: ``final_layout`` = identity); sharded is not
-        yet ported.  On a card the mxu and prefetch bodies are captured once
-        as a CUDA graph and replayed ``repetitions`` times (engine/graphs.py;
-        the JAX package's ``lax.scan`` arms); vmem and the megakernel arm
+        Strategies: mxu, vmem, megakernel, prefetch (its flat program,
+        planned layout-closed: ``final_layout`` = identity) and sharded
+        (every part planned layout-closed; shard lists in and out).  On a
+        card the mxu and prefetch bodies are captured once as a CUDA graph
+        and replayed ``repetitions`` times (engine/graphs.py; the JAX
+        package's ``lax.scan`` arms); vmem, the megakernel arm and sharded
         loop over the program, as in the JAX package.  On the CPU every
         strategy loops.
         """
@@ -252,9 +309,15 @@ class Simulator:
 
         perm, programs = self._iterated_programs(body, repetitions, prefix,
                                                  suffix)
-        re, im = A.initial_state_parts(body.num_qubits,
-                                       dtype=_real_dtype(self.config),
-                                       device=self.device)
+        n = body.num_qubits
+        if self.config.strategy == "sharded":
+            from ..parallel.sharded import initial_shards
+
+            re, im = initial_shards(n, self.mesh().device_list,
+                                    _real_dtype(self.config))
+        else:
+            re, im = A.initial_state_parts(n, dtype=_real_dtype(self.config),
+                                           device=self.device)
         total_ops = 0
         for fn, nops, reps in programs:
             total_ops += nops * reps
@@ -264,7 +327,7 @@ class Simulator:
                 for _ in range(reps):
                     re, im = fn(re, im)
         if perm is not None:
-            re, im = A.unpermute_device(re, im, [int(p) for p in perm])
+            re, im = self._restore(re, im, perm, None)
         return re, im, total_ops
 
     def _iterated_programs(self, body: Circuit, repetitions: int,
@@ -309,14 +372,15 @@ class Simulator:
         basis in and out (the JAX package's ``_build_program``).  mxu and
         vmem share the plain runs' plan cache; prefetch is flat, never in
         place, its plan routed back to the identity layout
-        (``final_layout``), from ``build_prefetch_program``'s cache."""
+        (``final_layout``), from ``build_prefetch_program``'s cache.
+        sharded plans layout-closed too: the segmented program with
+        ``final_layout`` = identity, or the dense one with
+        ``restore_layout``, as in the JAX package."""
         cfg = self.config
         n = circuit.num_qubits
-        if cfg.strategy == "sharded":
-            raise NotImplementedError(
-                "strategy 'sharded' is not yet ported (ROADMAP queue A, "
-                "\"parallel/ on torch.distributed\")")
         _check_run(cfg, n)
+        if cfg.strategy == "sharded":
+            return self._sharded_program(circuit)
         if cfg.strategy == "megakernel" or n <= LANE_QUBITS:
             from ..passes.fuse4x4 import fuse_4x4
             from .megakernel import build_megakernel
@@ -368,6 +432,38 @@ class Simulator:
         ops, prog = self._mxu_program(circuit)
         return prog, len(ops)
 
+    def _sharded_program(self, circuit: Circuit):
+        """(layout-closed sharded program, num_ops), from the plan cache."""
+        from .prefetch import _circuit_fingerprint
+
+        cfg = self.config
+        n = circuit.num_qubits
+        mesh = self.mesh()
+        segmented = self._shard_segmented(n)
+        precision = cfg.effective_precision(n)
+        key = ("sharded", _circuit_fingerprint(circuit), n, cfg.dtype,
+               precision, cfg.max_fused_qubits, segmented, mesh.key)
+
+        def plan():
+            if segmented:
+                from ..parallel.sharded_prefetch import ShardedPrefetchProgram
+                from .prefetch import LANE_QUBITS as PF_LANES
+
+                ops = _fuse_pipeline(
+                    circuit, min(cfg.max_fused_qubits, PF_LANES),
+                    max_high=2, window=8)
+                prog = ShardedPrefetchProgram(
+                    ops, n, mesh, cfg.mesh_axis_names[0],
+                    precision=precision, final_layout=np.arange(n))
+                return prog.num_ops, prog
+            from ..parallel.sharded import ShardedProgram
+
+            prog = ShardedProgram(circuit, cfg, mesh, restore_layout=True)
+            return len(prog.plan.items), prog
+
+        nops, prog = _cached_plan(key, plan)
+        return prog, nops
+
     def run_many(self, circuits, terms=None, throttle: int = 8):
         """Pipelined batch execution: every circuit is dispatched before any
         result is fetched, so host planning and enqueueing overlap the
@@ -407,20 +503,23 @@ class Simulator:
                     and self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
         if evaluate is not None:
-            return torch.stack(pending).double().cpu().numpy() + const
-        return [A.join_state(re, im) for re, im in pending]
+            return torch.stack([p.to(self.device) for p in pending]
+                               ).double().cpu().numpy() + const
+        return [_join(re, im) for re, im in pending]
 
     def _relabel(self, circuit: Circuit, initial=None):
         """(work circuit, perm or None, initial in the work basis): hot
-        qubits relabeled low for mxu, pallas and vmem, and for any strategy
-        with ``permute=True`` (prefetch routes the state back to the
-        ORIGINAL basis inside its own plan, so it relabels here only when
-        asked)."""
+        qubits relabeled low for mxu, pallas, vmem and the dense sharded
+        engine, and for any strategy with ``permute=True`` (prefetch and the
+        segmented sharded engine route the state back to the ORIGINAL basis
+        inside their own plans, so they relabel here only when asked; the
+        segmented engine not even then, as in the JAX package)."""
         n = circuit.num_qubits
         perm = None
         work = circuit
-        if self.config.permute or self.config.strategy in ("mxu", "pallas",
-                                                           "vmem"):
+        if not self._shard_segmented(n) and (
+                self.config.permute or self.config.strategy in (
+                    "mxu", "pallas", "vmem", "sharded")):
             perm = plan_permutation(circuit)
             if np.array_equal(perm, np.arange(n)):
                 perm = None
@@ -435,10 +534,10 @@ class Simulator:
                 initial = unpermute_state(initial, np.argsort(perm))
         return work, perm, initial
 
-    @staticmethod
-    def _restore(re, im, perm, residual):
+    def _restore(self, re, im, perm, residual):
         """Compose the relabeling with any layout the engine left behind,
-        and undo both with one device unpermute."""
+        and undo both with one device unpermute (on the shards, without a
+        join, for a sharded state)."""
         total = None
         if perm is not None and residual is not None:
             total = residual[perm]
@@ -448,7 +547,13 @@ class Simulator:
             total = residual
         if total is not None and not np.array_equal(total,
                                                     np.arange(len(total))):
-            re, im = A.unpermute_device(re, im, [int(p) for p in total])
+            total = [int(p) for p in total]
+            if is_sharded(re):
+                from ..parallel.sharded import unpermute_sharded
+
+                return unpermute_sharded(re, im, total,
+                                         self.mesh().device_list)
+            re, im = A.unpermute_device(re, im, total)
         return re, im
 
     def run_detailed(self, circuit: Circuit, initial=None) -> RunResult:
@@ -465,7 +570,7 @@ class Simulator:
                 time.perf_counter() - t0, self.config.strategy,
             )
         re, im, num_ops = self.run_device(circuit, initial=initial)
-        state = A.join_state(re, im)
+        state = _join(re, im)
         return RunResult(
             state, circuit.num_qubits, len(circuit), num_ops,
             time.perf_counter() - t0, self.config.strategy,
@@ -477,6 +582,16 @@ class Simulator:
         n = circuit.num_qubits
         if cfg.strategy in PER_GATE_STRATEGIES:
             return self._run_per_gate(circuit, initial)
+        if cfg.strategy == "sharded":
+            parts = None if initial is None else (initial.real, initial.imag)
+            if self._shard_segmented(n):
+                from ..parallel.sharded_prefetch import run_sharded_prefetch
+
+                return run_sharded_prefetch(circuit, cfg, self.mesh(),
+                                            initial_parts=parts)
+            from ..parallel.sharded import run_sharded
+
+            return run_sharded(circuit, cfg, self.mesh(), initial_parts=parts)
         if cfg.strategy == "prefetch":
             from .prefetch import run_prefetch
 
@@ -612,7 +727,7 @@ class Simulator:
 PER_GATE_STRATEGIES = ("naive", "fused2x2", "fused3in1", "fused4x4", "scan")
 
 # what runs complex128: the JAX package's float64 parity arms
-COMPLEX128_STRATEGIES = ("mxu", "megakernel", "reference") \
+COMPLEX128_STRATEGIES = ("mxu", "megakernel", "reference", "sharded") \
     + PER_GATE_STRATEGIES
 
 
@@ -623,20 +738,15 @@ def _real_dtype(cfg: SimulatorConfig) -> torch.dtype:
 
 
 def _check_run(cfg: SimulatorConfig, n: int) -> None:
-    """Raise for what the port's engines do not run: n > 30, the sharded
-    strategy, complex128 on the float32-only kernel engines, vmem above
-    n = 19 (the prefetch engine fences its width itself,
+    """Raise for what the port's engines do not run: n > 30 outside the
+    sharded strategy, complex128 on the float32-only kernel engines, vmem
+    above n = 19 (the prefetch engine fences its width itself,
     engine/prefetch.py ``check_slice``)."""
-    if n > 30:
+    if n > 30 and cfg.strategy != "sharded":
         # fail BEFORE allocating, as the JAX package does
         raise ValueError(
-            f"n = {n} exceeds the single-chip ceiling (n = 30); the sharded "
-            "engines are not yet ported (ROADMAP queue A, \"parallel/ on "
-            "torch.distributed\")")
-    if cfg.strategy == "sharded":
-        raise NotImplementedError(
-            "strategy 'sharded' is not yet ported (ROADMAP queue A, "
-            "\"parallel/ on torch.distributed\")")
+            f"n = {n} exceeds the single-chip ceiling (n = 30); use "
+            "strategy='sharded' over a mesh of devices")
     if cfg.dtype == "complex128" and cfg.strategy not in COMPLEX128_STRATEGIES:
         raise ValueError(
             f"strategy {cfg.strategy!r} is float32-only (its kernels run no "
@@ -657,6 +767,25 @@ def _check_run(cfg: SimulatorConfig, n: int) -> None:
 # the limit stays small.
 _MXU_PLAN_CACHE: dict = {}
 _MXU_PLAN_CACHE_LIMIT = 8
+
+
+def _join(re, im) -> np.ndarray:
+    """A device state, flat or sharded, as one complex host vector."""
+    if is_sharded(re):
+        from ..parallel.sharded import join_shards
+
+        return join_shards(re, im)
+    return A.join_state(re, im)
+
+
+def _synchronize(re, device: torch.device) -> None:
+    """Wait for the device (every card of a sharded state)."""
+    if is_sharded(re):
+        from ..parallel.sharded import synchronize
+
+        synchronize(re)
+    elif device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _cached_plan(key, plan):

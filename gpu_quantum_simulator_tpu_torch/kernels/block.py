@@ -59,11 +59,12 @@ Pair = Tuple[torch.Tensor, torch.Tensor]
 
 def _check_mode(mode: int, sigma) -> None:
     if mode not in (0, 1, 5):
-        raise NotImplementedError(
+        raise ValueError(
             f"block mode {mode}: the port's blocks are plain (0), steered "
             "(1) and folded relayout (5); the in-place xswap (2) is an "
-            "entry of in-place plans, and the mesh gswap (4) comes with "
-            "ROADMAP queue A, \"parallel/ on torch.distributed\"")
+            "entry of in-place plans, the relayout (3) a kernel of its own, "
+            "and the mesh gswap (4) an entry of the sharded chain "
+            "(parallel/sharded_prefetch.py)")
     if (mode == 5) != (sigma is not None):
         raise ValueError(f"block mode {mode}: a sigma is given exactly for "
                          "a folded relayout (mode 5)")

@@ -68,12 +68,12 @@ def _check_halves(halves: Halves, what: str) -> int:
 
 def _check_block_mode(mode: int) -> None:
     if mode not in (0, 1):
-        raise NotImplementedError(
+        raise ValueError(
             f"split block mode {mode}: in-place blocks are plain (0) or pair "
             "mode (1); 2 is the pair swap (run_xswap), 3 the in-place "
             "relayout (kernels/relayout.py), 5 never occurs in place, and "
-            "the mesh gswap (4) comes with ROADMAP queue A, \"parallel/ on "
-            "torch.distributed\"")
+            "the mesh gswap (4) is an entry of the sharded chain "
+            "(parallel/sharded_prefetch.py)")
 
 
 def run_xswap_plain(halves: Halves, row_bit: int) -> Halves:

@@ -132,12 +132,47 @@ def inner_parts(lr, li, pr, pi):
 def _pauli_sum_parts(re, im, parsed, num_qubits: int) -> torch.Tensor:
     """sum_k c_k <psi|P_k|psi> over parsed (coeff, ops) terms, as a 0-d
     tensor on the state's device: queued, not fetched (``run_many`` fetches
-    every circuit's at the end)."""
+    every circuit's at the end).  A sharded state (shard lists) reduces
+    shard by shard (``_pauli_sum_shards``)."""
+    from .parallel.sharded import is_sharded
+
+    if is_sharded(re):
+        return _pauli_sum_shards(re, im, parsed, num_qubits)
     total = torch.zeros((), dtype=re.dtype, device=re.device)
     for coeff, ops in parsed:
         tr, ti = apply_pauli_parts(re, im, ops, num_qubits)
         total = total + coeff * (torch.dot(re, tr) + torch.dot(im, ti))
         del tr, ti
+    return total
+
+
+def _pauli_sum_shards(re, im, parsed, num_qubits: int) -> torch.Tensor:
+    """``_pauli_sum_parts`` on a sharded state, without a join.
+
+    A string's local factors act inside every shard (``apply_pauli_parts``
+    at the local width); its factors on shard-index bits map shard s to
+    shard t = s ^ (X/Y bits) with the phase i^(#Y) (-1)^(Z/Y bits of s).
+    So <psi|P|psi> = sum_s Re(phase_s <psi_t|P_local psi_s>), a 0-d tensor
+    on the first shard's device."""
+    S = len(re)
+    nl = num_qubits - (S.bit_length() - 1)
+    first = re[0].device
+    total = torch.zeros((), dtype=re[0].dtype, device=first)
+    for coeff, ops in parsed:
+        local = {q: a for q, a in ops.items() if q < nl}
+        glob = {q - nl: a for q, a in ops.items() if q >= nl}
+        xmask = sum(1 << g for g, a in glob.items() if a in "XY")
+        zmask = sum(1 << g for g, a in glob.items() if a in "YZ")
+        phase0 = 1j ** sum(1 for a in glob.values() if a == "Y")
+        for s in range(S):
+            t = s ^ xmask
+            phase = phase0 * (-1) ** (bin(s & zmask).count("1") & 1)
+            tr, ti = apply_pauli_parts(re[s], im[s], local, nl)
+            tr, ti = tr.to(re[t].device), ti.to(re[t].device)
+            a_re, a_im = inner_parts(re[t], im[t], tr, ti)
+            val = phase.real * a_re - phase.imag * a_im
+            total = total + coeff * val.to(first)
+            del tr, ti
     return total
 
 

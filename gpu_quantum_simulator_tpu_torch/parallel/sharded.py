@@ -1,0 +1,300 @@
+"""Mesh-sharded state-vector engine on torch (the dense engine).
+
+The port of the JAX package's ``parallel/sharded.py``.  Layout: the flat
+2^n amplitude pair is cut into 2^d contiguous shards, one (re, im) pair a
+mesh device (parallel/mesh.py), so the top d = log2(mesh) qubits are the
+shard-index bits and the low n - d qubits are local.  A sharded state is
+two lists, ``re[s]`` and ``im[s]`` the (2^(n-d),) tensors of shard s on
+its device: nothing of size 2^n is ever put together on one device.
+
+``ShardedProgram`` runs a ``passes.shard.plan_sharded`` item stream: local
+fused ops are the single-device ``ops/apply.py`` primitives on every
+shard; a swap of global position ``p`` with local position ``l`` is a
+pairwise half-block exchange with the shard across shard-index bit
+``p - (n - d)`` (``swap_halves``), the JAX package's ``lax.ppermute``.
+
+Swap derivation (bit A = global p, bit B = local l, shard bit a, block half
+b = bit l): amplitudes with b == a stay put (their new local bit equals the
+old shard bit); amplitudes with b != a move to the partner shard and land
+in its half l == 1 - partner_bit.  So each shard ships exactly half a block
+— the minimum possible data motion for a qubit swap.  Each shard writes
+its new block into a pair of its own with two copies: its kept half, and
+the partner's shipped half.  Between two cards the second copy is a peer
+copy; torch orders a copy between devices after the current streams of
+both (an event each way), so the partner's last write is complete before
+it is read and no later write of the partner overtakes it.
+
+This engine serves complex128, shards of fewer than 9 qubits and
+``shard_segmented=False``; the segmented engine
+(parallel/sharded_prefetch.py) serves the rest.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import apply as A
+from ..passes.shard import LocalSwapItem, ShardPlan, SwapItem
+from .mesh import Mesh, num_global_qubits
+
+Shards = List[torch.Tensor]
+
+
+def is_sharded(x) -> bool:
+    """Whether ``x`` is one component of a sharded state (a list of
+    per-shard tensors) rather than a flat tensor."""
+    return isinstance(x, (list, tuple))
+
+
+def shard_component(x, devices: Sequence[torch.device],
+                    dtype=torch.float32) -> Shards:
+    """One state component as new per-shard tensors on ``devices``: a flat
+    numpy array or tensor of 2^n values, or a list of per-shard ones.  The
+    caller's data is copied, never changed."""
+    S = len(devices)
+    if is_sharded(x):
+        if len(x) != S:
+            raise ValueError(f"a state of {len(x)} shards for a mesh of {S}")
+        parts = list(x)
+    else:
+        size = x.numel() if isinstance(x, torch.Tensor) else np.asarray(x).size
+        if size % S or (size // S) & (size // S - 1):
+            raise ValueError(f"initial state has wrong length: {size} "
+                             f"amplitudes over {S} shards")
+        flat = x.reshape(-1) if isinstance(x, torch.Tensor) \
+            else np.asarray(x).reshape(-1)
+        step = size // S
+        parts = [flat[s * step:(s + 1) * step] for s in range(S)]
+    out = []
+    for p, dev in zip(parts, devices):
+        if isinstance(p, torch.Tensor):
+            out.append(p.to(device=dev, dtype=dtype, copy=True).reshape(-1))
+        else:
+            out.append(torch.tensor(np.asarray(p), dtype=dtype,
+                                    device=dev).reshape(-1))
+    sizes = {t.numel() for t in out}
+    if len(sizes) != 1:
+        raise ValueError(f"shards of unequal sizes {sorted(sizes)}")
+    return out
+
+
+def initial_shards(num_qubits: int, devices: Sequence[torch.device],
+                   dtype=torch.float32) -> Tuple[Shards, Shards]:
+    """|0...0> as per-shard (re, im) tensors."""
+    S = len(devices)
+    size = (1 << num_qubits) // S
+    re = [torch.zeros(size, dtype=dtype, device=dev) for dev in devices]
+    im = [torch.zeros(size, dtype=dtype, device=dev) for dev in devices]
+    re[0][:1].fill_(1.0)
+    return re, im
+
+
+def swap_halves(re: Shards, im: Shards, g: int, l: int,
+                out: Optional[List[Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor]]]] = None):
+    """Exchange shard-index bit ``g`` with local bit ``l`` of a sharded
+    state; returns the new (re, im) shard lists.
+
+    Shard s (its bit g = my) keeps its half l == my and receives its
+    partner's (s ^ 2^g) half l == my into its half l == 1 - my.  Each shard
+    writes into ``out[s]`` (a pair shaped like its shard; allocated when
+    None), two copies a component; the input shards are only read.
+    """
+    S = len(re)
+    nl = re[0].numel().bit_length() - 1
+    hi, lo = 1 << (nl - l - 1), 1 << l
+    new_re, new_im = [], []
+    for s in range(S):
+        my = (s >> g) & 1
+        p = s ^ (1 << g)
+        pair = out[s] if out is not None and out[s] is not None else (
+            torch.empty_like(re[s]), torch.empty_like(im[s]))
+        for src, part, dst in ((re[s], re[p], pair[0]),
+                               (im[s], im[p], pair[1])):
+            v = dst.view(hi, 2, lo)
+            v[:, my].copy_(src.view(hi, 2, lo)[:, my])
+            v[:, 1 - my].copy_(part.view(hi, 2, lo)[:, my])
+        new_re.append(pair[0])
+        new_im.append(pair[1])
+    return new_re, new_im
+
+
+def local_swap(re: Shards, im: Shards, a: int, b: int):
+    """Exchange two LOCAL bit positions in every shard (no exchange between
+    shards): one transposed copy of each component."""
+    if a > b:
+        a, b = b, a
+    nl = re[0].numel().bit_length() - 1
+    out = [A._swap_bits_device(r, i, a, b, nl) for r, i in zip(re, im)]
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def unpermute_sharded(re: Shards, im: Shards, perm,
+                      devices: Sequence[torch.device]):
+    """Undo a qubit relabeling on a sharded state without a join (the JAX
+    package's on-device transpose of a sharded array; ``perm`` as in
+    ``ops/apply.py`` ``unpermute_device``).
+
+    The permutation decomposes into bit transpositions: two local bits are
+    a transpose in every shard, a local and a shard bit a half-block
+    exchange, two shard bits a reordering of the shards (moved to their
+    mesh device where it differs)."""
+    n = len(perm)
+    nl = n - (len(re).bit_length() - 1)
+    for a, b in A.bit_transpositions(perm):
+        if b < nl:
+            re, im = local_swap(re, im, a, b)
+        elif a < nl:
+            re, im = swap_halves(re, im, b - nl, a)
+        else:
+            ga, gb = a - nl, b - nl
+
+            def swapped(s):
+                ba, bb = (s >> ga) & 1, (s >> gb) & 1
+                return s & ~((1 << ga) | (1 << gb)) | (bb << ga) | (ba << gb)
+
+            order = [swapped(s) for s in range(len(re))]
+            re = [re[t].to(devices[s]) for s, t in enumerate(order)]
+            im = [im[t].to(devices[s]) for s, t in enumerate(order)]
+    return re, im
+
+
+def join_shards(re: Shards, im: Shards) -> np.ndarray:
+    """A sharded state as one complex host vector: each shard is copied
+    into its own slice of a page-locked host buffer (no device holds the
+    whole state)."""
+    size = sum(t.numel() for t in re)
+    dt = re[0].dtype
+    cuda = any(t.is_cuda for t in re)
+    host_re = torch.empty(size, dtype=dt, pin_memory=cuda)
+    host_im = torch.empty(size, dtype=dt, pin_memory=cuda)
+    off = 0
+    for r, i in zip(re, im):
+        k = r.numel()
+        host_re[off:off + k].copy_(r, non_blocking=cuda)
+        host_im[off:off + k].copy_(i, non_blocking=cuda)
+        off += k
+    if cuda:
+        for dev in {t.device for t in re if t.is_cuda}:
+            torch.cuda.synchronize(dev)
+    return A.join_state(host_re, host_im)
+
+
+def synchronize(re: Shards) -> None:
+    """Wait for every card that holds a shard."""
+    for dev in {t.device for t in re if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+def _baked_items(plan: ShardPlan, local_n: int, real_dtype):
+    """The plan's items with their matrices as host arrays of the state's
+    dtype (the JAX package bakes them in as constants)."""
+    dt = np.float64 if real_dtype == torch.float64 else np.float32
+    baked = []
+    for item in plan.items:
+        if isinstance(item, SwapItem):
+            baked.append(("swap", item.pos_a - local_n, item.pos_b, None, None))
+        elif isinstance(item, LocalSwapItem):
+            baked.append(("lswap", item.pos_a, item.pos_b, None, None))
+        elif item.kind == "cx":
+            baked.append(("cx", item.qubits[0], item.qubits[1], None, None))
+        else:
+            baked.append(("u", item.qubits, None,
+                          np.asarray(item.u.real, dtype=dt),
+                          np.asarray(item.u.imag, dtype=dt)))
+    return baked
+
+
+class ShardedProgram:
+    """A planned circuit bound to a mesh: callable on a sharded (re, im)
+    state (or a flat pair, split into new shards), returning new shard
+    lists; the inputs are not changed.
+
+    Used by ``run_sharded`` (one-shot) and ``run_device_iterated`` (the body
+    is planned layout-closed via ``restore_layout`` so repetitions compose).
+    """
+
+    def __init__(self, circuit, config, mesh: Mesh,
+                 restore_layout: bool = False):
+        from ..passes.fuse4x4 import fuse_4x4
+        from ..passes.fuse_k import fuse_k
+        from ..passes.shard import plan_sharded
+
+        n = circuit.num_qubits
+        axis = config.mesh_axis_names[0]
+        d = num_global_qubits(mesh, axis)
+        if d >= n:
+            raise ValueError(f"{n}-qubit state cannot shard over 2^{d} devices")
+        local_n = n - d
+
+        k = min(config.max_fused_qubits, local_n, n)
+        # two-level planning: cap fused blocks at 2 logical qubits above the
+        # lane region AND have the planner relocate crowded shard-high
+        # positions (LocalSwapItem), as in the JAX package
+        max_high = 2 if local_n > 7 else None
+        ops = fuse_k(fuse_4x4(circuit), max_qubits=k, max_high=max_high)
+        plan = plan_sharded(
+            ops, n, d,
+            max_local_high=2 if local_n > 7 else None,
+            restore_layout=restore_layout,
+        )
+        self.num_qubits = n
+        self.mesh = mesh
+        self.devices = mesh.device_list
+        self.plan = plan
+        self.real_dtype = (torch.float32 if config.dtype == "complex64"
+                           else torch.float64)
+        self._local_n = local_n
+        self._items = _baked_items(plan, local_n, self.real_dtype)
+
+    def init_state(self, initial_parts=None):
+        if initial_parts is None:
+            return initial_shards(self.num_qubits, self.devices,
+                                  self.real_dtype)
+        return tuple(shard_component(x, self.devices, self.real_dtype)
+                     for x in initial_parts)
+
+    def __call__(self, re, im):
+        if not is_sharded(re):
+            re, im = self.init_state((re, im))
+        re, im = list(re), list(im)
+        nl = self._local_n
+        for kind, a, b, ur, ui in self._items:
+            if kind == "swap":
+                re, im = swap_halves(re, im, a, b)
+            elif kind == "lswap":
+                re, im = local_swap(re, im, a, b)
+            else:
+                for s in range(len(re)):
+                    if kind == "cx":
+                        re[s], im[s] = A.apply_cnot(re[s], im[s], a, b, nl)
+                    elif len(a) == 1:
+                        re[s], im[s] = A.apply_1q(re[s], im[s], ur, ui, a[0],
+                                                  nl)
+                    elif len(a) == 2:
+                        re[s], im[s] = A.apply_2q(re[s], im[s], ur, ui, a[0],
+                                                  a[1], nl)
+                    else:
+                        re[s], im[s] = A.apply_kq(re[s], im[s], ur, ui, a, nl)
+        return re, im
+
+    @property
+    def residual(self):
+        perm = self.plan.final_position
+        if np.array_equal(perm, np.arange(self.num_qubits)):
+            return None
+        return perm
+
+
+def run_sharded(circuit, config, mesh: Mesh, initial_parts=None):
+    """Entry used by the Simulator facade; returns (re, im, num_ops, perm)
+    with ``re``/``im`` shard lists."""
+    prog = ShardedProgram(circuit, config, mesh)
+    re, im = prog.init_state(initial_parts)
+    re, im = prog(re, im)
+    # The plan's swaps leave a layout permutation; the Simulator undoes it
+    # on the shards (unpermute_sharded).
+    return re, im, len(prog.plan.items), prog.residual

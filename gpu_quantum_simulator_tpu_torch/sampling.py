@@ -11,6 +11,15 @@ four (R2, 128) column halves ``(re0, re1, im0, im1)`` of the in-place
 prefetch engine (basis index = (row << 8) | column, half h1 holding
 columns 128..255).  The halves functions never build a 2^n tensor: they
 reduce in row chunks, so their transients stay a few MB whatever n is.
+Sharded states (the "sharded" strategy) are two lists of per-shard
+tensors, shard s holding the basis indices s * 2^nl .. (s + 1) * 2^nl - 1
+on its own device; ``sample_state_device``, ``top_amplitudes_device``,
+``norm_device``, ``amplitudes_device`` and ``expectation_z`` take them and
+work shard by shard.  Only reductions reach the first shard's device: the
+2^(n-8) row masses of the staged sampler (a shard boundary is a row
+boundary, since a shard holds at least 2^9 amplitudes) and, up to
+``STAGE_SPLIT_MIN`` qubits, the 2^n probabilities of the one-CDF sampler.
+Global indices are int64 (shard << nl | local), past 2^31 at n = 31.
 
 Staged sampling keeps float32 CDFs accurate at large n: one f32 cumsum over
 2^30 probabilities accumulates ~1e-5 error and biases the tail, so above
@@ -28,6 +37,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .parallel.sharded import is_sharded
 
 STAGE_SPLIT_MIN = 20
 LANES = 128
@@ -49,10 +60,9 @@ def _pick(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.clamp((cdf < u).sum(dim=1), max=cdf.shape[1] - 1)
 
 
-def _sample_direct(re, im, num_samples, gen):
-    p = re * re + im * im
+def _sample_direct(p, num_samples, gen):
     cdf = torch.cumsum(p, 0)
-    u = torch.rand(num_samples, device=re.device, dtype=cdf.dtype,
+    u = torch.rand(num_samples, device=p.device, dtype=cdf.dtype,
                    generator=gen) * cdf[-1]
     return torch.clamp(torch.searchsorted(cdf, u, right=True),
                        max=cdf.numel() - 1)
@@ -84,10 +94,15 @@ def _staged(pr: torch.Tensor, columns, num_samples: int, gen):
 def sample_state_device(re, im, num_qubits: int, num_samples: int,
                         seed: int = 0) -> np.ndarray:
     """Sample basis-state indices from a flat (re, im) state on its device:
-    one CDF up to ``STAGE_SPLIT_MIN`` qubits, three stages above."""
+    one CDF up to ``STAGE_SPLIT_MIN`` qubits, three stages above.  A
+    sharded state samples the same indices as its flat form with the same
+    seed on the same device."""
+    if is_sharded(re):
+        return _sample_shards(re, im, num_qubits, num_samples, seed)
     gen = _generator(re.device, seed)
     if num_qubits <= STAGE_SPLIT_MIN:
-        return _host_indices(_sample_direct(re, im, num_samples, gen))
+        return _host_indices(_sample_direct(re * re + im * im, num_samples,
+                                            gen))
     re2 = re.reshape(-1, DVIEW)
     im2 = im.reshape(-1, DVIEW)
     pr = torch.cat([(re2[s] * re2[s] + im2[s] * im2[s]).sum(dim=1)
@@ -100,15 +115,83 @@ def sample_state_device(re, im, num_qubits: int, num_samples: int,
     return _host_indices(_staged(pr, columns, num_samples, gen))
 
 
+def _sample_shards(re, im, num_qubits, num_samples, seed):
+    """``sample_state_device`` on a sharded state: the flat sampler's
+    arithmetic, shard by shard, its reductions on the first shard's
+    device."""
+    first = re[0].device
+    gen = _generator(first, seed)
+    if num_qubits <= STAGE_SPLIT_MIN:
+        p = torch.cat([(r * r + i * i).to(first) for r, i in zip(re, im)])
+        return _host_indices(_sample_direct(p, num_samples, gen))
+    rows = re[0].numel() // DVIEW            # rows of 256 a shard
+    pr = []
+    for r, i in zip(re, im):
+        r2, i2 = r.reshape(-1, DVIEW), i.reshape(-1, DVIEW)
+        pr += [(r2[s] * r2[s] + i2[s] * i2[s]).sum(dim=1).to(first)
+               for s in _row_chunks(rows)]
+    pr = torch.cat(pr)
+
+    def columns(row):
+        out = torch.empty((row.numel(), DVIEW), dtype=re[0].dtype,
+                          device=first)
+        shard, local = row // rows, row % rows
+        for s, (r, i) in enumerate(zip(re, im)):
+            sel = torch.nonzero(shard == s).squeeze(1)
+            if sel.numel():
+                at = local[sel].to(r.device)
+                rre = r.reshape(-1, DVIEW)[at]
+                rim = i.reshape(-1, DVIEW)[at]
+                out[sel] = (rre * rre + rim * rim).to(first)
+        return out
+
+    return _host_indices(_staged(pr, columns, num_samples, gen))
+
+
 def top_amplitudes_device(re, im, k: int = 8):
-    """(probabilities, indices) of the k most likely outcomes."""
-    vals, idx = torch.topk(re * re + im * im, k)
-    return vals.cpu().numpy(), _host_indices(idx)
+    """(probabilities, indices) of the k most likely outcomes; of a sharded
+    state from each shard's k best (equal probabilities lower index
+    first)."""
+    if not is_sharded(re):
+        vals, idx = torch.topk(re * re + im * im, k)
+        return vals.cpu().numpy(), _host_indices(idx)
+    first = re[0].device
+    size = re[0].numel()
+    vals, idx = [], []
+    for s, (r, i) in enumerate(zip(re, im)):
+        v, j = torch.topk(r * r + i * i, min(k, size))
+        vals.append(v.to(first))
+        idx.append(j.to(first) + s * size)
+    vals, idx = torch.cat(vals), torch.cat(idx)
+    order = torch.argsort(idx)
+    order = order[torch.sort(vals[order], descending=True, stable=True)[1]]
+    order = order[:k]
+    return vals[order].cpu().numpy(), _host_indices(idx[order])
 
 
 def norm_device(re, im) -> float:
-    """Squared norm of a flat state (dot products: no 2^n temporary)."""
+    """Squared norm of a flat state (dot products: no 2^n temporary), or
+    of a sharded one (the shards' dot products summed)."""
+    if is_sharded(re):
+        return sum(float(torch.dot(r, r) + torch.dot(i, i))
+                   for r, i in zip(re, im))
     return float(torch.dot(re, re) + torch.dot(im, im))
+
+
+def amplitudes_device(re, im, indices) -> np.ndarray:
+    """Complex amplitudes of selected basis indices of a flat or sharded
+    state: a gather of just len(indices) values on the devices."""
+    idx = np.asarray(indices, dtype=np.int64)
+    if not is_sharded(re):
+        at = torch.from_numpy(idx).to(re.device)
+        return re[at].cpu().numpy() + 1j * im[at].cpu().numpy()
+    size = re[0].numel()
+    out = np.empty(idx.shape, dtype=np.complex128)
+    for k, j in enumerate(idx.reshape(-1)):
+        s, local = divmod(int(j), size)
+        out.reshape(-1)[k] = complex(float(re[s][local]), float(im[s][local]))
+    return out.astype(np.complex64 if re[0].dtype == torch.float32
+                      else np.complex128)
 
 
 def norm_halves(re0, re1, im0, im1) -> float:
@@ -173,8 +256,19 @@ def _fold_z(p: torch.Tensor, bits) -> torch.Tensor:
 
 
 def expectation_z(re, im, qubits, num_qubits: int) -> float:
-    """<Z_{q1} Z_{q2} ...> of a flat state (no state transfer)."""
-    return float(_fold_z(re * re + im * im, set(qubits)))
+    """<Z_{q1} Z_{q2} ...> of a flat state (no state transfer); of a
+    sharded one, each shard folded over its local qubits and signed by its
+    index bits."""
+    if not is_sharded(re):
+        return float(_fold_z(re * re + im * im, set(qubits)))
+    nl = re[0].numel().bit_length() - 1
+    local = {q for q in qubits if q < nl}
+    gmask = sum(1 << (q - nl) for q in set(qubits) if q >= nl)
+    total = 0.0
+    for s, (r, i) in enumerate(zip(re, im)):
+        sign = -1.0 if bin(s & gmask).count("1") & 1 else 1.0
+        total += sign * float(_fold_z(r * r + i * i, local))
+    return total
 
 
 def expectation_z_halves(re0, re1, im0, im1, qubits,

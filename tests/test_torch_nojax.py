@@ -89,6 +89,18 @@ with tempfile.TemporaryDirectory() as d:
         assert main([path, "--device", "cpu", "-m", "8", "--noise-p1",
                      "0.05", "--noise-readout", "0.01"]) == 0
     assert len(out.getvalue().splitlines()) == 9
+for mesh in ((8,), (2,)):       # the dense and the segmented engine
+    sim = T.Simulator(T.SimulatorConfig(strategy="sharded", mesh_shape=mesh),
+                      device=["cpu"] * 8)
+    s = sim.run(c)
+    assert s.shape == (1 << 10,) and abs(np.linalg.norm(s) - 1) < 1e-5
+    re, im, _ = sim.run_device(c)
+    assert len(re) == mesh[0] and abs(T.norm_device(re, im) - 1) < 1e-5
+    assert sampling.sample_state_device(re, im, 10, 50, 1).shape == (50,)
+    with tempfile.TemporaryDirectory() as d:
+        from gpu_quantum_simulator_tpu_torch.utils import checkpoint as CK
+        CK.save_state_sharded(d, re, im, 10)
+        assert np.allclose(CK.load_state_sharded(d)[0], s.real)
 loaded = [m for m, mod in sys.modules.items() if mod is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "gpu_quantum_simulator_tpu"))]
 print("LOADED", loaded)
@@ -113,7 +125,8 @@ def _imported_roots(path):
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "chip_mesh.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     bad = {(os.path.relpath(f, REPO), m) for f in files
@@ -129,5 +142,6 @@ def test_no_source_imports_jax_or_the_jax_package():
             "passes/fuse2x2.py", "engine/naive.py", "engine/scan.py",
             "__main__.py", "gradients.py", "dynamic.py", "density.py",
             "mitigation.py", "shadows.py", "mps.py", "ref/stabilizer.py",
-            "interop.py"} <= rel, rel
+            "interop.py", "parallel/mesh.py", "parallel/sharded.py",
+            "parallel/sharded_prefetch.py"} <= rel, rel
     assert len(files) > 15 and not bad, bad
