@@ -1551,35 +1551,49 @@ def check_vmem_kernel(torch, T):
     return chunk, op
 
 
-def launch_counts():
-    from gpu_quantum_simulator_tpu_torch.kernels import (
-        block, relayout, split, vmem, wide)
+# the smoke's short names of the port's launch counters (telemetry's
+# ``launches/<wrapper>[/<kind>]``); the block kernels' kinds keep their own
+# names, the in-place block kernel's take "split_"
+SHORT_NAMES = {"run_relayout": "relayout", "kh0_chain/highest": "kh0",
+               "kh0_chain/high": "kh0_high",
+               "kh0_chain/default": "kh0_default",
+               "apply_block128": "block128", "mm_step_high": "mm_high",
+               "mm_step_default": "mm_default", "vmem_chunk": "vmem",
+               "run_xswap": "xswap",
+               "run_relayout_inplace": "relayout_inplace",
+               "apply_butterfly_high": "butterfly",
+               "grid_copy": "copy_grid", "stream_copy": "copy_stream",
+               "hbm_direct": "copy_direct"}
 
-    return {**block.run_block.launches,
-            "relayout": relayout.run_relayout.launches,
-            "kh0": wide.kh0_chain.launches["highest"],
-            "kh0_high": wide.kh0_chain.launches["high"],
-            "kh0_default": wide.kh0_chain.launches["default"],
-            "block128": wide.apply_block128.launches,
-            "mm_high": wide.mm_step_high.launches,
-            "mm_default": wide.mm_step_default.launches,
-            "vmem": vmem.vmem_chunk.launches,
-            **{f"split_{k}": v
-               for k, v in split.run_split_block.launches.items()},
-            "xswap": split.run_xswap.launches,
-            "relayout_inplace": relayout.run_relayout_inplace.launches}
+
+def launch_counts():
+    """Every launch counter of the port (``telemetry.counters``), by the
+    smoke's short names."""
+    from gpu_quantum_simulator_tpu_torch import telemetry
+    # every counting wrapper registers itself when its module loads
+    from gpu_quantum_simulator_tpu_torch.kernels import (  # noqa: F401
+        block, copy, relayout, split, vmem, wide)
+    from gpu_quantum_simulator_tpu_torch.ops import (  # noqa: F401
+        pallas_kernels)
+    from gpu_quantum_simulator_tpu_torch.parallel import (  # noqa: F401
+        sharded_prefetch)
+
+    out = {}
+    for key, v in telemetry.counters().items():
+        if not key.startswith("launches/"):
+            continue
+        name = key[len("launches/"):]
+        wrapper, _, kind = name.partition("/")
+        out[kind if wrapper == "run_block"
+            else "split_" + kind if wrapper == "run_split_block"
+            else SHORT_NAMES.get(name, name)] = v
+    return out
 
 
 def reset_counts():
-    from gpu_quantum_simulator_tpu_torch.kernels import (
-        block, relayout, split, vmem, wide)
+    from gpu_quantum_simulator_tpu_torch import telemetry
 
-    block.reset_launches()
-    wide.reset_launches()
-    vmem.reset_launches()
-    split.reset_launches()
-    relayout.run_relayout.launches = 0
-    relayout.run_relayout_inplace.launches = 0
+    telemetry.reset()
 
 
 def drive(torch, PF, sim, c, runs):
@@ -4816,12 +4830,6 @@ def shard_reset():
     SP.gswap.launches = 0
 
 
-def shard_counts():
-    from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
-
-    return {**launch_counts(), "gswap": SP.gswap.launches}
-
-
 def newest_shard_program():
     from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
 
@@ -4868,7 +4876,7 @@ def check_sharded_reference(torch, T, refs, add):
     SP._RUN_CACHE.clear()
     shard_reset()
     res = sim.run_detailed(c)
-    counts = shard_counts()
+    counts = launch_counts()
     add(counts)
     prog = newest_shard_program()
     err = float(np.max(np.abs(res.state - refs[n])))
@@ -4901,7 +4909,7 @@ def check_sharded_high(torch, T, highest24, add):
     t0 = time.perf_counter()
     re, im, nops = sim.run_device(c)
     secs = time.perf_counter() - t0
-    counts = shard_counts()
+    counts = launch_counts()
     add(counts)
     prog = newest_shard_program()
     state = join_shards(re, im)
@@ -4973,7 +4981,7 @@ def check_sharded_full(torch, T, add, smi):
     t0 = time.perf_counter()
     re, im, nops = highest.run_device(mirror)
     secs = time.perf_counter() - t0
-    counts = shard_counts()
+    counts = launch_counts()
     add(counts)
     prog = newest_shard_program()
     amp0 = complex(sampling.amplitudes_device(re, im, [0])[0])
@@ -4994,7 +5002,7 @@ def check_sharded_full(torch, T, add, smi):
     t0 = time.perf_counter()
     re, im, nops = sim.run_device(c)
     wall = time.perf_counter() - t0
-    counts = shard_counts()
+    counts = launch_counts()
     add(counts)
     prog = newest_shard_program()
     start, end = prog._chain.events
@@ -5072,7 +5080,7 @@ def check_sharded_iterated(torch, T, add):
     t0 = time.perf_counter()
     re, im, nops = sim.run_device_iterated(body, iters, prefix=prefix)
     secs = time.perf_counter() - t0
-    counts = shard_counts()
+    counts = launch_counts()
     add(counts)
     _, programs = sim._iterated_programs(body, iters, prefix)
     gswaps = sum(p.mode_rows.get(4, 0) * reps for p, _, reps in programs)
@@ -5231,7 +5239,12 @@ def main() -> int:
     refs = pending_refs()
     highest24 = run_main_path(torch, T, refs, add)
     inplace = run_inplace_phase(torch, T, refs, add, rng)
-    # phase 6: the public op (kernel 10) and the copy probes (kernel 11)
+    # phase 6: the public op (kernel 10) and the copy probes (kernel 11),
+    # which no engine path launches: the main paths counted none
+    stray = {k: totals[k] for k in ("butterfly", "copy_grid", "copy_stream",
+                                    "copy_direct") if totals.get(k)}
+    if stray:
+        raise AssertionError(f"kernel 10 or 11 ran on an engine path: {stray}")
     butterfly = check_butterfly(torch, rng, add)
     copies = check_copy_probes(torch, add)
     # phase 7: the facade's program entry points

@@ -28,14 +28,17 @@ two states, so a sweep over many bodies (a QAOA angle scan) keeps one
 graph, not one per program.  Capturing another program drops the live
 one first.
 
-The kernel wrappers count their launches (``<wrapper>.launches``).  A
-capture launches nothing, so what the wrappers counted while it recorded
-is taken back, and every replay adds it once.
+The kernel wrappers count their launches (``<wrapper>.launches``, read
+through ``telemetry.launch_counts``).  A capture launches nothing, so
+what the wrappers counted while it recorded is taken back, and every
+replay adds it once.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..telemetry import launch_counts
 
 # one capture stream per device, reused: its cuBLAS workspace is made
 # once, by the first warm-up
@@ -49,31 +52,6 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     if s is None:
         s = _STREAMS[device] = torch.cuda.Stream(device)
     return s
-
-
-def _counted():
-    """Every kernel wrapper that counts its launches."""
-    from ..kernels import block, copy, relayout, split, vmem, wide
-    from ..ops import pallas_kernels
-
-    return (block.run_block, relayout.run_relayout,
-            relayout.run_relayout_inplace, split.run_split_block,
-            split.run_xswap, vmem.vmem_chunk, wide.kh0_chain,
-            wide.apply_block128, wide.mm_step_high, wide.mm_step_default,
-            pallas_kernels.apply_butterfly_high, copy.grid_copy,
-            copy.stream_copy, copy.hbm_direct)
-
-
-def launch_counts() -> dict:
-    """{(wrapper, kind or None): launches} of every counting wrapper (kind
-    for the wrappers that count by kind)."""
-    out = {}
-    for fn in _counted():
-        if isinstance(fn.launches, dict):
-            out.update(((fn, k), v) for k, v in fn.launches.items())
-        else:
-            out[(fn, None)] = fn.launches
-    return out
 
 
 def add_launches(delta: dict, times: int) -> None:

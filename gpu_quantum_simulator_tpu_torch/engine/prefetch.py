@@ -53,6 +53,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ir.oplist import Op, op_matrix
 from ..kernels.block import (RUNGS, SPLIT_RUNGS, run_block, split_tables,
                              swap_bits)
@@ -1112,13 +1113,13 @@ class DeviceChain:
                                              + int(cnt))
             off = 0
             for c in sizes:
-                def dev(x):
-                    return upload(x[off : off + c], self.device)
-
-                a_tab, b_tab, mono_src = expand_tables(
-                    dev(u_re), dev(u_im), dev(mvec), dev(hvec), dev(mvec_o),
-                    dev(hvec_o), dev(phases), dev(mono))
-                high = split_tables(a_tab, b_tab) if split else None
+                tabs = [x[off : off + c] for x in (u_re, u_im, mvec, hvec,
+                                                   mvec_o, hvec_o, phases,
+                                                   mono)]
+                with telemetry.span("qsim/tables"):
+                    a_tab, b_tab, mono_src = expand_tables(
+                        *(upload(t, self.device) for t in tabs))
+                    high = split_tables(a_tab, b_tab) if split else None
                 self._parts.append((scal[off : off + c].tolist(), a_tab,
                                     b_tab, mono_src, high))
                 off += c
@@ -1209,10 +1210,13 @@ class SplitChain:
         for scal, tabs in self._parts:
             a_tab = b_tab = mono_src = high = None
             if any(row[0] for row in scal):    # a part of swaps needs none
-                a_tab, b_tab, mono_src = expand_tables(
-                    *(torch.from_numpy(t).to(self.device) for t in tabs))
-                if split:
-                    high = split_tables(a_tab, b_tab)
+                with telemetry.span("qsim/tables"):
+                    telemetry.count("table_h2d_bytes",
+                                    sum(t.nbytes for t in tabs))
+                    a_tab, b_tab, mono_src = expand_tables(
+                        *(torch.from_numpy(t).to(self.device) for t in tabs))
+                    if split:
+                        high = split_tables(a_tab, b_tab)
             for i, row in enumerate(scal):
                 mode = row[1]
                 if mode == 3:
@@ -1520,7 +1524,7 @@ def build_prefetch_program(
         if op.u is not None:
             h.update(np.ascontiguousarray(op.u).tobytes())
     key = h.hexdigest()
-    prog = _PROGRAM_CACHE.get(key)
+    prog = telemetry.lookup(_PROGRAM_CACHE, key)
     if prog is None:
         prog = PrefetchProgram(
             ops, num_qubits, precision, cap_steps, cap_mats,
@@ -1578,48 +1582,50 @@ def run_prefetch(circuit, config, device, initial_parts=None,
         return run_megakernel(ops, n, device, initial)
     check_slice(n, precision)                  # before planning/allocating
 
-    # relabel hot qubits low and have the plan itself route the state back
-    # to the ORIGINAL basis
-    perm = plan_permutation(circuit)
-    if np.array_equal(perm, np.arange(n)):
-        perm = None
-    # in place from n = 30 unless the config says otherwise, as in the JAX
-    # package (whose trigger is its 16 GB of device memory; a trigger from
-    # this card's memory is ROADMAP queue A, "Card policies")
-    inplace = getattr(config, "prefetch_inplace", None)
-    if inplace is None:
-        inplace = n >= MAX_QUBITS
-    inplace = bool(inplace)
-    reorder = getattr(config, "prefetch_reorder", None)
-    if reorder is None:
-        reorder = True
-    max_high, cap_mats, window = resolve_prefetch_knobs(config, n, inplace)
+    with telemetry.span("qsim/plan"):
+        # relabel hot qubits low and have the plan itself route the state
+        # back to the ORIGINAL basis
+        perm = plan_permutation(circuit)
+        if np.array_equal(perm, np.arange(n)):
+            perm = None
+        # in place from n = 30 unless the config says otherwise, as in the
+        # JAX package (whose trigger is its 16 GB of device memory; a trigger
+        # from this card's memory is ROADMAP queue A, "Card policies")
+        inplace = getattr(config, "prefetch_inplace", None)
+        if inplace is None:
+            inplace = n >= MAX_QUBITS
+        inplace = bool(inplace)
+        reorder = getattr(config, "prefetch_reorder", None)
+        if reorder is None:
+            reorder = True
+        max_high, cap_mats, window = resolve_prefetch_knobs(config, n,
+                                                            inplace)
 
-    run_key = (
-        _circuit_fingerprint(circuit), precision, config.max_fused_qubits,
-        inplace, bool(reorder), max_high, cap_mats, window, str(device),
-        tile_rows(n), relayout_rows(n),
-        resolve_mono_as_mat(n, inplace), PERM_AS_MAT,
-        n >= PORTFOLIO_MIN_QUBITS, resolve_stream_relayout(n, inplace),
-    )
-    prog = _RUN_CACHE.get(run_key)
-    if prog is None:
-        if perm is None:
-            work = circuit
-            final_layout = np.arange(n)  # still route back to identity
-        else:
-            work = circuit.relabeled(perm)
-            final_layout = np.argsort(perm)
-        ops = _fuse_pipeline(
-            work, min(config.max_fused_qubits, LANE_QUBITS),
-            max_high=max_high, window=window)
-        prog = build_prefetch_program(
-            ops, n, precision=precision, cap_mats=cap_mats,
-            final_layout=final_layout, reorder=bool(reorder), device=device,
-            inplace=inplace)
-        if len(_RUN_CACHE) >= _RUN_CACHE_LIMIT:
-            _RUN_CACHE.pop(next(iter(_RUN_CACHE)))
-        _RUN_CACHE[run_key] = prog
+        run_key = (
+            _circuit_fingerprint(circuit), precision, config.max_fused_qubits,
+            inplace, bool(reorder), max_high, cap_mats, window, str(device),
+            tile_rows(n), relayout_rows(n),
+            resolve_mono_as_mat(n, inplace), PERM_AS_MAT,
+            n >= PORTFOLIO_MIN_QUBITS, resolve_stream_relayout(n, inplace),
+        )
+        prog = telemetry.lookup(_RUN_CACHE, run_key)
+        if prog is None:
+            if perm is None:
+                work = circuit
+                final_layout = np.arange(n)  # still route back to identity
+            else:
+                work = circuit.relabeled(perm)
+                final_layout = np.argsort(perm)
+            ops = _fuse_pipeline(
+                work, min(config.max_fused_qubits, LANE_QUBITS),
+                max_high=max_high, window=window)
+            prog = build_prefetch_program(
+                ops, n, precision=precision, cap_mats=cap_mats,
+                final_layout=final_layout, reorder=bool(reorder),
+                device=device, inplace=inplace)
+            if len(_RUN_CACHE) >= _RUN_CACHE_LIMIT:
+                _RUN_CACHE.pop(next(iter(_RUN_CACHE)))
+            _RUN_CACHE[run_key] = prog
 
     total = prog.num_ops + prog.num_tswaps + prog.num_xswaps
     if prog.inplace:

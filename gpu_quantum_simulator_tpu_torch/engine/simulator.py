@@ -53,6 +53,7 @@ of circuits before it fetches any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -60,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config import SimulatorConfig
 from ..ir.circuit import Circuit
 from ..ops import apply as A
@@ -91,6 +93,18 @@ def _auto_strategy(cfg: SimulatorConfig, n: int) -> str:
     if cfg.mesh_shape is not None:
         return "sharded"
     return "prefetch"
+
+
+def _entry(fn):
+    """A facade entry point: a request of its own in ``telemetry``."""
+    name = "qsim/" + fn.__name__
+
+    @functools.wraps(fn)
+    def entry(self, *args, **kwargs):
+        with telemetry.request(name):
+            return fn(self, *args, **kwargs)
+
+    return entry
 
 
 class Simulator:
@@ -144,9 +158,11 @@ class Simulator:
         return True
 
     # ------------------------------------------------------------------ API
+    @_entry
     def run(self, circuit: Circuit, initial=None) -> np.ndarray:
         return self.run_detailed(circuit, initial=initial).state
 
+    @_entry
     def sample(self, circuit: Circuit, num_samples: int,
                seed: int = 0) -> np.ndarray:
         """Measurement sampling (ref: quantum_simulator.c:256-283): int64
@@ -184,6 +200,7 @@ class Simulator:
             return bool(cfg.prefetch_inplace)
         return n >= 30
 
+    @_entry
     def run_device_halves(self, circuit: Circuit, initial_parts=None):
         """Run through the in-place prefetch engine and return the state as
         its four (R2, 128) column halves on the simulator's device:
@@ -215,6 +232,7 @@ class Simulator:
             torch.cuda.synchronize(self.device)
         return parts, num_ops
 
+    @_entry
     def run_device(self, circuit: Circuit, initial=None):
         """Run and return (re, im, num_ops): flat float32 tensors on the
         simulator's device (for "sharded": shard lists on the mesh's
@@ -240,11 +258,13 @@ class Simulator:
                 "strategy='reference' runs on the host (ref/cpu.py) and "
                 "returns no device state: use run or run_detailed")
         _check_run(self.config, circuit.num_qubits)  # before any planning
-        work, perm, initial = self._relabel(circuit, initial)
+        with telemetry.span("qsim/plan"):
+            work, perm, initial = self._relabel(circuit, initial)
         re, im, num_ops, residual = self._execute(work, initial)
         re, im = self._restore(re, im, perm, residual)
         return re, im, num_ops
 
+    @_entry
     def run_device_parts(self, circuit: Circuit, parts):
         """Run ``circuit`` on a device-resident flat (re, im) pair and return
         ``(re, im, num_ops)`` on the simulator's device.
@@ -268,7 +288,8 @@ class Simulator:
                              "arrays")
         cfg = self.config
         n = circuit.num_qubits
-        fn, nops = self._build_program(circuit)
+        with telemetry.span("qsim/plan"):
+            fn, nops = self._build_program(circuit)
         if cfg.strategy == "sharded":
             from ..parallel.sharded import shard_component
 
@@ -280,6 +301,7 @@ class Simulator:
         re, im = fn(re, im)
         return re, im, nops
 
+    @_entry
     def run_device_iterated(self, body: Circuit, repetitions: int,
                             prefix: Optional[Circuit] = None,
                             suffix: Optional[Circuit] = None):
@@ -307,8 +329,9 @@ class Simulator:
         from .prefetch import PrefetchProgram
         from .wide import WideProgram
 
-        perm, programs = self._iterated_programs(body, repetitions, prefix,
-                                                 suffix)
+        with telemetry.span("qsim/plan"):
+            perm, programs = self._iterated_programs(body, repetitions,
+                                                     prefix, suffix)
         n = body.num_qubits
         if self.config.strategy == "sharded":
             from ..parallel.sharded import initial_shards
@@ -464,6 +487,7 @@ class Simulator:
         nops, prog = _cached_plan(key, plan)
         return prog, nops
 
+    @_entry
     def run_many(self, circuits, terms=None, throttle: int = 8):
         """Pipelined batch execution: every circuit is dispatched before any
         result is fetched, so host planning and enqueueing overlap the
@@ -556,6 +580,7 @@ class Simulator:
             re, im = A.unpermute_device(re, im, total)
         return re, im
 
+    @_entry
     def run_detailed(self, circuit: Circuit, initial=None) -> RunResult:
         sim = self._resolved(circuit.num_qubits)
         if sim is not self:
@@ -658,7 +683,8 @@ class Simulator:
     def _run_vmem(self, circuit: Circuit, initial=None):
         """The vmem engine (8 <= n <= 19): plain fusion to blocks of <= 7
         low plus 2 high qubits, then one kernel-8 launch per chunk."""
-        ops, prog = self._vmem_program(circuit)
+        with telemetry.span("qsim/plan"):
+            ops, prog = self._vmem_program(circuit)
         re, im = self._start(circuit.num_qubits, initial)
         re, im = prog(re, im)
         return re, im, len(ops), None
@@ -688,7 +714,8 @@ class Simulator:
 
     def _run_mxu(self, circuit: Circuit, initial=None):
         """The wide engine: cost-model fusion, then the WideProgram."""
-        ops, prog = self._mxu_program(circuit)
+        with telemetry.span("qsim/plan"):
+            ops, prog = self._mxu_program(circuit)
         re, im = self._start(circuit.num_qubits, initial)
         re, im = prog(re, im)
         return re, im, len(ops), None
@@ -790,7 +817,7 @@ def _synchronize(re, device: torch.device) -> None:
 
 def _cached_plan(key, plan):
     """``_MXU_PLAN_CACHE[key]``, made by ``plan()`` on a miss."""
-    cached = _MXU_PLAN_CACHE.get(key)
+    cached = telemetry.lookup(_MXU_PLAN_CACHE, key)
     if cached is None:
         cached = plan()
         if len(_MXU_PLAN_CACHE) >= _MXU_PLAN_CACHE_LIMIT:
@@ -817,29 +844,31 @@ def _fuse_pipeline(circuit: Circuit, max_qubits: int, max_high,
     the JAX package's calibration (utils/roofline.py ``kh_block_costs``).
     """
     global _NATIVE_FUSE
-    if _NATIVE_FUSE is None:
-        from ..passes import native_fuse as nf
+    with telemetry.span("qsim/fuse"):
+        if _NATIVE_FUSE is None:
+            from ..passes import native_fuse as nf
 
-        _NATIVE_FUSE = nf if nf.available() else False
-    # The native fuser requires max_qubits >= 2 (csrc/qsim_fuse.cpp rejects
-    # smaller); clamping is harmless since fused blocks never exceed n qubits.
-    max_qubits = max(2, max_qubits)
-    cost = cost_model and max_high is not None
-    if _NATIVE_FUSE:
-        if cost:
-            from ..utils.roofline import kh_block_costs
+            _NATIVE_FUSE = nf if nf.available() else False
+        # The native fuser requires max_qubits >= 2 (csrc/qsim_fuse.cpp
+        # rejects smaller); clamping is harmless since fused blocks never
+        # exceed n qubits.
+        max_qubits = max(2, max_qubits)
+        cost = cost_model and max_high is not None
+        if _NATIVE_FUSE:
+            if cost:
+                from ..utils.roofline import kh_block_costs
 
-            return _NATIVE_FUSE.fuse_native(
-                circuit, max_qubits, max_high, window=window,
-                max_low=max_qubits,
-                kh_costs=kh_block_costs(circuit.num_qubits))
-        return _NATIVE_FUSE.fuse_native(circuit, max_qubits, max_high,
-                                        window=window)
-    from ..passes.fuse4x4 import fuse_4x4
-    from ..passes.fuse_k import fuse_k
+                return _NATIVE_FUSE.fuse_native(
+                    circuit, max_qubits, max_high, window=window,
+                    max_low=max_qubits,
+                    kh_costs=kh_block_costs(circuit.num_qubits))
+            return _NATIVE_FUSE.fuse_native(circuit, max_qubits, max_high,
+                                            window=window)
+        from ..passes.fuse4x4 import fuse_4x4
+        from ..passes.fuse_k import fuse_k
 
-    return fuse_k(fuse_4x4(circuit), max_qubits=max_qubits, max_high=max_high,
-                  max_low=max_qubits if cost else None)
+        return fuse_k(fuse_4x4(circuit), max_qubits=max_qubits,
+                      max_high=max_high, max_low=max_qubits if cost else None)
 
 
 def simulate(circuit: Circuit, strategy: str = "mxu", device="cuda",

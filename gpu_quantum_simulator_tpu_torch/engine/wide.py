@@ -62,6 +62,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ir.oplist import Op, expand_unitary, op_matrix, ops_digest
 from ..kernels.block import RUNGS, SPLIT_RUNGS
 from ..kernels.wide import (MM_STEPS, ieee_fp32, kh0_chain, row_shuffles,
@@ -230,8 +231,13 @@ class WideProgram:
         high = self.precision in SPLIT_RUNGS
         np_dtype = np.float32 if f32 else np.float64
 
-        def dev(a):
-            return upload(np.asarray(a, dtype=np_dtype), self.device)
+        def dev(a, rung=False):
+            """The table ``a`` on the device; with ``rung`` in the image
+            the rung's kernels read."""
+            a = np.asarray(a, dtype=np_dtype)
+            with telemetry.span("qsim/tables"):
+                t = upload(a, self.device)
+                return rung_mm_tables(t, self.precision) if rung else t
 
         self.segments: List[_Segment] = []
         self.num_kh0_runs = 0
@@ -239,15 +245,12 @@ class WideProgram:
             mm = {}
             for D, idxs in buckets.items():
                 mm[D] = dev(np.stack([_karatsuba(*_op_spec(ops[i], n)[3:])
-                                      for i in idxs]))
-                if high:
-                    mm[D] = rung_mm_tables(mm[D], self.precision)
+                                      for i in idxs]), rung=high)
             specs = [[_op_spec(ops[i], n)[3:] for i in run] for run in runs]
             run_tabs = [dev(np.stack([np.stack(m) for m in ms]))
                         for ms in specs]
-            w16 = [rung_mm_tables(dev(np.stack([_karatsuba(*m) for m in ms])),
-                                  self.precision) if high else None
-                   for ms in specs]
+            w16 = [dev(np.stack([_karatsuba(*m) for m in ms]), rung=True)
+                   if high else None for ms in specs]
             self.segments.append(_Segment(steps, mm, run_tabs, w16))
             self.num_kh0_runs += len(runs)
 
@@ -279,7 +282,7 @@ def build_wide_program(ops: Sequence[Op], num_qubits: int,
                        dtype: torch.dtype = torch.float32) -> WideProgram:
     device = resolve_device(device)
     key = ops_digest(ops, f"{num_qubits}|{precision}|{device}|{dtype}")
-    prog = _CACHE.get(key)
+    prog = telemetry.lookup(_CACHE, key)
     if prog is None:
         prog = WideProgram(ops, num_qubits, precision=precision,
                            device=device, dtype=dtype)

@@ -42,6 +42,7 @@ import contextlib
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import build
 from .relayout import run_relayout_plain
 
@@ -246,6 +247,7 @@ def _check_cuda(tensors, dtypes) -> None:
                              f"{t.dtype} (contiguous={t.is_contiguous()})")
 
 
+@telemetry.counted
 def run_block(scal: Sequence[int], re: torch.Tensor, im: torch.Tensor,
               a_tab: torch.Tensor, b_tab: torch.Tensor,
               mono_src: torch.Tensor, logt: int, cap_steps: int,

@@ -31,6 +31,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import telemetry
 from . import build
 
 MAX_SMEM = 227 * 1024       # shared memory one CTA can hold (H100)
@@ -110,6 +111,7 @@ def _launch(fn, srcs, out, tile_rows: int, stages: Optional[int],
     return tuple(out)
 
 
+@telemetry.counted
 def grid_copy(srcs: Sequence[torch.Tensor], tile_rows: int,
               out: Optional[Sequence[torch.Tensor]] = None) -> Operands:
     """Copy 1, 2 or 4 operands, one CTA per ``tile_rows``-row tile of
@@ -117,6 +119,7 @@ def grid_copy(srcs: Sequence[torch.Tensor], tile_rows: int,
     return _launch(grid_copy, srcs, out, tile_rows, None, "grid_copy")
 
 
+@telemetry.counted
 def stream_copy(srcs: Sequence[torch.Tensor], tile_rows: int, stages: int,
                 out: Optional[Sequence[torch.Tensor]] = None) -> Operands:
     """Copy through a ``stages``-deep shared-memory ring of
@@ -124,6 +127,7 @@ def stream_copy(srcs: Sequence[torch.Tensor], tile_rows: int, stages: int,
     return _launch(stream_copy, srcs, out, tile_rows, stages, "stream_copy")
 
 
+@telemetry.counted
 def hbm_direct(srcs: Sequence[torch.Tensor], tile_rows: int, stages: int,
                out: Optional[Sequence[torch.Tensor]] = None) -> Operands:
     """Copy by TMA bulk copies both ways, ``stages`` (>= 2) tiles of

@@ -24,6 +24,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import build
 
 DVIEW = 256
@@ -67,6 +68,7 @@ def run_relayout_plain(sigma: Sequence[int], re: torch.Tensor,
     return one(re), one(im)
 
 
+@telemetry.counted
 def run_relayout(sigma: Sequence[int], re: torch.Tensor, im: torch.Tensor,
                  tr: int, out: Pair = None) -> Pair:
     """Apply the row-block permutation ``sigma`` to (re, im).
@@ -139,6 +141,7 @@ def run_relayout_inplace_plain(sigma: Sequence[int], halves: Halves,
     return halves
 
 
+@telemetry.counted
 def run_relayout_inplace(sigma: Sequence[int], halves: Halves,
                          tr: int) -> Halves:
     """Apply the involutive row-block permutation ``sigma`` inside the four

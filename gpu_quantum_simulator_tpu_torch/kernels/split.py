@@ -35,6 +35,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import telemetry
 from . import build
 from .block import (DVIEW, HIGH_SLOT_WORDS, SPLIT_RUNGS, _check_rung,
                     check_high_tables, run_block_plain, split_tables)
@@ -119,6 +120,7 @@ def _high_sync(dev: torch.device, stream: int) -> torch.Tensor:
     return _SYNC[key]
 
 
+@telemetry.counted
 def run_xswap(halves: Halves, row_bit: int) -> Halves:
     """The cross-tile pair swap (scal mode 2) in the state's own buffers."""
     dev = halves[0].device
@@ -161,6 +163,7 @@ def run_split_block_plain(scal: Sequence[int], halves: Halves,
     return halves
 
 
+@telemetry.counted
 def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
                     b_tab: torch.Tensor, mono_src: torch.Tensor, logt: int,
                     cap_steps: int, precision: str = "highest",

@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import build
 from .wide import LANES, ieee_fp32, row_shuffles
 
@@ -108,6 +109,7 @@ def _check_pair(pair, shape, dev, what):
                              f"{tuple(t.shape)} on {t.device}")
 
 
+@telemetry.counted
 def vmem_chunk(re: torch.Tensor, im: torch.Tensor, tables: VmemTables,
                scratch: Optional[Pair] = None) -> Pair:
     """Apply the chunk's ops in order to the (R, 128) pair.

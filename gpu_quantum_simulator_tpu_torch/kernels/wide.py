@@ -59,6 +59,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import telemetry
 from . import build
 from .block import RUNGS, _check_rung, bf16_split, ieee_fp32
 
@@ -159,6 +160,7 @@ def _state_out(re, im, out, what: str) -> Pair:
     return out
 
 
+@telemetry.counted
 def kh0_chain(re: torch.Tensor, im: torch.Tensor, tables: torch.Tensor,
               precision: str = "highest", out: Optional[Pair] = None,
               w16: Optional[torch.Tensor] = None) -> Pair:
@@ -236,6 +238,7 @@ def check_tpu_keywords(interpret, rows: int = 0,
         raise ValueError(f"interpret must be a bool, got {interpret!r}")
 
 
+@telemetry.counted
 def apply_block128(s_re: torch.Tensor, s_im: torch.Tensor,
                    m_re: torch.Tensor, m_im: torch.Tensor, *,
                    tile_rows: int = TPU_TILE_ROWS, interpret: bool = False,
@@ -507,6 +510,7 @@ def _mm_step(re, im, w16, row_bits, out, precision: str) -> Pair:
     return out
 
 
+@telemetry.counted
 def mm_step_high(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
                  row_bits: Sequence[int], out: Optional[Pair] = None) -> Pair:
     """The mxu engine's "high" mm step on the unshuffled (R, 128) pair: the
@@ -519,6 +523,7 @@ def mm_step_high(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
     return _mm_step(re, im, w16, row_bits, out, "high")
 
 
+@telemetry.counted
 def mm_step_default(re: torch.Tensor, im: torch.Tensor, w16: torch.Tensor,
                     row_bits: Sequence[int],
                     out: Optional[Pair] = None) -> Pair:

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ir.oplist import expand_unitary
 from ..kernels.wide import ieee_fp32
 
@@ -41,8 +42,10 @@ def upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array as a tensor on ``device``.  To a card it goes through
     page-locked memory without waiting for the device's queue (torch keeps
     the pinned buffer until the copy has run), so a program built between
-    two queued runs does not stall the pipeline."""
+    two queued runs does not stall the pipeline.  Its bytes count as
+    ``table_h2d_bytes``."""
     t = torch.from_numpy(np.ascontiguousarray(x))
+    telemetry.count("table_h2d_bytes", t.numel() * t.element_size())
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
@@ -77,8 +80,10 @@ def _to_host(x) -> np.ndarray:
     if x.is_cuda:
         # through page-locked memory: a pageable copy runs at a fraction of
         # the link's rate, and torch caches the pinned buffers across calls
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x)
+        with telemetry.span("qsim/d2h"):
+            telemetry.count("state_d2h_bytes", x.numel() * x.element_size())
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            host.copy_(x)
         x = host
     return x.cpu().numpy()
 
@@ -90,10 +95,11 @@ def join_state(re, im) -> np.ndarray:
     as ``re + 1j * im`` cast down, without the complex128 temporary)."""
     re = _to_host(re)
     im = _to_host(im)
-    out = np.empty(re.shape, np.complex64 if re.dtype == np.float32
-                   else np.complex128)
-    out.real = re
-    out.imag = im
+    with telemetry.span("qsim/join"):
+        out = np.empty(re.shape, np.complex64 if re.dtype == np.float32
+                       else np.complex128)
+        out.real = re
+        out.imag = im
     return out
 
 

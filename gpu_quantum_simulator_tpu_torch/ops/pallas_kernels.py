@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..kernels import build
 from ..kernels.wide import apply_block128, check_tpu_keywords
 
@@ -101,6 +102,7 @@ def apply_butterfly_high_plain(re: torch.Tensor, im: torch.Tensor, u,
             torch.stack([oai, obi], dim=1).reshape(rows, LANES))
 
 
+@telemetry.counted
 def apply_butterfly_high(s_re: torch.Tensor, s_im: torch.Tensor, u,
                          high_bit: int, *, interpret: bool = False,
                          out: Optional[Pair] = None) -> Pair:

@@ -31,11 +31,13 @@ This engine serves complex128, shards of fewer than 9 qubits and
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ops import apply as A
 from ..passes.shard import LocalSwapItem, ShardPlan, SwapItem
 from .mesh import Mesh, num_global_qubits
@@ -169,17 +171,21 @@ def join_shards(re: Shards, im: Shards) -> np.ndarray:
     size = sum(t.numel() for t in re)
     dt = re[0].dtype
     cuda = any(t.is_cuda for t in re)
-    host_re = torch.empty(size, dtype=dt, pin_memory=cuda)
-    host_im = torch.empty(size, dtype=dt, pin_memory=cuda)
-    off = 0
-    for r, i in zip(re, im):
-        k = r.numel()
-        host_re[off:off + k].copy_(r, non_blocking=cuda)
-        host_im[off:off + k].copy_(i, non_blocking=cuda)
-        off += k
-    if cuda:
-        for dev in {t.device for t in re if t.is_cuda}:
-            torch.cuda.synchronize(dev)
+    with telemetry.span("qsim/d2h") if cuda else contextlib.nullcontext():
+        host_re = torch.empty(size, dtype=dt, pin_memory=cuda)
+        host_im = torch.empty(size, dtype=dt, pin_memory=cuda)
+        off = 0
+        for r, i in zip(re, im):
+            k = r.numel()
+            host_re[off:off + k].copy_(r, non_blocking=cuda)
+            host_im[off:off + k].copy_(i, non_blocking=cuda)
+            if r.is_cuda:
+                telemetry.count("state_d2h_bytes",
+                                2 * k * r.element_size())
+            off += k
+        if cuda:
+            for dev in {t.device for t in re if t.is_cuda}:
+                torch.cuda.synchronize(dev)
     return A.join_state(host_re, host_im)
 
 

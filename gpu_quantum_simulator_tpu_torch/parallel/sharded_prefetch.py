@@ -36,6 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..engine import prefetch as PF
 from ..engine.prefetch import (CAP_MATS, CAP_STEPS, DISPATCH_GRID_BUDGET,
                                DVIEW, LOCAL_QUBITS, MIN_QUBITS,
@@ -67,6 +68,7 @@ def on_device(dev: torch.device):
     return contextlib.nullcontext()
 
 
+@telemetry.counted
 def gswap(cur, spare, g: int):
     """The mesh gswap entry: window bit 7 (the column half) of every
     shard's (R2L, 256) pair exchanged with shard-index bit ``g``.  Each
@@ -123,9 +125,11 @@ class ShardedChain:
         t0 = time.perf_counter()
         out = {}
         for dev in dict.fromkeys(self.devices):
-            a, b, src = expand_tables(*(upload(t[lo:hi], dev) for t in tabs))
-            high = (split_tables(a, b) if self.precision in SPLIT_RUNGS
-                    and splits_tables(dev) else None)
+            with telemetry.span("qsim/tables"):
+                a, b, src = expand_tables(*(upload(t[lo:hi], dev)
+                                            for t in tabs))
+                high = (split_tables(a, b) if self.precision in SPLIT_RUNGS
+                        and splits_tables(dev) else None)
             out[dev] = (a, b, src, high)
         self.table_seconds += time.perf_counter() - t0
         return out
@@ -309,7 +313,7 @@ def run_sharded_prefetch(circuit, config, mesh: Mesh, initial_parts=None):
         "shard", _circuit_fingerprint(circuit), precision,
         config.max_fused_qubits, bool(reorder), mesh.key, axis,
     )
-    prog = _RUN_CACHE.get(run_key)
+    prog = telemetry.lookup(_RUN_CACHE, run_key)
     if prog is None:
         if perm is None:
             work = circuit

@@ -21,10 +21,13 @@ On a CUDA card it then runs ``Simulator.run_detailed`` at ``--precision``
 ``--runs`` timed runs, each split into the
 host's enqueue of the engine, the engine to its sync, and the unpermute
 (mxu, pallas, vmem), the copy to the host and the join; kernel launches
-per run by kind (fp32 mat, "high" mat, gather, folded first launch,
-relayout, kh0 chain per rung, block128, vmem chunk); and the amplitude error against the native f64
-reference up to n = 23 (above it the reference is not run: its time grows
-2x per qubit; the norm is reported).  One more run goes under
+per run of every wrapper that counts them, by kind (``telemetry``'s
+``launch_counts``: the block kernels' mat, "high" and "default" mat,
+gather and pair launches, relayouts, kh0 chains per rung, block128, the
+mm steps per rung, vmem chunks, pair swaps, gswaps, ...); and the
+amplitude error against the native f64 reference up to n = 23 (above it
+the reference is not run: its time grows 2x per qubit; the norm is
+reported).  One more run goes under
 ``torch.profiler``: device busy time (the union of the device events), the
 profiled wall time, the device's idle share, and each device event's count
 and total time by name.
@@ -65,11 +68,10 @@ from .engine import vmem as V
 from .engine import wide as W
 from .engine.simulator import Simulator, _fuse_pipeline
 from . import sampling
-from .kernels import block, build, copy, split, vmem, wide
+from . import telemetry
+from .kernels import build
 from .kernels.block import run_block
-from .kernels.relayout import run_relayout, run_relayout_inplace
-from .kernels.split import run_split_block, run_xswap
-from .ops import pallas_kernels
+from .kernels.relayout import run_relayout
 from .ops.apply import join_state
 from .passes.fuse4x4 import fuse_4x4
 from .passes.fuse_k import fuse_k
@@ -96,30 +98,11 @@ def _clear_caches() -> None:
         cache.clear()
 
 
-def _reset_launches() -> None:
-    block.reset_launches()
-    wide.reset_launches()
-    vmem.reset_launches()
-    split.reset_launches()
-    run_relayout.launches = 0
-    run_relayout_inplace.launches = 0
-    pallas_kernels.reset_launches()
-    copy.reset_launches()
-
-
 def _launches() -> dict:
-    return {**run_block.launches, "relayout": run_relayout.launches,
-            "kh0": wide.kh0_chain.launches["highest"],
-            "kh0_high": wide.kh0_chain.launches["high"],
-            "block128": wide.apply_block128.launches,
-            "vmem": vmem.vmem_chunk.launches,
-            **{f"split_{k}": v for k, v in run_split_block.launches.items()},
-            "xswap": run_xswap.launches,
-            "relayout_inplace": run_relayout_inplace.launches,
-            # kernels 10 and 11 lie on no engine path: 0 on every run
-            "butterfly": pallas_kernels.apply_butterfly_high.launches,
-            **{f"copy_{f.__name__}": f.launches
-               for f in (copy.grid_copy, copy.stream_copy, copy.hbm_direct)}}
+    """Launches by wrapper and kind, of every counting wrapper
+    (``telemetry.launch_counts``)."""
+    return {k: v for k, v in telemetry.counters().items()
+            if k.startswith("launches/")}
 
 
 def plan_counts(n: int, strategy: str = "prefetch",
@@ -281,7 +264,7 @@ def run_width(n: int, runs: int, strategy: str = "prefetch",
     warm = sim.run_detailed(c).seconds
     secs = [sim.run_detailed(c).seconds for _ in range(runs)]
     split = {"enqueue_ms": [], "to_sync_ms": [], "d2h_join_ms": []}
-    _reset_launches()
+    telemetry.reset()
     work, perm, _ = sim._relabel(c)
     for _ in range(runs):
         t0 = time.perf_counter()
@@ -318,7 +301,7 @@ def run_width_inplace(n: int, runs: int, precision: str = "auto") -> dict:
     warm = time.perf_counter() - t0
     split_ms = {"enqueue_ms": [], "to_sync_ms": [], "norm_ms": []}
     secs = []
-    _reset_launches()
+    telemetry.reset()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     parts = None
@@ -364,7 +347,7 @@ def sweep() -> list:
             _clear_caches()
             for n in SWEEP_WIDTHS:
                 c = models.grover_like(n, 40 * n, n)
-                _reset_launches()
+                telemetry.reset()
                 got = sim.run(c)
                 err = float(np.max(np.abs(got - simulate_native(c))))
                 rec = {"tiles": [t, tr], "n": n, "max_abs_err_f64": err,
