@@ -133,7 +133,14 @@ failure raises and the script exits non-zero:
    its dispatch under torch's sync debug mode "error", terms against
    ``expectation_pauli_sum`` (<= 1e-5), wall time against waiting per
    circuit.  Phase 5's n=30 state also runs the halves routes of
-   ``observables.py`` against the flat ones (<= 1e-5).
+   ``observables.py`` against the flat ones (<= 1e-5).  ``join_state`` of
+   parts on the card: bit for bit the plain numpy join of the parts
+   fetched whole, float32 and float64, flat and (S, 2^n), strided, below
+   one chunk, one chunk and 3.27 chunks (chunks of 64 elements), and at
+   n=28 with the default chunk behind a queued second of device work
+   (the output ready before the card: ``state_join_overlapped``),
+   timed against the plain join; ``run_detailed`` at n=24 equal to the
+   join of ``run_device``'s parts.
 8. the CLI and the per-gate strategies: ``__main__.main([...])`` in this
    process (its launches count) on circuits written with ``to_qasm()``
    into a temporary directory.  The default config at n=24 (mxu, "high")
@@ -244,6 +251,8 @@ from __future__ import annotations
 
 import gc
 import json
+import mmap
+import os
 import subprocess
 import sys
 import time
@@ -3480,6 +3489,116 @@ def check_run_many(torch, T, add, smi):
     torch.cuda.empty_cache()
 
 
+def plain_join(re, im):
+    """The join as numpy writes it: the parts into a new complex array."""
+    out = np.empty(re.shape, np.complex64 if re.dtype == np.float32
+                   else np.complex128)
+    out.real = re
+    out.imag = im
+    return out
+
+
+def same_bits(a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint32 if a.dtype == np.complex64 else np.uint64),
+        b.view(np.uint32 if b.dtype == np.complex64 else np.uint64)))
+
+
+def check_join(torch, T, smi):
+    """``join_state`` of parts on the card (ops/apply.py): bit for bit the
+    plain join of the parts fetched whole, at chunks of 64 elements over
+    every case of the CPU tests (tests/test_torch_join.py) and a strided
+    part, then at n=28 with the default chunk behind a queued second of
+    device work (the output is ready before the card is: the overlapped
+    counter moves), timed against the plain join on an idle card;
+    ``run_detailed`` at n=24 is the join of ``run_device``'s parts."""
+    from gpu_quantum_simulator_tpu_torch import telemetry
+    from gpu_quantum_simulator_tpu_torch.ops import apply as A
+
+    default = A.CHUNK_BYTES
+    gen = torch.Generator(device="cuda").manual_seed(2445)
+    shapes = [(40,), (64,), (209,), (2, 16), (4, 16), (5, 32)]
+    cases = 0
+    try:
+        for dt in (torch.float32, torch.float64):
+            A.CHUNK_BYTES = 64 * torch.empty((), dtype=dt).element_size()
+            for shape in shapes:
+                re, im = (torch.randn(shape, generator=gen, device="cuda",
+                                      dtype=dt) for _ in range(2))
+                want = plain_join(re.cpu().numpy(), im.cpu().numpy())
+                if not same_bits(A.join_state(re, im), want):
+                    raise AssertionError(f"join_state {shape} {dt} differs "
+                                         "from the plain join")
+                cases += 1
+            wide = torch.randn((64, 7), generator=gen, device="cuda",
+                               dtype=dt)
+            got = A.join_state(wide.t(), -wide.t())
+            if not same_bits(got, plain_join(wide.t().cpu().numpy(),
+                                             -wide.t().cpu().numpy())):
+                raise AssertionError(f"join_state of strided {dt} parts "
+                                     "differs from the plain join")
+            cases += 1
+    finally:
+        A.CHUNK_BYTES = default
+
+    n = 28
+    re, im = (torch.randn(1 << n, generator=gen, device="cuda")
+              for _ in range(2))
+    host = (re.cpu().numpy(), im.cpu().numpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain_join(host[0], host[1])
+    plain_s = time.perf_counter() - t0
+    del want
+    t0 = time.perf_counter()
+    fetched = plain_join(A._to_host(re), A._to_host(im))
+    old_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = A.join_state(re, im)
+    idle_s = time.perf_counter() - t0
+    if not same_bits(got, fetched):
+        raise AssertionError("join_state at n=28 differs from the plain join")
+    del got
+    cycles = int(1.5e9)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    sleep_s = time.perf_counter() - t0
+    before = telemetry.counters()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    got = A.join_state(re, im)
+    busy_s = time.perf_counter() - t0
+    after = telemetry.counters()
+    moved = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("state_joins", "state_join_overlapped")}
+    if not same_bits(got, fetched) or moved != {
+            "state_joins": 1, "state_join_overlapped": 1}:
+        raise AssertionError(f"join_state behind device work: counters "
+                             f"{moved}, equal {same_bits(got, fetched)}")
+    del got, fetched, re, im, host
+
+    sim = T.Simulator(device="cuda")
+    c = T.models.grover_like(24, 2445, 318)
+    state = sim.run_detailed(c).state
+    pre, pim, _ = sim.run_device(c)
+    if not same_bits(state, plain_join(pre.cpu().numpy(), pim.cpu().numpy())):
+        raise AssertionError("run_detailed n=24 is not the join of "
+                             "run_device's parts")
+    del state, pre, pim
+    print(f"entry points join_state: {cases} chunked cases bit for bit; "
+          f"n={n} (2 x 1 GiB float32 parts, chunks of "
+          f"{default >> 20} MiB a part, {torch.get_num_threads()} intra-op "
+          f"threads, {os.cpu_count()} cpus, page {mmap.PAGESIZE} B): "
+          f"plain numpy join of host parts {plain_s:.3f} s, the former "
+          f"join (two pinned copies, then numpy) {old_s:.3f} s, join_state "
+          f"on an idle card {idle_s:.3f} s; behind {sleep_s:.3f} s of "
+          f"device sleep {busy_s:.3f} s (exposed about "
+          f"{busy_s - sleep_s:.3f} s), counters {moved}; run_detailed "
+          f"n=24 = join of run_device bit for bit; {smi}")
+    torch.cuda.empty_cache()
+
+
 def run_entry_points(torch, T, add, smi):
     """Phase 7: the facade's program entry points at full width (the
     halves routes ran on phase 5's n=30 state)."""
@@ -3489,6 +3608,7 @@ def run_entry_points(torch, T, add, smi):
     check_trotter(torch, T, add, smi)
     check_device_parts(torch, T, add)
     check_run_many(torch, T, add, smi)
+    check_join(torch, T, smi)
     clear_caches(torch)
     print(f"entry points: phase 7 in {time.perf_counter() - t0:.1f} s")
 

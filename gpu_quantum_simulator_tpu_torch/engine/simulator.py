@@ -189,8 +189,14 @@ class Simulator:
             return sampling.sample_state_device(re, im, n, num_samples, seed)
         from ..ref.cpu import sample
 
-        return sample(self.run(circuit), num_samples,
-                      np.random.default_rng(seed))
+        if self.config.strategy == "reference":
+            state = self.run(circuit)
+        else:
+            # every device run of ``sample`` goes through run_device or
+            # run_device_halves (callers hook them to keep the state)
+            re, im, _ = self.run_device(circuit)
+            state = _join(re, im)
+        return sample(state, num_samples, np.random.default_rng(seed))
 
     def _prefetch_inplace(self, n: int) -> bool:
         cfg = self.config
@@ -594,7 +600,11 @@ class Simulator:
                 state, circuit.num_qubits, len(circuit), len(circuit),
                 time.perf_counter() - t0, self.config.strategy,
             )
-        re, im, num_ops = self.run_device(circuit, initial=initial)
+        # queued, not waited for: a flat state's join readies the host's
+        # output while the card runs and waits itself (ops/apply.py)
+        re, im, num_ops = self._run_device(circuit, initial)
+        if is_sharded(re):
+            _synchronize(re, self.device)
         state = _join(re, im)
         return RunResult(
             state, circuit.num_qubits, len(circuit), num_ops,

@@ -17,6 +17,7 @@ device and dtype.
 
 from __future__ import annotations
 
+import mmap
 from typing import Tuple
 
 import numpy as np
@@ -88,18 +89,137 @@ def _to_host(x) -> np.ndarray:
     return x.cpu().numpy()
 
 
-def join_state(re, im) -> np.ndarray:
-    """(re, im) tensors or arrays on any device -> one complex host vector.
+# Bytes of each part that one chunk of a join carries: on a card, chunk
+# k + 1 is copied to the host while the host writes chunk k.
+CHUNK_BYTES = 32 << 20
 
-    The parts are written straight into the complex output (the same values
-    as ``re + 1j * im`` cast down, without the complex128 temporary)."""
-    re = _to_host(re)
-    im = _to_host(im)
+
+def join_state(re, im) -> np.ndarray:
+    """(re, im) tensors or arrays on any device -> one complex host array
+    of their shape, complex64 for float32 parts, else complex128.
+
+    The parts are written straight into the real and imaginary lanes of
+    the output (the same values as ``out.real = re; out.imag = im``), a
+    chunk of ``CHUNK_BYTES`` a part at a time, each write one parallel
+    torch copy.  Parts on a card are joined while the card still runs the
+    work queued before the call: the host allocates the output and touches
+    its pages first, then waits for that work, then copies the parts out a
+    chunk at a time through two page-locked slots, each chunk's copy
+    running while the host writes the one before it (``qsim/d2h`` spans
+    the copies, and the ``qsim/join`` spans inside it the writes).  Every
+    join of parts from a card counts in ``state_joins``, and in
+    ``state_join_overlapped`` where the card was still running when the
+    output was ready."""
+    card = [isinstance(x, torch.Tensor) and x.is_cuda for x in (re, im)]
+    if any(card):
+        telemetry.count("state_joins")
+    if all(card) and re.device == im.device:
+        re, im = re.detach(), im.detach()
+        _check_parts(re, im)
+        return _join_from_card(re, im)
+    re, im = _host_part(re), _host_part(im)
+    _check_parts(re, im)
     with telemetry.span("qsim/join"):
-        out = np.empty(re.shape, np.complex64 if re.dtype == np.float32
-                       else np.complex128)
-        out.real = re
-        out.imag = im
+        out, lanes = _complex_out(re.shape, re.dtype)
+        re, im = re.reshape(-1), im.reshape(-1)
+        step = _chunk(re)
+        for lo in range(0, re.numel(), step):
+            _write(lanes, lo, re[lo:lo + step], im[lo:lo + step])
+    return out
+
+
+def _host_part(x) -> torch.Tensor:
+    """A part as a CPU tensor: a numpy array's memory is shared, a card's
+    part is copied through ``_to_host``."""
+    if isinstance(x, torch.Tensor):
+        return torch.from_numpy(_to_host(x)) if x.is_cuda else x.detach()
+    a = np.asarray(x)
+    try:
+        return torch.from_numpy(a)
+    except ValueError:        # negative strides or a foreign byte order
+        return torch.from_numpy(np.ascontiguousarray(
+            a, a.dtype.newbyteorder("=")))
+
+
+def _check_parts(re: torch.Tensor, im: torch.Tensor) -> None:
+    if re.shape != im.shape:
+        raise ValueError(f"re and im differ in shape: {tuple(re.shape)} "
+                         f"and {tuple(im.shape)}")
+
+
+def _complex_out(shape, dtype: torch.dtype):
+    """A new complex host array for parts of ``dtype``, and its (size, 2)
+    float view of real and imaginary lanes."""
+    out = np.empty(shape, np.complex64 if dtype == torch.float32
+                   else np.complex128)
+    return out, torch.view_as_real(torch.from_numpy(out)).view(-1, 2)
+
+
+def _chunk(part: torch.Tensor) -> int:
+    """Elements of ``part`` a chunk carries."""
+    return max(1, CHUNK_BYTES // part.element_size())
+
+
+def _write(lanes: torch.Tensor, lo: int, re: torch.Tensor,
+           im: torch.Tensor) -> None:
+    """Parts ``re`` and ``im`` into rows ``lo``.. of the output's lanes."""
+    hi = lo + re.numel()
+    lanes[lo:hi, 0].copy_(re)
+    lanes[lo:hi, 1].copy_(im)
+
+
+def _join_from_card(re: torch.Tensor, im: torch.Tensor) -> np.ndarray:
+    """``join_state`` of two parts on one card (see there)."""
+    shape = re.shape
+    # flat views (a copy on the card, queued, where a part is strided)
+    re, im = re.reshape(-1), im.reshape(-1)
+    stream = torch.cuda.current_stream(re.device)
+    ran = torch.cuda.Event()
+    ran.record(stream)
+    with telemetry.span("qsim/join"):
+        out, lanes = _complex_out(shape, re.dtype)
+        # one write a page faults the output in on the intra-op threads
+        flat = lanes.view(-1)
+        flat[::max(1, mmap.PAGESIZE // flat.element_size())].zero_()
+    if not ran.query():
+        telemetry.count("state_join_overlapped")
+    size, step = re.numel(), _chunk(re)
+    starts = range(0, size, step)
+    if not starts:
+        ran.synchronize()
+        return out
+    # two slots of a re and an im chunk (one slot for a single chunk),
+    # from torch's cache of page-locked buffers
+    ring = torch.empty((min(2, len(starts)), 2, min(step, size)),
+                       dtype=re.dtype, pin_memory=True)
+    ran.synchronize()
+    telemetry.count("state_d2h_bytes", 2 * size * re.element_size())
+    arrived = []
+
+    def issue(k):
+        lo = starts[k]
+        slot = ring[k % 2, :, :min(step, size - lo)]
+        slot[0].copy_(re[lo:lo + step], non_blocking=True)
+        slot[1].copy_(im[lo:lo + step], non_blocking=True)
+        arrived.append(torch.cuda.Event())
+        arrived[k].record(stream)
+
+    def write(k):
+        slot = ring[k % 2, :, :min(step, size - starts[k])]
+        with telemetry.span("qsim/join"):
+            _write(lanes, starts[k], slot[0], slot[1])
+
+    last = len(starts) - 1
+    with telemetry.span("qsim/d2h"):
+        for k in range(min(2, len(starts))):
+            issue(k)
+        for k in range(last):
+            arrived[k].synchronize()
+            write(k)
+            if k + 2 <= last:
+                issue(k + 2)      # into the slot chunk k has left
+        arrived[last].synchronize()
+    write(last)
     return out
 
 

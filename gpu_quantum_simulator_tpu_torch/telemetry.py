@@ -34,7 +34,10 @@ launched nothing.  The counters the port keeps:
   caches (``lookup``);
 * ``table_h2d_bytes``: bytes of tables handed to the device
   (``ops/apply.upload``, and each table part of the in-place chain);
-* ``state_d2h_bytes``: bytes of state copied from a card to the host.
+* ``state_d2h_bytes``: bytes of state copied from a card to the host;
+* ``state_joins``, ``state_join_overlapped``: joins of a state's parts
+  from a card into one host array (``ops/apply.join_state``), and those
+  whose host output was ready while the card still ran the state's work.
 """
 
 from __future__ import annotations
