@@ -15,7 +15,15 @@ complex128 n=20 on the dense engine against mxu's complex128, the dense
 engine's small shards (n=10 over eight shards, two a card: shard-index
 transpositions move shards between cards) against the f64 reference, and
 n=31 over eight shards (two a card): first run, norm, peak memory per
-card.  Exits non-zero if a check fails.
+card; and n=34 over four shards, one of 2^32 amplitudes a card (the
+benchmark's four-card cell): first run, norm, peak memory per card, the
+memory a card keeps once the run has returned (the state alone: the spare
+pair is freed), the gswaps, the gswap kernel's launches (one a shard and
+gswap) and the bytes they moved between cards (``gswap_peer_bytes``), and
+whether every card can read every other's memory; before that run, the
+gswap kernel against its plain version (torch view copies) on that
+run's shards, bit for bit and timed (chip_smoke.py
+``check_gswap_halves``).  Exits non-zero if a check fails.
 """
 import subprocess
 import sys
@@ -26,12 +34,14 @@ import numpy as np
 import torch
 import gpu_quantum_simulator_tpu_torch as T
 from gpu_quantum_simulator_tpu_torch import sampling as S
+from gpu_quantum_simulator_tpu_torch import telemetry
 from gpu_quantum_simulator_tpu_torch.kernels import build
 from gpu_quantum_simulator_tpu_torch.parallel.mesh import make_mesh
 from gpu_quantum_simulator_tpu_torch.parallel.sharded import join_shards
 from gpu_quantum_simulator_tpu_torch.parallel import sharded_prefetch as SP
 from gpu_quantum_simulator_tpu_torch.utils import checkpoint as CK
 from gpu_quantum_simulator_tpu_torch.ref.cpu import simulate_reference
+from chip_smoke import check_gswap_halves
 
 
 def sim(devs, shards, **kw):
@@ -136,6 +146,55 @@ def main() -> int:
           f"card's events {st.elapsed_time(en) / 1e3:.2f} s, norm "
           f"{norm:.8f}, peak GiB per card {[round(p, 3) for p in peaks]}")
     check("n=31 over four cards: norm", abs(norm - 1) < 1e-4)
+    del re, im
+
+    # n = 34 over four shards, one a card: the state and its spare pair
+    # take 64 GiB of each card
+    peers = {(a, b): torch.cuda.can_device_access_peer(a, b)
+             for a in range(4) for b in range(4) if a != b}
+    print(f"peer access: {peers}")
+    check("every card reads every other's memory", all(peers.values()))
+    torch.cuda.empty_cache()
+    check_gswap_halves(torch, [f"cuda:{k}" for k in range(4)], 1 << 32)
+    c = T.models.grover_like(34, 2445, 318)
+    for k in range(4):
+        torch.cuda.reset_peak_memory_stats(k)
+    SP._RUN_CACHE.clear()
+    held = [torch.cuda.memory_allocated(k) / 2**30 for k in range(4)]
+    before = telemetry.counters()
+    t = time.perf_counter()
+    re, im, _ = sim(cards, 4).run_device(c)
+    wall = time.perf_counter() - t
+    after = telemetry.counters()
+    prog = list(SP._RUN_CACHE.values())[-1]
+    st, en = prog._chain.events
+    peaks = [torch.cuda.max_memory_allocated(k) / 2**30 for k in range(4)]
+    # what the run left on each card beside what the earlier phases hold
+    kept = [torch.cuda.memory_allocated(k) / 2**30 - held[k]
+            for k in range(4)]
+    norm = S.norm_device(re, im)
+    gswaps = after["launches/gswap"] - before["launches/gswap"]
+    pulls = (after["launches/gswap_halves"]
+             - before["launches/gswap_halves"])
+    peer = after.get("gswap_peer_bytes", 0) - before.get("gswap_peer_bytes",
+                                                          0)
+    print(f"n=34 over 4 shards on four cards 'high': first run_device "
+          f"{wall:.2f} s (planning {prog.build_seconds:.2f} s), first "
+          f"card's events {st.elapsed_time(en) / 1e3:.2f} s, norm "
+          f"{norm:.8f}, peak GiB per card {[round(p, 3) for p in peaks]}, "
+          f"kept GiB per card {[round(k, 3) for k in kept]}, {gswaps} "
+          f"gswaps, {pulls} gswap kernel launches, {peer / 2**30:.1f} GiB "
+          f"between cards")
+    check("n=34 over four cards: norm", abs(norm - 1) < 1e-4)
+    check("n=34: shards of 2^32 amplitudes, one a card",
+          [(x.numel(), str(x.device)) for x in re]
+          == [(1 << 32, f"cuda:{k}") for k in range(4)])
+    check("n=34: the spare pair is freed when the run returns",
+          max(kept) < 32.5)
+    check("n=34: every gswap ships half of each shard between cards",
+          gswaps > 0 and peer == gswaps * 4 * (1 << 32) * 4)
+    check("n=34: the gswap kernel launches once a shard and gswap",
+          pulls == 4 * gswaps)
     print("ALL OK" if not failed else f"FAILED: {failed}")
     return 0 if not failed else 1
 

@@ -225,7 +225,12 @@ failure raises and the script exits non-zero:
    "auto" (planning, table and device seconds apart), the sampler on its
    sharded state, ``Simulator.sample`` of the mirror (every shot |0>),
    peak device memory <= 34 GiB.  Launch counts against each plan:
-   relayouts once a shard and relayout row, gswaps once a gswap row.
+   relayouts once a shard and relayout row, gswaps once a gswap row, and
+   the gswap kernel (csrc/gswap.cu) once a shard and gswap row.  That
+   kernel against its plain version (torch view copies) on eight shards
+   of 2^28 amplitudes, n=31's (``check_gswap_halves``): for each
+   shard-index bit at the chain's local bit 7, one launch a shard and the
+   new shards bit for bit those of the plain version, both timed.
 
 Phase 3 also pins the "high" rung's norm drift: 200 chained "high" mat
 steps at n=24 on a normalised random state over eight random unitary
@@ -4959,8 +4964,9 @@ def newest_shard_program():
 def check_shard_counts(what, counts, modes, shards, runs, high):
     """Launch counts of ``runs`` runs of a segmented sharded program against
     its plan: block launches, relayouts once a shard and standalone
-    relayout, gswaps once an entry, no folded input (the sharded chains do
-    not fold), and the mat step of the rung."""
+    relayout, gswaps once an entry and the gswap kernel once a shard and
+    entry, no folded input (the sharded chains do not fold), and the mat
+    step of the rung."""
     block = (counts["mat"] + counts["mat_high"] + counts["mat_default"]
              + counts["gather"])
     bad = []
@@ -4972,6 +4978,9 @@ def check_shard_counts(what, counts, modes, shards, runs, high):
     if not (counts["gswap"] == runs * modes.get(4, 0) and modes.get(4, 0)):
         bad.append(f"gswaps {counts['gswap']} for {modes.get(4, 0)} rows "
                    f"x {runs}")
+    if counts["gswap_halves"] != runs * shards * modes.get(4, 0):
+        bad.append(f"gswap kernel launches {counts['gswap_halves']} for "
+                   f"{modes.get(4, 0)} rows x {shards} shards x {runs}")
     if counts["folded"]:
         bad.append(f"folded launches {counts['folded']}")
     if high != (counts["mat_high"] > 0) or high == (counts["mat"] > 0):
@@ -4982,8 +4991,93 @@ def check_shard_counts(what, counts, modes, shards, runs, high):
 
 
 def short_counts(counts):
-    keys = ("mat", "mat_high", "gather", "relayout", "gswap")
+    keys = ("mat", "mat_high", "gather", "relayout", "gswap", "gswap_halves")
     return {k: counts[k] for k in keys}
+
+
+SHARD_GSWAP = (8, 1 << 28)   # phase 11's shards of n = 31 on one card
+GSWAP_REPS = 3
+
+
+def check_gswap_halves(torch, devices, numel, reps=GSWAP_REPS):
+    """parallel/sharded.py's gswap kernel (``gswap_halves``) against its
+    plain version (``gswap_halves_plain``, torch view copies): one float32
+    shard of ``numel`` amplitudes on each of ``devices``, exchanged at the
+    segmented chain's local bit 7 with each shard-index bit.  Each kernel
+    call launches once a shard, and its new shards are bit for bit those
+    of the plain version: the kept half compared in place, the partner's
+    half copied to the shard's device by a torch view copy and compared.
+    Then each version is timed ``reps`` times, alternately, into the same
+    pairs (every device synchronized around each, host clock).  Holds the
+    shards, the new pairs and a half component a device: at 2^32
+    amplitudes a card, 72 GiB.  Returns the median ms of each."""
+    from gpu_quantum_simulator_tpu_torch.parallel import sharded as SD
+
+    S, l = len(devices), 7
+    hi, lo = numel >> (l + 1), 1 << l
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    seeds = torch.randint(1 << 30, (S,), generator=gen).tolist()
+    re, im = [], []
+    for dev, sd in zip(devices, seeds):
+        g = torch.Generator(device=dev).manual_seed(sd)
+        re.append(torch.randn(numel, device=dev, generator=g))
+        im.append(torch.randn(numel, device=dev, generator=g))
+    pairs = [(torch.empty_like(r), torch.empty_like(i))
+             for r, i in zip(re, im)]
+    cards = sorted({torch.device(d).index for d in devices})
+
+    def sync():
+        for k in cards:
+            torch.cuda.synchronize(k)
+
+    def same(g):
+        for s in range(S):
+            my, p = (s >> g) & 1, s ^ (1 << g)
+            for src, part, got in ((re[s], re[p], pairs[s][0]),
+                                   (im[s], im[p], pairs[s][1])):
+                v = got.view(hi, 2, lo)
+                if not torch.equal(v[:, my], src.view(hi, 2, lo)[:, my]):
+                    return False
+                shipped = part.view(hi, 2, lo)[:, my].to(src.device)
+                if not torch.equal(v[:, 1 - my], shipped):
+                    return False
+                del shipped
+        return True
+
+    bad, times = [], {"kernel": [], "plain": []}
+    SD._on_cards(re)                 # peer access between the cards
+    for g in range(S.bit_length() - 1):
+        before = SD.gswap_halves.launches
+        SD.gswap_halves(re, im, g, l, pairs)
+        sync()
+        if SD.gswap_halves.launches - before != S:
+            bad.append(f"g={g}: {SD.gswap_halves.launches - before} "
+                       f"launches for {S} shards")
+        if not same(g):
+            bad.append(f"g={g}: the kernel's shards differ")
+        SD.gswap_halves_plain(re, im, g, l, pairs)
+        sync()
+        if not same(g):
+            bad.append(f"g={g}: the plain version's shards differ")
+    for _ in range(reps):
+        for name, fn in (("kernel", SD.gswap_halves),
+                         ("plain", SD.gswap_halves_plain)):
+            sync()
+            t0 = time.perf_counter()
+            fn(re, im, 0, l, pairs)
+            sync()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    del re, im, pairs
+    torch.cuda.empty_cache()
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"gswap kernel over {S} shards of {numel} amplitudes on "
+          f"{sorted(set(map(str, devices)))}: bit for bit the plain version "
+          f"{not bad}; ms an exchange, kernel {times['kernel']}, torch view "
+          f"copies {times['plain']}; median ratio "
+          f"{ms['plain'] / ms['kernel']:.2f}")
+    if bad:
+        raise AssertionError(f"gswap kernel: {bad}")
+    return ms
 
 
 def check_sharded_reference(torch, T, refs, add):
@@ -5242,6 +5336,8 @@ def run_sharded_phase(torch, T, refs, highest24, add, smi):
     check_sharded_iterated(torch, T, add)
     check_sharded_full(torch, T, add, smi)
     clear_caches(torch)
+    shards, numel = SHARD_GSWAP
+    check_gswap_halves(torch, ["cuda:0"] * shards, numel)
     print(f"sharded engines: phase 11 in {time.perf_counter() - t0:.1f} s")
 
 

@@ -114,6 +114,13 @@ class SimulatorConfig:
     shard_segmented: Optional[bool] = None
 
     def __post_init__(self):
+        # a shape read from JSON is a list: kept as the tuple the type
+        # states, so that the configuration stays hashable
+        if self.mesh_shape is not None:
+            object.__setattr__(self, "mesh_shape",
+                               tuple(int(x) for x in self.mesh_shape))
+        object.__setattr__(self, "mesh_axis_names",
+                           tuple(self.mesh_axis_names))
         if self.strategy not in STRATEGIES:
             raise ValueError(
                 f"unknown strategy {self.strategy!r}; pick one of {STRATEGIES}"

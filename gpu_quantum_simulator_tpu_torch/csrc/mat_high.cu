@@ -115,14 +115,17 @@ extern "C" {
 // (rows, 256) state pair.  w: the slot's tables as kernels/block.py
 // split_tables lays them out (512 KB; "default" reads the hi words);
 // steer_bit: flat bit (>= 8) exchanged with bit 7 on input, or -1;
-// sigma/m/tr: the folded relayout on input (m = 0: none).
+// sigma/m/tr: the folded relayout on input (m = 0: none).  Rows below
+// 2^31: a half-row's source code (2 x row + half) is 32 bits and never the
+// past-the-state mark, and every offset is 64-bit, so a shard of 2^32
+// amplitudes (2^24 rows) runs as the flat state does.
 int qsim_mat_step_high(const float* in_re, const float* in_im, float* out_re,
                        float* out_im, const void* w, long long rows,
                        int steer_bit, const int* sigma, int m, int tr, int lo,
                        void* stream) {
   FlatMap map{in_re, in_im, out_re, out_im, rows,
               steer_bit >= 0 ? steer_bit - 8 : -1, Fold{}};
-  if (rows < 1 || rows > (1LL << 30) / DVIEW ||
+  if (rows < 1 || rows >= (1LL << 31) ||
       !make_fold(&map.fold, sigma, m, tr) || (m > 0 && steer_bit >= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

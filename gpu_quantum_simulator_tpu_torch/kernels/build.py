@@ -134,6 +134,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [P, P, I, L, I, I, P]
     lib.qsim_copy_grid.restype = I
     lib.qsim_copy_grid.argtypes = [P, P, I, L, L, P]
+    lib.qsim_gswap_halves.restype = I
+    lib.qsim_gswap_halves.argtypes = [P, P, P, P, P, P, L, I, I, P]
+    lib.qsim_enable_peer.restype = I
+    lib.qsim_enable_peer.argtypes = [I, I]
     lib.qsim_vmem_chunk.restype = I
     lib.qsim_vmem_chunk.argtypes = [P, P, P, P, P, P, I, I, I,
                                     ctypes.POINTER(I), P]

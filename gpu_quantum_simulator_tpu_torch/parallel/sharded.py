@@ -11,18 +11,20 @@ its device: nothing of size 2^n is ever put together on one device.
 fused ops are the single-device ``ops/apply.py`` primitives on every
 shard; a swap of global position ``p`` with local position ``l`` is a
 pairwise half-block exchange with the shard across shard-index bit
-``p - (n - d)`` (``swap_halves``), the JAX package's ``lax.ppermute``.
+``p - (n - d)`` (``swap_halves``), the JAX package's ``lax.ppermute``; on
+cards one launch a shard of csrc/gswap.cu pulls the partner's half over
+the link (peer access, which a sharded state on cards requires).
 
 Swap derivation (bit A = global p, bit B = local l, shard bit a, block half
 b = bit l): amplitudes with b == a stay put (their new local bit equals the
 old shard bit); amplitudes with b != a move to the partner shard and land
 in its half l == 1 - partner_bit.  So each shard ships exactly half a block
 — the minimum possible data motion for a qubit swap.  Each shard writes
-its new block into a pair of its own with two copies: its kept half, and
-the partner's shipped half.  Between two cards the second copy is a peer
-copy; torch orders a copy between devices after the current streams of
-both (an event each way), so the partner's last write is complete before
-it is read and no later write of the partner overtakes it.
+its new block into a pair of its own: its kept half, and the partner's
+shipped half.  Between two cards the second is a peer read (the kernel) or
+a peer copy (torch), ordered after the current streams of both and before
+their next work (an event each way), so the partner's last write is
+complete before it is read and no later write of the partner overtakes it.
 
 This engine serves complex128, shards of fewer than 9 qubits and
 ``shard_segmented=False``; the segmented engine
@@ -103,25 +105,115 @@ def swap_halves(re: Shards, im: Shards, g: int, l: int,
     Shard s (its bit g = my) keeps its half l == my and receives its
     partner's (s ^ 2^g) half l == my into its half l == 1 - my.  Each shard
     writes into ``out[s]`` (a pair shaped like its shard; allocated when
-    None), two copies a component; the input shards are only read.
+    None); the input shards are only read.  Float32 shards on cards, with
+    l >= 2, take one launch a shard of csrc/gswap.cu (``gswap_halves``);
+    the rest (the CPU, float64, l < 2) two torch copies a component
+    (``gswap_halves_plain``).  Shards on distinct cards need peer access
+    between them: where it cannot be enabled, this raises rather than let
+    a copy go through the host.
+
+    Timed as the ``qsim/gswap`` span; counted in ``gswap_peer_bytes`` (the
+    partners' halves shipped between distinct devices) and
+    ``gswap_local_bytes`` (the kept halves, and partners' halves on the
+    same device).
     """
     S = len(re)
+    half = re[0].numel() // 2 * re[0].element_size() * 2   # both components
+    peer = sum(re[s].device != re[s ^ (1 << g)].device for s in range(S))
+    telemetry.count("gswap_peer_bytes", peer * half)
+    telemetry.count("gswap_local_bytes", (2 * S - peer) * half)
+    with telemetry.span("qsim/gswap"):
+        pairs = [out[s] if out is not None and out[s] is not None else (
+            torch.empty_like(re[s]), torch.empty_like(im[s]))
+            for s in range(S)]
+        if _on_cards(re) and l >= 2 and re[0].dtype == torch.float32:
+            gswap_halves(re, im, g, l, pairs)
+        else:
+            gswap_halves_plain(re, im, g, l, pairs)
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+_PEERS: set = set()        # (device, peer) pairs with peer access enabled
+
+
+def _on_cards(re: Shards) -> bool:
+    """Whether the shards sit on cards; enables peer access between every
+    two distinct cards among them the first time (csrc/gswap.cu
+    ``qsim_enable_peer``), and raises, naming the pair and the CUDA error,
+    where it cannot be enabled."""
+    if not re[0].is_cuda:
+        return False
+    devs = sorted({t.device.index for t in re})
+    for a in devs:
+        for b in devs:
+            if a == b or (a, b) in _PEERS:
+                continue
+            from ..kernels import build
+
+            lib = build.load()
+            rc = lib.qsim_enable_peer(a, b)
+            if rc != 0:
+                raise RuntimeError(
+                    f"peer access from cuda:{a} to cuda:{b}: CUDA error "
+                    f"{rc} ({lib.qsim_error_string(rc).decode()}); a "
+                    "sharded state needs its cards to read each other's "
+                    "memory")
+            _PEERS.add((a, b))
+    return True
+
+
+def gswap_halves_plain(re: Shards, im: Shards, g: int, l: int,
+                       pairs) -> None:
+    """``swap_halves`` by torch view copies into ``pairs``, two a
+    component a shard (torch orders a copy between cards after the current
+    streams of both, an event each way)."""
     nl = re[0].numel().bit_length() - 1
     hi, lo = 1 << (nl - l - 1), 1 << l
-    new_re, new_im = [], []
-    for s in range(S):
+    for s in range(len(re)):
         my = (s >> g) & 1
         p = s ^ (1 << g)
-        pair = out[s] if out is not None and out[s] is not None else (
-            torch.empty_like(re[s]), torch.empty_like(im[s]))
-        for src, part, dst in ((re[s], re[p], pair[0]),
-                               (im[s], im[p], pair[1])):
+        for src, part, dst in ((re[s], re[p], pairs[s][0]),
+                               (im[s], im[p], pairs[s][1])):
             v = dst.view(hi, 2, lo)
             v[:, my].copy_(src.view(hi, 2, lo)[:, my])
             v[:, 1 - my].copy_(part.view(hi, 2, lo)[:, my])
-        new_re.append(pair[0])
-        new_im.append(pair[1])
-    return new_re, new_im
+
+
+@telemetry.counted
+def gswap_halves(re: Shards, im: Shards, g: int, l: int, pairs) -> None:
+    """``swap_halves`` on cards (float32, l >= 2, peer access on): shard
+    s's launch of csrc/gswap.cu, on its own card's current stream, reads
+    its kept half and its partner's half and writes ``pairs[s]``.  That
+    stream first waits for the partner's stream (the partner's last write
+    of its shard is done before it is read), and the partner's stream then
+    waits for the launch (the partner overwrites its shard, which becomes
+    its spare, only once it has been read).  ``gswap_halves.launches``
+    counts the launches, one a shard."""
+    from ..kernels import build
+
+    lib = build.load()
+    S = len(re)
+    streams = [torch.cuda.current_stream(t.device) for t in re]
+    ready = [torch.cuda.Event() for _ in range(S)]
+    for ev, st in zip(ready, streams):
+        ev.record(st)
+    done = [torch.cuda.Event() for _ in range(S)]
+    for s in range(S):
+        p = s ^ (1 << g)
+        streams[s].wait_event(ready[p])
+        with torch.cuda.device(re[s].device):
+            build.check(lib, lib.qsim_gswap_halves(
+                re[s].data_ptr(), im[s].data_ptr(), re[p].data_ptr(),
+                im[p].data_ptr(), pairs[s][0].data_ptr(),
+                pairs[s][1].data_ptr(), re[s].numel(), l, (s >> g) & 1,
+                streams[s].cuda_stream), "gswap")
+        gswap_halves.launches += 1
+        done[s].record(streams[s])
+    for s in range(S):
+        streams[s ^ (1 << g)].wait_event(done[s])
+
+
+gswap_halves.launches = 0
 
 
 def local_swap(re: Shards, im: Shards, a: int, b: int):

@@ -11,17 +11,19 @@ R2L > tile_rows(nl), and the "high"/"default" mat step (3') by rung.
 A gate on a MESH-AXIS qubit is preceded by a planned ``gswap`` entry
 (scal mode 4): exchange local window bit 7 with shard-index bit g.  It is
 an entry of this chain, not a kernel mode: each shard writes its new block
-into its own spare pair (the chain's ping-pong buffer) with two copies a
-component, its kept column half and the partner's shipped half
-(parallel/sharded.py ``swap_halves``), and then swaps pair and spare, so
-no staging buffer exists.  Each shard ships exactly half its block.
+into its own spare pair (the chain's ping-pong buffer), its kept column
+half and the partner's shipped half (parallel/sharded.py ``swap_halves``:
+on cards one launch a shard of csrc/gswap.cu, pulling the partner's half
+over the link), and then swaps pair and spare, so no staging buffer
+exists.  Each shard ships exactly half its block.
 
 The circuit's entries are packed into power-of-2 chunks as in the JAX
 package (``chunk_sizes``); each chunk is one table part.  The tables stay
 on the host as compact factors and are expanded on each distinct mesh
 device a group of entries at a time as the chain reaches them, so the
-device holds the state, its spare pair and one group's tables (at n = 31
-over eight shards: 16 GiB, 16 GiB and a few MB).
+device holds the state, its spare pair and one group's tables (at n = 34
+over four cards, a shard of 2^32 amplitudes each: 32 GiB, 32 GiB and a
+few hundred MB a card).  The spare pair lives only while a call runs.
 
 Planner: plan_prefetch(num_global=d) — one planner serves both engines.
 """
@@ -73,7 +75,9 @@ def gswap(cur, spare, g: int):
     """The mesh gswap entry: window bit 7 (the column half) of every
     shard's (R2L, 256) pair exchanged with shard-index bit ``g``.  Each
     shard's new block is written into its spare pair (allocated when
-    None); returns (new cur, new spare)."""
+    None); returns (new cur, new spare).  ``gswap.launches`` counts the
+    entries; on cards each is one launch a shard, counted in
+    ``sharded.gswap_halves.launches``."""
     re, im = swap_halves([c[0] for c in cur], [c[1] for c in cur], g,
                          LOCAL_QUBITS - 1, out=spare)
     gswap.launches += 1
@@ -300,37 +304,39 @@ def run_sharded_prefetch(circuit, config, mesh: Mesh, initial_parts=None):
     axis = config.mesh_axis_names[0]
     d = num_global_qubits(mesh, axis)
 
-    perm = plan_permutation(circuit)
-    if np.array_equal(perm, np.arange(n)):
-        perm = None
+    with telemetry.span("qsim/plan"):
+        perm = plan_permutation(circuit)
+        if np.array_equal(perm, np.arange(n)):
+            perm = None
 
-    reorder = getattr(config, "prefetch_reorder", None)
-    if reorder is None:
-        reorder = True
-    precision = resolve_precision(getattr(config, "precision", "highest"), n)
+        reorder = getattr(config, "prefetch_reorder", None)
+        if reorder is None:
+            reorder = True
+        precision = resolve_precision(
+            getattr(config, "precision", "highest"), n)
 
-    run_key = (
-        "shard", _circuit_fingerprint(circuit), precision,
-        config.max_fused_qubits, bool(reorder), mesh.key, axis,
-    )
-    prog = telemetry.lookup(_RUN_CACHE, run_key)
-    if prog is None:
-        if perm is None:
-            work = circuit
-            final_layout = np.arange(n)
-        else:
-            work = circuit.relabeled(perm)
-            final_layout = np.argsort(perm)
-        ops = _fuse_pipeline(
-            work, min(config.max_fused_qubits, LANE_QUBITS), max_high=2,
-            window=8)
-        cap_mats = 4 if n - d >= 21 else CAP_MATS
-        prog = ShardedPrefetchProgram(
-            ops, n, mesh, axis, precision=precision, cap_mats=cap_mats,
-            final_layout=final_layout, reorder=bool(reorder))
-        if len(_RUN_CACHE) >= _RUN_CACHE_LIMIT:
-            _RUN_CACHE.pop(next(iter(_RUN_CACHE)))
-        _RUN_CACHE[run_key] = prog
+        run_key = (
+            "shard", _circuit_fingerprint(circuit), precision,
+            config.max_fused_qubits, bool(reorder), mesh.key, axis,
+        )
+        prog = telemetry.lookup(_RUN_CACHE, run_key)
+        if prog is None:
+            if perm is None:
+                work = circuit
+                final_layout = np.arange(n)
+            else:
+                work = circuit.relabeled(perm)
+                final_layout = np.argsort(perm)
+            ops = _fuse_pipeline(
+                work, min(config.max_fused_qubits, LANE_QUBITS), max_high=2,
+                window=8)
+            cap_mats = 4 if n - d >= 21 else CAP_MATS
+            prog = ShardedPrefetchProgram(
+                ops, n, mesh, axis, precision=precision, cap_mats=cap_mats,
+                final_layout=final_layout, reorder=bool(reorder))
+            if len(_RUN_CACHE) >= _RUN_CACHE_LIMIT:
+                _RUN_CACHE.pop(next(iter(_RUN_CACHE)))
+            _RUN_CACHE[run_key] = prog
 
     if perm is not None and initial_parts is not None:
         iv = np.asarray(initial_parts[0]) + 1j * np.asarray(initial_parts[1])

@@ -44,6 +44,7 @@ STAGE_SPLIT_MIN = 20
 LANES = 128
 DVIEW = 256
 CHUNK_ROWS = 1 << 16      # rows reduced at a time by the halves functions
+DOT_CHUNK = 1 << 30       # elements of one dot product in norm_device
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -169,13 +170,18 @@ def top_amplitudes_device(re, im, k: int = 8):
     return vals[order].cpu().numpy(), _host_indices(idx[order])
 
 
+def _sq(x: torch.Tensor) -> float:
+    """x . x in dot products of at most ``DOT_CHUNK`` elements (cuBLAS
+    takes no longer vector: a shard of 2^32 amplitudes is two of them)."""
+    return sum(float(torch.dot(p, p)) for p in x.reshape(-1).split(DOT_CHUNK))
+
+
 def norm_device(re, im) -> float:
     """Squared norm of a flat state (dot products: no 2^n temporary), or
     of a sharded one (the shards' dot products summed)."""
     if is_sharded(re):
-        return sum(float(torch.dot(r, r) + torch.dot(i, i))
-                   for r, i in zip(re, im))
-    return float(torch.dot(re, re) + torch.dot(im, im))
+        return sum(_sq(r) + _sq(i) for r, i in zip(re, im))
+    return _sq(re) + _sq(im)
 
 
 def amplitudes_device(re, im, indices) -> np.ndarray:

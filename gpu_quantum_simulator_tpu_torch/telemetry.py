@@ -37,7 +37,11 @@ launched nothing.  The counters the port keeps:
 * ``state_d2h_bytes``: bytes of state copied from a card to the host;
 * ``state_joins``, ``state_join_overlapped``: joins of a state's parts
   from a card into one host array (``ops/apply.join_state``), and those
-  whose host output was ready while the card still ran the state's work.
+  whose host output was ready while the card still ran the state's work;
+* ``gswap_peer_bytes``, ``gswap_local_bytes``: bytes a sharded state's
+  half-block exchanges (``parallel/sharded.py`` ``swap_halves``, the
+  ``qsim/gswap`` span) move between distinct devices, and within one (the
+  kept halves, and partners' halves on the same device).
 """
 
 from __future__ import annotations
