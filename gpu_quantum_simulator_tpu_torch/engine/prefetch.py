@@ -173,30 +173,35 @@ PERM_FOLD = True
 # Lower MONOMIAL ops as generic mat steps instead of the mono step (a
 # column gather plus a phase rotation).  The JAX package turns this on for
 # flat plans from n = 21 on the strength of its TPU A/B runs (see
-# gpu_quantum_simulator_tpu/engine/prefetch.py); the port copies the policy
-# so that both packages plan alike.  It is not measured on the card: the
-# profiling tool (gpu_quantum_simulator_tpu_torch/profiling.py) runs either
-# arm.  None = auto; tests and the tool may assign a bool to force an arm.
+# gpu_quantum_simulator_tpu/engine/prefetch.py); the port copies that
+# policy for flat plans, which no card A/B has judged yet.  In-place plans
+# never lower monos as mats here (``resolve_mono_as_mat``).  None = auto;
+# tests and the profiling tool (gpu_quantum_simulator_tpu_torch/
+# profiling.py) may assign a bool to force an arm.
 MONO_AS_MAT = None
 MONO_AUTO_MIN_QUBITS = 21
-# in-place (split-halves) plans lower monomial ops as mats, and take the
-# window-16 / cap_mats-8 knobs, from this width (the JAX package's TPU A/B
-# choice, kept so both packages plan alike; not measured on the card)
+# in-place (split-halves) plans take the window-16 / cap_mats-8 knobs from
+# this width (the JAX package's TPU A/B choice, kept so both packages fuse
+# alike; not measured on the card).  The JAX package also lowers in-place
+# monos as mats from this width; the port does not (resolve_mono_as_mat).
 MONO_INPLACE_AUTO_MIN_QUBITS = 29
 
 
 def resolve_mono_as_mat(n: int, inplace: bool = False,
                         num_global: int = 0) -> bool:
-    """Effective mono-as-mat lowering for one plan: the JAX package's
-    auto scope (flat plans at n >= MONO_AUTO_MIN_QUBITS, in-place chains
-    at n >= MONO_INPLACE_AUTO_MIN_QUBITS, sharded plans never), unless
-    MONO_AS_MAT forces an arm."""
+    """Effective mono-as-mat lowering for one plan, unless MONO_AS_MAT
+    forces an arm: sharded plans never, in-place chains never, flat plans
+    at n >= MONO_AUTO_MIN_QUBITS (the JAX package's auto scope).
+
+    In place the card runs every step as a launch and a state pass of its
+    own, so a mono step is one byte-bound gather pass while a mat step is
+    the rung's dense product (three bf16 passes at "high"): the mono wins
+    at every width and rung.  The JAX package's in-place choice from
+    n = 29 rests on TPU blocks that share one pass over a tile in VMEM."""
     if MONO_AS_MAT is not None:
         return bool(MONO_AS_MAT)
-    if num_global != 0:
+    if num_global != 0 or inplace:
         return False
-    if inplace:
-        return n >= MONO_INPLACE_AUTO_MIN_QUBITS
     return n >= MONO_AUTO_MIN_QUBITS
 
 

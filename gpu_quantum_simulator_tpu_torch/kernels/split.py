@@ -26,7 +26,9 @@ other device raises.  ``run_split_block.launches`` counts launches by kind:
 ``mat``, ``mat_high``, ``mat_default`` (the "high" kernel's "default"
 instantiation), ``gather`` (tswap, perm, mono) and ``pair`` (the first
 launch of a mode-1 block, whichever step it runs);
-``run_xswap.launches`` counts the pair swaps.
+``run_xswap.launches`` counts the pair swaps.  The telemetry counters
+``inplace_mat_steps`` and ``inplace_mono_steps`` count the blocks' mat and
+mono steps, the plain versions' too.
 """
 
 from __future__ import annotations
@@ -174,9 +176,15 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
     its (cap, 256) int32 gathers and ``high_tables`` its ``split_tables``
     for the "high" and "default" rungs (computed here when None; checked on every device
     when given); a block without steps reads no table, and they may then be
-    None."""
+    None.
+
+    Counts the block's steps by kind, on every device: ``inplace_mat_steps``
+    (kind 0) and ``inplace_mono_steps`` (kind ``logt + 2``)."""
     if high_tables is not None:
         check_high_tables(high_tables, a_tab.shape[0], "split block kernel")
+    kinds = [int(scal[4 + j]) for j in range(int(scal[0]))]
+    telemetry.count("inplace_mat_steps", kinds.count(0))
+    telemetry.count("inplace_mono_steps", kinds.count(logt + 2))
     dev = halves[0].device
     if dev.type == "cpu":
         return run_split_block_plain(scal, halves, a_tab, b_tab, mono_src,
@@ -208,8 +216,7 @@ def run_split_block(scal: Sequence[int], halves: Halves, a_tab: torch.Tensor,
             or mono_src.shape != a_tab.shape[:2]:
         raise ValueError("split block kernel: tables must be (cap, 256, 256) "
                          "and mono_src (cap, 256)")
-    high = precision in SPLIT_RUNGS and any(
-        int(scal[4 + j]) == 0 for j in range(nsteps))
+    high = precision in SPLIT_RUNGS and 0 in kinds
     if high and high_tables is None:
         high_tables = split_tables(a_tab, b_tab)
     tensors = [a_tab, b_tab, mono_src] + ([high_tables] if high else [])

@@ -41,7 +41,10 @@ launched nothing.  The counters the port keeps:
 * ``gswap_peer_bytes``, ``gswap_local_bytes``: bytes a sharded state's
   half-block exchanges (``parallel/sharded.py`` ``swap_halves``, the
   ``qsim/gswap`` span) move between distinct devices, and within one (the
-  kept halves, and partners' halves on the same device).
+  kept halves, and partners' halves on the same device);
+* ``inplace_mat_steps``, ``inplace_mono_steps``: the in-place chain's mat
+  and mono steps (``kernels/split.py`` ``run_split_block``), on every
+  device; counters, not launches.
 """
 
 from __future__ import annotations

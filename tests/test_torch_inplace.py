@@ -27,6 +27,7 @@ from gpu_quantum_simulator_tpu.engine.simulator import _fuse_pipeline as j_fuse
 from gpu_quantum_simulator_tpu.ref.cpu import simulate_reference
 
 import gpu_quantum_simulator_tpu_torch as T
+from gpu_quantum_simulator_tpu_torch import telemetry
 from gpu_quantum_simulator_tpu_torch.engine import prefetch as TPF
 from gpu_quantum_simulator_tpu_torch.engine.simulator import _fuse_pipeline as t_fuse
 from gpu_quantum_simulator_tpu_torch.kernels import relayout as KR
@@ -546,14 +547,98 @@ def test_initial_parts_relabel_halves_matches_flat():
                          "cpu")
 
 
-def test_inplace_knobs_and_mono_lowering_follow_jax():
-    for n in (12, 28, 29, 30):
-        for inplace in (False, True):
-            assert TPF.resolve_prefetch_knobs(
-                T.SimulatorConfig(strategy="prefetch"), n, inplace) == \
-                JPF.resolve_prefetch_knobs(JConfig(strategy="prefetch"), n,
-                                           inplace)
-            assert TPF.resolve_mono_as_mat(n, inplace) == \
-                JPF.resolve_mono_as_mat(n, inplace)
+@pytest.mark.parametrize("inplace", [False, True], ids=["flat", "inplace"])
+@pytest.mark.parametrize("n", [12, 28, 29, 30, 31])
+def test_inplace_knobs_and_mono_lowering_follow_jax(monkeypatch, n, inplace):
+    for pf in (JPF, TPF):
+        monkeypatch.setattr(pf, "MONO_AS_MAT", None)
+    assert TPF.resolve_prefetch_knobs(
+        T.SimulatorConfig(strategy="prefetch"), n, inplace) == \
+        JPF.resolve_prefetch_knobs(JConfig(strategy="prefetch"), n, inplace)
+    port = TPF.resolve_mono_as_mat(n, inplace)
+    jax = JPF.resolve_mono_as_mat(n, inplace)
+    if inplace and n >= 29:
+        # the card policy: the card runs every in-place step as a launch
+        # and a state pass of its own, so a mono step (one gather pass)
+        # beats the rung's dense product at every width; the JAX package's
+        # mats from n = 29 rest on TPU blocks sharing one pass in VMEM
+        assert jax and not port
+    else:
+        assert port == jax
+    # sharded plans keep the mono step in both packages
+    assert TPF.resolve_mono_as_mat(n, inplace, num_global=2) is False
+    assert JPF.resolve_mono_as_mat(n, inplace, num_global=2) is False
+
+
+def test_prefetch_goes_in_place_from_n30():
     sim = T.Simulator(T.SimulatorConfig(strategy="prefetch"), device="cpu")
     assert sim._prefetch_inplace(30) and not sim._prefetch_inplace(29)
+
+
+def test_inplace_entries_equal_jax_under_the_forced_mat_arm(tiles,
+                                                            monkeypatch):
+    """Forced to lower monos as mats, the in-place program still packs the
+    JAX package's arrays: plan parity keeps a guard on that arm."""
+    tiles(TILE, 1)
+    for pf in (JPF, TPF):
+        monkeypatch.setattr(pf, "MONO_AS_MAT", True)
+    jops = j_fuse(JM.grover_like(12, 300, 13), 7, max_high=2)
+    tops = t_fuse(T.models.grover_like(12, 300, 13), 7, max_high=2)
+    _, want = _jax_host_parts(jops, 12)
+    got = TPF.PrefetchProgram(tops, 12, device="cpu", inplace=True)._chain._parts
+    assert len(got) == len(want)
+    for (gscal, gtabs), (wscal, wtabs) in zip(got, want):
+        assert np.array_equal(np.asarray(gscal, dtype=np.int32), wscal)
+        for g, w in zip(gtabs, wtabs):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+    plan = TPF.plan_circuit(tops, 12, involution_relayout=True)
+    kinds = [k for b in plan.blocks for k in b.kinds]
+    assert plan.mono_as_mat and plan.logt + 2 not in kinds
+
+
+def _run_counted(ops, n, start):
+    """The in-place program's run of ``ops`` from the halves ``start`` on
+    the CPU at "high": (halves, plan's step kinds, the step counters)."""
+    plan = TPF.plan_circuit(ops, n, involution_relayout=True)
+    prog = TPF.PrefetchProgram(ops, n, precision="high", device="cpu",
+                               inplace=True)
+    telemetry.reset()
+    got = prog.run_parts(*_tensors(start))
+    counts = telemetry.counters()
+    return (got, [k for b in plan.blocks for k in b.kinds], plan.logt,
+            {k: counts.get(k, 0) for k in ("inplace_mat_steps",
+                                          "inplace_mono_steps")})
+
+
+def test_inplace_step_counters_and_both_mono_arms(tiles, monkeypatch):
+    """In place the port lowers monos as mono steps; the chain counts the
+    plan's mat and mono steps under either arm, and the two arms' states
+    agree within the "high" rung."""
+    tiles(TILE, 1)
+    n = 12
+    ops = t_fuse(T.models.grover_like(n, 300, 13), 7, max_high=2)
+    start = _state(np.random.default_rng(7), n)
+    states = {}
+    for arm in (None, True, False):
+        monkeypatch.setattr(TPF, "MONO_AS_MAT", arm)
+        got, kinds, logt, counts = _run_counted(ops, n, start)
+        assert counts == {"inplace_mat_steps": kinds.count(0),
+                          "inplace_mono_steps": kinds.count(logt + 2)}
+        assert (counts["inplace_mono_steps"] == 0) == (arm is True)
+        assert counts["inplace_mat_steps"] > 0
+        states[arm] = got
+    assert _max_diff(states[None], states[False]) == 0.0
+    assert _max_diff(states[True], [g.numpy() for g in states[False]]) \
+        <= HIGH_TOL
+
+
+def test_inplace_n30_plan_lowers_monos_as_mono_steps(monkeypatch):
+    """The benchmark circuit in place at n = 30: 144 mat and 548 mono
+    steps under the auto arm (692 mats under the forced one)."""
+    from gpu_quantum_simulator_tpu_torch import profiling
+
+    monkeypatch.setattr(TPF, "MONO_AS_MAT", None)
+    got = profiling.plan_counts(30, inplace=True)
+    assert not got["mono_as_mat"]
+    assert (got["mat_steps"], got["mono_steps"]) == (144, 548)
+    assert got["mat_steps"] + got["mono_steps"] == got["fused_ops"] == 692
